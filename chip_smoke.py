@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Build the port's CUDA kernels and drive its `va` extraction on one card.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Phases, in order; any failed check raises, so the script exits non-zero:
+
+ 1. the card's name and power limit (nvidia-smi), and TF32 switched off for
+    matmuls and cuDNN convolutions (the port computes in float32);
+ 2. every kernel under jegal_torch/csrc/ built with nvcc, timed;
+ 3. each kernel held against its plain PyTorch twin at the main path's
+    shapes (stem: a T=128 bucket, 152 padded frames; attention and FFN
+    sublayers: the window head's 2688 rows in 21-row segments, post-norm,
+    and the gesture encoder's 128 rows, pre-norm with a partial key mask),
+    then timed (CUDA events, median of 20 warm launches) beside its bound,
+    its plain twin and one PyTorch yardstick call (`library_ms`);
+ 4. `JegalEngine.extract(modalities="va", frames=...)` at full width on a
+    5 s clip (125 frames of 270x480, chin rows, 80,000 samples of 16 kHz
+    audio, 12 words), with every launch counter set to 0 just before and
+    read just after; unit-norm finite rows of the right shapes; warm
+    ms/clip (median and quartiles of 30, host clock), and a torch.profiler
+    breakdown of one clip's device time;
+ 5. the same weights on a 16-frame clip: card against the port on the CPU;
+ 6. one `kernels` JSON line, the card line, and last the `ok` JSON line.
+
+In the `kernels` line, the attention and FFN rows are per clip: each
+shape's per-launch time times the launches a T=125 clip makes at that shape
+(6 layers in the window head, 6 in the gesture encoder), with each shape's
+own numbers under `per_launch`. `launches` is the count from phase 4.
+
+Weights are random, drawn from a seeded torch.Generator with randomized
+BatchNorm statistics and LayerNorm parameters; nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
+# cores, and HBM3 bandwidth. The kernels compute in float32 on CUDA cores.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Kernel vs plain twin on the card, max abs error: the twin sums the same
+# 147..2048-term float32 products in cuDNN's / cuBLAS's order; observed
+# errors are ~1e-5 on outputs of order 1-10, a wrong index is order 1.
+KERNEL_ATOL = 1e-4
+# Card vs CPU on the whole slice, unit-norm rows: a conv tower, two 6-layer
+# transformers and the audio CNN summed in another order on each device.
+SLICE_ATOL = 1e-4
+SLICE_MIN_COS = 0.99999
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Median device time of `fn` over `reps` warm runs (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) the card could take, and what sets it."""
+    t_op, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
+
+
+def max_err(got, want, what: str, atol: float) -> float:
+    import torch
+
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    ok = bool(torch.isfinite(got).all()) and err <= atol
+    log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e} "
+        f"(tolerance abs {atol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain twin")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their twins
+# ---------------------------------------------------------------------------
+
+def check_stem(gp, dev):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from jegal_torch.core.layers import f32_convs
+    from jegal_torch.ops.kernels import stem as S
+    from jegal_torch.ops.video import mask_frames_device
+
+    rng = np.random.default_rng(SEED + 1)
+    u8 = torch.from_numpy(rng.integers(0, 256, (128, 270, 480, 3),
+                                       dtype=np.uint8)).to(dev)
+    chin = torch.from_numpy(rng.integers(90, 200, 128)).to(dev)
+    frames = mask_frames_device(u8, chin)                  # (152, 270, 480, 3)
+    blk = gp["net_vid"][0]
+    ops = S.stem_kernel_params(blk)
+    log(f"stem: frames {tuple(frames.shape)} -> "
+        f"{S.pooled_shape(*frames.shape[:3])}")
+    err = max_err(S.stem_pool(frames, *ops), S.stem_pool_plain(frames, *ops),
+                  "stem_pool", KERNEL_ATOL)
+
+    xc = frames.permute(3, 0, 1, 2)[None].contiguous()    # NCDHW
+    wc = blk["conv"]["kernel"].permute(4, 3, 0, 1, 2).contiguous()
+    bn = blk["bn"]
+
+    def library():
+        with f32_convs():
+            y = F.conv3d(xc, wc, blk["conv"]["bias"], stride=(1, 3, 3))
+        y = F.relu(F.batch_norm(y, bn["mean"], bn["var"], bn["scale"],
+                                bn["bias"], False, 0.0, 1e-5))
+        return F.max_pool3d(y, (1, 3, 3), (1, 2, 2))
+
+    t_in, h, w = frames.shape[:3]
+    t_out, j, wp, c = S.pooled_shape(t_in, h, w)
+    hc, wc_ = (h - 7) // 3 + 1, (w - 7) // 3 + 1
+    flops = 2.0 * t_out * hc * wc_ * c * (5 * 7 * 7 * 3)
+    nbytes = 4.0 * (frames.numel() + ops[0].numel() + 2 * c
+                    + t_out * j * wp * c)
+    b_ms, b_by = bound(flops, nbytes)
+    row = dict(ms=cuda_ms(lambda: S.stem_pool(frames, *ops)),
+               plain_ms=cuda_ms(lambda: S.stem_pool_plain(frames, *ops)),
+               library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err)
+    log(f"  stem_pool ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+        f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+    return row
+
+
+def _sublayer_cases(gp, jp, dev):
+    """(label, layer weights, rows, seg, prenorm, ln kind, kmask, launches
+    per clip) at the main path's shapes for a T=125 clip."""
+    import torch
+
+    from jegal_torch.ops.kernels.fused_layer import fused_weights
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    win = torch.randn(128 * 21, 512, generator=g).to(dev)
+    ges = torch.randn(128, 512, generator=g).to(dev)
+    kmask = torch.zeros(128, device=dev)
+    kmask[:125] = 1.0
+    return (
+        ("window head R=2688 seg=21 post-norm std-LN",
+         fused_weights(gp["transformer"]["layers"][0]), win, 21, False,
+         "std", None, 6),
+        ("gesture encoder R=128 seg=128 pre-norm ref-LN masked",
+         fused_weights(jp["encoder_rgb"]["layers"][0]), ges, 128, True,
+         "ref", kmask, 6),
+    )
+
+
+def _library_attn(x, w, seg, heads, prenorm, kmask):
+    """F.linear + F.scaled_dot_product_attention + F.linear (+ LN): the
+    yardstick of one attention sublayer (F.layer_norm stands in for the
+    reference LayerNorm of the pre-norm case)."""
+    import torch.nn.functional as F
+
+    r, d = x.shape
+    n, dk = r // seg, d // heads
+    h = F.layer_norm(x, (d,), w["g1"], w["be1"], 1e-5) if prenorm else x
+    qkv = F.linear(h, w["wqkv_t"], w["bqkv"])
+    q, k, v = qkv.view(n, seg, 3, heads, dk).permute(2, 0, 3, 1, 4)
+    mask = None if kmask is None else (kmask.view(n, 1, 1, seg) != 0)
+    a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    y = x + F.linear(a.transpose(1, 2).reshape(r, d), w["wo_t"], w["bo"])
+    return y if prenorm else F.layer_norm(y, (d,), w["g1"], w["be1"], 1e-5)
+
+
+def _library_ffn(x, w, prenorm):
+    import torch.nn.functional as F
+
+    d = x.shape[1]
+    h = F.layer_norm(x, (d,), w["g2"], w["be2"], 1e-5) if prenorm else x
+    y = x + F.linear(F.relu(F.linear(h, w["w1_t"], w["b1"])), w["w2_t"],
+                     w["b2"])
+    return y if prenorm else F.layer_norm(y, (d,), w["g2"], w["be2"], 1e-5)
+
+
+def check_sublayers(gp, jp, dev):
+    from jegal_torch.config import NUM_HEADS
+    from jegal_torch.ops.kernels import fused_layer as FL
+
+    rows = {"attn_sublayer": [], "ffn_sublayer": []}
+    for label, w, x, seg, pre, kind, km, per_clip in _sublayer_cases(
+            gp, jp, dev):
+        log(f"sublayers: {label}")
+        for name in ("wqkv", "wo", "w1", "w2"):
+            w[name + "_t"] = w[name].t().contiguous()
+        r, d = x.shape
+        dff, heads = w["w1"].shape[1], NUM_HEADS
+        n, dk = r // seg, d // heads
+
+        def attn():
+            return FL.attn_sublayer(x, w, seg, heads, prenorm=pre,
+                                    ln_kind=kind, kmask=km)
+
+        def attn_plain():
+            return FL.attn_sublayer_plain(x, w, seg, heads, prenorm=pre,
+                                          ln_kind=kind, kmask=km)
+
+        def ffn():
+            return FL.ffn_sublayer(x, w, prenorm=pre, ln_kind=kind)
+
+        def ffn_plain():
+            return FL.ffn_sublayer_plain(x, w, prenorm=pre, ln_kind=kind)
+
+        e_a = max_err(attn(), attn_plain(), "attn_sublayer", KERNEL_ATOL)
+        e_f = max_err(ffn(), ffn_plain(), "ffn_sublayer", KERNEL_ATOL)
+        attn_flops = 2.0 * r * d * 4 * d + 4.0 * n * heads * seg * seg * dk
+        attn_bytes = 4.0 * (2 * r * d + 4 * d * d + 6 * d
+                            + (r if km is not None else 0))
+        ffn_flops = 4.0 * r * d * dff
+        ffn_bytes = 4.0 * (2 * r * d + 2 * d * dff + dff + 3 * d)
+        for name, fn, plain, lib, err, fl, nb in (
+                ("attn_sublayer", attn, attn_plain,
+                 lambda: _library_attn(x, w, seg, heads, pre, km), e_a,
+                 attn_flops, attn_bytes),
+                ("ffn_sublayer", ffn, ffn_plain,
+                 lambda: _library_ffn(x, w, pre), e_f, ffn_flops,
+                 ffn_bytes)):
+            b_ms, b_by = bound(fl, nb)
+            row = dict(shape=label, launches_per_clip=per_clip,
+                       ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+                       library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                       max_abs_err=err)
+            rows[name].append(row)
+            log(f"  {name} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+    return rows
+
+
+def per_clip(rows):
+    """Sum one kernel's per-launch numbers over its launches in one clip."""
+    out = {k: sum(r[k] * r["launches_per_clip"] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["per_launch"] = rows
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5: the slice
+# ---------------------------------------------------------------------------
+
+def clip(t: int, n_words: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(0, t, n_words + 1).astype(int)
+    return dict(
+        frames=rng.integers(0, 256, (t, 270, 480, 3), dtype=np.uint8),
+        chin_rows=rng.integers(90, 200, t),
+        wav=(rng.standard_normal(t * 640) * 3000).astype(np.float32),
+        word_boundaries=[[f"w{i}", int(edges[i]), int(edges[i + 1]) - 1]
+                         for i in range(n_words)],
+        fname=f"smoke_t{t}")
+
+
+def check_embeddings(res, t: int, w: int):
+    import numpy as np
+
+    for key, n in (("gesture_emb", t), ("content_emb", w)):
+        e = res[key]
+        if e is None or e.shape != (n, 512) or e.dtype != np.float32:
+            raise AssertionError(f"{key}: got {None if e is None else e.shape}"
+                                 f", want ({n}, 512) float32")
+        if not np.isfinite(e).all():
+            raise AssertionError(f"{key} has non-finite values")
+        norms = np.linalg.norm(e, axis=-1)
+        if np.abs(norms - 1).max() > 1e-5:
+            raise AssertionError(f"{key} rows are not unit-norm: "
+                                 f"{norms.min()}..{norms.max()}")
+
+
+def profile_clip(engine, sample):
+    """Device time of one warm clip by kernel name (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.extract(modalities="va", **sample)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values())
+    log(f"profile of one warm clip: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{sum(n for n, _ in by_name.values())} device events")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+        log(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3)
+
+
+def run_slice(gp, jp):
+    import numpy as np
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.ops.kernels import _build
+
+    engine = JegalEngine(jp, gp)                       # device="cuda"
+    sample = clip(125, 12, SEED + 3)
+    log(f"slice: va on {sample['frames'].shape} uint8 frames, "
+        f"{sample['wav'].shape[0]} samples, "
+        f"{len(sample['word_boundaries'])} words")
+    t0 = time.perf_counter()
+    engine.extract(modalities="va", **sample)
+    log(f"  first clip {1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    _build.reset_launches()
+    res = engine.extract(modalities="va", **sample)
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches on the main path: {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"main path launched no {missing}")
+    check_embeddings(res, 125, 12)
+    log(f"  gesture_emb {res['gesture_emb'].shape} content_emb "
+        f"{res['content_emb'].shape}: finite, unit-norm rows")
+
+    walls = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        engine.extract(modalities="va", **sample)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    q1, ms, q3 = statistics.quantiles(walls, n=4)
+    log(f"  warm va extraction: {ms:.3f} ms/clip (median of 30, quartiles "
+        f"{q1:.3f} / {q3:.3f}, min {min(walls):.3f} max {max(walls):.3f}), "
+        f"{1e3 / ms:.3f} clips/s")
+    prof = profile_clip(engine, sample)
+
+    small = clip(16, 4, SEED + 4)
+    on_card = engine.extract(modalities="va", **small)
+    on_cpu = JegalEngine(jp, gp, device="cpu").extract(modalities="va",
+                                                       **small)
+    check_embeddings(on_card, 16, 4)
+    check_embeddings(on_cpu, 16, 4)
+    for key in ("gesture_emb", "content_emb"):
+        a, b = on_card[key], on_cpu[key]
+        err = float(np.abs(a - b).max())
+        cos = float((a * b).sum(-1).min())
+        ok = err <= SLICE_ATOL and cos >= SLICE_MIN_COS
+        log(f"  card vs CPU, 16-frame clip, {key}: max abs err {err:.3e} "
+            f"(tolerance {SLICE_ATOL:g}), min row cosine {cos:.8f} "
+            f"(tolerance {SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{key}: the card disagrees with the CPU")
+    return launches, dict(ms_per_clip=ms, ms_q1=q1, ms_q3=q3,
+                          clips_per_s=1e3 / ms, **prof)
+
+
+def main() -> int:
+    if not (ROOT / "jegal_torch").is_dir():
+        print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
+              f"run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from jegal_torch.convert import init_gestsync_params, init_jegal_params
+    from jegal_torch.ops.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    gp = init_gestsync_params(g, dev)
+    jp = init_jegal_params(g, dev)
+
+    stem = check_stem(gp, dev)
+    sub = check_sublayers(gp, jp, dev)
+    launches, slice_stats = run_slice(gp, jp)
+    log("slice: " + json.dumps(slice_stats))
+
+    rows = {"stem_pool": dict(stem, per_launch=None),
+            "attn_sublayer": per_clip(sub["attn_sublayer"]),
+            "ffn_sublayer": per_clip(sub["ffn_sublayer"])}
+    where = {
+        "stem_pool": ("jegal_torch/csrc/stem.cu",
+                      "jegal_tpu/ops/pallas/stem.py:80"),
+        "attn_sublayer": ("jegal_torch/csrc/fused_layer.cu",
+                          "jegal_tpu/ops/pallas/fused_layer.py:104"),
+        "ffn_sublayer": ("jegal_torch/csrc/fused_layer.cu",
+                         "jegal_tpu/ops/pallas/fused_layer.py:173"),
+    }
+    kernels = []
+    for name, row in rows.items():
+        want = sum(r["launches_per_clip"] for r in row["per_launch"] or
+                   [{"launches_per_clip": 1}])
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"main path, the timed shapes assume {want}")
+        source, replaces = where[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], per_launch=row["per_launch"]))
+    log(json.dumps({"kernels": kernels}))
+    log(smi.stdout.strip())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

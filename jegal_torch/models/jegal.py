@@ -1,0 +1,121 @@
+"""JEGAL embedding model, gesture and audio branches (the JAX package's
+models/jegal.py, reference models/jegal.py:16-420):
+
+  gesture: 1024 -> proj_ip (Linear+LN+ReLU+Linear) -> +PE ->
+           6x pre-norm transformer d=512 h=8 -> proj_op_rgb ->
+           [inference] proj_op_align_gesture
+  audio:   log-mel (B,T,80) -> 6x conv2d CNN (time/4, freq 80->1) -> 256 ->
+           proj_op_audio -> frame->word mean pooling
+  fusion:  concat([audio, text]) -> 512 -> proj_op_fusion_content ->
+           [inference] proj_op_align_content
+
+The text branch (XLM-R and the 3-layer text encoder) is not ported yet:
+`forward_inference(use_t=True)` raises. A missing content branch is
+replaced by zeros, as in the reference (jegal.py:393-402).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jegal_torch.config import D_MODEL, NUM_HEADS, PE_MAX_LEN
+from jegal_torch.core.layers import (
+    batch_norm_nchw,
+    conv2d_nchw,
+    linear,
+    std_layer_norm,
+)
+from jegal_torch.core.transformer import (
+    encoder_stack,
+    sinusoidal_position_encoding,
+)
+from jegal_torch.ops.pooling import pool_words
+
+# audio CNN: (kernel, stride, padding, has_bn_relu) — reference jegal.py:41-63
+AUDIO_CNN_SPEC = (
+    dict(k=(5, 5), s=(1, 1), p=(2, 2), bn=True),
+    dict(k=(3, 3), s=(2, 2), p=(1, 1), bn=True),
+    dict(k=(3, 3), s=(2, 2), p=(1, 1), bn=True),
+    dict(k=(3, 3), s=(1, 3), p=(1, 1), bn=True),
+    dict(k=(3, 3), s=(1, 3), p=(1, 1), bn=True),
+    dict(k=(1, 1), s=(1, 3), p=(0, 0), bn=False),
+)
+AUDIO_CHANNELS = (1, 32, 64, 128, 256, 256, 256)
+
+TEXT_NOT_PORTED = ("the text branch (XLM-R, text encoder, word pooling) "
+                   "is not ported yet: it is the next slice of the port")
+
+
+def _mlp2(params, x):
+    """Linear -> ReLU -> Linear (the align/fusion head shape)."""
+    return linear(params[1], torch.relu(linear(params[0], x)))
+
+
+def forward_gestures(params, visual_feats, visual_mask):
+    """(B, T, 1024), (B, T) -> (B, T, 512) gesture embeddings (pre-align).
+    The PE table extends past the reference's 500 rows with the same
+    formula, so long clips work."""
+    x = linear(params["proj_ip_rgb"][0], visual_feats)
+    x = torch.relu(std_layer_norm(params["proj_ip_ln"], x))
+    x = linear(params["proj_ip_rgb"][1], x)
+    t = x.shape[1]
+    pe = sinusoidal_position_encoding(max(PE_MAX_LEN, t), D_MODEL, x.device)
+    x = x + pe[None, :t]
+    mask = visual_mask[:, None, :] if visual_mask is not None else None
+    x = encoder_stack(params["encoder_rgb"], x, mask, NUM_HEADS)
+    return linear(params["proj_op_rgb"], x)
+
+
+def forward_audio(params, mel, valid_lens=None):
+    """(B, T_mel, 80) -> (B, (T_mel-1)//4+1, 256) audio tokens at 25 Hz.
+
+    valid_lens: optional (B,) true mel lengths of a bucket-padded mel. The
+    invalid tail is re-zeroed after every layer, so a padded run's valid
+    tokens see the conv zero padding a natural-length run sees."""
+    x = mel[:, None]                                  # (B, 1, time, freq)
+    v = None if valid_lens is None else valid_lens.to(torch.int64)
+    for spec, blk in zip(AUDIO_CNN_SPEC, params["cnn"]):
+        x = conv2d_nchw(x, blk["conv"]["kernel"], blk["conv"].get("bias"),
+                        spec["s"], spec["p"])
+        if spec["bn"]:
+            x = torch.relu(batch_norm_nchw(blk["bn"], x))
+        if v is not None:
+            if spec["s"][0] == 2:   # temporal stride halves the valid length
+                v = (v - 1) // 2 + 1
+            rows = torch.arange(x.shape[2], device=x.device)
+            keep = rows[None, None, :, None] < v[:, None, None, None]
+            x = torch.where(keep, x, torch.zeros((), device=x.device))
+    x = x[:, :, :, 0].transpose(1, 2)                 # freq collapsed to 1
+    return linear(params["proj_op_audio"], x)
+
+
+def fuse_content(params, audio_words, text_words, align: bool):
+    """[audio, text] concat -> fusion MLP (-> align MLP): (B, W, 512). The
+    reference's default 'concat' strategy (jegal.py:319-320)."""
+    content = _mlp2(params["proj_op_fusion_content"],
+                    torch.cat([audio_words, text_words], dim=-1))
+    if align:
+        content = _mlp2(params["proj_op_align_content"], content)
+    return content
+
+
+def forward_inference(params, *, use_v: bool, use_t: bool, use_a: bool,
+                      visual_feats=None, visual_mask=None, audio_mel=None,
+                      audio_pool=None, audio_valid=None):
+    """Reference forward_inference (models/jegal.py:377-420) for the combos
+    without text (v, va, a). -> (gesture_emb | None, content_emb | None)."""
+    if use_t:
+        raise NotImplementedError(TEXT_NOT_PORTED)
+    if not (use_v or use_a):
+        raise ValueError("forward_inference needs at least one modality")
+    gesture = None
+    if use_v:
+        g = forward_gestures(params, visual_feats, visual_mask)
+        gesture = _mlp2(params["proj_op_align_gesture"], g)
+        if not use_a:
+            return gesture, None
+    audio_words = pool_words(audio_pool,
+                             forward_audio(params, audio_mel, audio_valid))
+    content = fuse_content(params, audio_words, torch.zeros_like(audio_words),
+                           align=True)
+    return gesture, content

@@ -1,0 +1,209 @@
+"""Fused transformer encoder sublayers: the CUDA kernels of
+csrc/fused_layer.cu and their plain PyTorch twins.
+
+Port of jegal_tpu/ops/pallas/fused_layer.py (`_attn_kernel`, `_ffn_kernel`
+and the stack functions `fused_torch_stack` / `fused_prenorm_stack`). Rows
+are (R, d) with R a whole number of contiguous `seg`-row segments
+(21-token GestSync windows, or one T-token JEGAL sequence); attention never
+crosses a segment.
+
+  * post-norm (prenorm=False): x = LN1(x + Attn(x)); x = LN2(x + FFN(x))
+    — torch nn.TransformerEncoderLayer, std LayerNorm;
+  * pre-norm (prenorm=True): x = x + Attn(LN1(x)); x = x + FFN(LN2(x))
+    — the JEGAL layer, reference LayerNorm; the stack's final norm is the
+    caller's.
+
+`attn_sublayer` and `ffn_sublayer` launch their kernel for a CUDA tensor
+and run the plain twin for a CPU tensor. The kernels take float32 only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from jegal_torch.core.layers import ref_layer_norm, std_layer_norm
+from jegal_torch.ops.kernels import _build
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGS = {
+    "jt_attn_sublayer": [_VP] * 12 + [_INT] * 6 + [_VP],
+    "jt_ffn_sublayer": [_VP] * 10 + [_INT] * 6 + [_VP],
+}
+_ACT = {"relu": 1, "gelu": 2}
+_LN_KIND = {"std": 0, "ref": 1}
+HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
+
+
+def _ln(x, g, b, kind: str):
+    p = {"scale": g, "bias": b}
+    return ref_layer_norm(p, x) if kind == "ref" else std_layer_norm(p, x)
+
+
+def fused_weights(layer) -> dict:
+    """One layer's tree (core/transformer layout) -> the sublayer operands:
+    QKV kernels concatenated into one (d, 3d) product."""
+    a, f = layer["attn"], layer["ff"]
+    return dict(
+        wqkv=torch.cat([a["q"]["kernel"], a["k"]["kernel"], a["v"]["kernel"]],
+                       dim=1).contiguous(),
+        bqkv=torch.cat([a["q"]["bias"], a["k"]["bias"], a["v"]["bias"]]),
+        wo=a["o"]["kernel"].contiguous(), bo=a["o"]["bias"].contiguous(),
+        g1=layer["norm1"]["scale"].contiguous(),
+        be1=layer["norm1"]["bias"].contiguous(),
+        w1=f["w1"]["kernel"].contiguous(), b1=f["w1"]["bias"].contiguous(),
+        w2=f["w2"]["kernel"].contiguous(), b2=f["w2"]["bias"].contiguous(),
+        g2=layer["norm2"]["scale"].contiguous(),
+        be2=layer["norm2"]["bias"].contiguous(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
+                        ln_kind: str, kmask=None):
+    r, d = x.shape
+    n, dk = r // seg, d // heads
+    h = _ln(x, w["g1"], w["be1"], ln_kind) if prenorm else x
+    qkv = torch.matmul(h, w["wqkv"]) + w["bqkv"]
+
+    def split(t):  # (R, d) -> (n, heads, seg, dk)
+        return t.reshape(n, seg, heads, dk).transpose(1, 2)
+
+    q, k, v = (split(t) for t in qkv.split(d, dim=1))
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
+    if kmask is not None:
+        s = s.masked_fill(kmask.reshape(n, 1, 1, seg) == 0, -1e9)
+    a = torch.matmul(torch.softmax(s, dim=-1), v)
+    a = a.transpose(1, 2).reshape(r, d)
+    y = x + (torch.matmul(a, w["wo"]) + w["bo"])
+    return y if prenorm else _ln(y, w["g1"], w["be1"], ln_kind)
+
+
+def ffn_sublayer_plain(x, w, *, prenorm: bool, ln_kind: str,
+                       activation: str = "relu"):
+    h = _ln(x, w["g2"], w["be2"], ln_kind) if prenorm else x
+    h1 = torch.matmul(h, w["w1"]) + w["b1"]
+    h1 = F.gelu(h1) if activation == "gelu" else torch.relu(h1)
+    y = x + (torch.matmul(h1, w["w2"]) + w["b2"])
+    return y if prenorm else _ln(y, w["g2"], w["be2"], ln_kind)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_rows(x, seg: int | None = None, heads: int | None = None):
+    if x.dim() != 2:
+        raise ValueError(f"rows must be (R, d), got {tuple(x.shape)}")
+    _build.check_operand("x", x, x.shape, x.device)
+    r, d = x.shape
+    if seg is not None and (seg <= 0 or r % seg):
+        raise ValueError(f"{r} rows do not split into segments of {seg}")
+    if heads is not None and (d % heads or d // heads not in HEAD_DIMS):
+        raise ValueError(f"d={d} over {heads} heads: the attention kernel "
+                         f"takes head widths {HEAD_DIMS}")
+
+
+def _lib():
+    lib = _build.library("fused_layer")
+    for fn, args in _SIGS.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
+                  kmask=None):
+    """One attention sublayer over (R, d) rows of `seg`-row segments.
+    kmask: optional (R,) key validity, 0 = masked."""
+    if not x.is_cuda:
+        return attn_sublayer_plain(x, w, seg, heads, prenorm=prenorm,
+                                   ln_kind=ln_kind, kmask=kmask)
+    _check_rows(x, seg, heads)
+    r, d = x.shape
+    dev = x.device
+    for name, shape in (("wqkv", (d, 3 * d)), ("bqkv", (3 * d,)),
+                        ("wo", (d, d)), ("bo", (d,)), ("g1", (d,)),
+                        ("be1", (d,))):
+        _build.check_operand(name, w[name], shape, dev)
+    if kmask is not None:
+        # a key mask of any numeric type: the kernel reads 0.0 as masked
+        kmask = kmask.to(dtype=torch.float32).reshape(-1).contiguous()
+        _build.check_operand("kmask", kmask, (r,), dev)
+    out = torch.empty_like(x)
+    qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
+    att = torch.empty_like(x)
+    h = torch.empty_like(x) if prenorm else None
+    lib = _lib()
+    P = _build.ptr
+    rc = lib.jt_attn_sublayer(
+        P(x), P(w["wqkv"]), P(w["bqkv"]), P(w["wo"]), P(w["bo"]), P(w["g1"]),
+        P(w["be1"]), P(kmask), P(h), P(qkv), P(att), P(out), r, d, heads, seg,
+        int(prenorm), _LN_KIND[ln_kind], _build.stream_ptr(dev))
+    _build.check(lib, rc, "attention sublayer kernel")
+    _build.LAUNCHES["attn_sublayer"] += 1
+    return out
+
+
+def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
+                 activation: str = "relu"):
+    """One FFN sublayer over (R, d) rows."""
+    if not x.is_cuda:
+        return ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind=ln_kind,
+                                  activation=activation)
+    _check_rows(x)
+    r, d = x.shape
+    dff = w["w1"].shape[1]
+    dev = x.device
+    for name, shape in (("w1", (d, dff)), ("b1", (dff,)), ("w2", (dff, d)),
+                        ("b2", (d,)), ("g2", (d,)), ("be2", (d,))):
+        _build.check_operand(name, w[name], shape, dev)
+    out = torch.empty_like(x)
+    h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
+    h = torch.empty_like(x) if prenorm else None
+    lib = _lib()
+    P = _build.ptr
+    rc = lib.jt_ffn_sublayer(
+        P(x), P(w["w1"]), P(w["b1"]), P(w["w2"]), P(w["b2"]), P(w["g2"]),
+        P(w["be2"]), P(h), P(h1), P(out), r, d, dff, int(prenorm),
+        _LN_KIND[ln_kind], _ACT[activation], _build.stream_ptr(dev))
+    _build.check(lib, rc, "FFN sublayer kernel")
+    _build.LAUNCHES["ffn_sublayer"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+
+def fused_encoder_stack(layers, x, seg: int, num_heads: int, *,
+                        prenorm: bool, ln_kind: str, kmask=None):
+    """All layers over (R, d) rows of contiguous `seg`-row segments."""
+    if x.shape[0] % seg:
+        raise ValueError(f"{x.shape[0]} rows do not split into segments "
+                         f"of {seg}")
+    for layer in layers:
+        w = fused_weights(layer)
+        x = attn_sublayer(x, w, seg, num_heads, prenorm=prenorm,
+                          ln_kind=ln_kind, kmask=kmask)
+        x = ffn_sublayer(x, w, prenorm=prenorm, ln_kind=ln_kind)
+    return x
+
+
+def fused_torch_stack(stack, x, seg: int, num_heads: int, kmask=None):
+    """core/transformer.torch_encoder_stack over (R, d) rows (post-norm,
+    std LN)."""
+    return fused_encoder_stack(stack["layers"], x, seg, num_heads,
+                               prenorm=False, ln_kind="std", kmask=kmask)
+
+
+def fused_prenorm_stack(stack, x, seg: int, num_heads: int, kmask=None):
+    """The JEGAL pre-norm stack (ref LN) WITHOUT its final norm."""
+    return fused_encoder_stack(stack["layers"], x, seg, num_heads,
+                               prenorm=True, ln_kind="ref", kmask=kmask)

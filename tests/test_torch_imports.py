@@ -1,0 +1,47 @@
+"""The port stands alone: jegal_torch and chip_smoke.py import neither JAX
+nor anything of the JAX package, checked in the source and in a fresh
+interpreter's sys.modules after importing every module of the port."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "jegal_tpu")
+SOURCES = sorted((ROOT / "jegal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    bad = sorted(n for n in _imported(path)
+                 if n.split(".")[0] in FORBIDDEN)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_modules_leave_jax_unloaded():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import jegal_torch\n"
+        "for m in pkgutil.walk_packages(jegal_torch.__path__, 'jegal_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('jegal_torch')]))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 15   # every module of the port imported

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its `va` extraction on one card.
+"""Build the port's CUDA kernels and drive its `vta` extraction on one card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -7,29 +7,41 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 
  1. the card's name and power limit (nvidia-smi), and TF32 switched off for
     matmuls and cuDNN convolutions (the port computes in float32);
- 2. every kernel under jegal_torch/csrc/ built with nvcc, timed;
+ 2. every kernel under jegal_torch/csrc/ built with nvcc (one process per
+    source, all started together), timed;
  3. each kernel held against its plain PyTorch twin at the main path's
-    shapes (stem: a T=128 bucket, 152 padded frames; attention and FFN
-    sublayers: the window head's 2688 rows in 21-row segments, post-norm,
-    and the gesture encoder's 128 rows, pre-norm with a partial key mask),
-    then timed (CUDA events, median of 20 warm launches) beside its bound,
-    its plain twin and one PyTorch yardstick call (`library_ms`);
- 4. `JegalEngine.extract(modalities="va", frames=...)` at full width on a
-    5 s clip (125 frames of 270x480, chin rows, 80,000 samples of 16 kHz
-    audio, 12 words), with every launch counter set to 0 just before and
-    read just after; unit-norm finite rows of the right shapes; warm
-    ms/clip (median and quartiles of 30, host clock), and a torch.profiler
-    breakdown of one clip's device time;
- 5. the same weights on a 16-frame clip: card against the port on the CPU;
+    shapes, then timed (CUDA events, median of 20 warm launches) beside its
+    bound, its plain twin and one PyTorch yardstick call (`library_ms`):
+    stem: a T=128 bucket, 152 padded frames; attention and FFN sublayers:
+    the window head's 2688 rows in 21-row segments, post-norm, the gesture
+    encoder's 128 rows, pre-norm with a partial key mask, and the text
+    encoder's 32 rows at d 768 (8 heads of 96), pre-norm with the text's
+    pad tail masked; encoder stack (XLM-R, 12 post-norm GELU layers): the
+    12-word text's 32 rows, and 256 rows of two 128-token texts, one half
+    padded;
+ 4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
+    5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
+    samples of 16 kHz audio, 12 word boundaries), with every launch counter
+    set to 0 just before and read just after; unit-norm finite rows of the
+    right shapes; warm ms/clip (median and quartiles of 30, host clock), and
+    a torch.profiler breakdown of one clip's device time; then the `va`
+    timing of the same clip as before;
+ 5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
+    the port on the CPU (full-width XLM-R copied to the CPU);
  6. one `kernels` JSON line, the card line, and last the `ok` JSON line.
 
-In the `kernels` line, the attention and FFN rows are per clip: each
-shape's per-launch time times the launches a T=125 clip makes at that shape
-(6 layers in the window head, 6 in the gesture encoder), with each shape's
-own numbers under `per_launch`. `launches` is the count from phase 4.
+In the `kernels` line, the attention, FFN and stack rows are per clip:
+each shape's per-launch time times the launches a T=125 `vta` clip makes at
+that shape (6 layers in the window head, 6 in the gesture encoder, 3 in the
+text encoder, one XLM-R stack), with each shape's own numbers under
+`per_launch` (a shape with 0 launches per clip is checked and timed, and
+adds nothing). `launches` is the count from phase 4.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
-BatchNorm statistics and LayerNorm parameters; nothing is downloaded.
+BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
+real xlm-roberta-base vocabulary is not here, and the card machine has no
+`tokenizers` wheel, so the text is tokenized by `PieceTokenizer` below, a
+backend with the duck-typed interface of jegal_torch.text.WordTokenizer.
 """
 
 from __future__ import annotations
@@ -39,10 +51,15 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+# 12 words, as many as the 5 s clip's word boundaries; 21 tokens with <s>
+# and </s> under PieceTokenizer, so the S bucket is 32
+SMOKE_TEXT = "the quick brown fox jumps over the lazy dog and then sleeps"
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth. The kernels compute in float32 on CUDA cores.
@@ -57,6 +74,51 @@ KERNEL_ATOL = 1e-4
 # transformers and the audio CNN summed in another order on each device.
 SLICE_ATOL = 1e-4
 SLICE_MIN_COS = 0.99999
+# Stack kernel vs its twin: 12 post-norm layers of the same float32 sums in
+# another order. Every layer ends in a LayerNorm, which rescales the
+# rounding the layer before left to the output's own scale (order 1-5), so
+# the error grows about linearly in depth from one layer's ~1e-6..1e-5.
+STACK_ATOL = 2e-4
+
+
+class PieceTokenizer:
+    """A minimal tokenizer backend for the smoke text: each word splits into
+    pieces of at most 3 characters (offsets inside the word), each piece's
+    id is a fixed function of its text in [3, 250002) (crc32), and
+    <s>=0 / </s>=2 wrap the sequence, XLM-R's special ids. It has the
+    duck-typed interface jegal_torch.text.WordTokenizer needs
+    (`enable_padding`, `encode_batch(..., is_pretokenized=True)`)."""
+
+    VOCAB = 250002
+
+    def __init__(self):
+        self.pad_id, self.length = 1, None
+
+    def enable_padding(self, pad_id, pad_token, length=None):
+        self.pad_id, self.length = pad_id, length
+
+    def encode_batch(self, batch, is_pretokenized=True):
+        assert is_pretokenized
+        rows = []
+        for words in batch:
+            ids, offs = [0], [(0, 0)]
+            for w in words:
+                for i in range(0, len(w), 3):
+                    piece = w[i:i + 3]
+                    ids.append(3 + zlib.crc32(piece.encode()) % (self.VOCAB - 3))
+                    offs.append((i, i + len(piece)))
+            rows.append((ids + [2], offs + [(0, 0)]))
+        s = max([len(ids) for ids, _ in rows] + [self.length or 0])
+        return [SimpleNamespace(
+            ids=ids + [self.pad_id] * (s - len(ids)),
+            attention_mask=[1] * len(ids) + [0] * (s - len(ids)),
+            offsets=offs + [(0, 0)] * (s - len(ids))) for ids, offs in rows]
+
+
+def word_tokenizer():
+    from jegal_torch.text.tokenizer import WordTokenizer
+
+    return WordTokenizer(PieceTokenizer())
 
 
 def log(*a):
@@ -152,9 +214,10 @@ def check_stem(gp, dev):
     return row
 
 
-def _sublayer_cases(gp, jp, dev):
+def _sublayer_cases(gp, jp, dev, text_mask):
     """(label, layer weights, rows, seg, prenorm, ln kind, kmask, launches
-    per clip) at the main path's shapes for a T=125 clip."""
+    per clip) at the main path's shapes for a T=125 clip and the 12-word
+    text (text_mask: its (32,) key validity)."""
     import torch
 
     from jegal_torch.ops.kernels.fused_layer import fused_weights
@@ -162,6 +225,7 @@ def _sublayer_cases(gp, jp, dev):
     g = torch.Generator().manual_seed(SEED + 2)
     win = torch.randn(128 * 21, 512, generator=g).to(dev)
     ges = torch.randn(128, 512, generator=g).to(dev)
+    txt = torch.randn(32, 768, generator=g).to(dev)
     kmask = torch.zeros(128, device=dev)
     kmask[:125] = 1.0
     return (
@@ -171,6 +235,9 @@ def _sublayer_cases(gp, jp, dev):
         ("gesture encoder R=128 seg=128 pre-norm ref-LN masked",
          fused_weights(jp["encoder_rgb"]["layers"][0]), ges, 128, True,
          "ref", kmask, 6),
+        ("text encoder R=32 seg=32 d=768 (8 heads of 96) pre-norm ref-LN "
+         "masked", fused_weights(jp["encoder_text"]["layers"][0]), txt, 32,
+         True, "ref", text_mask.to(dev), 3),
     )
 
 
@@ -201,13 +268,13 @@ def _library_ffn(x, w, prenorm):
     return y if prenorm else F.layer_norm(y, (d,), w["g2"], w["be2"], 1e-5)
 
 
-def check_sublayers(gp, jp, dev):
+def check_sublayers(gp, jp, dev, text_mask):
     from jegal_torch.config import NUM_HEADS
     from jegal_torch.ops.kernels import fused_layer as FL
 
     rows = {"attn_sublayer": [], "ffn_sublayer": []}
     for label, w, x, seg, pre, kind, km, per_clip in _sublayer_cases(
-            gp, jp, dev):
+            gp, jp, dev, text_mask):
         log(f"sublayers: {label}")
         for name in ("wqkv", "wo", "w1", "w2"):
             w[name + "_t"] = w[name].t().contiguous()
@@ -254,11 +321,90 @@ def check_sublayers(gp, jp, dev):
     return rows
 
 
+def _library_stack(x, ops, lt, seg, heads, kmask):
+    """Per layer F.linear + F.scaled_dot_product_attention + F.linear +
+    F.layer_norm + F.linear + F.gelu + F.linear + F.layer_norm: the
+    yardstick of the XLM-R stack. lt: per layer, the products' weights
+    transposed for F.linear."""
+    import torch.nn.functional as F
+
+    r, d = x.shape
+    n, dk = r // seg, d // heads
+    mask = kmask.view(n, 1, 1, seg) != 0
+    for l, t in enumerate(lt):
+        qkv = F.linear(x, t["wqkv"], ops["bqkv"][l])
+        q, k, v = qkv.view(n, seg, 3, heads, dk).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        a = F.linear(a.transpose(1, 2).reshape(r, d), t["wo"], ops["bo"][l])
+        x = F.layer_norm(x + a, (d,), ops["g1"][l], ops["be1"][l], 1e-5)
+        f = F.linear(F.gelu(F.linear(x, t["w1"], ops["b1"][l])), t["w2"],
+                     ops["b2"][l])
+        x = F.layer_norm(x + f, (d,), ops["g2"][l], ops["be2"][l], 1e-5)
+    return x
+
+
+def check_stack(rp, dev, ids32, mask32):
+    """The encoder-stack kernel on XLM-R's 12 layers: the smoke text's 32
+    rows (what phase 4 launches once), and 256 rows of two 128-token texts
+    (the second half padded), over the embeddings of their token ids."""
+    import torch
+
+    from jegal_torch.models import roberta as R
+    from jegal_torch.ops.kernels import fused_layer as FL
+
+    cfg = R.XLMR_BASE
+    d, heads, dff = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
+    ops = R.stack_layers(rp)["fused_ops"]
+    lt = [{k: ops[k][l].t().contiguous() for k in ("wqkv", "wo", "w1", "w2")}
+          for l in range(cfg.num_layers)]
+    g = torch.Generator().manual_seed(SEED + 5)
+    ids256 = torch.randint(3, cfg.vocab_size, (2, 128), generator=g)
+    ids256[1, 64:] = R.PAD_TOKEN_ID
+    rows = []
+    for label, ids, mask, per_clip_n in (
+            ("XLM-R R=32 seg=32 (the 12-word text, S_b 32) masked",
+             ids32, mask32, 1),
+            ("XLM-R R=256 seg=128 (two texts, one half padded) masked",
+             ids256, (ids256 != R.PAD_TOKEN_ID).float(), 0)):
+        b, seg = ids.shape
+        r = b * seg
+        x = R.embeddings(rp["embeddings"], ids.to(dev), cfg).reshape(r, d)
+        km = mask.to(dev).reshape(-1)
+        log(f"encoder stack: {label}")
+
+        def kern():
+            return FL.encoder_stack(x, ops, seg, heads, prenorm=False,
+                                    ln_kind="std", activation="gelu",
+                                    kmask=km)
+
+        def plain():
+            return FL.encoder_stack_plain(x, ops, seg, heads, prenorm=False,
+                                          ln_kind="std", activation="gelu",
+                                          kmask=km)
+
+        err = max_err(kern(), plain(), "encoder_stack", STACK_ATOL)
+        n, dk = r // seg, d // heads
+        flops = cfg.num_layers * (2.0 * r * d * 4 * d + 4.0 * r * d * dff
+                                  + 4.0 * n * heads * seg * seg * dk)
+        nbytes = 4.0 * (sum(t.numel() for t in ops.values()) + 2 * r * d + r)
+        b_ms, b_by = bound(flops, nbytes)
+        row = dict(shape=label, launches_per_clip=per_clip_n,
+                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(
+                       lambda: _library_stack(x, ops, lt, seg, heads, km)),
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        rows.append(row)
+        log(f"  encoder_stack ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+            f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+    return rows
+
+
 def per_clip(rows):
     """Sum one kernel's per-launch numbers over its launches in one clip."""
     out = {k: sum(r[k] * r["launches_per_clip"] for r in rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"]
+                          * r["launches_per_clip"])["bound_by"]
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["per_launch"] = rows
     return out
@@ -298,7 +444,7 @@ def check_embeddings(res, t: int, w: int):
                                  f"{norms.min()}..{norms.max()}")
 
 
-def profile_clip(engine, sample):
+def profile_clip(engine, sample, modalities):
     """Device time of one warm clip by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -307,7 +453,7 @@ def profile_clip(engine, sample):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.extract(modalities="va", **sample)
+        engine.extract(modalities=modalities, **sample)
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict = {}
     for e in prof.events():
@@ -315,55 +461,79 @@ def profile_clip(engine, sample):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
-    log(f"profile of one warm clip: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+    log(f"profile of one warm {modalities} clip: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(n for n, _ in by_name.values())} device events")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3)
 
 
-def run_slice(gp, jp):
+def drive(engine, sample, modalities, want):
+    """One clip with every launch counter set to 0 just before and read just
+    after; `want` is the launch count each kernel must show."""
+    from jegal_torch.ops.kernels import _build
+
+    _build.reset_launches()
+    res = engine.extract(modalities=modalities, **sample)
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches on the {modalities} path: {launches}")
+    if launches != want:
+        raise AssertionError(f"{modalities}: launches {launches}, want {want}")
+    return res, launches
+
+
+def warm_ms(engine, sample, modalities, reps: int = 30):
+    """Host-clock ms/clip of warm extractions: median and quartiles."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.extract(modalities=modalities, **sample)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    q1, ms, q3 = statistics.quantiles(walls, n=4)
+    log(f"  warm {modalities} extraction: {ms:.3f} ms/clip (median of {reps}, "
+        f"quartiles {q1:.3f} / {q3:.3f}, min {min(walls):.3f} max "
+        f"{max(walls):.3f}), {1e3 / ms:.3f} clips/s")
+    return dict(ms_per_clip=ms, ms_q1=q1, ms_q3=q3, clips_per_s=1e3 / ms)
+
+
+def run_slice(gp, jp, rp):
     import numpy as np
 
     from jegal_torch.api import JegalEngine
-    from jegal_torch.ops.kernels import _build
 
-    engine = JegalEngine(jp, gp)                       # device="cuda"
-    sample = clip(125, 12, SEED + 3)
-    log(f"slice: va on {sample['frames'].shape} uint8 frames, "
+    engine = JegalEngine(jp, gp, roberta_params=rp,
+                         tokenizer=word_tokenizer())       # device="cuda"
+    sample = dict(clip(125, 12, SEED + 3), text=SMOKE_TEXT)
+    log(f"slice: vta on {sample['frames'].shape} uint8 frames, "
+        f"{len(SMOKE_TEXT.split(' '))} words of text, "
         f"{sample['wav'].shape[0]} samples, "
-        f"{len(sample['word_boundaries'])} words")
+        f"{len(sample['word_boundaries'])} word boundaries")
     t0 = time.perf_counter()
-    engine.extract(modalities="va", **sample)
+    engine.extract(modalities="vta", **sample)
     log(f"  first clip {1e3 * (time.perf_counter() - t0):.1f} ms")
 
-    _build.reset_launches()
-    res = engine.extract(modalities="va", **sample)
-    launches = dict(_build.LAUNCHES)
-    log(f"  launches on the main path: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    # the main path: vta
+    res, launches = drive(engine, sample, "vta", dict(
+        stem_pool=1, attn_sublayer=15, ffn_sublayer=15, encoder_stack=1))
     check_embeddings(res, 125, 12)
     log(f"  gesture_emb {res['gesture_emb'].shape} content_emb "
         f"{res['content_emb'].shape}: finite, unit-norm rows")
+    vta = dict(warm_ms(engine, sample, "vta"),
+               **profile_clip(engine, sample, "vta"))
 
-    walls = []
-    for _ in range(30):
-        t0 = time.perf_counter()
-        engine.extract(modalities="va", **sample)
-        walls.append(1e3 * (time.perf_counter() - t0))
-    q1, ms, q3 = statistics.quantiles(walls, n=4)
-    log(f"  warm va extraction: {ms:.3f} ms/clip (median of 30, quartiles "
-        f"{q1:.3f} / {q3:.3f}, min {min(walls):.3f} max {max(walls):.3f}), "
-        f"{1e3 / ms:.3f} clips/s")
-    prof = profile_clip(engine, sample)
+    # the va path of the first slice, timed as before
+    res, _ = drive(engine, sample, "va", dict(
+        stem_pool=1, attn_sublayer=12, ffn_sublayer=12, encoder_stack=0))
+    check_embeddings(res, 125, 12)
+    va = dict(warm_ms(engine, sample, "va"),
+              **profile_clip(engine, sample, "va"))
 
-    small = clip(16, 4, SEED + 4)
-    on_card = engine.extract(modalities="va", **small)
-    on_cpu = JegalEngine(jp, gp, device="cpu").extract(modalities="va",
-                                                       **small)
+    small = dict(clip(16, 4, SEED + 4), text="the quick brown fox")
+    on_card = engine.extract(modalities="vta", **small)
+    on_cpu = JegalEngine(jp, gp, device="cpu", roberta_params=rp,
+                         tokenizer=word_tokenizer()).extract(
+                             modalities="vta", **small)
     check_embeddings(on_card, 16, 4)
     check_embeddings(on_cpu, 16, 4)
     for key in ("gesture_emb", "content_emb"):
@@ -371,13 +541,31 @@ def run_slice(gp, jp):
         err = float(np.abs(a - b).max())
         cos = float((a * b).sum(-1).min())
         ok = err <= SLICE_ATOL and cos >= SLICE_MIN_COS
-        log(f"  card vs CPU, 16-frame clip, {key}: max abs err {err:.3e} "
-            f"(tolerance {SLICE_ATOL:g}), min row cosine {cos:.8f} "
-            f"(tolerance {SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
+        log(f"  card vs CPU, vta, 16-frame 4-word clip, {key}: max abs err "
+            f"{err:.3e} (tolerance {SLICE_ATOL:g}), min row cosine "
+            f"{cos:.8f} (tolerance {SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{key}: the card disagrees with the CPU")
-    return launches, dict(ms_per_clip=ms, ms_q1=q1, ms_q3=q3,
-                          clips_per_s=1e3 / ms, **prof)
+    return launches, dict(vta=vta, va=va)
+
+
+def smoke_text_ids():
+    """The smoke text as the engine tokenizes it: (1, 32) ids padded to its
+    S bucket, and the (1, 32) key mask."""
+    import torch
+
+    from jegal_torch.data.bucketing import S_BUCKETS, next_bucket
+
+    batch = word_tokenizer().encode_words([SMOKE_TEXT])
+    s_nat = batch.input_ids.shape[1]
+    s_b = next_bucket(s_nat, S_BUCKETS)
+    log(f"smoke text: {len(batch.words[0])} words, S_nat {s_nat}, S_b {s_b}")
+    if not (17 <= s_nat <= 32 and s_b == 32):
+        raise AssertionError(f"the smoke text should tokenize to 17-32 "
+                             f"tokens, got {s_nat}")
+    ids = torch.ones(1, s_b, dtype=torch.int64)           # pad id 1
+    ids[0, :s_nat] = torch.from_numpy(batch.input_ids[0]).long()
+    return ids, (ids != 1).float()
 
 
 def main() -> int:
@@ -391,7 +579,11 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from jegal_torch.convert import init_gestsync_params, init_jegal_params
+    from jegal_torch.convert import (
+        init_gestsync_params,
+        init_jegal_params,
+        init_roberta_params,
+    )
     from jegal_torch.ops.kernels import _build
 
     smi = subprocess.run(
@@ -412,15 +604,21 @@ def main() -> int:
     g = torch.Generator().manual_seed(SEED)
     gp = init_gestsync_params(g, dev)
     jp = init_jegal_params(g, dev)
+    t0 = time.perf_counter()
+    rp = init_roberta_params(g, device=dev)                # xlm-roberta-base
+    log(f"XLM-R base drawn in {time.perf_counter() - t0:.2f} s")
+    ids32, mask32 = smoke_text_ids()
 
     stem = check_stem(gp, dev)
-    sub = check_sublayers(gp, jp, dev)
-    launches, slice_stats = run_slice(gp, jp)
+    sub = check_sublayers(gp, jp, dev, mask32[0])
+    stack = check_stack(rp, dev, ids32, mask32)
+    launches, slice_stats = run_slice(gp, jp, rp)
     log("slice: " + json.dumps(slice_stats))
 
     rows = {"stem_pool": dict(stem, per_launch=None),
             "attn_sublayer": per_clip(sub["attn_sublayer"]),
-            "ffn_sublayer": per_clip(sub["ffn_sublayer"])}
+            "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
+            "encoder_stack": per_clip(stack)}
     where = {
         "stem_pool": ("jegal_torch/csrc/stem.cu",
                       "jegal_tpu/ops/pallas/stem.py:80"),
@@ -428,6 +626,8 @@ def main() -> int:
                           "jegal_tpu/ops/pallas/fused_layer.py:104"),
         "ffn_sublayer": ("jegal_torch/csrc/fused_layer.cu",
                          "jegal_tpu/ops/pallas/fused_layer.py:173"),
+        "encoder_stack": ("jegal_torch/csrc/encoder_stack.cu",
+                          "jegal_tpu/ops/pallas/fused_layer.py:221"),
     }
     kernels = []
     for name, row in rows.items():

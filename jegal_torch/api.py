@@ -1,12 +1,17 @@
 """JegalEngine — embedding extraction on the port (the JAX package's
 api.py, reference inference_embs.py:526-646).
 
-Combos of this slice: `v`, `va` and `a` (text is the next slice). Given
-decoder frames, the engine runs the fused single-clip path of the JAX
-engine's `_extract_fused` (api.py:563-613): frames -> face mask -> GestSync
-tower -> JEGAL gesture branch, beside the audio branch, with no host round
-trip between the stages; embeddings come back once and are L2-normalized in
-float32 on the host.
+All seven combos of v, t and a. Given decoder frames, the engine runs the
+fused single-clip path of the JAX engine's `_extract_fused`
+(api.py:563-613): frames -> face mask -> GestSync tower -> JEGAL gesture
+branch, beside the text branch (XLM-R -> text encoder -> word pooling) and
+the audio branch, with no host round trip between the stages; embeddings
+come back once and are L2-normalized in float32 on the host.
+
+The text modality needs XLM-R parameters and a tokenizer: a
+`jegal_torch.text.WordTokenizer` over any backend with its duck-typed
+interface (for the real vocabulary, `WordTokenizer.from_file` on
+xlm-roberta-base's tokenizer.json, which needs the `tokenizers` package).
 
 The engine runs on the card unless the caller passes device="cpu"; with no
 card it raises rather than falling back.
@@ -20,6 +25,7 @@ import torch
 from jegal_torch.convert import tree_to_torch
 from jegal_torch.data.bucketing import (
     MEL_BUCKETS,
+    S_BUCKETS,
     T_BUCKETS,
     W_BUCKETS,
     next_bucket,
@@ -27,8 +33,13 @@ from jegal_torch.data.bucketing import (
 )
 from jegal_torch.models import gestsync as G
 from jegal_torch.models import jegal as J
+from jegal_torch.models import roberta as R
 from jegal_torch.ops.audio import wav2filterbanks_np
-from jegal_torch.ops.pooling import build_audio_pooling
+from jegal_torch.ops.pooling import (
+    build_audio_pooling,
+    build_text_pooling,
+    text_word_starts,
+)
 from jegal_torch.ops.video import FALLBACK_ROWS, mask_frames_device
 
 RAW_FRAME = (270, 480, 3)
@@ -50,18 +61,54 @@ def resolve_device(device) -> torch.device:
 
 
 class JegalEngine:
-    """Holds parameter trees (jegal_torch.convert layout) on one device and
-    extracts L2-normalized embeddings."""
+    """Holds parameter trees (jegal_torch.convert layout) on one device, and
+    the tokenizer, and extracts L2-normalized embeddings."""
 
-    def __init__(self, jegal_params, gestsync_params=None, device="cuda"):
+    def __init__(self, jegal_params, gestsync_params=None, device="cuda",
+                 roberta_params=None, tokenizer=None,
+                 roberta_cfg: R.RobertaConfig = R.XLMR_BASE):
         self.device = resolve_device(device)
         self.jegal_params = tree_to_torch(jegal_params, self.device)
         self.gestsync_params = (None if gestsync_params is None
                                 else tree_to_torch(gestsync_params, self.device))
+        self.roberta_params = (None if roberta_params is None
+                               else tree_to_torch(roberta_params, self.device))
+        if self.roberta_params is not None \
+                and "fused_ops" not in self.roberta_params:
+            # once at load: the stack kernel's operands are then ready and
+            # no forward stacks or concatenates a weight
+            self.roberta_params = R.stack_layers(self.roberta_params)
+        self.tokenizer = tokenizer
+        self.roberta_cfg = roberta_cfg
 
     # ------------------------------------------------------------------
     # Host-side preparation
     # ------------------------------------------------------------------
+
+    def prepare_text(self, text: str):
+        """-> (arrays dict, num_words), ids padded with the tokenizer's pad
+        id to the S bucket; (None, 0) when the sample is invalid under the
+        reference's rules (the tokenizer merged words)."""
+        if self.tokenizer is None:
+            raise RuntimeError("engine has no tokenizer (text modality)")
+        batch = self.tokenizer.encode_words([text])
+        s_nat = batch.input_ids.shape[1]
+        starts = text_word_starts(batch.input_ids, batch.offsets,
+                                  batch.special_ids)
+        n_words = len(batch.words[0])
+        w_bucket = next_bucket(max(n_words, 1), W_BUCKETS)
+        pool, valid, _ = build_text_pooling(starts, [n_words], s_nat,
+                                            w_bucket)
+        if not valid[0]:
+            return None, 0
+        s_bucket = next_bucket(s_nat, S_BUCKETS)
+        return {
+            "input_ids": pad_axis(batch.input_ids, 1, s_bucket,
+                                  value=self.tokenizer.pad_id).astype(np.int64),
+            "text_mask": pad_axis(batch.attention_mask, 1,
+                                  s_bucket).astype(np.float32),
+            "text_pool": pad_axis(pool, 2, s_bucket),
+        }, n_words
 
     def prepare_audio(self, wav: np.ndarray, word_boundaries):
         """wav (S,) float32 at raw int16 scale -> (arrays dict, num_words),
@@ -93,7 +140,7 @@ class JegalEngine:
         return {"visual_feats": pad_axis(visual_feats[None], 1, t_bucket),
                 "visual_mask": mask}, t
 
-    def _prepare_sample(self, modalities, visual_feats=None,
+    def _prepare_sample(self, modalities, visual_feats=None, text=None,
                         word_boundaries=None, wav=None):
         """-> (arrays dict, t_true, w_true), or None for an invalid sample."""
         arrays: dict = {}
@@ -114,6 +161,15 @@ class JegalEngine:
                     f"array, got shape {tuple(vf.shape)} dtype {vf.dtype}")
             va, t_true = self.prepare_visual(vf)
             arrays.update(va)
+        if "t" in modalities:
+            if text is None:
+                raise ClientError("modality 't' requires text")
+            if not isinstance(text, str) or not text.strip():
+                raise ClientError("text must be a non-empty string")
+            ta, w_true = self.prepare_text(text)
+            if ta is None:
+                return None
+            arrays.update(ta)
         if "a" in modalities:
             if wav is None or word_boundaries is None:
                 raise ClientError(
@@ -134,11 +190,21 @@ class JegalEngine:
                 raise ClientError(
                     "word_boundaries must be a non-empty list of "
                     "(word, start, end) with start <= end")
-            aa, w_true = self.prepare_audio(wv.astype(np.float32),
-                                            word_boundaries)
+            aa, n_words = self.prepare_audio(wv.astype(np.float32),
+                                             word_boundaries)
             if aa is None:
                 return None
             arrays.update(aa)
+            # with text too, both pooling matrices must count the same
+            # words: the reference fails on its torch.cat (models/
+            # jegal.py:407-408), the engine rejects the sample
+            if w_true is not None and n_words != w_true:
+                return None
+            w_true = n_words
+        if "t" in modalities and "a" in modalities:
+            w = max(arrays["text_pool"].shape[1], arrays["audio_pool"].shape[1])
+            arrays["text_pool"] = pad_axis(arrays["text_pool"], 1, w)
+            arrays["audio_pool"] = pad_axis(arrays["audio_pool"], 1, w)
         return arrays, t_true, w_true
 
     # ------------------------------------------------------------------
@@ -154,10 +220,10 @@ class JegalEngine:
             out[k] = t.to(self.device)
         return out
 
-    def _forward(self, use_v: bool, use_a: bool, **arrays):
+    def _forward(self, use_v: bool, use_t: bool, use_a: bool, **arrays):
         return self._pack_emb(*J.forward_inference(
-            self.jegal_params, use_v=use_v, use_t=False, use_a=use_a,
-            **arrays))
+            self.jegal_params, self.roberta_params, use_v=use_v, use_t=use_t,
+            use_a=use_a, roberta_cfg=self.roberta_cfg, **arrays))
 
     @staticmethod
     def _pack_emb(gesture, content):
@@ -180,7 +246,7 @@ class JegalEngine:
         return packed[:, :t_split], packed[:, t_split:]
 
     @staticmethod
-    def _postprocess(gesture, content, t_true, w_true, word_boundaries,
+    def _postprocess(gesture, content, t_true, w_true, text, word_boundaries,
                      fname):
         """Valid rows, L2-normalized in float32 on the host (the .pkl
         contract is exactly unit-norm float32 rows, reference
@@ -196,7 +262,7 @@ class JegalEngine:
             "content_emb": None if content is None
             else norm_rows(content, w_true),
             "info": {"fname": fname, "word_boundaries": word_boundaries,
-                     "text": None},
+                     "text": text},
         }
 
     # ------------------------------------------------------------------
@@ -209,8 +275,6 @@ class JegalEngine:
                 or set(modalities) - set("vta"):
             raise ClientError(f"modalities must combine 'v', 't' and 'a', "
                               f"got {modalities!r}")
-        if "t" in modalities:
-            raise NotImplementedError(J.TEXT_NOT_PORTED)
 
     @staticmethod
     def _check_frames(frames):
@@ -228,7 +292,7 @@ class JegalEngine:
                 "planar (T, 90, 27, 160) input is not ported yet; pass raw "
                 "(T, 270, 480, 3) frames")
 
-    def extract(self, modalities: str = "va", visual_feats=None,
+    def extract(self, modalities: str = "vta", visual_feats=None,
                 text: str | None = None, word_boundaries: list | None = None,
                 wav=None, fname: str | None = None, frames=None,
                 chin_rows=None) -> dict | None:
@@ -240,8 +304,6 @@ class JegalEngine:
         (T, 270, 480, 3) uint8 with optional per-frame chin_rows (T,):
         frames run the fused single-clip path."""
         self._check_modalities(modalities)
-        if text is not None:
-            raise NotImplementedError(J.TEXT_NOT_PORTED)
         with torch.inference_mode():
             if frames is not None:
                 if "v" not in modalities:
@@ -250,24 +312,25 @@ class JegalEngine:
                     raise ClientError(
                         "pass either frames or visual_feats, not both")
                 return self._extract_fused(modalities, frames, chin_rows,
-                                           word_boundaries, wav, fname)
+                                           text, word_boundaries, wav, fname)
             if chin_rows is not None:
                 raise ClientError("chin_rows requires frames")
-            prep = self._prepare_sample(modalities, visual_feats,
+            prep = self._prepare_sample(modalities, visual_feats, text,
                                         word_boundaries, wav)
             if prep is None:
                 return None
             arrays, t_true, w_true = prep
-            use_v, use_a = "v" in modalities, "a" in modalities
-            packed = self._forward(use_v, use_a,
+            use_v, use_t, use_a = (c in modalities for c in "vta")
+            packed = self._forward(use_v, use_t, use_a,
                                    **self._upload(arrays)).cpu().numpy()
             t_split = arrays["visual_feats"].shape[1] if use_v else None
-            gesture, content = self._unpack_emb(packed, t_split, use_v, use_a)
-            return self._postprocess(gesture, content, t_true, w_true,
+            gesture, content = self._unpack_emb(packed, t_split, use_v,
+                                                use_t or use_a)
+            return self._postprocess(gesture, content, t_true, w_true, text,
                                      word_boundaries, fname)
 
-    def _extract_fused(self, modalities, frames, chin_rows, word_boundaries,
-                       wav, fname):
+    def _extract_fused(self, modalities, frames, chin_rows, text,
+                       word_boundaries, wav, fname):
         """Frames -> tower -> JEGAL on the device, one host fetch at the
         end. Bucket-padded tail frames repeat the last frame (and its chin
         row); visual_mask keeps them out of every valid row's attention,
@@ -275,8 +338,8 @@ class JegalEngine:
         if self.gestsync_params is None:
             raise RuntimeError("engine has no GestSync parameters")
         self._check_frames(frames)
-        use_a = "a" in modalities
-        prep = self._prepare_sample(modalities.replace("v", ""), None,
+        use_t, use_a = "t" in modalities, "a" in modalities
+        prep = self._prepare_sample(modalities.replace("v", ""), None, text,
                                     word_boundaries, wav)
         if prep is None:
             return None
@@ -296,9 +359,9 @@ class JegalEngine:
         vmask[0, :t] = 1.0
         masked = mask_frames_device(fr, torch.as_tensor(cr).to(self.device))
         feats = G.extract_features(self.gestsync_params, masked, chunk=160)
-        packed = self._forward(True, use_a, visual_feats=feats[None],
+        packed = self._forward(True, use_t, use_a, visual_feats=feats[None],
                                **self._upload(dict(arrays, visual_mask=vmask)))
         gesture, content = self._unpack_emb(packed.cpu().numpy(), t_bucket,
-                                            True, use_a)
-        return self._postprocess(gesture, content, t, w_true,
+                                            True, use_t or use_a)
+        return self._postprocess(gesture, content, t, w_true, text,
                                  word_boundaries, fname)

@@ -1,4 +1,4 @@
-"""Pipeline constants of the `va` slice, copied from the JAX package's
+"""Pipeline constants of the port, copied from the JAX package's
 typed configuration (jegal_tpu/config.py) so the port stands alone.
 
 Each value cites where the reference model pins it."""
@@ -17,5 +17,6 @@ EDGE_PAD_FRAMES = 12     # +/-12 edge-repeat pad around a clip
 
 # model (reference models/jegal.py:18)
 D_MODEL = 512
+D_MODEL_TEXT = 768       # XLM-R base hidden width, the text encoder's d
 NUM_HEADS = 8
 PE_MAX_LEN = 500

@@ -15,8 +15,10 @@ import math
 import numpy as np
 import torch
 
+from jegal_torch.config import D_MODEL_TEXT
 from jegal_torch.models.gestsync import CHANNELS, VGG_SPEC
 from jegal_torch.models.jegal import AUDIO_CHANNELS, AUDIO_CNN_SPEC
+from jegal_torch.models.roberta import XLMR_BASE, RobertaConfig
 
 
 def tree_to_torch(tree, device="cpu"):
@@ -46,6 +48,14 @@ def jegal_params_from_jax(tree, device="cpu"):
     """jegal_tpu JEGAL pytree (J.init_params / J.params_from_torch layout)
     -> the port's tree."""
     return tree_to_torch(dict(tree), device)
+
+
+def roberta_params_from_jax(tree, device="cpu"):
+    """jegal_tpu XLM-R tree (R.params_from_hf layout: "embeddings" and the
+    list of "layers") -> the port's tree. models.roberta.stack_layers adds
+    the stack kernel's operands (JegalEngine does at load)."""
+    return tree_to_torch({"embeddings": tree["embeddings"],
+                          "layers": list(tree["layers"])}, device)
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +114,32 @@ def init_gestsync_params(generator: torch.Generator, device="cpu"):
     }, device)
 
 
+def init_roberta_params(generator: torch.Generator,
+                        cfg: RobertaConfig = XLMR_BASE, device="cpu"):
+    """Random XLM-R tree (R.params_from_hf layout) at the width of `cfg`:
+    embeddings N(0, 0.02) as HF initializes them, nn.Linear-default
+    linears, randomized LayerNorm parameters."""
+    g = generator
+    d, dff = cfg.hidden_size, cfg.intermediate_size
+
+    def table(n):
+        return 0.02 * torch.randn(n, d, generator=g)
+
+    emb = {"word": table(cfg.vocab_size),
+           "position": table(cfg.max_position_embeddings),
+           "token_type": table(1), "ln": _norm(g, d)}
+    layers = [{"q": _linear(g, d, d), "k": _linear(g, d, d),
+               "v": _linear(g, d, d), "attn_out": _linear(g, d, d),
+               "attn_ln": _norm(g, d), "inter": _linear(g, d, dff),
+               "out": _linear(g, dff, d), "out_ln": _norm(g, d)}
+              for _ in range(cfg.num_layers)]
+    return tree_to_torch({"embeddings": emb, "layers": layers}, device)
+
+
 def init_jegal_params(generator: torch.Generator, device="cpu"):
-    """Random JEGAL tree at full width for the gesture and audio branches
-    and the fusion/align heads (the text branch is not ported)."""
+    """Random JEGAL tree at full width. The text branch's leaves are drawn
+    after all the others, so a seed gives the gesture and audio branches
+    the same weights with or without them."""
     g = generator
     cnn = []
     for i, spec in enumerate(AUDIO_CNN_SPEC):
@@ -119,7 +152,7 @@ def init_jegal_params(generator: torch.Generator, device="cpu"):
     def mlp2():
         return [_linear(g, 512, 512), _linear(g, 512, 512)]
 
-    return tree_to_torch({
+    tree = {
         "proj_ip_rgb": [_linear(g, 1024, 512), _linear(g, 512, 512)],
         "proj_ip_ln": _norm(g, 512),
         "encoder_rgb": {"layers": [_encoder_layer(g, 512, 2048)
@@ -131,4 +164,9 @@ def init_jegal_params(generator: torch.Generator, device="cpu"):
         "proj_op_fusion_content": mlp2(),
         "proj_op_align_gesture": mlp2(),
         "proj_op_align_content": mlp2(),
-    }, device)
+    }
+    tree["encoder_text"] = {
+        "layers": [_encoder_layer(g, D_MODEL_TEXT, 3072) for _ in range(3)],
+        "norm": _norm(g, D_MODEL_TEXT)}
+    tree["proj_op_text"] = _linear(g, D_MODEL_TEXT, 256)
+    return tree_to_torch(tree, device)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 T_BUCKETS = (32, 64, 128, 256, 512)        # video frames (PE cap is 500)
+S_BUCKETS = (16, 32, 64, 128, 256)         # subword tokens
 W_BUCKETS = (8, 16, 32, 64, 128)           # words
 MEL_BUCKETS = tuple(4 * t for t in T_BUCKETS)  # mel frames (4x token rate)
 

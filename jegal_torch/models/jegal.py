@@ -1,17 +1,18 @@
-"""JEGAL embedding model, gesture and audio branches (the JAX package's
-models/jegal.py, reference models/jegal.py:16-420):
+"""JEGAL tri-modal embedding model (the JAX package's models/jegal.py,
+reference models/jegal.py:16-420):
 
   gesture: 1024 -> proj_ip (Linear+LN+ReLU+Linear) -> +PE ->
            6x pre-norm transformer d=512 h=8 -> proj_op_rgb ->
            [inference] proj_op_align_gesture
+  text:    XLM-R last_hidden_state -> 3x pre-norm transformer d=768 h=8 ->
+           proj_op_text 768->256 -> subword->word mean pooling
   audio:   log-mel (B,T,80) -> 6x conv2d CNN (time/4, freq 80->1) -> 256 ->
            proj_op_audio -> frame->word mean pooling
   fusion:  concat([audio, text]) -> 512 -> proj_op_fusion_content ->
            [inference] proj_op_align_content
 
-The text branch (XLM-R and the 3-layer text encoder) is not ported yet:
-`forward_inference(use_t=True)` raises. A missing content branch is
-replaced by zeros, as in the reference (jegal.py:393-402).
+A missing content branch is replaced by zeros, as in the reference
+(jegal.py:393-402).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from jegal_torch.core.transformer import (
     encoder_stack,
     sinusoidal_position_encoding,
 )
+from jegal_torch.models import roberta as R
 from jegal_torch.ops.pooling import pool_words
 
 # audio CNN: (kernel, stride, padding, has_bn_relu) — reference jegal.py:41-63
@@ -41,9 +43,6 @@ AUDIO_CNN_SPEC = (
     dict(k=(1, 1), s=(1, 3), p=(0, 0), bn=False),
 )
 AUDIO_CHANNELS = (1, 32, 64, 128, 256, 256, 256)
-
-TEXT_NOT_PORTED = ("the text branch (XLM-R, text encoder, word pooling) "
-                   "is not ported yet: it is the next slice of the port")
 
 
 def _mlp2(params, x):
@@ -64,6 +63,13 @@ def forward_gestures(params, visual_feats, visual_mask):
     mask = visual_mask[:, None, :] if visual_mask is not None else None
     x = encoder_stack(params["encoder_rgb"], x, mask, NUM_HEADS)
     return linear(params["proj_op_rgb"], x)
+
+
+def forward_text(params, roberta_out, text_mask):
+    """(B, S, 768), (B, S) -> (B, S, 256) subword embeddings."""
+    mask = text_mask[:, None, :] if text_mask is not None else None
+    x = encoder_stack(params["encoder_text"], roberta_out, mask, NUM_HEADS)
+    return linear(params["proj_op_text"], x)
 
 
 def forward_audio(params, mel, valid_lens=None):
@@ -99,23 +105,34 @@ def fuse_content(params, audio_words, text_words, align: bool):
     return content
 
 
-def forward_inference(params, *, use_v: bool, use_t: bool, use_a: bool,
-                      visual_feats=None, visual_mask=None, audio_mel=None,
-                      audio_pool=None, audio_valid=None):
-    """Reference forward_inference (models/jegal.py:377-420) for the combos
-    without text (v, va, a). -> (gesture_emb | None, content_emb | None)."""
-    if use_t:
-        raise NotImplementedError(TEXT_NOT_PORTED)
-    if not (use_v or use_a):
+def forward_inference(params, roberta_params=None, *, use_v: bool,
+                      use_t: bool, use_a: bool, visual_feats=None,
+                      visual_mask=None, input_ids=None, text_mask=None,
+                      text_pool=None, audio_mel=None, audio_pool=None,
+                      audio_valid=None, roberta_cfg=None):
+    """Reference forward_inference (models/jegal.py:377-420) for the seven
+    combos of v, t and a. text_pool / audio_pool: (B, W, S) / (B, W,
+    T_audio) pooling matrices (ops/pooling.py). -> (gesture_emb | None,
+    content_emb | None)."""
+    if not (use_v or use_t or use_a):
         raise ValueError("forward_inference needs at least one modality")
     gesture = None
     if use_v:
         g = forward_gestures(params, visual_feats, visual_mask)
         gesture = _mlp2(params["proj_op_align_gesture"], g)
-        if not use_a:
+        if not (use_t or use_a):
             return gesture, None
-    audio_words = pool_words(audio_pool,
-                             forward_audio(params, audio_mel, audio_valid))
-    content = fuse_content(params, audio_words, torch.zeros_like(audio_words),
-                           align=True)
-    return gesture, content
+    text_words = audio_words = None
+    if use_t:
+        hidden = R.forward(roberta_params, input_ids, text_mask,
+                           roberta_cfg or R.XLMR_BASE)
+        text_words = pool_words(text_pool,
+                                forward_text(params, hidden, text_mask))
+    if use_a:
+        audio_words = pool_words(audio_pool,
+                                 forward_audio(params, audio_mel, audio_valid))
+    if text_words is None:
+        text_words = torch.zeros_like(audio_words)
+    if audio_words is None:
+        audio_words = torch.zeros_like(text_words)
+    return gesture, fuse_content(params, audio_words, text_words, align=True)

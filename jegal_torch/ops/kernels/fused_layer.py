@@ -1,20 +1,22 @@
-"""Fused transformer encoder sublayers: the CUDA kernels of
-csrc/fused_layer.cu and their plain PyTorch twins.
+"""Fused transformer encoder kernels: the sublayer kernels of
+csrc/fused_layer.cu, the whole-stack kernel of csrc/encoder_stack.cu, and
+their plain PyTorch twins.
 
-Port of jegal_tpu/ops/pallas/fused_layer.py (`_attn_kernel`, `_ffn_kernel`
-and the stack functions `fused_torch_stack` / `fused_prenorm_stack`). Rows
-are (R, d) with R a whole number of contiguous `seg`-row segments
-(21-token GestSync windows, or one T-token JEGAL sequence); attention never
-crosses a segment.
+Port of jegal_tpu/ops/pallas/fused_layer.py (`_attn_kernel`, `_ffn_kernel`,
+`_stack_kernel` and the stack functions `fused_torch_stack`,
+`fused_prenorm_stack`, `fused_roberta_stack`). Rows are (R, d) with R a
+whole number of contiguous `seg`-row segments (21-token GestSync windows,
+or one T- or S-token sequence); attention never crosses a segment.
 
   * post-norm (prenorm=False): x = LN1(x + Attn(x)); x = LN2(x + FFN(x))
-    — torch nn.TransformerEncoderLayer, std LayerNorm;
+    — torch nn.TransformerEncoderLayer and XLM-R, std LayerNorm;
   * pre-norm (prenorm=True): x = x + Attn(LN1(x)); x = x + FFN(LN2(x))
     — the JEGAL layer, reference LayerNorm; the stack's final norm is the
     caller's.
 
-`attn_sublayer` and `ffn_sublayer` launch their kernel for a CUDA tensor
-and run the plain twin for a CPU tensor. The kernels take float32 only.
+`attn_sublayer`, `ffn_sublayer` and `encoder_stack` launch their kernel
+for a CUDA tensor and run the plain twin for a CPU tensor. The kernels take
+float32 only.
 """
 
 from __future__ import annotations
@@ -33,9 +35,13 @@ _SIGS = {
     "jt_attn_sublayer": [_VP] * 12 + [_INT] * 6 + [_VP],
     "jt_ffn_sublayer": [_VP] * 10 + [_INT] * 6 + [_VP],
 }
+_STACK_SIG = [_VP] * 20 + [_INT] * 9 + [_VP]
 _ACT = {"relu": 1, "gelu": 2}
 _LN_KIND = {"std": 0, "ref": 1}
 HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
+# per-layer operands of the stack kernel, in jt_encoder_stack's order
+STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2", "g1", "be1",
+              "g2", "be2")
 
 
 def _ln(x, g, b, kind: str):
@@ -59,6 +65,17 @@ def fused_weights(layer) -> dict:
         g2=layer["norm2"]["scale"].contiguous(),
         be2=layer["norm2"]["bias"].contiguous(),
     )
+
+
+def stacked_weights(layers) -> dict:
+    """Layer trees (core/transformer layout) -> the stack kernel's operands:
+    each of STACK_KEYS as one contiguous (L, ...) tensor, QKV concatenated
+    (the layout of the JAX package's `_stacked_weights`, without its
+    singleton middle axis on the vectors). Build it once at load time: the
+    stack kernel reads layer l at offset l and copies nothing per call."""
+    per_layer = [fused_weights(layer) for layer in layers]
+    return {k: torch.stack([w[k] for w in per_layer]).contiguous()
+            for k in STACK_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +111,19 @@ def ffn_sublayer_plain(x, w, *, prenorm: bool, ln_kind: str,
     return y if prenorm else _ln(y, w["g2"], w["be2"], ln_kind)
 
 
+def encoder_stack_plain(x, w, seg: int, heads: int, *, prenorm: bool,
+                        ln_kind: str, activation: str = "relu", kmask=None):
+    """L x (attention sublayer, FFN sublayer) over the stacked operands,
+    with the kernel's -1e9 fill of masked keys."""
+    for l in range(w["wqkv"].shape[0]):
+        wl = {k: w[k][l] for k in STACK_KEYS}
+        x = attn_sublayer_plain(x, wl, seg, heads, prenorm=prenorm,
+                                ln_kind=ln_kind, kmask=kmask)
+        x = ffn_sublayer_plain(x, wl, prenorm=prenorm, ln_kind=ln_kind,
+                               activation=activation)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -118,6 +148,23 @@ def _lib():
     return lib
 
 
+def _stack_lib():
+    lib = _build.library("encoder_stack")
+    lib.jt_encoder_stack.argtypes = _STACK_SIG
+    lib.jt_encoder_stack.restype = ctypes.c_int
+    return lib
+
+
+def _kmask_operand(kmask, r: int, dev):
+    """A key mask of any numeric type -> the kernels' contiguous float32
+    (R,) operand, in which 0.0 is masked."""
+    if kmask is None:
+        return None
+    kmask = kmask.to(dtype=torch.float32).reshape(-1).contiguous()
+    _build.check_operand("kmask", kmask, (r,), dev)
+    return kmask
+
+
 def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
                   kmask=None):
     """One attention sublayer over (R, d) rows of `seg`-row segments.
@@ -132,10 +179,7 @@ def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
                         ("wo", (d, d)), ("bo", (d,)), ("g1", (d,)),
                         ("be1", (d,))):
         _build.check_operand(name, w[name], shape, dev)
-    if kmask is not None:
-        # a key mask of any numeric type: the kernel reads 0.0 as masked
-        kmask = kmask.to(dtype=torch.float32).reshape(-1).contiguous()
-        _build.check_operand("kmask", kmask, (r,), dev)
+    kmask = _kmask_operand(kmask, r, dev)
     out = torch.empty_like(x)
     qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     att = torch.empty_like(x)
@@ -178,13 +222,52 @@ def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
     return out
 
 
+def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
+                  ln_kind: str, activation: str = "relu", kmask=None):
+    """A whole L-layer stack over (R, d) rows of `seg`-row segments, in one
+    call. w: the `stacked_weights` dict. kmask: optional (R,) key
+    validity, 0 = masked."""
+    if not x.is_cuda:
+        return encoder_stack_plain(x, w, seg, heads, prenorm=prenorm,
+                                   ln_kind=ln_kind, activation=activation,
+                                   kmask=kmask)
+    _check_rows(x, seg, heads)
+    r, d = x.shape
+    n_l, dff = w["w1"].shape[0], w["w1"].shape[-1]
+    dev = x.device
+    for name, shape in (("wqkv", (d, 3 * d)), ("bqkv", (3 * d,)),
+                        ("wo", (d, d)), ("bo", (d,)), ("w1", (d, dff)),
+                        ("b1", (dff,)), ("w2", (dff, d)), ("b2", (d,)),
+                        ("g1", (d,)), ("be1", (d,)), ("g2", (d,)),
+                        ("be2", (d,))):
+        _build.check_operand(name, w[name], (n_l, *shape), dev)
+    kmask = _kmask_operand(kmask, r, dev)
+    out = torch.empty_like(x)
+    y = torch.empty_like(x)
+    att = torch.empty_like(x)
+    qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
+    h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
+    h = torch.empty_like(x) if prenorm else None
+    lib = _stack_lib()
+    P = _build.ptr
+    rc = lib.jt_encoder_stack(
+        P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv), P(att),
+        P(y), P(h1), P(out), r, d, dff, heads, seg, n_l, int(prenorm),
+        _LN_KIND[ln_kind], _ACT[activation], _build.stream_ptr(dev))
+    _build.check(lib, rc, "encoder stack kernel")
+    _build.LAUNCHES["encoder_stack"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Stacks
 # ---------------------------------------------------------------------------
 
 def fused_encoder_stack(layers, x, seg: int, num_heads: int, *,
-                        prenorm: bool, ln_kind: str, kmask=None):
-    """All layers over (R, d) rows of contiguous `seg`-row segments."""
+                        prenorm: bool, ln_kind: str, kmask=None,
+                        activation: str = "relu"):
+    """All layers over (R, d) rows of contiguous `seg`-row segments, one
+    attention and one FFN sublayer call per layer."""
     if x.shape[0] % seg:
         raise ValueError(f"{x.shape[0]} rows do not split into segments "
                          f"of {seg}")
@@ -192,7 +275,8 @@ def fused_encoder_stack(layers, x, seg: int, num_heads: int, *,
         w = fused_weights(layer)
         x = attn_sublayer(x, w, seg, num_heads, prenorm=prenorm,
                           ln_kind=ln_kind, kmask=kmask)
-        x = ffn_sublayer(x, w, prenorm=prenorm, ln_kind=ln_kind)
+        x = ffn_sublayer(x, w, prenorm=prenorm, ln_kind=ln_kind,
+                         activation=activation)
     return x
 
 
@@ -207,3 +291,17 @@ def fused_prenorm_stack(stack, x, seg: int, num_heads: int, kmask=None):
     """The JEGAL pre-norm stack (ref LN) WITHOUT its final norm."""
     return fused_encoder_stack(stack["layers"], x, seg, num_heads,
                                prenorm=True, ln_kind="ref", kmask=kmask)
+
+
+def fused_roberta_stack(layers, x, seg: int, num_heads: int, kmask=None):
+    """BERT/XLM-R encoder layers (post-norm, std LN eps 1e-5, exact-GELU
+    FFN) over (R, d) rows of contiguous `seg`-token sequences, as ONE
+    encoder_stack call. `layers`: a `stacked_weights` dict (what
+    models/roberta.stack_layers precomputes), or a list of layer trees in
+    the core/transformer layout, stacked here. The kernel FILLS masked
+    scores with -1e9 where HF ADDS finfo.min: after the softmax's max
+    subtraction both weigh a masked key exactly 0, so every valid query row
+    matches HF (models/roberta.py)."""
+    w = layers if isinstance(layers, dict) else stacked_weights(layers)
+    return encoder_stack(x, w, seg, num_heads, prenorm=False, ln_kind="std",
+                         activation="gelu", kmask=kmask)

@@ -1,9 +1,13 @@
-"""The whole `va` slice of the port against the JAX package on the CPU:
-jegal_torch.api.JegalEngine(device="cpu").extract(frames=...) and
-jegal_tpu.api.JegalEngine.extract(frames=...) on one short clip at the real
-270x480 geometry (the only one at which the GestSync tower reduces to 1x1),
-with the same weights, chin rows, audio and word boundaries. Each side
-runs once in a module fixture.
+"""The port's engine against the JAX package's on the CPU, in all seven
+modality combos: jegal_torch.api.JegalEngine(device="cpu").extract and
+jegal_tpu.api.JegalEngine.extract on one short clip at the real 270x480
+geometry (the only one at which the GestSync tower reduces to 1x1), with
+the same weights, chin rows, text, audio and word boundaries, a tiny XLM-R
+(1 layer, d 768, 8 heads) and the tiny BPE tokenizer of tests/tok_util.py
+wrapped by each package's WordTokenizer. Combos with 'v' take the frames;
+the JAX engine runs `vta` from frames and `t`, `a`, `ta` without: a
+combo's gesture rows are `vta`'s (the gesture branch reads nothing else)
+and its content rows those of the combo without 'v'.
 
 Tolerance: the embeddings are unit-norm rows after a 270x480 conv tower, two
 6-layer transformers and the audio CNN, each summed in another order by
@@ -16,17 +20,28 @@ import torch
 import jax
 
 from jegal_tpu import api as JAPI
+from jegal_tpu.models import roberta as JR
+from jegal_tpu.text.tokenizer import WordTokenizer as JaxWordTokenizer
 from jegal_torch import api as TAPI
 from jegal_torch.convert import (
     gestsync_params_from_jax,
     init_gestsync_params,
     init_jegal_params,
+    init_roberta_params,
     jegal_params_from_jax,
+    roberta_params_from_jax,
 )
+from jegal_torch.models.roberta import RobertaConfig
+from jegal_torch.text.tokenizer import WordTokenizer
+from tok_util import make_tiny_tokenizer
 from torch_threads import few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 T = 8                                    # frames: T bucket 32, 56 padded
+TINY_XLMR = dict(vocab_size=64, hidden_size=768, num_layers=1, num_heads=8,
+                 intermediate_size=256, max_position_embeddings=64)
+WITH_FRAMES = ("va", "v", "vta", "vt")
+WITHOUT_FRAMES = ("ta", "t", "a")
 
 
 def _as_numpy(tree):
@@ -41,7 +56,12 @@ def sample():
         chin_rows=rng.integers(90, 200, T).astype(np.int32),
         wav=(rng.standard_normal(T * 640) * 1000).astype(np.float32),
         word_boundaries=[["a", 0, 1], ["b", 2, 4], ["c", 5, 7]],
-        fname="clip")
+        text="hello world abc", fname="clip")
+
+
+def _without_frames(sample):
+    return {k: v for k, v in sample.items()
+            if k not in ("frames", "chin_rows")}
 
 
 @pytest.fixture(scope="module")
@@ -53,41 +73,78 @@ def weights():
 
 
 @pytest.fixture(scope="module")
-def jax_va(weights, sample):
-    """The JAX engine's `va` result. Its gesture rows are also the `v`
-    combo's: the gesture branch does not read the audio."""
-    jp, gp = weights
-    eng = JAPI.JegalEngine(jegal_params=jp, gestsync_params=gp)
-    return eng.extract(modalities="va", **sample)
+def roberta():
+    """Tiny XLM-R weights (randomized LN parameters) as a numpy tree."""
+    cfg = RobertaConfig(**TINY_XLMR)
+    return _as_numpy(init_roberta_params(torch.Generator().manual_seed(33),
+                                         cfg)), cfg
 
 
 @pytest.fixture(scope="module")
-def port_engine(weights):
+def jax_results(weights, roberta, sample):
+    """The JAX engine's `vta` from frames, and `t`, `a`, `ta` without."""
     jp, gp = weights
+    rp, cfg = roberta
+    eng = JAPI.JegalEngine(
+        jegal_params=jp, gestsync_params=gp, roberta_params=rp,
+        roberta_cfg=JR.RobertaConfig(**TINY_XLMR),
+        tokenizer=JaxWordTokenizer(make_tiny_tokenizer()))
+    out = {"vta": eng.extract(modalities="vta", **sample)}
+    for combo in WITHOUT_FRAMES:
+        out[combo] = eng.extract(modalities=combo, **_without_frames(sample))
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_engine(weights, roberta):
+    jp, gp = weights
+    rp, cfg = roberta
     return TAPI.JegalEngine(jegal_params_from_jax(jp),
-                            gestsync_params_from_jax(gp), device="cpu")
+                            gestsync_params_from_jax(gp), device="cpu",
+                            roberta_params=roberta_params_from_jax(rp),
+                            roberta_cfg=cfg,
+                            tokenizer=WordTokenizer(make_tiny_tokenizer()))
 
 
 @pytest.fixture(scope="module")
 def port_results(port_engine, sample):
-    return {combo: port_engine.extract(modalities=combo, **sample)
-            for combo in ("va", "v")}
+    out = {combo: port_engine.extract(modalities=combo, **sample)
+           for combo in WITH_FRAMES}
+    for combo in WITHOUT_FRAMES:
+        out[combo] = port_engine.extract(modalities=combo,
+                                         **_without_frames(sample))
+    return out
 
 
-@pytest.mark.parametrize("combo", ["va", "v"])
-def test_fused_slice_matches_jax(port_results, jax_va, combo):
-    got, want = port_results[combo], jax_va
+def _check_content(got, jax_results, combo):
+    content_combo = combo.replace("v", "")
+    if not content_combo:
+        assert got["content_emb"] is None
+        return
+    want = jax_results[content_combo]["content_emb"]
+    assert got["content_emb"].shape == want.shape == (3, 512)
+    np.testing.assert_allclose(got["content_emb"], want, **TOL)
+
+
+@pytest.mark.parametrize("combo", WITH_FRAMES)
+def test_fused_slice_matches_jax(port_results, jax_results, combo):
+    got, want = port_results[combo], jax_results["vta"]
     assert got["gesture_emb"].shape == (T, 512)
     assert got["gesture_emb"].dtype == np.float32
     np.testing.assert_allclose(
         np.linalg.norm(got["gesture_emb"], axis=-1), 1.0, rtol=1e-6)
     np.testing.assert_allclose(got["gesture_emb"], want["gesture_emb"], **TOL)
-    if combo == "va":
-        assert got["content_emb"].shape == (3, 512)
-        np.testing.assert_allclose(got["content_emb"], want["content_emb"],
-                                   **TOL)
-    else:
-        assert got["content_emb"] is None
+    _check_content(got, jax_results, combo)
+    assert got["info"] == want["info"]
+
+
+@pytest.mark.parametrize("combo", WITHOUT_FRAMES)
+def test_combos_without_frames_match_jax(port_results, jax_results, combo):
+    got, want = port_results[combo], jax_results[combo]
+    assert got["gesture_emb"] is None
+    np.testing.assert_allclose(
+        np.linalg.norm(got["content_emb"], axis=-1), 1.0, rtol=1e-6)
+    _check_content(got, jax_results, combo)
     assert got["info"] == want["info"]
 
 
@@ -103,7 +160,8 @@ def test_features_form_matches_frames_form(port_engine, port_results,
                                 torch.from_numpy(sample["chin_rows"]))
     with torch.inference_mode():
         feats = G.extract_features(port_engine.gestsync_params, masked)
-    two_stage = port_engine.extract(modalities="v", visual_feats=feats.numpy())
+    two_stage = port_engine.extract(modalities="v",
+                                    visual_feats=feats.numpy())
     np.testing.assert_allclose(two_stage["gesture_emb"],
                                port_results["v"]["gesture_emb"], **TOL)
 
@@ -139,6 +197,29 @@ def test_client_errors(port_engine, kwargs, match):
         port_engine.extract(**kwargs)
 
 
-def test_text_is_the_next_slice(port_engine):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        port_engine.extract(modalities="vta")
+@pytest.mark.parametrize("text,match", [
+    (None, "requires text"),
+    ("   ", "non-empty string"),
+    (["hello"], "non-empty string"),
+])
+def test_text_client_errors(port_engine, text, match):
+    with pytest.raises(TAPI.ClientError, match=match):
+        port_engine.extract(modalities="t", text=text)
+
+
+def test_text_needs_a_tokenizer(weights, roberta):
+    jp, _ = weights
+    rp, cfg = roberta
+    eng = TAPI.JegalEngine(jegal_params_from_jax(jp), device="cpu",
+                           roberta_params=roberta_params_from_jax(rp),
+                           roberta_cfg=cfg)
+    with pytest.raises(RuntimeError, match="no tokenizer"):
+        eng.extract(modalities="t", text="hello world")
+
+
+def test_text_audio_word_count_mismatch_is_invalid(port_engine, sample):
+    """Two words of text against three word boundaries: the reference's
+    concat would fail; the engine rejects the sample with None (the JAX
+    engine's rule, api.py:775-776)."""
+    s = dict(_without_frames(sample), text="hello world")
+    assert port_engine.extract(modalities="ta", **s) is None

@@ -44,4 +44,23 @@ def test_port_modules_leave_jax_unloaded():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15   # every module of the port imported
+    assert int(r.stdout.strip()) >= 23   # every module of the port imported
+
+
+def test_text_modules_import_without_tokenizers():
+    """The tokenizer wrapper and the engine import with `tokenizers`
+    unavailable (the card machine has no wheel); only
+    WordTokenizer.from_file needs it."""
+    code = (
+        "import sys\n"
+        "sys.modules['tokenizers'] = None\n"
+        "import jegal_torch.text.tokenizer, jegal_torch.api\n"
+        "try:\n"
+        "    jegal_torch.text.tokenizer.WordTokenizer.from_file('x.json')\n"
+        "except ImportError:\n"
+        "    print('from_file needs tokenizers')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "from_file needs tokenizers"

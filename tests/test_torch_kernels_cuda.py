@@ -1,17 +1,23 @@
 """The port's CUDA kernels against their plain twins on the card, at shapes
 the main path does not reach: ragged and long segments (several key tiles
 of the online softmax), a fully masked sequence, head width 96, the GELU
-activation, and a small stem geometry with a ragged pooled edge; and the
+activation, a small stem geometry with a ragged pooled edge, and the
+encoder-stack kernel over 1 and 12 layers in both norm placements; and the
 wrappers' refusals. Marked `cuda`: each test skips without a card.
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q    # on the card
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Tolerance: abs 1e-4 against the twin, which sums the same float32 products
-in cuBLAS's / cuDNN's order (outputs are of order 1-10)."""
+in cuBLAS's / cuDNN's order (outputs are of order 1-10). A stack's
+tolerance is 1e-4 times its largest output magnitude when that exceeds 1:
+a pre-norm stack has no norm on its residual stream, which grows with
+depth, and the float32 rounding grows with it."""
 
 import pytest
 import torch
 
+from jegal_torch.convert import init_roberta_params, tree_to_torch
+from jegal_torch.models import roberta as R
 from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels import fused_layer as FL
 from jegal_torch.ops.kernels import stem as S
@@ -81,6 +87,72 @@ def test_ffn_sublayer(dev, rows, d, dff, prenorm, kind, act):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
+def _stacked(n_layers, d, dff, dev):
+    per_layer = [_weights(d, dff, dev, seed=10 + i) for i in range(n_layers)]
+    return {k: torch.stack([w[k] for w in per_layer]).contiguous()
+            for k in FL.STACK_KEYS}
+
+
+@pytest.mark.parametrize("n_layers,seg,n,heads,prenorm,kind,act,masked", [
+    (12, 32, 1, 12, False, "std", "gelu", True),   # XLM-R, one 32-token text
+    (12, 128, 2, 12, False, "std", "gelu", True),
+    (1, 77, 3, 8, True, "ref", "relu", True),       # head width 96
+    (12, 32, 2, 8, True, "ref", "relu", False),
+    (1, 21, 4, 12, False, "ref", "relu", False),
+    (12, 50, 2, 8, False, "std", "gelu", True),
+])
+def test_encoder_stack(dev, n_layers, seg, n, heads, prenorm, kind, act,
+                       masked):
+    d, dff = 768, 3072
+    w = _stacked(n_layers, d, dff, dev)
+    x = torch.randn(n * seg, d, device=dev)
+    km = None
+    if masked:
+        km = torch.ones(n * seg, device=dev)
+        km[seg - seg // 3:seg] = 0.0            # a pad tail in segment 0
+        if n > 1:
+            km[seg:2 * seg] = 0.0               # a fully masked segment
+    _build.reset_launches()
+    got = FL.encoder_stack(x, w, seg, heads, prenorm=prenorm, ln_kind=kind,
+                           activation=act, kmask=km)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(
+        {k: 0 for k in _build.LAUNCHES}, encoder_stack=1)
+    want = FL.encoder_stack_plain(x, w, seg, heads, prenorm=prenorm,
+                                  ln_kind=kind, activation=act, kmask=km)
+    atol = ATOL * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_roberta_on_the_card_runs_the_stack_kernel(dev):
+    """roberta.forward on CUDA is one encoder_stack launch and matches the
+    plain loop on the CPU on the valid rows; configurations the kernel
+    cannot take raise instead of running the loop."""
+    cfg = R.RobertaConfig(vocab_size=300, hidden_size=768, num_layers=2,
+                          num_heads=12, intermediate_size=3072,
+                          max_position_embeddings=64)
+    params = init_roberta_params(torch.Generator().manual_seed(3), cfg)
+    ids = torch.randint(3, 300, (2, 16), generator=torch.Generator()
+                        .manual_seed(4))
+    ids[1, 11:] = R.PAD_TOKEN_ID
+    mask = (ids != R.PAD_TOKEN_ID).long()
+    want = R.forward(params, ids, mask, cfg)
+    on_card = R.stack_layers(tree_to_torch(params, dev))
+    _build.reset_launches()
+    got = R.forward(on_card, ids.to(dev), mask.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["encoder_stack"] == 1
+    valid = mask.bool()
+    torch.testing.assert_close(got.cpu()[valid], want[valid], rtol=0,
+                               atol=ATOL)
+    with pytest.raises(ValueError, match="head widths"):
+        R.forward(on_card, ids.to(dev), mask.to(dev),
+                  R.RobertaConfig(**dict(vars(cfg), num_heads=24)))
+    with pytest.raises(ValueError, match="eps"):
+        R.forward(on_card, ids.to(dev), mask.to(dev),
+                  R.RobertaConfig(**dict(vars(cfg), layer_norm_eps=1e-12)))
+
+
 @pytest.mark.parametrize("shape", [(13, 54, 96, 3), (6, 61, 110, 3)])
 def test_stem_pool(dev, shape):
     g = torch.Generator().manual_seed(2)
@@ -107,6 +179,10 @@ def test_wrappers_refuse(dev):
         FL.attn_sublayer(x, w, 20, 8, prenorm=False, ln_kind="std")
     with pytest.raises(ValueError, match="head widths"):
         FL.attn_sublayer(x, w, 21, 4, prenorm=False, ln_kind="std")
+    stacked = {k: v[None] for k, v in w.items()}
+    with pytest.raises(ValueError, match="shape"):
+        FL.encoder_stack(x, dict(stacked, w2=w["w2"]), 21, 8, prenorm=False,
+                         ln_kind="std")
     with pytest.raises(ValueError, match="is on"):
         FL.ffn_sublayer(x, dict(w, w1=w["w1"].cpu()), prenorm=False,
                         ln_kind="std")

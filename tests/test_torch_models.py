@@ -1,7 +1,7 @@
 """jegal_torch models against the JAX package on the CPU: the GestSync
 tower at the real 270x480 geometry (the only one where it reduces to 1x1)
 on a few frames, and the JEGAL gesture/audio branches and forward_inference
-combos. Weights are drawn by jegal_torch.convert.init_* (randomized BN
+combos without text (the text combos: tests/test_torch_text.py). Weights are drawn by jegal_torch.convert.init_* (randomized BN
 statistics and LN parameters), handed to JAX as numpy and carried back with
 *_params_from_jax, so both packages compute with the same weights.
 
@@ -127,6 +127,6 @@ def test_forward_inference_combos(jg, rng, combo):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-def test_text_branch_not_ported(jg):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TJ.forward_inference(jg[1], use_v=False, use_t=True, use_a=False)
+def test_forward_inference_needs_a_modality(jg):
+    with pytest.raises(ValueError, match="at least one modality"):
+        TJ.forward_inference(jg[1], use_v=False, use_t=False, use_a=False)

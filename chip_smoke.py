@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its `vta` extraction on one card.
+"""Build the port's CUDA kernels, drive its `vta` extraction, its training
+and a long clip on one card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -9,7 +10,7 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     matmuls and cuDNN convolutions (the port computes in float32);
  2. every kernel under jegal_torch/csrc/ built with nvcc (one process per
     source, all started together), timed;
- 3. each kernel held against its plain PyTorch twin at the main path's
+ 3. each kernel held against its plain PyTorch twin at the main paths'
     shapes, then timed (CUDA events, median of 20 warm launches) beside its
     bound, its plain twin and one PyTorch yardstick call (`library_ms`):
     stem: a T=128 bucket, 152 padded frames; attention and FFN sublayers:
@@ -18,7 +19,11 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     encoder's 32 rows at d 768 (8 heads of 96), pre-norm with the text's
     pad tail masked; encoder stack (XLM-R, 12 post-norm GELU layers): the
     12-word text's 32 rows, and 256 rows of two 128-token texts, one half
-    padded;
+    padded; flash attention: the training step's gesture (8, 8, 128, 64)
+    and text (8, 8, 32, 96) shapes, with a pad tail in every batch row and
+    one batch row fully masked, and the long clip's (1, 8, 1024, 64) with
+    its 24-frame pad tail masked; then one backward through FlashAttention
+    against the plain twin's autograd;
  4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
     5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
     samples of 16 kHz audio, 12 word boundaries), with every launch counter
@@ -28,14 +33,31 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     timing of the same clip as before;
  5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
     the port on the CPU (full-width XLM-R copied to the CPU);
- 6. one `kernels` JSON line, the card line, and last the `ok` JSON line.
+ 6. training, full-width JEGAL with the frozen XLM-R base: (a) the entry
+    point, `training.loop.train`, for 10 steps at batch 8 with warmup and
+    cosine over a synthetic 16-clip corpus written to a temporary
+    directory, then again to step 12, resuming from its step-10
+    checkpoint; (b) 23 `train_step`s on one fixed collated batch (B 8, T
+    bucket 128, S bucket 32, both modalities kept): launches per step
+    (flash 9, stack 1, sublayers 0), warm ms/step (host clock, median and
+    quartiles of 20), one step's device busy time (torch.profiler), and a
+    falling loss; (c) one step of the same weights and batch on the card
+    against the port on the CPU, loss and every gradient leaf;
+ 7. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
+    with T = 1000 (bucket 1024, past the fused gate's 512): 6 flash
+    launches and no sublayer launch, and the card against the CPU;
+ 8. a `training` JSON line, one `kernels` JSON line, the card line, and
+    last the `ok` JSON line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
 each shape's per-launch time times the launches a T=125 `vta` clip makes at
 that shape (6 layers in the window head, 6 in the gesture encoder, 3 in the
 text encoder, one XLM-R stack), with each shape's own numbers under
 `per_launch` (a shape with 0 launches per clip is checked and timed, and
-adds nothing). `launches` is the count from phase 4.
+adds nothing). `launches` is the count from phase 4. The flash attention
+row is per training step in the same way (6 gesture and 3 text launches);
+its `launches` is the count of one step of phase 6(b), and its long-clip
+shape, 0 launches a step, carries its 6 launches a clip from phase 7.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -74,6 +96,17 @@ KERNEL_ATOL = 1e-4
 # transformers and the audio CNN summed in another order on each device.
 SLICE_ATOL = 1e-4
 SLICE_MIN_COS = 0.99999
+# Training step, card vs CPU (phase 6c): the loss within rel 1e-5, and each
+# gradient leaf within cosine 0.9999 of the CPU's: both are sums of the same
+# float32 products in another order through ~30 layers forward and back,
+# which moves a leaf's direction by ~1e-6 (a wrong index or a dropped term
+# moves it by far more). A leaf whose gradient is zero
+# in exact arithmetic (the key bias: softmax ignores a per-row shift; the
+# unused align heads) is rounding noise on both devices, whose cosine means
+# nothing: it must stay below 1e-6 of the largest leaf norm on both.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_MIN_COS = 0.9999
+TRAIN_NOISE_NORM = 1e-6
 # Stack kernel vs its twin: 12 post-norm layers of the same float32 sums in
 # another order. Every layer ends in a LayerNorm, which rescales the
 # rounding the layer before left to the output's own scale (order 1-5), so
@@ -343,10 +376,12 @@ def _library_stack(x, ops, lt, seg, heads, kmask):
     return x
 
 
-def check_stack(rp, dev, ids32, mask32):
+def check_stack(rp, dev, ids32, mask32, train_batch):
     """The encoder-stack kernel on XLM-R's 12 layers: the smoke text's 32
-    rows (what phase 4 launches once), and 256 rows of two 128-token texts
-    (the second half padded), over the embeddings of their token ids."""
+    rows (what phase 4 launches once), the fixed training batch's 8 texts
+    of 32 tokens (what a training step launches once), and 256 rows of two
+    128-token texts (the second half padded), over the embeddings of their
+    token ids."""
     import torch
 
     from jegal_torch.models import roberta as R
@@ -361,11 +396,14 @@ def check_stack(rp, dev, ids32, mask32):
     ids256 = torch.randint(3, cfg.vocab_size, (2, 128), generator=g)
     ids256[1, 64:] = R.PAD_TOKEN_ID
     rows = []
-    for label, ids, mask, per_clip_n in (
+    for label, ids, mask, per_clip_n, per_step_n in (
             ("XLM-R R=32 seg=32 (the 12-word text, S_b 32) masked",
-             ids32, mask32, 1),
+             ids32, mask32, 1, 0),
+            ("XLM-R R=256 seg=32 (the training step's 8 texts, S_b 32) "
+             "masked", train_batch["input_ids"], train_batch["text_mask"],
+             0, 1),
             ("XLM-R R=256 seg=128 (two texts, one half padded) masked",
-             ids256, (ids256 != R.PAD_TOKEN_ID).float(), 0)):
+             ids256, (ids256 != R.PAD_TOKEN_ID).float(), 0, 0)):
         b, seg = ids.shape
         r = b * seg
         x = R.embeddings(rp["embeddings"], ids.to(dev), cfg).reshape(r, d)
@@ -389,6 +427,7 @@ def check_stack(rp, dev, ids32, mask32):
         nbytes = 4.0 * (sum(t.numel() for t in ops.values()) + 2 * r * d + r)
         b_ms, b_by = bound(flops, nbytes)
         row = dict(shape=label, launches_per_clip=per_clip_n,
+                   launches_per_step=per_step_n,
                    ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(
                        lambda: _library_stack(x, ops, lt, seg, heads, km)),
@@ -399,12 +438,84 @@ def check_stack(rp, dev, ids32, mask32):
     return rows
 
 
-def per_clip(rows):
-    """Sum one kernel's per-launch numbers over its launches in one clip."""
-    out = {k: sum(r[k] * r["launches_per_clip"] for r in rows)
+def _library_flash(q, k, v, mask):
+    """F.scaled_dot_product_attention with the additive -1e9 key mask: the
+    yardstick of the flash kernel (timed only)."""
+    import torch.nn.functional as F
+
+    add = (mask[:, None, None, :] == 0).to(q.dtype) * -1e9
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+
+
+def check_flash(dev):
+    """The flash attention kernel at the training step's two shapes and
+    the long clip's, forward against its twin and timed; then one backward
+    through FlashAttention against the twin's autograd."""
+    import torch
+
+    from jegal_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    rows = []
+    for label, (b, h, t, d), valid, per_step, per_long in (
+            ("gesture encoder, training (8, 8, 128, 64)", (8, 8, 128, 64),
+             100, 6, 0),
+            ("text encoder, training (8, 8, 32, 96)", (8, 8, 32, 96), 21,
+             3, 0),
+            ("gesture encoder, long clip (1, 8, 1024, 64)",
+             (1, 8, 1024, 64), 1000, 0, 6)):
+        q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev)
+                   for _ in range(3))
+        mask = torch.zeros(b, t)
+        mask[:, :valid] = 1.0
+        if b > 1:
+            mask[-1] = 0.0                 # one batch row fully masked
+        mask = mask.to(dev)
+        log(f"flash attention: {label}, {valid} valid keys"
+            + (", last batch row fully masked" if b > 1 else ""))
+
+        def kern():
+            return FA.flash_attention(q, k, v, mask)
+
+        def plain():
+            return FA.flash_attention_plain(q, k, v, mask)
+
+        err = max_err(kern(), plain(), "flash_attention", KERNEL_ATOL)
+        b_ms, b_by = bound(4.0 * b * h * t * t * d,
+                           4.0 * (4 * b * h * t * d + b * t))
+        row = dict(shape=label, launches_per_step=per_step,
+                   launches_per_long_clip=per_long, ms=cuda_ms(kern),
+                   plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(lambda: _library_flash(q, k, v, mask)),
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        rows.append(row)
+        log(f"  flash_attention ms {row['ms']:.4f} plain "
+            f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+            f"{b_ms:.4f} ({b_by})")
+
+    q, k, v = (torch.randn(8, 8, 128, 64, generator=g).to(dev)
+               for _ in range(3))
+    mask = torch.ones(8, 128, device=dev)
+    mask[:, 100:] = 0.0
+    gout = torch.randn(8, 8, 128, 64, generator=g).to(dev)
+    grads = []
+    for fn in (FA.flash_attention_diff, FA.flash_attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves, mask).backward(gout)
+        grads.append([x.grad for x in leaves])
+    for name, a, b_ in zip(("dq", "dk", "dv"), *grads):
+        max_err(a, b_, f"FlashAttention backward {name} (8, 8, 128, 64)",
+                KERNEL_ATOL)
+    return rows
+
+
+def per_clip(rows, key="launches_per_clip"):
+    """Sum one kernel's per-launch numbers over its launches in one run of
+    its path (`key` names the count: per clip, or per training step)."""
+    out = {k: sum(r[k] * r[key] for r in rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["bound_by"] = max(rows, key=lambda r: r["bound_ms"]
-                          * r["launches_per_clip"])["bound_by"]
+                          * r[key])["bound_by"]
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["per_launch"] = rows
     return out
@@ -446,6 +557,14 @@ def check_embeddings(res, t: int, w: int):
 
 def profile_clip(engine, sample, modalities):
     """Device time of one warm clip by kernel name (torch.profiler)."""
+    return profile_run(lambda: engine.extract(modalities=modalities,
+                                              **sample),
+                       f"warm {modalities} clip")
+
+
+def profile_run(fn, what: str):
+    """Device time of one call of `fn` by kernel name (torch.profiler); `fn`
+    must end in a host fetch or a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,15 +572,18 @@ def profile_clip(engine, sample, modalities):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.extract(modalities=modalities, **sample)
+        fn()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation on the device timeline (the optimizer's
+        # "Optimizer.step#AdamW.step") spans kernels counted on their own
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
-    log(f"profile of one warm {modalities} clip: wall {wall_us / 1e3:.3f} ms, "
+    log(f"profile of one {what}: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(n for n, _ in by_name.values())} device events")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
@@ -515,7 +637,8 @@ def run_slice(gp, jp, rp):
 
     # the main path: vta
     res, launches = drive(engine, sample, "vta", dict(
-        stem_pool=1, attn_sublayer=15, ffn_sublayer=15, encoder_stack=1))
+        stem_pool=1, attn_sublayer=15, ffn_sublayer=15, encoder_stack=1,
+        flash_attention=0))
     check_embeddings(res, 125, 12)
     log(f"  gesture_emb {res['gesture_emb'].shape} content_emb "
         f"{res['content_emb'].shape}: finite, unit-norm rows")
@@ -524,7 +647,8 @@ def run_slice(gp, jp, rp):
 
     # the va path of the first slice, timed as before
     res, _ = drive(engine, sample, "va", dict(
-        stem_pool=1, attn_sublayer=12, ffn_sublayer=12, encoder_stack=0))
+        stem_pool=1, attn_sublayer=12, ffn_sublayer=12, encoder_stack=0,
+        flash_attention=0))
     check_embeddings(res, 125, 12)
     va = dict(warm_ms(engine, sample, "va"),
               **profile_clip(engine, sample, "va"))
@@ -546,7 +670,282 @@ def run_slice(gp, jp, rp):
             f"{cos:.8f} (tolerance {SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{key}: the card disagrees with the CPU")
-    return launches, dict(vta=vta, va=va)
+    return launches, dict(vta=vta, va=va), engine
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7: training and a long clip
+# ---------------------------------------------------------------------------
+
+# words of 4-6 characters: 2 PieceTokenizer pieces each, so a 10-word text is
+# 22 tokens with <s> and </s>, in the S = 32 bucket
+CORPUS_WORDS = ("quick", "brown", "jumps", "over", "lazy", "sleeps", "under",
+                "warm", "while", "birds", "sing", "softly", "near", "river")
+
+
+def write_corpus(root: Path, n_clips: int = 16, n_words: int = 30):
+    """A synthetic training corpus under `root` in the reference's formats:
+    per clip a transcript (four header lines, then WORD, START, END, SCORE
+    rows), a 16 kHz int16 wav and a (T, 1024) float32 feature file; and
+    the corpus CSV. -> (csv path, feature dir)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(SEED + 7)
+    feat_dir = root / "feats"
+    feat_dir.mkdir()
+    lines = ["filename,text_path,audio_path"]
+    for i in range(n_clips):
+        words = rng.choice(CORPUS_WORDS, n_words)
+        rows, t = [], 0.0
+        for w in words:
+            dur = float(rng.uniform(0.15, 0.3))
+            rows.append(f"{w}, {t:.2f}, {t + dur:.2f}, 0.95")
+            t += dur + float(rng.uniform(0.02, 0.08))
+        text = root / f"clip{i}.txt"
+        text.write_text("\n".join([f"Text: {' '.join(words)}", "Lang: en",
+                                   "", "WORD, START, END, SCORE", *rows])
+                        + "\n")
+        wav = root / f"clip{i}.wav"
+        wavfile.write(wav, 16000, (rng.standard_normal(int(t * 16000) + 3200)
+                                   * 3000).astype(np.int16))
+        np.save(feat_dir / f"clip{i}.npy", rng.standard_normal(
+            (int(t * 25) + 2, 1024), dtype=np.float32))
+        lines.append(f"clip{i},{text},{wav}")
+    csv = root / "corpus.csv"
+    csv.write_text("\n".join(lines) + "\n")
+    return csv, feat_dir
+
+
+def fixed_batch(tokenizer):
+    """One collated batch of 8 clips of 72..128 frames with 10-word texts:
+    T bucket 128, S bucket 32, W bucket 16 (CPU tensors)."""
+    import numpy as np
+
+    from jegal_torch.training.data import collate_training_batch
+
+    rng = np.random.default_rng(SEED + 9)
+    samples = []
+    for i in range(8):
+        t, n = 128 - 8 * i, 10
+        edges = np.linspace(0, t, n + 1).astype(int)
+        words = [str(w) for w in rng.choice(CORPUS_WORDS, n)]
+        samples.append(dict(
+            visual_feats=rng.standard_normal((t, 1024), dtype=np.float32),
+            text=" ".join(words),
+            wav=(rng.standard_normal(t * 640) * 3000).astype(np.float32),
+            word_boundaries=[[w, int(edges[j]), int(edges[j + 1]) - 1]
+                             for j, w in enumerate(words)]))
+    batch = collate_training_batch(samples, tokenizer)
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    if shapes["visual_feats"] != (8, 128, 1024) \
+            or shapes["input_ids"] != (8, 32):
+        raise AssertionError(f"the fixed batch has shapes {shapes}")
+    return batch
+
+
+def _grads(jp, rp, batch):
+    """Loss and every gradient leaf of one step's loss (gates 1, 1) at the
+    weights `jp` on their device."""
+    import torch
+
+    from jegal_torch.models.roberta import XLMR_BASE
+    from jegal_torch.training import trainer as TR
+
+    state = TR.init_state(jp, TR.make_optimizer())
+    leaves = TR.param_leaves(state.params)
+    loss = TR.loss_fn(state.params, rp, batch, (1.0, 1.0), XLMR_BASE)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+
+
+def train_card_vs_cpu(jp, rp, batch):
+    """Phase 6c: one step's loss and gradients, card against CPU."""
+    import torch
+
+    from jegal_torch.convert import tree_to_torch
+
+    loss_d, g_d = _grads(jp, rp, {k: v.cuda() for k, v in batch.items()})
+    rp_cpu = tree_to_torch({"embeddings": rp["embeddings"],
+                            "layers": rp["layers"]}, "cpu")
+    loss_c, g_c = _grads(tree_to_torch(jp, "cpu"), rp_cpu, batch)
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    norms = [g.norm().item() for g in g_c]
+    floor = TRAIN_NOISE_NORM * max(norms)
+    worst_cos, worst_leaf, noise, max_abs = 1.0, -1, 0, 0.0
+    for i, (a, b) in enumerate(zip(g_d, g_c)):
+        a = a.cpu()
+        max_abs = max(max_abs, (a - b).abs().max().item())
+        if norms[i] <= floor:
+            noise += 1
+            if a.norm().item() > floor:
+                raise AssertionError(f"gradient leaf {i}: zero on the CPU, "
+                                     f"{a.norm().item():.3e} on the card")
+            continue
+        cos = (torch.dot(a.reshape(-1).double(), b.reshape(-1).double())
+               / (a.double().norm() * b.double().norm())).item()
+        if cos < worst_cos:
+            worst_cos, worst_leaf = cos, i
+    ok = rel <= TRAIN_LOSS_RTOL and worst_cos >= TRAIN_GRAD_MIN_COS
+    log(f"  card vs CPU, one training step: loss {loss_d:.7f} vs "
+        f"{loss_c:.7f} (rel err {rel:.3e}, tolerance {TRAIN_LOSS_RTOL:g}); "
+        f"{len(g_c)} gradient leaves, min cosine {worst_cos:.8f} (leaf "
+        f"{worst_leaf}, tolerance {TRAIN_GRAD_MIN_COS}), {noise} leaves zero "
+        f"up to rounding on both, max abs err {max_abs:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training step: the card disagrees with the CPU")
+    return dict(loss_card=loss_d, loss_cpu=loss_c, loss_rel_err=rel,
+                min_grad_cos=worst_cos, noise_leaves=noise,
+                grad_max_abs_err=max_abs)
+
+
+def _jsonl(path: Path) -> list:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def run_training(jp, rp, batch):
+    """Phase 6: the training entry point, steady steps on a fixed batch
+    (`fixed_batch`), and card against CPU. rp: XLM-R with its stack
+    operands (the engine's copy)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from jegal_torch.models.roberta import XLMR_BASE
+    from jegal_torch.ops.kernels import _build
+    from jegal_torch.parallel.checkpoint import checkpoint_steps
+    from jegal_torch.training import loop as TL
+    from jegal_torch.training import trainer as TR
+
+    tok = word_tokenizer()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        csv, feat_dir = write_corpus(root)
+        ckpt, metrics = root / "ckpt", root / "train.jsonl"
+        kw = dict(batch_size=8, lr=1e-4, warmup_steps=2, cosine_decay=True,
+                  ckpt_dir=str(ckpt), ckpt_every=10, log_path=str(metrics),
+                  seed=SEED)
+        for steps, want_run, want_ckpts in ((10, 10, [10]),
+                                            (12, 2, [10, 12])):
+            log(f"training: loop.train to step {steps} over 16 synthetic "
+                f"clips, batch 8")
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = TL.train(str(csv), str(feat_dir), jp, rp, XLMR_BASE, tok,
+                           steps=steps, **kw)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            lines = _jsonl(metrics)
+            losses = [x["loss"] for x in lines]
+            log(f"  {res['steps']} steps in {wall:.2f} s, losses "
+                f"{losses}, launches {launches}, checkpoints "
+                f"{checkpoint_steps(str(ckpt))}")
+            if res["steps"] != want_run or [x["step"] for x in lines] != \
+                    list(range(1, steps + 1)):
+                raise AssertionError(f"loop.train ran {res['steps']} steps, "
+                                     f"logged {[x['step'] for x in lines]}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"non-finite training loss: {losses}")
+            if checkpoint_steps(str(ckpt)) != want_ckpts:
+                raise AssertionError(f"checkpoints "
+                                     f"{checkpoint_steps(str(ckpt))}, want "
+                                     f"{want_ckpts}")
+            if launches != dict(stem_pool=0, attn_sublayer=0, ffn_sublayer=0,
+                                encoder_stack=want_run,
+                                flash_attention=9 * want_run):
+                raise AssertionError(f"loop.train launches {launches}")
+            out[f"loop_to_{steps}"] = dict(steps_run=res["steps"],
+                                           wall_s=wall, losses=losses)
+
+    log("training: 23 steps on one fixed batch (B 8, T 128, S 32), gates "
+        "(1, 1)")
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    opt = TR.make_optimizer(lr=1e-4)
+    state = TR.init_state(jp, opt)
+    losses = []
+
+    def step():
+        nonlocal state
+        state, loss = TR.train_step(state, dev_batch, (1.0, 1.0),
+                                    roberta_params=rp, roberta_cfg=XLMR_BASE,
+                                    optimizer=opt)
+        losses.append(loss)
+        torch.cuda.synchronize()
+
+    _build.reset_launches()
+    step()
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches in one training step: {launches}")
+    want = dict(stem_pool=0, attn_sublayer=0, ffn_sublayer=0, encoder_stack=1,
+                flash_attention=9)
+    if launches != want:
+        raise AssertionError(f"training step: launches {launches}, want "
+                             f"{want}")
+    step()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    q1, ms, q3 = statistics.quantiles(walls, n=4)
+    prof = profile_run(step, "training step")
+    losses = [x.item() for x in losses]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"  warm training step: {ms:.3f} ms/step (median of 20, quartiles "
+        f"{q1:.3f} / {q3:.3f}); device busy {prof['device_busy_ms']:.3f} ms "
+        f"of one step; loss {losses[0]:.5f} -> {losses[-1]:.5f} (mean of "
+        f"first 5 {first:.5f}, last 5 {last:.5f})")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"the loss does not fall on a fixed batch: "
+                             f"{losses}")
+    out.update(launches_per_step=launches, ms_per_step=ms, ms_q1=q1,
+               ms_q3=q3, step_wall_ms_profiled=prof["wall_ms"],
+               device_busy_ms=prof["device_busy_ms"],
+               device_idle_share=1 - prof["device_busy_ms"] / ms,
+               losses=losses)
+    out["card_vs_cpu"] = train_card_vs_cpu(jp, rp, batch)
+    return out, launches
+
+
+def run_long_clip(engine, jp):
+    """Phase 7: a 1000-frame clip (bucket 1024) past the fused gate: the
+    gesture encoder's layer loop on the flash kernel."""
+    import numpy as np
+
+    from jegal_torch.api import JegalEngine
+
+    feats = np.random.default_rng(SEED + 8).standard_normal(
+        (1000, 1024), dtype=np.float32)
+    log("long clip: v on (1000, 1024) visual features, T bucket 1024")
+    res, launches = drive(engine, dict(visual_feats=feats), "v", dict(
+        stem_pool=0, attn_sublayer=0, ffn_sublayer=0, encoder_stack=0,
+        flash_attention=6))
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.extract(modalities="v", visual_feats=feats)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    on_cpu = JegalEngine(jp, device="cpu").extract(modalities="v",
+                                                   visual_feats=feats)
+    a, b = res["gesture_emb"], on_cpu["gesture_emb"]
+    for e in (a, b):
+        if e.shape != (1000, 512) or not np.isfinite(e).all():
+            raise AssertionError(f"long clip gesture_emb {e.shape}")
+    err = float(np.abs(a - b).max())
+    cos = float((a * b).sum(-1).min())
+    ok = err <= SLICE_ATOL and cos >= SLICE_MIN_COS
+    log(f"  warm long clip {statistics.median(walls):.3f} ms (median of 5); "
+        f"card vs CPU: max abs err {err:.3e} (tolerance {SLICE_ATOL:g}), "
+        f"min row cosine {cos:.8f} (tolerance {SLICE_MIN_COS}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("long clip: the card disagrees with the CPU")
+    return launches, dict(ms_per_clip=statistics.median(walls),
+                          max_abs_err=err, min_row_cos=cos)
 
 
 def smoke_text_ids():
@@ -608,17 +1007,24 @@ def main() -> int:
     rp = init_roberta_params(g, device=dev)                # xlm-roberta-base
     log(f"XLM-R base drawn in {time.perf_counter() - t0:.2f} s")
     ids32, mask32 = smoke_text_ids()
+    train_batch = fixed_batch(word_tokenizer())
 
     stem = check_stem(gp, dev)
     sub = check_sublayers(gp, jp, dev, mask32[0])
-    stack = check_stack(rp, dev, ids32, mask32)
-    launches, slice_stats = run_slice(gp, jp, rp)
+    stack = check_stack(rp, dev, ids32, mask32, train_batch)
+    flash = check_flash(dev)
+    launches, slice_stats, engine = run_slice(gp, jp, rp)
     log("slice: " + json.dumps(slice_stats))
+    training, step_launches = run_training(jp, engine.roberta_params,
+                                           train_batch)
+    long_launches, training["long_clip"] = run_long_clip(engine, jp)
+    launches["flash_attention"] = step_launches["flash_attention"]
 
     rows = {"stem_pool": dict(stem, per_launch=None),
             "attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
-            "encoder_stack": per_clip(stack)}
+            "encoder_stack": per_clip(stack),
+            "flash_attention": per_clip(flash, "launches_per_step")}
     where = {
         "stem_pool": ("jegal_torch/csrc/stem.cu",
                       "jegal_tpu/ops/pallas/stem.py:80"),
@@ -628,14 +1034,17 @@ def main() -> int:
                          "jegal_tpu/ops/pallas/fused_layer.py:173"),
         "encoder_stack": ("jegal_torch/csrc/encoder_stack.cu",
                           "jegal_tpu/ops/pallas/fused_layer.py:221"),
+        "flash_attention": ("jegal_torch/csrc/flash_attention.cu",
+                            "jegal_tpu/ops/pallas/flash_attention.py:30"),
     }
     kernels = []
     for name, row in rows.items():
-        want = sum(r["launches_per_clip"] for r in row["per_launch"] or
-                   [{"launches_per_clip": 1}])
+        key = ("launches_per_step" if name == "flash_attention"
+               else "launches_per_clip")
+        want = sum(r[key] for r in row["per_launch"] or [{key: 1}])
         if launches[name] != want:
-            raise AssertionError(f"{name}: {launches[name]} launches on the "
-                                 f"main path, the timed shapes assume {want}")
+            raise AssertionError(f"{name}: {launches[name]} launches on its "
+                                 f"path, the timed shapes assume {want}")
         source, replaces = where[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -643,6 +1052,15 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], per_launch=row["per_launch"]))
+    step_want = sum(r["launches_per_step"] for r in stack)
+    if step_launches["encoder_stack"] != step_want:
+        raise AssertionError(f"encoder_stack: {step_launches} in a training "
+                             f"step, the timed shapes assume {step_want}")
+    long_want = sum(r["launches_per_long_clip"] for r in flash)
+    if long_launches["flash_attention"] != long_want:
+        raise AssertionError(f"flash_attention: {long_launches} on the long "
+                             f"clip, the timed shapes assume {long_want}")
+    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": kernels}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {

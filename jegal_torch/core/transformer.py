@@ -8,10 +8,18 @@
 Masked scores are FILLED with -1e9 in float32 before the softmax
 (reference models/modules.py:61-75).
 
-On a CUDA tensor both stacks run through the fused sublayer kernels
+On a CUDA tensor the stacks run through the fused sublayer kernels
 (ops/kernels/fused_layer.py), as the JAX package picks its Pallas kernels
 per backend (jax.lax.platform_dependent at transformer.py:237 and
 gestsync.py:351-355); on a CPU tensor they run the plain layer loop below.
+The pre-norm `encoder_stack` takes the fused kernels only where the JAX
+package does (`fused=True` and `fused_layer.fused_stack_ok`); otherwise it
+runs the layer loop, whose self-attention is the flash attention kernel on
+a CUDA tensor (ops/kernels/flash_attention.py). Training passes
+fused=False: the fused kernels have no backward, the flash attention has
+one. On a CUDA tensor nothing runs the plain attention: an input that no
+kernel takes (a mask that is not a key mask, a shape `_flash_ok` refuses)
+raises.
 
 Parameter trees (JAX layout):
   mha:   {"q": linear, "k": linear, "v": linear, "o": linear}
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from jegal_torch.core.layers import linear, ref_layer_norm, std_layer_norm
+from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
 
 
@@ -64,14 +73,54 @@ def masked_attention_weights(scores, mask):
     return torch.softmax(scores, dim=-1)
 
 
+def _on_card(t) -> bool:
+    """Whether `t` lies on the card: the one device test of the routing in
+    this module, kept in one place so that the CPU tests can drive the
+    card's routing with the kernels' plain twins."""
+    return t.is_cuda
+
+
+def _key_mask(mask, b: int, t: int):
+    """A mask reduced to (B, T) key validity, or None for no mask. A mask
+    that is not a pure key mask (a genuinely 2-D (Tq, Tk) one) has no
+    kernel form and raises: only the card's routing calls this."""
+    if mask is None:
+        return None
+    if mask.numel() != b * t:
+        raise ValueError(
+            f"the encoder kernels take a key-validity mask of {b}x{t} "
+            f"entries, got shape {tuple(mask.shape)}")
+    return mask.reshape(b, t)
+
+
+def _flash_ok(t: int, d_k: int) -> bool:
+    """The JAX package's dispatch gate (transformer.py:110-138): T tiles
+    into one block of <= 128 rows or into 128-row blocks, and d_k % 32 ==
+    0. Both JEGAL encoders qualify at every bucket (d_k 64 and 96); the
+    21-token GestSync windows do not (they run the fused kernels)."""
+    return t % 8 == 0 and (t <= 128 or t % 128 == 0) and d_k % 32 == 0
+
+
 def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
-    """Dense MHA (reference models/modules.py:88-120). mask: None or
+    """MHA (reference models/modules.py:88-120). mask: None or
     broadcastable to (B, 1, Tq, Tk) after a head-axis unsqueeze — pass
-    (B, 1, Tk) or (B, Tq, Tk)."""
+    (B, 1, Tk) or (B, Tq, Tk). On a CUDA tensor this is
+    `flash_attention_diff` (transformer.py:169-188), which takes
+    self-attention with a key mask at a shape `_flash_ok` admits; anything
+    else raises there. On a CPU tensor it is the dense reference."""
     q = _split_heads(linear(params["q"], q_in), num_heads)
     k = _split_heads(linear(params["k"], k_in), num_heads)
     v = _split_heads(linear(params["v"], v_in), num_heads)
-    d_k = q.shape[-1]
+    b, _, t, d_k = q.shape
+    if _on_card(q):
+        if q_in is not k_in or t != k.shape[2] or not _flash_ok(t, d_k):
+            raise ValueError(
+                f"the flash attention kernel takes self-attention with T % 8 "
+                f"== 0, T <= 128 or T % 128 == 0, and d_k % 32 == 0; got "
+                f"Tq {t}, Tk {k.shape[2]}, d_k {d_k}"
+                + ("" if q_in is k_in else ", cross-attention"))
+        out = FA.flash_attention_diff(q, k, v, _key_mask(mask, b, t))
+        return linear(params["o"], _merge_heads(out))
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_k)
     m = mask
     if m is not None:
@@ -85,18 +134,6 @@ def _ffn(params, x):
     return linear(params["w2"], torch.relu(linear(params["w1"], x)))
 
 
-def _key_mask(mask, b: int, t: int):
-    """A mask reduced to (B*T,) key validity, or None for no mask. A mask
-    that is not a pure key mask has no fused form and raises."""
-    if mask is None:
-        return None
-    if mask.numel() != b * t:
-        raise ValueError(
-            f"the fused encoder takes a key-validity mask of {b}x{t} "
-            f"entries, got shape {tuple(mask.shape)}")
-    return mask.reshape(-1)
-
-
 def encoder_layer(params, x, mask, num_heads: int):
     h = ref_layer_norm(params["norm1"], x)
     x = x + multi_head_attention(params["attn"], h, h, h, mask, num_heads)
@@ -104,11 +141,21 @@ def encoder_layer(params, x, mask, num_heads: int):
     return x + _ffn(params["ff"], h)
 
 
-def encoder_stack(params, x, mask, num_heads: int):
-    """N pre-norm layers + the final reference LayerNorm. x: (B, T, d)."""
-    if x.is_cuda:
-        b, t, d = x.shape
-        km = _key_mask(mask, b, t)
+def encoder_stack(params, x, mask, num_heads: int, fused: bool = True):
+    """N pre-norm layers + the final reference LayerNorm. x: (B, T, d).
+
+    On a CUDA tensor, with fused=True and a shape that
+    fused_layer.fused_stack_ok admits (T <= 512), the layers run as the
+    fused sublayer kernels over the (B*T, d) rows. Otherwise the layer loop
+    below runs: on the CPU, and on the card for T > 512 (a long clip) and
+    with fused=False, which training passes because the fused kernels have
+    no backward (JAX package transformer.py:206-247); its attention there
+    is the flash attention kernel. On the card the mask must be a key
+    mask."""
+    b, t, d = x.shape
+    if _on_card(x) and fused and FL.fused_stack_ok(t, d, num_heads):
+        kmask = _key_mask(mask, b, t)
+        km = None if kmask is None else kmask.reshape(-1)
         out = FL.fused_prenorm_stack(params, x.reshape(b * t, d), t,
                                      num_heads, kmask=km)
         return ref_layer_norm(params["norm"], out.reshape(b, t, d))
@@ -126,9 +173,10 @@ def torch_encoder_layer(params, x, mask, num_heads: int):
 
 def torch_encoder_stack(params, x, mask, num_heads: int):
     """Post-norm stack over x: (B, T, d)."""
-    if x.is_cuda:
+    if _on_card(x):
         b, t, d = x.shape
-        km = _key_mask(mask, b, t)
+        kmask = _key_mask(mask, b, t)
+        km = None if kmask is None else kmask.reshape(-1)
         out = FL.fused_torch_stack(params, x.reshape(b * t, d), t,
                                    num_heads, kmask=km)
         return out.reshape(b, t, d)

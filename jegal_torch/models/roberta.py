@@ -112,8 +112,17 @@ def stack_layers(params):
 
 def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE):
     """input_ids, attention_mask: (B, S) -> last_hidden_state (B, S, d).
-    On a CUDA tensor the stack runs on `fused_ops` when `stack_layers` has
-    added them, else on operands stacked for this call."""
+
+    On a CUDA tensor the stack is one kernel call (any S: the positions cap
+    it at 512), on `fused_ops` when `stack_layers` has added them, else on
+    operands stacked for this call. On a CPU tensor the plain layer loop
+    runs.
+
+    The kernel has no backward, and its wrapper raises under a gradient.
+    The trainer calls this backbone inside torch.no_grad() (the counterpart
+    of the JAX trainer's jax.lax.stop_gradient), so the frozen backbone
+    runs on the kernel; the JAX trainer passes fused=False only because a
+    Pallas kernel there has no VJP at all, and this backbone needs none."""
     x = embeddings(params["embeddings"], input_ids, cfg)
     b, s, d = x.shape
     if x.is_cuda:

@@ -100,3 +100,15 @@ def wav2filterbanks_np(wav, mel_basis: np.ndarray | None = None
     mag = np.abs(spec).astype(np.float32).transpose(0, 2, 1)[:, :, :-1]
     feats = np.log(mel_basis @ mag + LOG_OFFSET)
     return feats.transpose(0, 2, 1).astype(np.float32)
+
+
+def load_wav(path: str) -> np.ndarray:
+    """A wav file as float32 at raw int16 amplitude scale, first channel
+    only (reference utils/audio_utils.py:20-25: scipy read, no
+    rescaling)."""
+    from scipy.io import wavfile
+
+    _, wav = wavfile.read(path)
+    if wav.ndim > 1:
+        wav = wav[:, 0]
+    return np.asarray(wav, dtype=np.float32)

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"stem_pool": 0, "attn_sublayer": 0, "ffn_sublayer": 0,
-            "encoder_stack": 0}
+            "encoder_stack": 0, "flash_attention": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -114,6 +114,22 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.jt_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: error {rc} ({msg})")
+
+
+def refuse_grad(what: str, *operands) -> None:
+    """Raise when autograd would need a gradient through a kernel that has
+    none: the kernels write into fresh buffers through ctypes, so their
+    output would carry no grad_fn and a training step would silently train
+    nothing. Inference runs under torch.no_grad() or inference_mode();
+    training takes the differentiable paths (fused=False, and
+    flash_attention.flash_attention_diff)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"the {what} has no backward and an operand requires grad: run "
+            f"it under torch.no_grad(), or take the differentiable path")
 
 
 def check_operand(name: str, t, shape, device) -> None:

@@ -16,7 +16,9 @@ or one T- or S-token sequence); attention never crosses a segment.
 
 `attn_sublayer`, `ffn_sublayer` and `encoder_stack` launch their kernel
 for a CUDA tensor and run the plain twin for a CPU tensor. The kernels take
-float32 only.
+float32 only and have no backward: on a CUDA tensor that needs a gradient
+they raise (training runs the layer loop, core/transformer.encoder_stack
+with fused=False).
 """
 
 from __future__ import annotations
@@ -42,6 +44,31 @@ HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
 # per-layer operands of the stack kernel, in jt_encoder_stack's order
 STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2", "g1", "be1",
               "g2", "be2")
+
+# The JAX package's gate of its fused path (fused_layer.py:65-86), kept so
+# that the port takes the fused sublayers exactly where the JAX package
+# does: segments are packed into blocks of ~336 rows, and one segment must
+# fit a block. The CUDA kernels themselves take any segment length; a
+# longer sequence (a clip past 512 frames) runs the layer loop and its
+# flash attention, as in the JAX package.
+_TARGET_ROWS = 336
+_MAX_SEG = 512
+
+
+def block_rows(seg: int) -> int:
+    """Rows per block of the JAX package's fused kernels for segment
+    length `seg` (whole segments)."""
+    if seg > _MAX_SEG:
+        raise ValueError(f"segment length {seg} > {_MAX_SEG}")
+    return seg * max(1, _TARGET_ROWS // seg)
+
+
+def fused_stack_ok(seg: int, d: int, num_heads: int) -> bool:
+    """Shape gate of the fused path: whole segments tile into 8-row
+    aligned blocks and the heads split d evenly."""
+    if seg > _MAX_SEG or d % num_heads or d % 128:
+        return False
+    return block_rows(seg) % 8 == 0
 
 
 def _ln(x, g, b, kind: str):
@@ -172,6 +199,7 @@ def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
     if not x.is_cuda:
         return attn_sublayer_plain(x, w, seg, heads, prenorm=prenorm,
                                    ln_kind=ln_kind, kmask=kmask)
+    _build.refuse_grad("attention sublayer kernel", x, kmask, *w.values())
     _check_rows(x, seg, heads)
     r, d = x.shape
     dev = x.device
@@ -201,6 +229,7 @@ def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
     if not x.is_cuda:
         return ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind=ln_kind,
                                   activation=activation)
+    _build.refuse_grad("FFN sublayer kernel", x, *w.values())
     _check_rows(x)
     r, d = x.shape
     dff = w["w1"].shape[1]
@@ -231,6 +260,7 @@ def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
         return encoder_stack_plain(x, w, seg, heads, prenorm=prenorm,
                                    ln_kind=ln_kind, activation=activation,
                                    kmask=kmask)
+    _build.refuse_grad("encoder stack kernel", x, kmask, *w.values())
     _check_rows(x, seg, heads)
     r, d = x.shape
     n_l, dff = w["w1"].shape[0], w["w1"].shape[-1]

@@ -68,10 +68,12 @@ def _lib():
 
 def stem_pool(frames, weight, scale, bias):
     """Fused stem over float32 frames (T4, H, W, 3) in [0, 1] ->
-    (T4 - 4, J, W_pool, 64). The kernel for a CUDA tensor, the plain twin
+    (T4 - 4, J, W_pool, 64). The kernel for a CUDA tensor (it has no
+    backward, and raises when an operand needs a gradient), the plain twin
     for a CPU one."""
     if not frames.is_cuda:
         return stem_pool_plain(frames, weight, scale, bias)
+    _build.refuse_grad("stem kernel", frames, weight, scale, bias)
     if frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be (T, H, W, 3), got "
                          f"{tuple(frames.shape)}")

@@ -2,8 +2,11 @@
 the main path does not reach: ragged and long segments (several key tiles
 of the online softmax), a fully masked sequence, head width 96, the GELU
 activation, a small stem geometry with a ragged pooled edge, and the
-encoder-stack kernel over 1 and 12 layers in both norm placements; and the
-wrappers' refusals. Marked `cuda`: each test skips without a card.
+encoder-stack kernel over 1 and 12 layers in both norm placements; the
+flash attention kernel at the training and long-clip shapes, forward and
+backward; the wrappers' refusals, a gradient through a kernel that has
+no backward among them; and the encoders' refusal of an input no kernel
+takes. Marked `cuda`: each test skips without a card.
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
@@ -19,6 +22,7 @@ import torch
 from jegal_torch.convert import init_roberta_params, tree_to_torch
 from jegal_torch.models import roberta as R
 from jegal_torch.ops.kernels import _build
+from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
 from jegal_torch.ops.kernels import stem as S
 
@@ -190,3 +194,121 @@ def test_wrappers_refuse(dev):
         S.stem_pool(torch.rand(9, 54, 96, 3, device=dev).double(),
                     torch.zeros(5, 7, 7, 3, 64, device=dev),
                     torch.ones(64, device=dev), torch.zeros(64, device=dev))
+
+
+def _qkvm(b, h, t, d, dev, seed=0):
+    """q, k, v (B, H, T, D) and a (B, T) key mask: a pad tail in every
+    row and, in the last batch row when B > 1, every key masked."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev) for _ in range(3))
+    mask = torch.ones(b, t)
+    mask[:, t - t // 4:] = 0.0
+    if b > 1:
+        mask[-1] = 0.0
+    return q, k, v, mask.to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 128, 64), (8, 8, 32, 96),
+                                   (1, 8, 1024, 64), (2, 3, 100, 96)])
+def test_flash_attention(dev, shape):
+    q, k, v, mask = _qkvm(*shape, dev)
+    _build.reset_launches()
+    got = FA.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(
+        {k_: 0 for k_ in _build.LAUNCHES}, flash_attention=1)
+    want = FA.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    # the transposed head views of core/transformer._split_heads
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(FA.flash_attention(qt, k, v, mask), got,
+                               rtol=0, atol=0)
+
+
+def _grads(fn, q, k, v, mask, g):
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fn(*leaves, mask).backward(g)
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 128, 64), (8, 8, 32, 96)])
+def test_flash_attention_backward(dev, shape):
+    """flash_attention_diff (kernel forward, dense backward) against the
+    plain twin's own autograd, both on the card, where every row has a
+    valid key. A fully masked row is the one place the two differ by
+    design: the JAX package's VJP (flash_attention.py:91-107), which the
+    port keeps, does not zero the gradient of the -1e9-filled scores, so
+    its uniform softmax passes a gradient to q and k, where autograd of
+    masked_fill passes none. There the card's backward is held against the
+    same VJP on the CPU (which tests/test_torch_flash.py holds against
+    jax.vjp)."""
+    q, k, v, mask = _qkvm(*shape, dev, seed=1)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)) \
+        .to(dev)
+    rows = slice(0, shape[0] - 1)          # the rows with a valid key
+    got = _grads(FA.flash_attention_diff, q, k, v, mask, g)
+    want = _grads(FA.flash_attention_plain, q[rows], k[rows], v[rows],
+                  mask[rows], g[rows])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[rows], b, rtol=0, atol=ATOL)
+    on_cpu = FA.flash_attention_bwd(q.cpu(), k.cpu(), v.cpu(), mask.cpu(),
+                                    g.cpu())
+    for a, b in zip(got, on_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=ATOL)
+
+
+def test_kernels_without_backward_refuse_gradients(dev):
+    """No kernel wrapper returns an output without grad_fn for an operand
+    that needs a gradient: each raises, and runs under torch.no_grad()."""
+    w = _weights(512, 2048, dev)
+    x = torch.randn(42, 512, device=dev, requires_grad=True)
+    stacked = {k: v[None].contiguous() for k, v in w.items()}
+    frames = torch.rand(9, 54, 96, 3, device=dev, requires_grad=True)
+    sw = torch.zeros(5, 7, 7, 3, 64, device=dev)
+    q, k, v, mask = _qkvm(1, 8, 32, 64, dev)
+    calls = [
+        lambda: FL.attn_sublayer(x, w, 21, 8, prenorm=False, ln_kind="std"),
+        lambda: FL.ffn_sublayer(x, w, prenorm=True, ln_kind="ref"),
+        lambda: FL.encoder_stack(x, stacked, 21, 8, prenorm=False,
+                                 ln_kind="std"),
+        lambda: S.stem_pool(frames, sw, torch.ones(64, device=dev),
+                            torch.zeros(64, device=dev)),
+        lambda: FA.flash_attention(q.requires_grad_(True), k, v, mask),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()).all()
+    # a weight that needs a gradient is refused as well
+    with pytest.raises(RuntimeError, match="no backward"):
+        FL.ffn_sublayer(x.detach(), dict(w, w1=w["w1"].requires_grad_(True)),
+                        prenorm=False, ln_kind="std")
+    with pytest.raises(ValueError, match="head width"):
+        FA.flash_attention(*(torch.zeros(1, 2, 16, 32, device=dev)
+                             for _ in range(3)))
+
+
+def test_card_routing_raises_where_no_kernel_takes_the_input(dev):
+    """On CUDA tensors the encoders never fall back to the plain attention:
+    a mask that is not a key mask, or a length the flash gate refuses,
+    raises before any kernel launches."""
+    from jegal_torch.convert import init_jegal_params
+    from jegal_torch.core import transformer as TT
+
+    enc = init_jegal_params(torch.Generator().manual_seed(5), dev)[
+        "encoder_rgb"]
+    x = torch.randn(2, 32, 512, device=dev)
+    pair = torch.ones(2, 32, 32, device=dev)     # (B, Tq, Tk): no key mask
+    calls = [
+        lambda: TT.encoder_stack(enc, x, pair, 8),
+        lambda: TT.encoder_stack(enc, x, pair, 8, fused=False),
+        lambda: TT.encoder_stack(enc, x[:, :21], None, 8, fused=False),
+        lambda: TT.torch_encoder_stack(enc, x, pair, 8),
+    ]
+    for call in calls:
+        _build.reset_launches()
+        with torch.no_grad(), pytest.raises(ValueError):
+            call()
+        assert not any(_build.LAUNCHES.values())

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels, drive its `vta` extraction, its training
-and a long clip on one card.
+"""Build the port's CUDA kernels, drive its `vta` extraction on raw and
+planar frames, one clip and in batches, its training and a long clip on
+one card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -27,13 +28,34 @@ Phases, in order; any failed check raises, so the script exits non-zero:
  4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
     5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
     samples of 16 kHz audio, 12 word boundaries), with every launch counter
-    set to 0 just before and read just after; unit-norm finite rows of the
-    right shapes; warm ms/clip (median and quartiles of 30, host clock), and
-    a torch.profiler breakdown of one clip's device time; then the `va`
+    set to 0 just before and read just after (stem 1, attention 15, FFN 15,
+    stack 1, every other kernel 0); unit-norm finite rows of the right
+    shapes; warm ms/clip (median and quartiles of 30, host clock), and a
+    torch.profiler breakdown of one clip's device time; then the `va`
     timing of the same clip as before;
  5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
     the port on the CPU (full-width XLM-R copied to the CPU);
- 6. training, full-width JEGAL with the frozen XLM-R base: (a) the entry
+ 6. planar frames, the band stem, block 2 and extract_many: (a) at phase
+    3's T=128 bucket, the window stem's planar entry on the (152, 90, 27,
+    160) uint8 frames of the same pixels, the band stem on the float and
+    the planar frames, and block 2 on the stem's (148, 43, 78, 64) output,
+    each against its twin (and the stems against the window stem on the
+    float frames), then timed as in phase 3; (b) phase 4's clip repacked
+    by jegal_torch.ops.video.s2d_repack with its chin rows, `extract(
+    modalities="vta", frames=planar)` under the tower's defaults (launches:
+    planar stem 1, attention 15, FFN 15, stack 1, every other kernel 0) and
+    with stem_impl="band", conv2_impl="kernel" (band stem 1, block 2 1,
+    the same others), each within abs 1e-4 and min row cosine 0.99999 of
+    phase 4's raw-frame embeddings, with warm ms/clip and a profile; (c)
+    `extract_many` over eight planar `vta` clips (T = 100, 110, 120, 125,
+    125, 128 and 200, 250: two T buckets; batch_size 4 and the ladder:
+    chunks of 4, 2 and 2) under both settings: launches checked against the
+    count the chunks imply (a tower launch per padded clip and 160-frame
+    piece, 10 in all; 15 attention, 15 FFN and 1 stack a chunk), every
+    result within the same bars of the single-clip `extract` of its sample,
+    warm clips/s (median of 5 calls) with a profile of one call, and the
+    host's waits for the card in the pipeline's settles over one call;
+ 7. training, full-width JEGAL with the frozen XLM-R base: (a) the entry
     point, `training.loop.train`, for 10 steps at batch 8 with warmup and
     cosine over a synthetic 16-clip corpus written to a temporary
     directory, then again to step 12, resuming from its step-10
@@ -43,10 +65,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     quartiles of 20), one step's device busy time (torch.profiler), and a
     falling loss; (c) one step of the same weights and batch on the card
     against the port on the CPU, loss and every gradient leaf;
- 7. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
+ 8. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
     with T = 1000 (bucket 1024, past the fused gate's 512): 6 flash
     launches and no sublayer launch, and the card against the CPU;
- 8. a `training` JSON line, one `kernels` JSON line, the card line, and
+ 9. a `training` JSON line, one `kernels` JSON line, the card line, and
     last the `ok` JSON line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
@@ -56,8 +78,14 @@ text encoder, one XLM-R stack), with each shape's own numbers under
 `per_launch` (a shape with 0 launches per clip is checked and timed, and
 adds nothing). `launches` is the count from phase 4. The flash attention
 row is per training step in the same way (6 gesture and 3 text launches);
-its `launches` is the count of one step of phase 6(b), and its long-clip
-shape, 0 launches a step, carries its 6 launches a clip from phase 7.
+its `launches` is the count of one step of phase 7(b), and its long-clip
+shape, 0 launches a step, carries its 6 launches a clip from phase 8. The
+rows `stem_pool_planar`, `stem_band` and `conv2` take their launches from
+phase 6(b)'s planar clip under the setting that runs each (`path`), and
+their times from phase 6(a) at that clip's entry: planar frames for both
+stems (the band stem's float-entry numbers under `per_launch`). Their
+library yardsticks are phase 3's `F.conv3d` stem on the float frames of the
+same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -182,6 +210,17 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
 
 
+def stem_flops(t_in: int, h: int, w: int) -> float:
+    """Operations the fused stem must do on (t_in, h, w) frames: the
+    5x7x7x3 products of each conv position the pooled output reads,
+    (2 J + 1) x (2 Wp + 1) a frame (the 3x3/2 pool never reads a trailing
+    odd conv row or column), for all 64 channels."""
+    from jegal_torch.ops.kernels import stem as S
+
+    t_out, j, wp, c = S.pooled_shape(t_in, h, w)
+    return 2.0 * t_out * (2 * j + 1) * (2 * wp + 1) * c * (5 * 7 * 7 * 3)
+
+
 def max_err(got, want, what: str, atol: float) -> float:
     import torch
 
@@ -233,18 +272,16 @@ def check_stem(gp, dev):
 
     t_in, h, w = frames.shape[:3]
     t_out, j, wp, c = S.pooled_shape(t_in, h, w)
-    hc, wc_ = (h - 7) // 3 + 1, (w - 7) // 3 + 1
-    flops = 2.0 * t_out * hc * wc_ * c * (5 * 7 * 7 * 3)
     nbytes = 4.0 * (frames.numel() + ops[0].numel() + 2 * c
                     + t_out * j * wp * c)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(stem_flops(t_in, h, w), nbytes)
     row = dict(ms=cuda_ms(lambda: S.stem_pool(frames, *ops)),
                plain_ms=cuda_ms(lambda: S.stem_pool_plain(frames, *ops)),
                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
                max_abs_err=err)
     log(f"  stem_pool ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
         f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
-    return row
+    return row, (u8, chin, frames, library)
 
 
 def _sublayer_cases(gp, jp, dev, text_mask):
@@ -591,17 +628,27 @@ def profile_run(fn, what: str):
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3)
 
 
-def drive(engine, sample, modalities, want):
-    """One clip with every launch counter set to 0 just before and read just
-    after; `want` is the launch count each kernel must show."""
+def counts(**want):
+    """Every kernel's launch count: 0 unless given."""
     from jegal_torch.ops.kernels import _build
 
+    return dict({k: 0 for k in _build.LAUNCHES}, **want)
+
+
+def drive(engine, sample, modalities, want, what=None):
+    """One clip with every launch counter set to 0 just before and read just
+    after; `want` is the launch count of each kernel that must launch (every
+    other kernel must not)."""
+    from jegal_torch.ops.kernels import _build
+
+    what = what or f"the {modalities} path"
+    want = counts(**want)
     _build.reset_launches()
     res = engine.extract(modalities=modalities, **sample)
     launches = dict(_build.LAUNCHES)
-    log(f"  launches on the {modalities} path: {launches}")
+    log(f"  launches on {what}: {launches}")
     if launches != want:
-        raise AssertionError(f"{modalities}: launches {launches}, want {want}")
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
     return res, launches
 
 
@@ -636,9 +683,7 @@ def run_slice(gp, jp, rp):
     log(f"  first clip {1e3 * (time.perf_counter() - t0):.1f} ms")
 
     # the main path: vta
-    res, launches = drive(engine, sample, "vta", dict(
-        stem_pool=1, attn_sublayer=15, ffn_sublayer=15, encoder_stack=1,
-        flash_attention=0))
+    res, launches = drive(engine, sample, "vta", VTA_LAUNCHES)
     check_embeddings(res, 125, 12)
     log(f"  gesture_emb {res['gesture_emb'].shape} content_emb "
         f"{res['content_emb'].shape}: finite, unit-norm rows")
@@ -646,10 +691,9 @@ def run_slice(gp, jp, rp):
                **profile_clip(engine, sample, "vta"))
 
     # the va path of the first slice, timed as before
-    res, _ = drive(engine, sample, "va", dict(
-        stem_pool=1, attn_sublayer=12, ffn_sublayer=12, encoder_stack=0,
-        flash_attention=0))
-    check_embeddings(res, 125, 12)
+    res_va, _ = drive(engine, sample, "va", dict(
+        stem_pool=1, attn_sublayer=12, ffn_sublayer=12))
+    check_embeddings(res_va, 125, 12)
     va = dict(warm_ms(engine, sample, "va"),
               **profile_clip(engine, sample, "va"))
 
@@ -670,11 +714,290 @@ def run_slice(gp, jp, rp):
             f"{cos:.8f} (tolerance {SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{key}: the card disagrees with the CPU")
-    return launches, dict(vta=vta, va=va), engine
+    return launches, dict(vta=vta, va=va), engine, sample, res
 
 
 # ---------------------------------------------------------------------------
-# Phases 6-7: training and a long clip
+# Phase 6: planar frames, the band stem, block 2, and extract_many
+# ---------------------------------------------------------------------------
+
+# launches of one `vta` clip (phase 4) with the default tower settings
+VTA_LAUNCHES = dict(stem_pool=1, attn_sublayer=15, ffn_sublayer=15,
+                    encoder_stack=1)
+# the tower settings of phase 6: the defaults, then the band stem and the
+# block-2 kernel
+SETTINGS = (("defaults", {}),
+            ("band + kernel", dict(stem_impl="band", conv2_impl="kernel")))
+
+
+def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
+    """Phase 6a: the planar entry of the window stem, the band stem on both
+    entries, and block 2, each against its twin at the main path's shapes
+    (a T = 128 bucket: 152 padded frames, the planar frames the same pixels
+    as phase 3's float frames), then timed beside its bound, its twin and a
+    library yardstick. -> {kernel: [row per shape]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from jegal_torch.core.layers import f32_convs
+    from jegal_torch.ops.kernels import conv2 as C2
+    from jegal_torch.ops.kernels import stem as S
+    from jegal_torch.ops.video import edge_pad, s2d_repack
+
+    planar = edge_pad(torch.from_numpy(s2d_repack(u8.cpu().numpy(),
+                                                  chin.cpu().numpy()))).to(dev)
+    ops = S.stem_kernel_params(gp["net_vid"][0])
+    t_in, h, w = frames.shape[:3]
+    t_out, n_j, wp, c = S.pooled_shape(t_in, h, w)
+    flops = stem_flops(t_in, h, w)
+    param_bytes = 4.0 * (ops[0].numel() + 2 * c)
+    out_bytes = 4.0 * t_out * n_j * wp * c
+    log(f"planar stem: planar {tuple(planar.shape)} uint8 -> "
+        f"{(t_out, n_j, wp, c)}; band stem on frames {tuple(frames.shape)} "
+        f"and on the planar frames")
+    rows: dict = {"stem_pool_planar": [], "stem_band": [], "conv2": []}
+    reference = S.stem_pool(frames, *ops)
+    for name, entry, impl, x, in_bytes in (
+            ("stem_pool_planar", "planar", "window", planar, planar.numel()),
+            ("stem_band", "float", "band", frames, 4.0 * frames.numel()),
+            ("stem_band", "planar", "band", planar, planar.numel())):
+        if entry == "planar":
+            def kern(x=x, impl=impl):
+                return S.stem_pool_planar(x, *ops, impl=impl)
+
+            def plain(x=x):
+                return S.stem_pool_planar_plain(x, *ops)
+        else:
+            def kern(x=x, impl=impl):
+                return S.stem_pool(x, *ops, impl=impl)
+
+            def plain(x=x):
+                return S.stem_pool_plain(x, *ops)
+        label = f"{name} ({entry} frames)"
+        err = max_err(kern(), plain(), label, KERNEL_ATOL)
+        max_err(kern(), reference, f"{label} vs the window stem on the "
+                f"float frames", KERNEL_ATOL)
+        b_ms, b_by = bound(flops, in_bytes + param_bytes + out_bytes)
+        row = dict(shape=f"{entry} frames {tuple(x.shape)}",
+                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(stem_library), bound_ms=b_ms,
+                   bound_by=b_by, max_abs_err=err)
+        rows[name].append(row)
+        log(f"  {label} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+            f"library {row['library_ms']:.4f} (on the float frames) bound "
+            f"{b_ms:.4f} ({b_by})")
+
+    blk2 = gp["net_vid"][1]
+    c2 = C2.conv2_kernel_params(blk2)
+    x = reference
+    xc = x.permute(0, 3, 1, 2).contiguous()                    # NCHW
+    w2 = blk2["conv"]["kernel"][0].permute(3, 2, 0, 1).contiguous()
+    bn = blk2["bn"]
+
+    def library():
+        with f32_convs():
+            y = F.conv2d(xc, w2, blk2["conv"]["bias"], stride=2)
+        return F.relu(F.batch_norm(y, bn["mean"], bn["var"], bn["scale"],
+                                   bn["bias"], False, 0.0, 1e-5))
+
+    t2, j2, wp2, c_out = C2.out_shape(*x.shape[:3])
+    log(f"conv2: {tuple(x.shape)} -> {(t2, j2, wp2, c_out)}")
+    err = max_err(C2.conv2_bn_relu(x, *c2), C2.conv2_bn_relu_plain(x, *c2),
+                  "conv2", KERNEL_ATOL)
+    max_err(C2.conv2_bn_relu(x, *c2), library().permute(0, 2, 3, 1),
+            "conv2 vs F.conv2d + F.batch_norm + ReLU", KERNEL_ATOL)
+    b_ms, b_by = bound(2.0 * t2 * j2 * wp2 * c_out * 25 * 64,
+                       4.0 * (x.numel() + c2[0].numel() + 2 * c_out
+                              + t2 * j2 * wp2 * c_out))
+    row = dict(shape=f"{tuple(x.shape)}",
+               ms=cuda_ms(lambda: C2.conv2_bn_relu(x, *c2)),
+               plain_ms=cuda_ms(lambda: C2.conv2_bn_relu_plain(x, *c2)),
+               library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err)
+    rows["conv2"].append(row)
+    log(f"  conv2 ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library "
+        f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+    return rows
+
+
+def compare(a, b, what: str):
+    """Embeddings of one sample from two runs: max abs err and min row
+    cosine of each output against SLICE_ATOL / SLICE_MIN_COS."""
+    import numpy as np
+
+    worst = dict(err=0.0, cos=1.0)
+    for key in ("gesture_emb", "content_emb"):
+        x, y = a[key], b[key]
+        if x.shape != y.shape:
+            raise AssertionError(f"{what}, {key}: shapes {x.shape} vs "
+                                 f"{y.shape}")
+        err = float(np.abs(x - y).max())
+        cos = float((x * y).sum(-1).min())
+        ok = err <= SLICE_ATOL and cos >= SLICE_MIN_COS
+        log(f"  {what}, {key}: max abs err {err:.3e} (tolerance "
+            f"{SLICE_ATOL:g}), min row cosine {cos:.8f} (tolerance "
+            f"{SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}, {key}: the runs disagree")
+        worst = dict(err=max(worst["err"], err), cos=min(worst["cos"], cos))
+    return worst
+
+
+def many_samples():
+    """Phase 6c's eight planar `vta` samples: T = 100, 110, 120, 125, 125,
+    128 (bucket 128) and 200, 250 (bucket 256), each with the smoke text
+    and the same 5 s wav and 12 word boundaries, so only the T bucket sets
+    the groups."""
+    import numpy as np
+
+    from jegal_torch.ops.video import s2d_repack
+
+    base = clip(125, 12, SEED + 3)
+    out = []
+    for i, t in enumerate((100, 110, 120, 125, 125, 128, 200, 250)):
+        rng = np.random.default_rng(SEED + 20 + i)
+        frames = rng.integers(0, 256, (t, 270, 480, 3), dtype=np.uint8)
+        out.append(dict(frames=s2d_repack(frames, rng.integers(90, 200, t)),
+                        text=SMOKE_TEXT, wav=base["wav"],
+                        word_boundaries=base["word_boundaries"],
+                        fname=f"many_t{t}_{i}"))
+    return out
+
+
+def many_launches(samples, batch_size: int, band_kernel: bool):
+    """The launches extract_many must make: per chunk (of one T bucket)
+    one tower launch per padded clip and 160-frame piece, and one JEGAL
+    forward (15 attention and FFN sublayers, one XLM-R stack)."""
+    from jegal_torch.data.bucketing import T_BUCKETS, batch_ladder, next_bucket
+
+    groups: dict = {}
+    for s in samples:
+        b = next_bucket(s["frames"].shape[0], T_BUCKETS)
+        groups[b] = groups.get(b, 0) + 1
+    tower = chunks = 0
+    for bucket, n in groups.items():
+        pieces = -(-(bucket + 20) // 160)
+        for lo in range(0, n, batch_size):
+            tower += batch_ladder(min(batch_size, n - lo), batch_size) * pieces
+            chunks += 1
+    stem = "stem_band" if band_kernel else "stem_pool_planar"
+    want = {stem: tower, "attn_sublayer": 15 * chunks,
+            "ffn_sublayer": 15 * chunks, "encoder_stack": chunks}
+    if band_kernel:
+        want["conv2"] = tower
+    return want, chunks
+
+
+def settle_waits(eng, samples, busy_ms: float):
+    """How far extract_many's pipeline overlaps the host with the card: the
+    host's waits for the card in settle (the fetch of each chunk), summed
+    over one warm call. Without overlap the card would work only while the
+    host waits, so the device busy time (`busy_ms`, one profiled call) past
+    the waits ran beside the host's own work."""
+    waits = []
+    finish = eng._finish_fetch
+
+    def timed(fetch):
+        t0 = time.perf_counter()
+        out = finish(fetch)
+        waits.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    eng._finish_fetch = timed
+    t0 = time.perf_counter()
+    try:
+        eng.extract_many(samples, "vta", batch_size=4)
+    finally:
+        del eng._finish_fetch
+    wall = 1e3 * (time.perf_counter() - t0)
+    wait = sum(waits)
+    log(f"  pipeline: the host waited {wait:.3f} ms for the card in "
+        f"{len(waits)} settles of a {wall:.3f} ms call (waits "
+        f"{', '.join(f'{w:.3f}' for w in waits)}); device busy beyond the "
+        f"waits {busy_ms - wait:.3f} ms")
+    return dict(settle_wait_ms=wait, settle_waits_ms=waits,
+                overlapped_device_ms=busy_ms - wait)
+
+
+def run_planar(gp, jp, engine, sample, raw_res):
+    """Phase 6b-c: the `vta` clip of phase 4 as planar frames, and
+    extract_many over eight planar clips, each under the tower's default
+    settings and with the band stem and the block-2 kernel."""
+    import torch
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.ops.kernels import _build
+    from jegal_torch.ops.video import s2d_repack
+
+    planar = dict(sample, frames=s2d_repack(sample["frames"],
+                                            sample["chin_rows"]))
+    del planar["chin_rows"]
+    log(f"planar slice: vta on {planar['frames'].shape} uint8 planar "
+        f"frames (phase 4's clip, repacked with its chin rows)")
+    samples = many_samples()
+    want_many = {}
+    stats: dict = {}
+    launches: dict = {}
+    for label, kw in SETTINGS:
+        eng = JegalEngine(jp, gp, roberta_params=engine.roberta_params,
+                          tokenizer=engine.tokenizer, **kw)
+        band_kernel = bool(kw)
+        want = dict(VTA_LAUNCHES, stem_pool=0)
+        want.update({"stem_band": 1, "conv2": 1} if band_kernel
+                    else {"stem_pool_planar": 1})
+        eng.extract(modalities="vta", **planar)              # first call
+        res, got = drive(eng, planar, "vta", want,
+                         f"the planar vta path ({label})")
+        launches[label] = got
+        check_embeddings(res, 125, 12)
+        vs_raw = compare(res, raw_res, f"planar ({label}) vs raw frames "
+                         f"(defaults), T = 125 vta clip")
+        stats[label] = dict(vs_raw, **warm_ms(eng, planar, "vta"),
+                            **profile_clip(eng, planar, "vta"))
+
+        log(f"extract_many ({label}): 8 planar vta clips, T = "
+            f"{[s['frames'].shape[0] for s in samples]}, batch_size 4, "
+            f"ladder on")
+        singles = [eng.extract(modalities="vta", **s) for s in samples]
+        want_many, n_chunks = many_launches(samples, 4, band_kernel)
+        _build.reset_launches()
+        results = eng.extract_many(samples, "vta", batch_size=4)
+        got_many = dict(_build.LAUNCHES)
+        log(f"  launches in one extract_many call ({n_chunks} chunks): "
+            f"{got_many}")
+        if got_many != counts(**want_many):
+            raise AssertionError(f"extract_many ({label}): launches "
+                                 f"{got_many}, want {counts(**want_many)}")
+        worst = dict(err=0.0, cos=1.0)
+        for s, r, one in zip(samples, results, singles):
+            check_embeddings(r, s["frames"].shape[0], 12)
+            w = compare(r, one, f"extract_many vs extract, {s['fname']}")
+            worst = dict(err=max(worst["err"], w["err"]),
+                         cos=min(worst["cos"], w["cos"]))
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.extract_many(samples, "vta", batch_size=4)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        prof = profile_run(lambda: eng.extract_many(samples, "vta",
+                                                    batch_size=4),
+                           f"extract_many call ({label})")
+        log(f"  warm extract_many ({label}): {wall * 1e3:.3f} ms a call "
+            f"(median of 5, min {min(walls) * 1e3:.3f} max "
+            f"{max(walls) * 1e3:.3f}), {len(samples) / wall:.3f} clips/s")
+        overlap = settle_waits(eng, samples, prof["device_busy_ms"])
+        stats[f"extract_many ({label})"] = dict(
+            launches=got_many, chunks=n_chunks, ms_per_call=wall * 1e3,
+            clips_per_s=len(samples) / wall, max_abs_err=worst["err"],
+            min_row_cos=worst["cos"], **prof, **overlap)
+        eng.close()
+    torch.cuda.synchronize()
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: training and a long clip
 # ---------------------------------------------------------------------------
 
 # words of 4-6 characters: 2 PieceTokenizer pieces each, so a 10-word text is
@@ -761,7 +1084,7 @@ def _grads(jp, rp, batch):
 
 
 def train_card_vs_cpu(jp, rp, batch):
-    """Phase 6c: one step's loss and gradients, card against CPU."""
+    """Phase 7c: one step's loss and gradients, card against CPU."""
     import torch
 
     from jegal_torch.convert import tree_to_torch
@@ -806,7 +1129,7 @@ def _jsonl(path: Path) -> list:
 
 
 def run_training(jp, rp, batch):
-    """Phase 6: the training entry point, steady steps on a fixed batch
+    """Phase 7: the training entry point, steady steps on a fixed batch
     (`fixed_batch`), and card against CPU. rp: XLM-R with its stack
     operands (the engine's copy)."""
     import math
@@ -854,9 +1177,8 @@ def run_training(jp, rp, batch):
                 raise AssertionError(f"checkpoints "
                                      f"{checkpoint_steps(str(ckpt))}, want "
                                      f"{want_ckpts}")
-            if launches != dict(stem_pool=0, attn_sublayer=0, ffn_sublayer=0,
-                                encoder_stack=want_run,
-                                flash_attention=9 * want_run):
+            if launches != counts(encoder_stack=want_run,
+                                  flash_attention=9 * want_run):
                 raise AssertionError(f"loop.train launches {launches}")
             out[f"loop_to_{steps}"] = dict(steps_run=res["steps"],
                                            wall_s=wall, losses=losses)
@@ -880,8 +1202,7 @@ def run_training(jp, rp, batch):
     step()
     launches = dict(_build.LAUNCHES)
     log(f"  launches in one training step: {launches}")
-    want = dict(stem_pool=0, attn_sublayer=0, ffn_sublayer=0, encoder_stack=1,
-                flash_attention=9)
+    want = counts(encoder_stack=1, flash_attention=9)
     if launches != want:
         raise AssertionError(f"training step: launches {launches}, want "
                              f"{want}")
@@ -912,7 +1233,7 @@ def run_training(jp, rp, batch):
 
 
 def run_long_clip(engine, jp):
-    """Phase 7: a 1000-frame clip (bucket 1024) past the fused gate: the
+    """Phase 8: a 1000-frame clip (bucket 1024) past the fused gate: the
     gesture encoder's layer loop on the flash kernel."""
     import numpy as np
 
@@ -1009,12 +1330,16 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
-    stem = check_stem(gp, dev)
+    stem, stem_inputs = check_stem(gp, dev)
     sub = check_sublayers(gp, jp, dev, mask32[0])
     stack = check_stack(rp, dev, ids32, mask32, train_batch)
     flash = check_flash(dev)
-    launches, slice_stats, engine = run_slice(gp, jp, rp)
+    launches, slice_stats, engine, sample, raw_res = run_slice(gp, jp, rp)
     log("slice: " + json.dumps(slice_stats))
+    planar_rows = check_planar_kernels(gp, dev, *stem_inputs)
+    planar_launches, planar_stats = run_planar(gp, jp, engine, sample,
+                                               raw_res)
+    log("planar: " + json.dumps(planar_stats))
     training, step_launches = run_training(jp, engine.roberta_params,
                                            train_batch)
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
@@ -1052,6 +1377,26 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], per_launch=row["per_launch"]))
+    # phase 6's kernels: launches from the planar `vta` clip under the
+    # setting that runs each (one a clip), times at that clip's entry (the
+    # band stem's float-entry shape stays under per_launch)
+    for name, source, replaces, setting in (
+            ("stem_pool_planar", "jegal_torch/csrc/stem.cu",
+             "jegal_tpu/ops/pallas/stem.py:80", "defaults"),
+            ("stem_band", "jegal_torch/csrc/stem_band.cu",
+             "jegal_tpu/ops/pallas/stem.py:219", "band + kernel"),
+            ("conv2", "jegal_torch/csrc/conv2.cu",
+             "jegal_tpu/ops/pallas/conv2.py:76", "band + kernel")):
+        shapes = planar_rows[name]
+        row = shapes[-1]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=planar_launches[setting][name],
+            max_abs_err=max(r["max_abs_err"] for r in shapes),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            path=f"the planar vta clip ({setting})",
+            per_launch=shapes if len(shapes) > 1 else None))
     step_want = sum(r["launches_per_step"] for r in stack)
     if step_launches["encoder_stack"] != step_want:
         raise AssertionError(f"encoder_stack: {step_launches} in a training "

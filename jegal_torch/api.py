@@ -1,12 +1,18 @@
 """JegalEngine — embedding extraction on the port (the JAX package's
 api.py, reference inference_embs.py:526-646).
 
-All seven combos of v, t and a. Given decoder frames, the engine runs the
-fused single-clip path of the JAX engine's `_extract_fused`
+All seven combos of v, t and a. Given decoder frames — raw (T, 270, 480, 3)
+uint8 with chin rows, or planar (T, 90, 27, 160) uint8 that
+`jegal_torch.ops.video.s2d_repack` masked and repacked on the host — the
+engine runs the fused path of the JAX engine's `_extract_fused`
 (api.py:563-613): frames -> face mask -> GestSync tower -> JEGAL gesture
 branch, beside the text branch (XLM-R -> text encoder -> word pooling) and
 the audio branch, with no host round trip between the stages; embeddings
 come back once and are L2-normalized in float32 on the host.
+`extract_many` batches samples of one shape bucket (api.py:978-1185): per
+T bucket, chunks padded to a power-of-two ladder, run through a depth-1
+pipeline that prepares and uploads the next chunk while the card computes
+the current one.
 
 The text modality needs XLM-R parameters and a tokenizer: a
 `jegal_torch.text.WordTokenizer` over any backend with its duck-typed
@@ -14,10 +20,15 @@ interface (for the real vocabulary, `WordTokenizer.from_file` on
 xlm-roberta-base's tokenizer.json, which needs the `tokenizers` package).
 
 The engine runs on the card unless the caller passes device="cpu"; with no
-card it raises rather than falling back.
+card it raises rather than falling back. `stem_impl` ("window" | "band")
+and `conv2_impl` ("dense" | "kernel") choose the tower's block-1 and
+block-2 kernels (models/gestsync.py) for every tower call.
 """
 
 from __future__ import annotations
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,6 +39,7 @@ from jegal_torch.data.bucketing import (
     S_BUCKETS,
     T_BUCKETS,
     W_BUCKETS,
+    batch_ladder,
     next_bucket,
     pad_axis,
 )
@@ -35,6 +47,7 @@ from jegal_torch.models import gestsync as G
 from jegal_torch.models import jegal as J
 from jegal_torch.models import roberta as R
 from jegal_torch.ops.audio import wav2filterbanks_np
+from jegal_torch.ops.kernels.stem import IMPLS as STEM_IMPLS
 from jegal_torch.ops.pooling import (
     build_audio_pooling,
     build_text_pooling,
@@ -66,7 +79,14 @@ class JegalEngine:
 
     def __init__(self, jegal_params, gestsync_params=None, device="cuda",
                  roberta_params=None, tokenizer=None,
-                 roberta_cfg: R.RobertaConfig = R.XLMR_BASE):
+                 roberta_cfg: R.RobertaConfig = R.XLMR_BASE,
+                 stem_impl: str = "window", conv2_impl: str = "dense"):
+        if stem_impl not in STEM_IMPLS:
+            raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got "
+                             f"{stem_impl!r}")
+        if conv2_impl not in G.CONV2_IMPLS:
+            raise ValueError(f"conv2_impl must be one of {G.CONV2_IMPLS}, "
+                             f"got {conv2_impl!r}")
         self.device = resolve_device(device)
         self.jegal_params = tree_to_torch(jegal_params, self.device)
         self.gestsync_params = (None if gestsync_params is None
@@ -80,6 +100,186 @@ class JegalEngine:
             self.roberta_params = R.stack_layers(self.roberta_params)
         self.tokenizer = tokenizer
         self.roberta_cfg = roberta_cfg
+        self.tower_kw = dict(chunk=160, stem_impl=stem_impl,
+                             conv2_impl=conv2_impl)
+        # a tokenizer backend need not be thread-safe (HF's raises
+        # "Already borrowed"): extract_many's prep threads take turns
+        self._tok_lock = threading.Lock()
+        self._pool_lock = threading.Lock()
+        self._prep_pool = None             # created by _prep_map, see close
+
+    def close(self) -> None:
+        """Shut the prep pool down (waiting for its threads); the engine
+        stays usable and creates a new pool when it needs one."""
+        with self._pool_lock:
+            pool, self._prep_pool = self._prep_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    # ------------------------------------------------------------------
+    # Visual features (GestSync)
+    # ------------------------------------------------------------------
+
+    def _gestsync(self):
+        if self.gestsync_params is None:
+            raise RuntimeError("engine has no GestSync parameters")
+        return self.gestsync_params
+
+    @staticmethod
+    def _features_out(feats, t: int, as_device: bool):
+        return feats[:t] if as_device else feats[:t].cpu().numpy()
+
+    def gestsync_features_masked(self, masked_frames, as_device=False):
+        """(T + 24, 270, 480, 3) float frames in [0, 1], face-masked and
+        edge-padded +/-12 (the reference's own preprocessed layout) ->
+        (T, 1024) numpy, or a device tensor with as_device=True."""
+        gp = self._gestsync()
+        frames = torch.as_tensor(masked_frames).to(self.device, torch.float32)
+        with torch.inference_mode():
+            feats = G.extract_features(gp, frames, **self.tower_kw)
+        return self._features_out(feats, feats.shape[0], as_device)
+
+    def gestsync_features(self, frames, chin_rows=None, as_device=False):
+        """The single-clip tower's front door: raw uint8 frames (T, 270,
+        480, 3) with optional chin rows -> gestsync_features_from_raw;
+        planar uint8 (T, 90, 27, 160), already masked (chin_rows must be
+        None) -> gestsync_features_from_planar; float frames (T + 24, 270,
+        480, 3) in [0, 1], masked and edge-padded (chin_rows must be None)
+        -> gestsync_features_masked. The same features either way."""
+        if tuple(frames.shape[1:]) == PLANAR_FRAME:
+            if chin_rows is not None:
+                raise ClientError("planar input is already masked; "
+                                  "chin_rows must be None")
+            return self.gestsync_features_from_planar(frames, as_device)
+        if torch.as_tensor(frames).is_floating_point():
+            if chin_rows is not None:
+                raise ClientError("float frames are pre-masked and "
+                                  "edge-padded; chin_rows must be None")
+            return self.gestsync_features_masked(frames, as_device)
+        return self.gestsync_features_from_raw(frames, chin_rows, as_device)
+
+    def gestsync_features_from_raw(self, frames_u8, chin_rows=None,
+                                   as_device=False):
+        """Decoder-resized uint8 frames (T, 270, 480, 3) -> (T, 1024), the
+        face mask applied on the device (chin rows, or the 111-row fallback
+        without them)."""
+        gp = self._gestsync()
+        if self._frames_kind(frames_u8) != "raw":
+            raise ClientError("gestsync_features_from_raw takes raw frames")
+        t = frames_u8.shape[0]
+        with torch.inference_mode():
+            masked = mask_frames_device(
+                torch.as_tensor(frames_u8).to(self.device),
+                torch.as_tensor(self._chin(chin_rows, t)).to(self.device))
+            feats = G.extract_features(gp, masked, **self.tower_kw)
+        return self._features_out(feats, t, as_device)
+
+    def gestsync_features_from_planar(self, planar_u8, as_device=False):
+        """Host-repacked planar uint8 frames (T, 90, 27, 160), already
+        masked (ops/video.s2d_repack) -> (T, 1024); the stem reads the
+        bytes. The features of gestsync_features_from_raw on the same
+        frames and chin rows."""
+        gp = self._gestsync()
+        if self._frames_kind(planar_u8) != "planar":
+            raise ClientError("gestsync_features_from_planar takes planar "
+                              "frames")
+        with torch.inference_mode():
+            feats = G.extract_features_planar(
+                gp, torch.as_tensor(planar_u8).to(self.device),
+                **self.tower_kw)
+        return self._features_out(feats, planar_u8.shape[0], as_device)
+
+    def gestsync_features_from_raw_many(self, clips: list,
+                                        batch_size: int = 16,
+                                        as_device: bool = False) -> list:
+        """Cross-clip tower batching: clips is a list of (frames_u8 (T, 270,
+        480, 3), chin_rows (T,) | None), or of (planar_u8 (T, 90, 27, 160),
+        None); a call is all raw or all planar. Clips of one T bucket run
+        as one batched tower call per chunk of batch_size (padded to the
+        power-of-two ladder), through the depth-1 pipeline. -> per clip
+        (T, 1024) features (device tensors with as_device=True)."""
+        gp = self._gestsync()
+        kinds = {self._frames_kind(np.asarray(f)) for f, _ in clips}
+        if len(kinds) > 1:
+            raise ClientError("clips must be all raw or all planar")
+        kind = kinds.pop() if kinds else "raw"
+        if kind == "planar" and any(c is not None for _, c in clips):
+            raise ClientError("planar input is already masked; chin_rows "
+                              "must be None")
+        groups: dict = {}
+        for i, (frames, _) in enumerate(clips):
+            groups.setdefault((kind, next_bucket(frames.shape[0], T_BUCKETS)),
+                              []).append(i)
+        results: list = [None] * len(clips)
+
+        def settle(chunk, fetch):
+            feats = fetch if as_device else self._finish_fetch(fetch)
+            for bi, ci in enumerate(chunk):
+                results[ci] = feats[bi, :clips[ci][0].shape[0]]
+
+        with torch.inference_mode():
+            self._pipeline(
+                ((chunk, feats if as_device else self._start_fetch(feats))
+                 for chunk, _, _, feats in self._tower_chunks(
+                     gp, groups, clips.__getitem__, batch_size)),
+                settle)
+        return results
+
+    def _tower_chunks(self, gp, groups: dict, clip_of, batch_size: int):
+        """The batched tower's dispatches, shared by extract_many and
+        gestsync_features_from_raw_many. groups: {(kind, T bucket, ...):
+        [sample indices]}; clip_of(i) -> (frames, chin_rows | None). Each
+        group runs in chunks of batch_size, padded to the power-of-two
+        ladder, stacked and uploaded, through one batched tower call a
+        chunk. Yields (chunk, T bucket, padded batch b, features (b, T
+        bucket, 1024) on the device)."""
+        for (kind, t_bucket, *_), idxs in groups.items():
+            for lo in range(0, len(idxs), batch_size):
+                chunk = idxs[lo:lo + batch_size]
+                b = batch_ladder(len(chunk), batch_size)
+                fr, cut = self._stack_frames(kind, t_bucket, b,
+                                             [clip_of(i) for i in chunk])
+                if kind == "planar":
+                    feats = G.extract_features_batch_planar(
+                        gp, fr, **self.tower_kw)
+                else:
+                    feats = G.extract_features_batch_raw(
+                        gp, fr, cut, **self.tower_kw)
+                yield chunk, t_bucket, b, feats
+
+    @staticmethod
+    def _chin(chin_rows, t: int) -> np.ndarray:
+        """Per-frame chin rows (T,) as int64, the fallback row without
+        them; a wrong length is a client error."""
+        if chin_rows is None:
+            return np.full((t,), FALLBACK_ROWS, np.int64)
+        cr = np.asarray(chin_rows)
+        if cr.shape != (t,) or not np.issubdtype(cr.dtype, np.number):
+            raise ClientError(f"chin_rows must have one row per frame "
+                              f"({t},), got shape {cr.shape}")
+        return cr.astype(np.int64)
+
+    def _stack_frames(self, kind, t_bucket, b, clips):
+        """Stack n <= b clips [(frames, chin_rows | None)] into a (b,
+        t_bucket, ...) uint8 batch on the device: each clip edge-repeats its
+        last frame (and chin row) to the bucket, rows past n are zeros.
+        The batch is built in pinned host memory and uploaded without
+        blocking the host. -> (frames, cut (b, t_bucket) int64)."""
+        shape = PLANAR_FRAME if kind == "planar" else RAW_FRAME
+        fr = torch.empty((b, t_bucket) + shape, dtype=torch.uint8,
+                         pin_memory=self.device.type == "cuda")
+        fr_np = fr.numpy()
+        cut = np.full((b, t_bucket), FALLBACK_ROWS, np.int64)
+        for bi, (frames, chin) in enumerate(clips):
+            frames = np.asarray(frames)
+            t = frames.shape[0]
+            fr_np[bi, :t] = frames
+            fr_np[bi, t:] = frames[-1]
+            cr = self._chin(chin, t)
+            cut[bi, :t] = cr
+            cut[bi, t:] = cr[-1]
+        fr_np[len(clips):] = 0
+        return self._to_device(fr), self._to_device(cut)
 
     # ------------------------------------------------------------------
     # Host-side preparation
@@ -91,7 +291,8 @@ class JegalEngine:
         reference's rules (the tokenizer merged words)."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (text modality)")
-        batch = self.tokenizer.encode_words([text])
+        with self._tok_lock:
+            batch = self.tokenizer.encode_words([text])
         s_nat = batch.input_ids.shape[1]
         starts = text_word_starts(batch.input_ids, batch.offsets,
                                   batch.special_ids)
@@ -211,14 +412,43 @@ class JegalEngine:
     # Device forward
     # ------------------------------------------------------------------
 
+    def _to_device(self, v):
+        """A host array or tensor -> a tensor on the engine's device,
+        floats as float32. On the card the copy is made from pinned memory
+        with non_blocking=True, so the host goes on while it runs."""
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _upload(self, arrays: dict) -> dict:
-        out = {}
-        for k, v in arrays.items():
-            t = torch.as_tensor(v)
-            if t.is_floating_point():
-                t = t.to(torch.float32)
-            out[k] = t.to(self.device)
-        return out
+        return {k: self._to_device(v) for k, v in arrays.items()}
+
+    def _start_fetch(self, t):
+        """Queue the device->host copy of a dispatched result behind the
+        kernels that compute it, into pinned memory, and return (host
+        tensor, event) without waiting; `_finish_fetch` waits. A CPU
+        engine's result is already on the host."""
+        if self.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _finish_fetch(fetch) -> np.ndarray:
+        """The host fetch of a result `_start_fetch` queued: the one point
+        where the host waits for the card."""
+        host, done = fetch
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
     def _forward(self, use_v: bool, use_t: bool, use_a: bool, **arrays):
         return self._pack_emb(*J.forward_inference(
@@ -246,13 +476,13 @@ class JegalEngine:
         return packed[:, :t_split], packed[:, t_split:]
 
     @staticmethod
-    def _postprocess(gesture, content, t_true, w_true, text, word_boundaries,
-                     fname):
-        """Valid rows, L2-normalized in float32 on the host (the .pkl
-        contract is exactly unit-norm float32 rows, reference
+    def _postprocess(gesture, content, i, t_true, w_true, text,
+                     word_boundaries, fname):
+        """Batch row i's valid rows, L2-normalized in float32 on the host
+        (the .pkl contract is exactly unit-norm float32 rows, reference
         inference_embs.py:629-646)."""
         def norm_rows(x, n):
-            out = np.asarray(x[0, :n], np.float32)
+            out = np.asarray(x[i, :n], np.float32)
             return out / np.maximum(
                 np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
 
@@ -277,20 +507,20 @@ class JegalEngine:
                               f"got {modalities!r}")
 
     @staticmethod
-    def _check_frames(frames):
+    def _frames_kind(frames) -> str:
+        """'raw' | 'planar' for uint8 decoder frames (T, 270, 480, 3) or
+        host-repacked planar (T, 90, 27, 160); anything else is a client
+        error."""
         if frames.ndim != 4 or tuple(frames.shape[1:]) not in (RAW_FRAME,
-                                                               PLANAR_FRAME):
+                                                               PLANAR_FRAME) \
+                or frames.shape[0] == 0:
             raise ClientError(
                 "frames must be (T, 270, 480, 3) uint8 decoder-resized RGB "
                 "or (T, 90, 27, 160) host-repacked planar, got "
                 f"{tuple(frames.shape)}")
-        if frames.dtype != (torch.uint8 if isinstance(frames, torch.Tensor)
-                            else np.uint8):
+        if frames.dtype not in (np.uint8, torch.uint8):
             raise ClientError(f"frames must be uint8, got {frames.dtype}")
-        if tuple(frames.shape[1:]) == PLANAR_FRAME:
-            raise NotImplementedError(
-                "planar (T, 90, 27, 160) input is not ported yet; pass raw "
-                "(T, 270, 480, 3) frames")
+        return "planar" if tuple(frames.shape[1:]) == PLANAR_FRAME else "raw"
 
     def extract(self, modalities: str = "vta", visual_feats=None,
                 text: str | None = None, word_boundaries: list | None = None,
@@ -300,9 +530,11 @@ class JegalEngine:
         None, "info": {...}}, L2-normalized float32 numpy rows; None when
         the sample is invalid under the reference's rules.
 
-        For 'v', pass EITHER visual_feats (T, 1024) OR decoder frames
-        (T, 270, 480, 3) uint8 with optional per-frame chin_rows (T,):
-        frames run the fused single-clip path."""
+        For 'v', pass EITHER visual_feats (T, 1024) OR decoder frames:
+        (T, 270, 480, 3) uint8 with optional per-frame chin_rows (T,), or
+        planar (T, 90, 27, 160) uint8 from ops.video.s2d_repack (already
+        masked: chin_rows must be None). Frames run the fused single-clip
+        path."""
         self._check_modalities(modalities)
         with torch.inference_mode():
             if frames is not None:
@@ -326,8 +558,8 @@ class JegalEngine:
             t_split = arrays["visual_feats"].shape[1] if use_v else None
             gesture, content = self._unpack_emb(packed, t_split, use_v,
                                                 use_t or use_a)
-            return self._postprocess(gesture, content, t_true, w_true, text,
-                                     word_boundaries, fname)
+            return self._postprocess(gesture, content, 0, t_true, w_true,
+                                     text, word_boundaries, fname)
 
     def _extract_fused(self, modalities, frames, chin_rows, text,
                        word_boundaries, wav, fname):
@@ -335,33 +567,257 @@ class JegalEngine:
         end. Bucket-padded tail frames repeat the last frame (and its chin
         row); visual_mask keeps them out of every valid row's attention,
         and rows past T are sliced off."""
-        if self.gestsync_params is None:
-            raise RuntimeError("engine has no GestSync parameters")
-        self._check_frames(frames)
+        gp = self._gestsync()
+        kind = self._frames_kind(frames)
+        if kind == "planar" and chin_rows is not None:
+            raise ClientError("planar input is already masked; "
+                              "chin_rows must be None")
         use_t, use_a = "t" in modalities, "a" in modalities
+        t = frames.shape[0]
+        cr = None if kind == "planar" else self._chin(chin_rows, t)
         prep = self._prepare_sample(modalities.replace("v", ""), None, text,
                                     word_boundaries, wav)
         if prep is None:
             return None
         arrays, _, w_true = prep
-        t = frames.shape[0]
         t_bucket = next_bucket(t, T_BUCKETS)
         fr = torch.as_tensor(frames).to(self.device)
-        cr = (np.asarray(chin_rows, np.int64) if chin_rows is not None
-              else np.full((t,), FALLBACK_ROWS, np.int64))
-        if cr.shape != (t,):
-            raise ClientError(f"chin_rows must have one row per frame "
-                              f"({t},), got {cr.shape}")
         if t_bucket != t:
             fr = torch.cat([fr, fr[-1:].expand(t_bucket - t, -1, -1, -1)])
-            cr = np.concatenate([cr, np.full(t_bucket - t, cr[-1])])
         vmask = np.zeros((1, t_bucket), np.float32)
         vmask[0, :t] = 1.0
-        masked = mask_frames_device(fr, torch.as_tensor(cr).to(self.device))
-        feats = G.extract_features(self.gestsync_params, masked, chunk=160)
+        if kind == "planar":
+            feats = G.extract_features_planar(gp, fr, **self.tower_kw)
+        else:
+            cr = np.concatenate([cr, np.full(t_bucket - t, cr[-1])])
+            masked = mask_frames_device(fr, torch.as_tensor(cr).to(self.device))
+            feats = G.extract_features(gp, masked, **self.tower_kw)
         packed = self._forward(True, use_t, use_a, visual_feats=feats[None],
                                **self._upload(dict(arrays, visual_mask=vmask)))
         gesture, content = self._unpack_emb(packed.cpu().numpy(), t_bucket,
                                             True, use_t or use_a)
-        return self._postprocess(gesture, content, t, w_true, text,
+        return self._postprocess(gesture, content, 0, t, w_true, text,
                                  word_boundaries, fname)
+
+    # ------------------------------------------------------------------
+    # Batched extraction
+    # ------------------------------------------------------------------
+
+    def _stack_parts(self, parts, b: int):
+        """Stack per-sample arrays into a (b, ...) batch on the device,
+        zero rows past len(parts). Device tensors stack on the device;
+        host arrays stack on the host and ride one upload."""
+        if any(isinstance(p, torch.Tensor) and p.device == self.device
+               for p in parts):
+            parts = [self._to_device(p) for p in parts]
+            parts += [torch.zeros_like(parts[0])] * (b - len(parts))
+            return torch.stack(parts)
+        parts = [np.asarray(p) for p in parts]
+        out = np.zeros((b,) + parts[0].shape, parts[0].dtype)
+        out[:len(parts)] = parts
+        return self._to_device(out)
+
+    def _prep_map(self, fn, items):
+        """Order-preserving map of per-sample host prep. A few items run
+        inline (a pool would cost more than it saves); more share one
+        4-thread pool, created under a lock at first use and shut by
+        `close` (the mel FFT and the pooling matrices release the GIL)."""
+        if len(items) <= 4:
+            return [fn(x) for x in items]
+        with self._pool_lock:
+            if self._prep_pool is None:
+                self._prep_pool = ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="jegal-prep")
+            pool = self._prep_pool
+        return list(pool.map(fn, items))
+
+    @staticmethod
+    def _pipeline(dispatches, settle, chunk_label=None):
+        """Depth-1 pipeline: chunk k+1 is prepared, uploaded and launched
+        before chunk k is settled, so the host's stacking and the upload
+        of one chunk overlap the card's work on the one before. On the card
+        nothing in a dispatch waits for it: the upload starts from pinned
+        memory, the kernels are queued, and the result's copy to the host
+        is queued behind them (`_start_fetch`); settle's host fetch is the
+        one wait.
+
+        dispatches: iterator of (chunk indices, *dispatched outputs);
+        settle(*item) fetches and post-processes a chunk. A settle error
+        surfaces one chunk late, so it carries a note naming the chunk's
+        samples (chunk_label maps a chunk's indices to that string)."""
+        def guarded(item):
+            try:
+                settle(*item)
+            except Exception as e:
+                if chunk_label is not None:
+                    e.add_note("while settling pipelined chunk "
+                               + chunk_label(item[0]))
+                raise
+
+        inflight = None
+        for item in dispatches:
+            if inflight is not None:
+                guarded(inflight)
+            inflight = item
+        if inflight is not None:
+            guarded(inflight)
+
+    @staticmethod
+    def _chunk_fnames(samples):
+        """chunk_label for _pipeline: sample indices -> their fnames."""
+        def label(chunk):
+            return str([samples[i].get("fname") or f"#{i}" for i in chunk])
+
+        return label
+
+    def extract_many(self, samples: list[dict], modalities: str = "vta",
+                     batch_size: int = 16) -> list[dict | None]:
+        """Batched extraction: samples sharing a shape bucket run as one
+        batch on the device, in chunks of batch_size; a straggler chunk is
+        padded to the power-of-two ladder, not to batch_size.
+
+        samples: dicts with visual_feats / text / word_boundaries / wav /
+        fname; for 'v' combos a sample may instead carry "frames" (T, 270,
+        480, 3) raw with optional "chin_rows", or (T, 90, 27, 160) planar,
+        uint8 host arrays: those run the fused batched path, tower and
+        JEGAL forward per chunk with the features kept on the device.
+        Returns per-sample result dicts in order, the rows `extract` gives
+        (batch padding is neutral), and None for a sample that is invalid
+        or malformed: one bad sample never fails the batch."""
+        self._check_modalities(modalities)
+        use = tuple(c in modalities for c in "vta")
+        results: list = [None] * len(samples)
+        is_fused = [use[0] and s.get("visual_feats") is None
+                    and s.get("frames") is not None for s in samples]
+        if any(is_fused):
+            self._gestsync()     # misconfigured engine, not a bad sample
+
+        def prep_fused(s):
+            try:
+                frames = np.asarray(s["frames"])
+                kind = self._frames_kind(frames)
+                chin = s.get("chin_rows")
+                if kind == "planar" and chin is not None:
+                    raise ClientError("planar input is already masked; "
+                                      "chin_rows must be None")
+                if chin is not None:
+                    self._chin(chin, frames.shape[0])
+                prep = self._prepare_sample(
+                    modalities.replace("v", ""), None, s.get("text"),
+                    s.get("word_boundaries"), s.get("wav"))
+            except ClientError:
+                return None
+            return None if prep is None else (kind, frames, chin, prep[0],
+                                              prep[2])
+
+        def prep_two_stage(s):
+            try:
+                # extract()'s input contract; under the batch contract a
+                # violation is a None result, never an ignored tensor
+                if s.get("frames") is not None:
+                    if not use[0]:
+                        raise ClientError(
+                            "frames given but modalities lack 'v'")
+                    raise ClientError(
+                        "pass either frames or visual_feats, not both")
+                if s.get("chin_rows") is not None:
+                    raise ClientError("chin_rows requires frames")
+                return self._prepare_sample(
+                    modalities, s.get("visual_feats"), s.get("text"),
+                    s.get("word_boundaries"), s.get("wav"))
+            except ClientError:
+                return None
+
+        preps = self._prep_map(
+            lambda item: (prep_fused if is_fused[item[0]]
+                          else prep_two_stage)(item[1]),
+            list(enumerate(samples)))
+        fused = {i: p for i, p in enumerate(preps) if is_fused[i]}
+        prepared = {i: p for i, p in enumerate(preps)
+                    if not is_fused[i] and p is not None}
+        with torch.inference_mode():
+            if fused:
+                self._extract_many_fused(samples, fused, use, results,
+                                         batch_size)
+            self._extract_many_two_stage(samples, prepared, use, results,
+                                         batch_size)
+        return results
+
+    def _extract_many_two_stage(self, samples, prepared, use, results,
+                                batch_size):
+        """extract_many's samples without frames: per shape signature,
+        chunks of stacked arrays through the JEGAL forward. Writes into
+        `results`."""
+        groups: dict = {}
+        for i, prep in prepared.items():
+            sig = tuple(sorted((k, tuple(v.shape[1:]))
+                               for k, v in prep[0].items()))
+            groups.setdefault(sig, []).append(i)
+
+        def settle(chunk, fetch):
+            packed = self._finish_fetch(fetch)
+            t_split = (prepared[chunk[0]][0]["visual_feats"].shape[1]
+                       if use[0] else None)
+            gesture, content = self._unpack_emb(packed, t_split, use[0],
+                                                use[1] or use[2])
+            for bi, i in enumerate(chunk):
+                _, t_true, w_true = prepared[i]
+                s = samples[i]
+                results[i] = self._postprocess(
+                    gesture, content, bi, t_true, w_true, s.get("text"),
+                    s.get("word_boundaries"), s.get("fname"))
+
+        def dispatches():
+            for idxs in groups.values():
+                for lo in range(0, len(idxs), batch_size):
+                    chunk = idxs[lo:lo + batch_size]
+                    b = batch_ladder(len(chunk), batch_size)
+                    arrays = {k: self._stack_parts(
+                        [prepared[i][0][k][0] for i in chunk], b)
+                        for k in prepared[chunk[0]][0]}
+                    yield chunk, self._start_fetch(self._forward(*use,
+                                                                 **arrays))
+
+        self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
+
+    def _extract_many_fused(self, samples, fused, use, results, batch_size):
+        """extract_many's frame-carrying samples: per (kind, T bucket,
+        content shapes) chunk, one batched tower call and one batched JEGAL
+        forward, the features never leaving the device. Writes into
+        `results`."""
+        gp = self._gestsync()
+        groups: dict = {}
+        for i, prep in fused.items():
+            if prep is None:
+                continue
+            kind, frames, _, arrays, _ = prep
+            sig = (kind, next_bucket(frames.shape[0], T_BUCKETS),
+                   tuple(sorted((k, tuple(v.shape[1:]))
+                                for k, v in arrays.items())))
+            groups.setdefault(sig, []).append(i)
+
+        def settle(chunk, t_bucket, fetch):
+            gesture, content = self._unpack_emb(
+                self._finish_fetch(fetch), t_bucket, True, use[1] or use[2])
+            for bi, i in enumerate(chunk):
+                _, frames, _, _, w_true = fused[i]
+                s = samples[i]
+                results[i] = self._postprocess(
+                    gesture, content, bi, frames.shape[0], w_true,
+                    s.get("text"), s.get("word_boundaries"), s.get("fname"))
+
+        def dispatches():
+            for chunk, t_bucket, b, feats in self._tower_chunks(
+                    gp, groups, lambda i: fused[i][1:3], batch_size):
+                vmask = np.zeros((b, t_bucket), np.float32)
+                for bi, i in enumerate(chunk):
+                    vmask[bi, :fused[i][1].shape[0]] = 1.0
+                arrays = {k: self._stack_parts(
+                    [fused[i][3][k][0] for i in chunk], b)
+                    for k in fused[chunk[0]][3]}
+                packed = self._forward(
+                    True, use[1], use[2], visual_feats=feats,
+                    visual_mask=self._to_device(vmask), **arrays)
+                yield chunk, t_bucket, self._start_fetch(packed)
+
+        self._pipeline(dispatches(), settle, self._chunk_fnames(samples))

@@ -27,6 +27,32 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   return v;
 }
 
+// Row (or column) of the block's tile that a thread's i-th register row
+// (column) holds: two runs of 4, 64 apart.
+__device__ __forceinline__ int gemm_tile_index(int i, int t) {
+  return i < 4 ? t * 4 + i : 64 + t * 4 + (i - 4);
+}
+
+// One BK-deep step of a thread's 8x8 register tile from the staged tiles:
+// As holds A transposed (k, row), Bs holds B (k, col).
+__device__ __forceinline__ void gemm_tile_step(
+    const float (&As)[GEMM_BK][GEMM_BM], const float (&Bs)[GEMM_BK][GEMM_BN],
+    int tx, int ty, float (&acc)[8][8]) {
+#pragma unroll
+  for (int k = 0; k < GEMM_BK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ bias, const float* __restrict__ res,
@@ -65,29 +91,17 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       Bs[b_k][b_c + i] = (gk < K && gc < N) ? B[(size_t)gk * N + gc] : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GEMM_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    gemm_tile_step(As, Bs, tx, ty, acc);
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    const int r = row0 + gemm_tile_index(i, ty);
     if (r >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      const int c = col0 + gemm_tile_index(j, tx);
       if (c >= N) continue;
       float v = acc[i][j];
       if (bias != nullptr) v += bias[c];

@@ -2,15 +2,21 @@
 //   conv3d k(5,7,7) s(1,3,3) 3->64, no padding -> BN folded into a
 //   per-channel scale and bias -> ReLU -> maxpool (1,3,3)/(1,2,2)
 //
-// Replaces jegal_tpu/ops/pallas/stem.py:_stem_kernel (reached through
-// stem_mgrid_x / stem_mgrid_planar). Like the TPU kernel, the conv output
-// never reaches device memory: at 270x480 it is 88x158x64 floats a frame
-// (3.6 MB), four times the pooled output this kernel writes.
+// Replaces jegal_tpu/ops/pallas/stem.py:_stem_kernel, with its two entries:
+// float frames (jt_stem_pool, for stem_mgrid_x) and host-repacked uint8
+// planar frames (jt_stem_pool_planar, for stem_mgrid_planar: the bytes are
+// converted while they are staged, the TPU kernel's u8_direct form, and the
+// caller folds /255 into the weights). The TPU kernel's pair_dot flag
+// schedules its dots and has no counterpart here. Like the TPU kernel, the
+// conv output never reaches device memory: at 270x480 it is 88x158x64
+// floats a frame (3.6 MB), four times the pooled output this kernel writes.
 //
 // What bounds it on the H100: operations. A 5 s clip's 148 output frames
-// need 148*88*158*64*735 = 97 G multiply-adds (194 GFLOP), against 0.24 GB
-// of input frames and 0.13 GB of pooled output, so the 67 TFLOP/s float32
-// CUDA-core rate bounds it near 2.9 ms where memory bounds it near 0.1 ms.
+// read 87x157 of the 88x158 conv positions a frame (the pool never reaches
+// the last conv row and column): 148*87*157*64*735 = 95 G multiply-adds
+// (190 GFLOP), against 0.24 GB of input frames (0.06 GB planar) and 0.13 GB
+// of pooled output, so the 67 TFLOP/s float32 CUDA-core rate bounds it near
+// 2.84 ms where memory bounds it near 0.1 ms.
 // The design therefore spends its effort on keeping the FMA units fed from
 // shared memory:
 //   * a block computes one frame's tile of 4x8 pooled outputs for all 64
@@ -25,12 +31,10 @@
 //   * BN scale/bias and ReLU are applied in registers, the conv tile goes
 //     to shared memory, and the 3x3/2 max pool reads it there and writes
 //     the pooled (t, J, W_pool, 64) rows coalesced over channels.
-#include "common.cuh"
+#include "stem.cuh"
 
 namespace jt {
 
-constexpr int ST_C = 64;                 // output channels
-constexpr int ST_KT = 5, ST_KH = 7, ST_KW = 7, ST_CIN = 3, ST_S = 3;
 constexpr int ST_PJ = 4, ST_PI = 8;      // pooled tile (rows, cols)
 constexpr int ST_CR = 2 * ST_PJ + 1;     // conv tile rows (9)
 constexpr int ST_CC = 2 * ST_PI + 1;     // conv tile cols (17)
@@ -38,26 +42,26 @@ constexpr int ST_NPOS = ST_CR * ST_CC;   // 153 conv positions
 constexpr int ST_IR = ST_S * (ST_CR - 1) + ST_KH;   // 31 input rows
 constexpr int ST_IC = ST_S * (ST_CC - 1) + ST_KW;   // 55 input cols
 constexpr int ST_IROW = ST_IC * ST_CIN;             // 165 floats a row
-constexpr int ST_TAPS = ST_KH * ST_KW * ST_CIN;     // 147 taps a frame
 constexpr int ST_THREADS = 256;
 constexpr int ST_PPT = 5;                // conv positions per thread
 constexpr int ST_CPT = 8;                // channels per thread
 constexpr int ST_XS = ST_IR * ST_IROW;   // 5115 floats
 constexpr int ST_WS_OFF = (ST_XS + 3) / 4 * 4;   // 16-byte aligned weights
-constexpr int ST_WS = ST_TAPS * ST_C;    // 9408 floats
 constexpr int ST_CS_LD = ST_C + 1;       // padded conv-tile row
 constexpr int ST_SMEM_FLOATS = ST_WS_OFF + ST_WS;
 constexpr size_t ST_SMEM_BYTES = sizeof(float) * ST_SMEM_FLOATS;
 static_assert(ST_NPOS * ST_CS_LD <= ST_SMEM_FLOATS, "conv tile must fit");
 static_assert(ST_PPT * 32 >= ST_NPOS, "positions must cover the tile");
 
-// frames: (T4, H, W, 3); w: (5, 7, 7, 3, 64) DHWIO; out: (T4-4, J, Wp, 64)
-// grid: (ceil(Wp / 8), ceil(J / 4), T4 - 4)
+// src: (T4, H, W, 3) frames in either input form (stem.cuh); w: (5, 7, 7,
+// 3, 64) DHWIO; out: (T4-4, J, Wp, 64). grid: (ceil(Wp / 8), ceil(J / 4),
+// T4 - 4)
+template <class Src>
 __global__ void __launch_bounds__(ST_THREADS)
-stem_pool_kernel(const float* __restrict__ frames, const float* __restrict__ w,
+stem_pool_kernel(Src src, const float* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, float* __restrict__ out,
-                 int H, int W, int J, int Wp) {
+                 int J, int Wp) {
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;            // [31][165] input patch of one frame
   float* Ws = smem + ST_WS_OFF;  // [147][64] weights of one temporal tap
@@ -84,16 +88,14 @@ stem_pool_kernel(const float* __restrict__ frames, const float* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < ST_CPT; ++c) acc[k][c] = 0.f;
 
-  const size_t frame_sz = (size_t)H * W * ST_CIN;
   for (int dt = 0; dt < ST_KT; ++dt) {
     __syncthreads();  // previous tap's tiles fully consumed
-    const float* f = frames + (size_t)(t + dt) * frame_sz;
     for (int i = tid; i < ST_XS; i += ST_THREADS) {
       const int rr = i / ST_IROW, q = i % ST_IROW;
       const int y = y_in0 + rr;
       const int xq = x_in0 * ST_CIN + q;   // (x, c) flattened
-      Xs[i] = (y < H && xq < W * ST_CIN) ? f[(size_t)y * W * ST_CIN + xq]
-                                         : 0.f;
+      Xs[i] = (y < src.H && xq < src.W * ST_CIN) ? src.at(t + dt, y, xq)
+                                                 : 0.f;
     }
     const float4* wsrc =
         reinterpret_cast<const float4*>(w + (size_t)dt * ST_WS);
@@ -169,22 +171,39 @@ stem_pool_kernel(const float* __restrict__ frames, const float* __restrict__ w,
 
 }  // namespace jt
 
+template <class Src>
+static int launch_stem_pool(Src src, const float* w, const float* scale,
+                            const float* bias, float* out, int t_in,
+                            cudaStream_t stream) {
+  using namespace jt;
+  const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
+  if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
+  cudaError_t e = cudaFuncSetAttribute(
+      stem_pool_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ST_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Wp + ST_PI - 1) / ST_PI, (J + ST_PJ - 1) / ST_PJ, t_in - 4);
+  stem_pool_kernel<Src><<<grid, ST_THREADS, ST_SMEM_BYTES, stream>>>(
+      src, w, scale, bias, out, J, Wp);
+  JT_CHECK_LAUNCH();
+  return 0;
+}
+
 // frames (t_in, H, W, 3) float32 -> out (t_in - 4, J, Wp, 64), with
 // J = ((H - 7) / 3 + 1 - 3) / 2 + 1 and Wp likewise from W.
 extern "C" int jt_stem_pool(const float* frames, const float* w,
                             const float* scale, const float* bias, float* out,
                             int t_in, int H, int W, void* stream) {
-  using namespace jt;
-  const int hc = (H - ST_KH) / ST_S + 1, wc = (W - ST_KW) / ST_S + 1;
-  const int J = (hc - 3) / 2 + 1, Wp = (wc - 3) / 2 + 1;
-  if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ST_SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Wp + ST_PI - 1) / ST_PI, (J + ST_PJ - 1) / ST_PJ, t_in - 4);
-  stem_pool_kernel<<<grid, ST_THREADS, ST_SMEM_BYTES, (cudaStream_t)stream>>>(
-      frames, w, scale, bias, out, H, W, J, Wp);
-  JT_CHECK_LAUNCH();
-  return 0;
+  return launch_stem_pool(jt::FloatFrames{frames, H, W}, w, scale, bias, out,
+                          t_in, (cudaStream_t)stream);
+}
+
+// planar (t_in, H3, 27, W3) uint8 -> out (t_in - 4, J, Wp, 64) for the raw
+// frame 3 H3 x 3 W3; w is pre-scaled by 1/255.
+extern "C" int jt_stem_pool_planar(const uint8_t* planar, const float* w,
+                                   const float* scale, const float* bias,
+                                   float* out, int t_in, int H3, int W3,
+                                   void* stream) {
+  return launch_stem_pool(jt::PlanarU8{planar, 3 * H3, 3 * W3}, w, scale,
+                          bias, out, t_in, (cudaStream_t)stream);
 }

@@ -28,6 +28,16 @@ def next_bucket(n: int, buckets=T_BUCKETS) -> int:
     return -(-n // last) * last
 
 
+def batch_ladder(n: int, cap: int) -> int:
+    """Smallest power of two >= n, capped at `cap`: the padded batch of an
+    n-sample chunk, so a straggler chunk pays for a right-sized batch and
+    not a full one (the JAX package's api._batch_ladder)."""
+    b = 1
+    while b < n and b < cap:
+        b *= 2
+    return min(b, cap)
+
+
 def pad_axis(arr, axis: int, target: int, value=0.0):
     """Pad `arr` with `value` along `axis` up to `target` length. A torch
     tensor pads on its own device; anything else pads as a numpy array."""

@@ -6,19 +6,26 @@ head (reference models/gestsync.py:7-162).
 Shared-conv windowing, as in the JAX package: every temporal conv has
 stride 1 and only block 1 has a temporal extent (k_t=5), so the conv tower
 runs ONCE over the whole (T+24)-frame padded sequence and window w (frames
-[w, w+25)) reads conv tokens [w, w+21). The tower runs in 160-frame chunks
+[w, w+25)) reads conv tokens [w, w+21). The tower runs in 160-frame pieces
 with a 4-frame halo, which bounds activation memory for long clips.
 
-Block 1 is the fused stem (ops/kernels/stem.py: the CUDA kernel on the
-card, its plain twin on the CPU). Blocks 2-6 have k_t=1, so they run as
-plain 2-D convolutions with frames as the batch, in channels-first layout
-— in the JAX package they are XLA, not Pallas (block 2 is
-`mgrid_conv2_dense` by default). The window transformer runs through
-core/transformer.torch_encoder_stack (fused sublayer kernels on the card);
-its ff1/ff2 head is two torch.matmul calls, as JAX leaves it to XLA.
+`_tower_piece` is the one tower body (the JAX package's
+`_make_stem_chunk_fn`), shared by the single-clip and batched entries, on
+either input: float frames in [0, 1], masked and edge-padded
+(ops/video.mask_frames_device), or host-repacked planar uint8
+(ops/video.s2d_repack), edge-padded here. Block 1 is the fused stem
+(ops/kernels/stem.py), `stem_impl` "window" or "band". Block 2 is cuDNN's
+convolution with `conv2_impl="dense"` (the default, the counterpart of the
+JAX package's `mgrid_conv2_dense`) or the fused block-2 kernel with
+"kernel" (ops/kernels/conv2.py), which raises for a stem output smaller
+than its 5x5 window rather than running cuDNN instead. Blocks 3-6 have
+k_t=1, so they run as plain 2-D convolutions with frames as the batch, in
+channels-first layout — in the JAX package they are XLA, not Pallas. On a
+CPU tensor every kernel is its plain twin. The window transformer runs
+through core/transformer.torch_encoder_stack (fused sublayer kernels on the
+card); its ff1/ff2 head is two torch.matmul calls, as JAX leaves it to XLA.
 
-Input: (T + 24, 270, 480, 3) float32 frames in [0, 1], masked and
-edge-padded (ops/video.mask_frames_device). Output: (T, 1024).
+Output: (T, 1024) a clip, (B, T, 1024) from the batched entries.
 """
 
 from __future__ import annotations
@@ -32,7 +39,13 @@ from jegal_torch.core.transformer import (
     sinusoidal_position_encoding,
     torch_encoder_stack,
 )
-from jegal_torch.ops.kernels.stem import stem_kernel_params, stem_pool
+from jegal_torch.ops.kernels.conv2 import conv2_bn_relu, conv2_kernel_params
+from jegal_torch.ops.kernels.stem import (
+    stem_kernel_params,
+    stem_pool,
+    stem_pool_planar,
+)
+from jegal_torch.ops.video import edge_pad, mask_frames_device
 
 # (kernel, stride, padding, maxpool) per VGG block — reference
 # models/gestsync.py:34-87. Channels: 3->64->128->256->256->256->512.
@@ -49,12 +62,32 @@ CHANNELS = (3, 64, 128, 256, 256, 256, 512)
 TOKENS = WINDOW - 4          # conv tokens per window: 25 - (5 - 1)
 EDGE_PAD = EDGE_PAD_FRAMES
 D_OUT = 1024
+CONV2_IMPLS = ("dense", "kernel")       # block 2: cuDNN, or csrc/conv2.cu
 
 
-def _tower_piece(params, stem_ops, piece):
-    """(n + 4, H, W, 3) frames -> (n, 512) conv tokens."""
-    x = stem_pool(piece, *stem_ops).permute(0, 3, 1, 2)   # (n, 64, J, Wp)
-    for spec, blk in zip(VGG_SPEC[1:], params["net_vid"][1:]):
+def tower_ops(params):
+    """Block 1's and block 2's folded kernel operands, once per call of an
+    entry point: (stem_kernel_params, conv2_kernel_params)."""
+    return (stem_kernel_params(params["net_vid"][0]),
+            conv2_kernel_params(params["net_vid"][1]))
+
+
+def _tower_piece(params, ops, piece, planar: bool = False,
+                 stem_impl: str = "window", conv2_impl: str = "dense"):
+    """(n + 4, H, W, 3) float frames, or (n + 4, H3, 27, W3) planar uint8
+    with planar=True -> (n, 512) conv tokens."""
+    if conv2_impl not in CONV2_IMPLS:
+        raise ValueError(f"conv2_impl must be one of {CONV2_IMPLS}, got "
+                         f"{conv2_impl!r}")
+    stem_ops, c2_ops = ops
+    stem = stem_pool_planar if planar else stem_pool
+    y = stem(piece, *stem_ops, impl=stem_impl)            # (n, J, Wp, 64)
+    blocks = list(zip(VGG_SPEC[1:], params["net_vid"][1:]))
+    if conv2_impl == "kernel":
+        y = conv2_bn_relu(y, *c2_ops)                     # (n, J2, W2, 128)
+        blocks = blocks[1:]
+    x = y.permute(0, 3, 1, 2)
+    for spec, blk in blocks:
         x = conv2d_nchw(x, blk["conv"]["kernel"][0], blk["conv"].get("bias"),
                         spec["s"][1:], spec["p"][1:])
         x = torch.relu(batch_norm_nchw(blk["bn"], x))
@@ -65,42 +98,123 @@ def _tower_piece(params, stem_ops, piece):
 
 def vgg_tower(params, x):
     """6-block conv tower, x: (B, D, H, W, 3) -> (B, D - 4, 1, 1, 512)."""
-    ops = stem_kernel_params(params["net_vid"][0])
+    ops = tower_ops(params)
     out = torch.stack([_tower_piece(params, ops, clip) for clip in x])
     return out[:, :, None, None, :]
 
 
-def conv_tokens(params, frames, chunk: int = 160):
+def conv_tokens(params, frames, chunk: int = 160, planar: bool = False,
+                stem_impl: str = "window", conv2_impl: str = "dense",
+                ops=None):
     """The conv tower once over the padded sequence, in `chunk`-frame
-    pieces with a 4-frame halo: frames (T_pad, H, W, 3) -> (T_pad - 4, 512).
-    Every block after the stem is per-frame, so chunking is exact."""
+    pieces with a 4-frame halo: frames (T_pad, H, W, 3), or planar uint8
+    (T_pad, H3, 27, W3) with planar=True -> (T_pad - 4, 512). Every block
+    after the stem is per-frame, so chunking is exact."""
     t_out = frames.shape[0] - 4
-    ops = stem_kernel_params(params["net_vid"][0])
+    ops = tower_ops(params) if ops is None else ops
     return torch.cat([
-        _tower_piece(params, ops, frames[s:min(s + chunk, t_out) + 4])
+        _tower_piece(params, ops, frames[s:min(s + chunk, t_out) + 4],
+                     planar, stem_impl, conv2_impl)
         for s in range(0, t_out, chunk)])
 
 
 def _window_stack(tokens):
-    """tokens (T + 20, 512) -> PE-added windows (T, 21, 512)."""
-    wins = tokens.unfold(0, TOKENS, 1).transpose(1, 2)
+    """tokens (..., T + 20, 512) -> PE-added windows (..., T, 21, 512)."""
+    wins = tokens.unfold(-2, TOKENS, 1).transpose(-1, -2)
     pe = sinusoidal_position_encoding(50, D_MODEL, tokens.device)[:TOKENS]
     return wins + pe
 
 
-def window_head(params, tokens):
-    """Per-window transformer + head over sliding 21-token windows:
-    (T + 20, 512) -> (T, 1024), the mean over each window's 21 head
-    outputs (reference inference_embs.py:510-511)."""
-    h = torch_encoder_stack(params["transformer"], _window_stack(tokens),
-                            None, NUM_HEADS)
+def _window_head_flat(params, wins):
+    """Per-window transformer + head: (N, 21, 512) -> (N, 1024), the mean
+    over each window's 21 head outputs (reference
+    inference_embs.py:510-511)."""
+    h = torch_encoder_stack(params["transformer"], wins, None, NUM_HEADS)
     h = linear(params["ff2"], torch.relu(linear(params["ff1"], h)))
     return h.mean(dim=1)
 
 
-def extract_features(params, frames, chunk: int = 160):
+def window_head(params, tokens):
+    """Sliding 21-token windows of a clip's tokens: (T + 20, 512) ->
+    (T, 1024)."""
+    return _window_head_flat(params, _window_stack(tokens))
+
+
+def extract_features(params, frames, chunk: int = 160,
+                     stem_impl: str = "window", conv2_impl: str = "dense"):
     """Masked, edge-padded frames (T + 24, 270, 480, 3) -> (T, 1024)."""
-    return window_head(params, conv_tokens(params, frames, chunk=chunk))
+    return window_head(params, conv_tokens(
+        params, frames, chunk=chunk, stem_impl=stem_impl,
+        conv2_impl=conv2_impl))
+
+
+def extract_features_planar(params, planar_u8, chunk: int = 160,
+                            stem_impl: str = "window",
+                            conv2_impl: str = "dense"):
+    """Host-repacked planar uint8 frames (T, H3, 27, W3), masked but not
+    edge-padded (ops/video.s2d_repack) -> (T, 1024). The +/-12 edge pad
+    happens here in uint8 and the stem reads the bytes."""
+    return window_head(params, conv_tokens(
+        params, edge_pad(planar_u8), chunk=chunk, planar=True,
+        stem_impl=stem_impl, conv2_impl=conv2_impl))
+
+
+def conv_tokens_batch(params, frames, chunk: int = 160, planar: bool = False,
+                      stem_impl: str = "window", conv2_impl: str = "dense"):
+    """Cross-clip conv tower: frames (B, T_pad, ...) of one form ->
+    (B, T_pad - 4, 512), clip by clip and piece by piece (the JAX package
+    maps the same (clip, piece) units)."""
+    ops = tower_ops(params)
+    return torch.stack([
+        conv_tokens(params, clip, chunk=chunk, planar=planar,
+                    stem_impl=stem_impl, conv2_impl=conv2_impl, ops=ops)
+        for clip in frames])
+
+
+def _batch_tokens_to_feats(params, tokens):
+    """Shared tail of the batched entries: (B, T + 20, 512) tokens -> one
+    window head over all B * T windows -> (B, T, 1024)."""
+    wins = _window_stack(tokens)                         # (B, T, 21, 512)
+    b, t = wins.shape[:2]
+    return _window_head_flat(params, wins.reshape(b * t, TOKENS, D_MODEL)) \
+        .reshape(b, t, D_OUT)
+
+
+def extract_features_batch(params, frames, chunk: int = 160,
+                           stem_impl: str = "window",
+                           conv2_impl: str = "dense"):
+    """Masked, edge-padded frames (B, T + 24, 270, 480, 3) -> (B, T,
+    1024), one window head for the batch."""
+    return _batch_tokens_to_feats(params, conv_tokens_batch(
+        params, frames, chunk=chunk, stem_impl=stem_impl,
+        conv2_impl=conv2_impl))
+
+
+def extract_features_batch_raw(params, frames_u8, cut, chunk: int = 160,
+                               stem_impl: str = "window",
+                               conv2_impl: str = "dense"):
+    """Raw decoder frames (B, T, 270, 480, 3) uint8 and chin rows (B, T)
+    -> (B, T, 1024). Each clip is masked and edge-padded on its own
+    (mask_frames_device), so one clip's float frames are alive at a time."""
+    ops = tower_ops(params)
+    tokens = torch.stack([
+        conv_tokens(params, mask_frames_device(clip, c), chunk=chunk,
+                    stem_impl=stem_impl, conv2_impl=conv2_impl, ops=ops)
+        for clip, c in zip(frames_u8, cut)])
+    return _batch_tokens_to_feats(params, tokens)
+
+
+def extract_features_batch_planar(params, planar_u8, chunk: int = 160,
+                                  stem_impl: str = "window",
+                                  conv2_impl: str = "dense"):
+    """Host-repacked planar uint8 (B, T, H3, 27, W3), masked but not
+    edge-padded -> (B, T, 1024)."""
+    ops = tower_ops(params)
+    tokens = torch.stack([
+        conv_tokens(params, edge_pad(clip), chunk=chunk, planar=True,
+                    stem_impl=stem_impl, conv2_impl=conv2_impl, ops=ops)
+        for clip in planar_u8])
+    return _batch_tokens_to_feats(params, tokens)
 
 
 def forward_vid_windowed(params, clips):

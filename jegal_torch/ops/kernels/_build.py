@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "jegal_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"stem_pool": 0, "attn_sublayer": 0, "ffn_sublayer": 0,
+LAUNCHES = {"stem_pool": 0, "stem_pool_planar": 0, "stem_band": 0,
+            "conv2": 0, "attn_sublayer": 0, "ffn_sublayer": 0,
             "encoder_stack": 0, "flash_attention": 0}
 
 _lock = threading.Lock()

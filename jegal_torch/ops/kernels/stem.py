@@ -1,12 +1,20 @@
-"""Fused GestSync stem: the CUDA kernel of csrc/stem.cu and its plain
-PyTorch twin.
+"""Fused GestSync stem: the CUDA kernels of csrc/stem.cu (window) and
+csrc/stem_band.cu (band), and their plain PyTorch twins.
 
-Port of jegal_tpu/ops/pallas/stem.py (`_stem_kernel` and
-`stem_kernel_params`): block 1 of the GestSync conv tower (reference
+Port of jegal_tpu/ops/pallas/stem.py (`_stem_kernel`, `_stem_kernel_band`
+and `stem_kernel_params`): block 1 of the GestSync conv tower (reference
 models/gestsync.py:35-45), conv3d k(5,7,7) s(1,3,3) 3->64 without padding,
 BatchNorm folded into a per-channel scale and bias, ReLU, and maxpool
-(1,3,3)/(1,2,2). Frames in, pooled NDHWC out — the dense layout of the
-JAX package's `fused_stem_pool` (stem.py:643-656), not its TPU m-grid.
+(1,3,3)/(1,2,2). Pooled NDHWC out — the dense layout of the JAX package's
+`fused_stem_pool` (stem.py:643-656), not its TPU m-grid.
+
+Two entries, as the JAX package's `stem_mgrid_x` and `stem_mgrid_planar`:
+`stem_pool` takes float frames in [0, 1], `stem_pool_planar` host-repacked
+uint8 planar frames (ops/video.s2d_repack) with /255 folded into the
+weights. Each takes `impl`: "window" (the default, as the JAX package's
+STEM_IMPL) or "band"; both compute the same function, and a CPU tensor
+takes the same twin for either. `_rotate_lhs` has no counterpart: its
+phase rotation is a TPU K-band layout.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch.nn.functional as F
 
 from jegal_torch.core.layers import f32_convs
 from jegal_torch.ops.kernels import _build
+from jegal_torch.ops.video import s2d_unpack
 
 KERNEL = (5, 7, 7)
 STRIDE = 3
@@ -58,43 +67,101 @@ def stem_pool_plain(frames, weight, scale, bias):
     return y[0].permute(1, 2, 3, 0)
 
 
-def _lib():
-    lib = _build.library("stem")
-    lib.jt_stem_pool.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+def stem_pool_planar_plain(planar, weight, scale, bias):
+    """The planar entry's twin: un-repack the uint8 planar frames (T4, H3,
+    27, W3) to raw 0..255 float frames and convolve with weight / 255, the
+    kernel's arithmetic. -> (T4 - 4, J, W_pool, 64)."""
+    return stem_pool_plain(s2d_unpack(planar).to(torch.float32),
+                           weight / 255.0, scale, bias)
+
+
+# impl -> (library: csrc/<name>.cu, its entry for float frames)
+KERNELS = {"window": ("stem", "jt_stem_pool"),
+           "band": ("stem_band", "jt_stem_band")}
+IMPLS = tuple(KERNELS)
+
+
+def _entry(impl, planar: bool):
+    """The C entry of the `impl` kernel for the input form, with its
+    library (for error strings)."""
+    name, fn = KERNELS[impl]
+    lib = _build.library(name)
+    f = getattr(lib, fn + "_planar" if planar else fn)
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
-    lib.jt_stem_pool.restype = ctypes.c_int
-    return lib
+    f.restype = ctypes.c_int
+    return lib, f
 
 
-def stem_pool(frames, weight, scale, bias):
+def _check_impl(impl):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _check_params(weight, scale, bias, device):
+    for name, t, shape in (("weight", weight, KERNEL + (3, C_OUT)),
+                           ("scale", scale, (C_OUT,)),
+                           ("bias", bias, (C_OUT,))):
+        _build.check_operand(name, t, shape, device)
+    if weight.data_ptr() % 16:
+        raise ValueError("weight must be 16-byte aligned (the kernel reads "
+                         "it as float4)")
+
+
+def _launch(impl, planar, x, weight, scale, bias, t_in, h, w):
+    """Run the `impl` kernel on the entry's input `x` (frames, or planar
+    with h, w its raw frame size) -> (t_in - 4, J, W_pool, 64)."""
+    shape = pooled_shape(t_in, h, w)
+    if min(shape) < 1:
+        raise ValueError(f"input {tuple(x.shape)} is too small for the stem")
+    out = torch.empty(shape, device=x.device, dtype=torch.float32)
+    lib, fn = _entry(impl, planar)
+    P = _build.ptr
+    dims = (h // 3, w // 3) if planar else (h, w)
+    rc = fn(P(x), P(weight), P(scale), P(bias), P(out), t_in, *dims,
+            _build.stream_ptr(x.device))
+    _build.check(lib, rc, f"{impl} stem kernel")
+    _build.LAUNCHES["stem_band" if impl == "band" else
+                    "stem_pool_planar" if planar else "stem_pool"] += 1
+    return out
+
+
+def stem_pool(frames, weight, scale, bias, impl: str = "window"):
     """Fused stem over float32 frames (T4, H, W, 3) in [0, 1] ->
-    (T4 - 4, J, W_pool, 64). The kernel for a CUDA tensor (it has no
-    backward, and raises when an operand needs a gradient), the plain twin
-    for a CPU one."""
+    (T4 - 4, J, W_pool, 64). On a CUDA tensor the `impl` kernel ("window"
+    or "band"; it has no backward, and raises when an operand needs a
+    gradient), the plain twin for a CPU one."""
+    _check_impl(impl)
     if not frames.is_cuda:
         return stem_pool_plain(frames, weight, scale, bias)
     _build.refuse_grad("stem kernel", frames, weight, scale, bias)
     if frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be (T, H, W, 3), got "
                          f"{tuple(frames.shape)}")
-    for name, t, shape in (("frames", frames, frames.shape),
-                           ("weight", weight, KERNEL + (3, C_OUT)),
-                           ("scale", scale, (C_OUT,)),
-                           ("bias", bias, (C_OUT,))):
-        _build.check_operand(name, t, shape, frames.device)
-    if weight.data_ptr() % 16:
-        raise ValueError("weight must be 16-byte aligned (the kernel reads "
-                         "it as float4)")
+    _build.check_operand("frames", frames, frames.shape, frames.device)
+    _check_params(weight, scale, bias, frames.device)
     t_in, h, w, _ = frames.shape
-    shape = pooled_shape(t_in, h, w)
-    if min(shape) < 1:
-        raise ValueError(f"frames {tuple(frames.shape)} are too small for "
-                         f"the stem")
-    out = torch.empty(shape, device=frames.device, dtype=torch.float32)
-    lib = _lib()
-    P = _build.ptr
-    rc = lib.jt_stem_pool(P(frames), P(weight), P(scale), P(bias), P(out),
-                          t_in, h, w, _build.stream_ptr(frames.device))
-    _build.check(lib, rc, "stem kernel")
-    _build.LAUNCHES["stem_pool"] += 1
-    return out
+    return _launch(impl, False, frames, weight, scale, bias, t_in, h, w)
+
+
+def stem_pool_planar(planar, weight, scale, bias, impl: str = "window"):
+    """Fused stem over host-repacked uint8 planar frames (T4, H3, 27, W3)
+    (ops/video.s2d_repack, edge-padded) -> (T4 - 4, J, W_pool, 64), the
+    output of `stem_pool` on the raw frames / 255. `weight` is block 1's
+    folded weight as `stem_kernel_params` returns it; the wrapper divides
+    it by 255. On a CUDA tensor the `impl` kernel, on a CPU one the twin."""
+    _check_impl(impl)
+    if not planar.is_cuda:
+        return stem_pool_planar_plain(planar, weight, scale, bias)
+    _build.refuse_grad("stem kernel", weight, scale, bias)
+    if planar.dim() != 4 or planar.shape[2] != 27:
+        raise ValueError(f"planar frames must be (T, H3, 27, W3), got "
+                         f"{tuple(planar.shape)}")
+    if planar.dtype != torch.uint8:
+        raise TypeError(f"planar frames must be uint8, got {planar.dtype}")
+    if not planar.is_contiguous():
+        raise ValueError("planar frames must be contiguous")
+    _check_params(weight, scale, bias, planar.device)
+    t_in, h3, _, w3 = planar.shape
+    return _launch(impl, True, planar, (weight / 255.0).contiguous(), scale,
+                   bias, t_in, 3 * h3, 3 * w3)

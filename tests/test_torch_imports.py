@@ -13,8 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "jegal_tpu", "pandas", "optax", "orbax")
-# modules every walk of the package must reach (the training slice's too)
+# modules every walk of the package must reach (the training and planar
+# slices' too)
 REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
+            "jegal_torch.ops.kernels.conv2", "jegal_torch.ops.video",
             "jegal_torch.training.trainer", "jegal_torch.training.data",
             "jegal_torch.training.loop", "jegal_torch.parallel.checkpoint",
             "jegal_torch.text.normalize", "jegal_torch.utils.logging")
@@ -53,7 +55,7 @@ def test_port_modules_leave_jax_unloaded():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 33   # every module of the port imported
+    assert int(r.stdout.strip()) >= 34   # every module of the port imported
 
 
 def test_text_modules_import_without_tokenizers():

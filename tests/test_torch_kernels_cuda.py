@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card, at shapes
 the main path does not reach: ragged and long segments (several key tiles
 of the online softmax), a fully masked sequence, head width 96, the GELU
-activation, a small stem geometry with a ragged pooled edge, and the
+activation, small stem geometries with a ragged pooled edge for both stem
+kernels (window and band) on both entries (float and planar frames) and
+the main path's, block 2 small and at the main path's shape, and the
 encoder-stack kernel over 1 and 12 layers in both norm placements; the
 flash attention kernel at the training and long-clip shapes, forward and
 backward; the wrappers' refusals, a gradient through a kernel that has
@@ -22,9 +24,11 @@ import torch
 from jegal_torch.convert import init_roberta_params, tree_to_torch
 from jegal_torch.models import roberta as R
 from jegal_torch.ops.kernels import _build
+from jegal_torch.ops.kernels import conv2 as C2
 from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
 from jegal_torch.ops.kernels import stem as S
+from jegal_torch.ops.video import s2d_repack, s2d_unpack
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -171,6 +175,60 @@ def test_stem_pool(dev, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
+def _stem_weights(dev, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.randn(5, 7, 7, 3, 64, generator=g) * 0.05).to(dev),
+            (torch.rand(64, generator=g) + 0.5).to(dev),
+            (torch.randn(64, generator=g) * 0.1).to(dev))
+
+
+@pytest.mark.parametrize("impl", ["window", "band"])
+@pytest.mark.parametrize("t4,h,w", [(13, 54, 96), (8, 45, 60),
+                                    (152, 270, 480)])
+def test_stem_entries(dev, impl, t4, h, w):
+    """Each stem kernel on masked float frames and on the same frames
+    repacked to planar uint8, against the twins; the float and planar
+    results agree (the /255 sits on another side of the products)."""
+    g = torch.Generator().manual_seed(3)
+    u8 = torch.randint(0, 256, (t4, h, w, 3), generator=g, dtype=torch.uint8)
+    cut = torch.randint(0, h // 2, (t4,), generator=g)
+    planar = torch.from_numpy(s2d_repack(u8.numpy(), cut.numpy())).to(dev)
+    frames = s2d_unpack(planar).float() / 255.0
+    ops = _stem_weights(dev)
+    _build.reset_launches()
+    got_f = S.stem_pool(frames, *ops, impl=impl)
+    got_p = S.stem_pool_planar(planar, *ops, impl=impl)
+    torch.cuda.synchronize()
+    want = (dict(stem_pool=1, stem_pool_planar=1) if impl == "window"
+            else dict(stem_band=2))
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES}, **want)
+    assert got_f.shape == got_p.shape == S.pooled_shape(t4, h, w)
+    torch.testing.assert_close(got_f, S.stem_pool_plain(frames, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, S.stem_pool_planar_plain(planar, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, got_f, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),
+                                          (148, 43, 78)])
+def test_conv2(dev, t, n_j, w_pool):
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(t, n_j, w_pool, 64, generator=g).to(dev)
+    weight = (torch.randn(5, 5, 64, 128, generator=g) * 0.03).to(dev)
+    scale = (torch.rand(128, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(128, generator=g) * 0.1).to(dev)
+    _build.reset_launches()
+    got = C2.conv2_bn_relu(x, weight, scale, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES}, conv2=1)
+    assert tuple(got.shape) == C2.out_shape(t, n_j, w_pool)
+    assert got.permute(0, 3, 1, 2).is_contiguous()      # NCHW underneath
+    torch.testing.assert_close(got, C2.conv2_bn_relu_plain(x, weight, scale,
+                                                           bias),
+                               rtol=0, atol=ATOL)
+
+
 def test_wrappers_refuse(dev):
     w = _weights(512, 2048, dev)
     x = torch.randn(42, 512, device=dev)
@@ -190,10 +248,25 @@ def test_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="is on"):
         FL.ffn_sublayer(x, dict(w, w1=w["w1"].cpu()), prenorm=False,
                         ln_kind="std")
+    ops = _stem_weights(dev)
     with pytest.raises(TypeError, match="float32"):
-        S.stem_pool(torch.rand(9, 54, 96, 3, device=dev).double(),
-                    torch.zeros(5, 7, 7, 3, 64, device=dev),
-                    torch.ones(64, device=dev), torch.zeros(64, device=dev))
+        S.stem_pool(torch.rand(9, 54, 96, 3, device=dev).double(), *ops)
+    with pytest.raises(TypeError, match="uint8"):
+        S.stem_pool_planar(torch.zeros(9, 18, 27, 32, device=dev), *ops)
+    with pytest.raises(ValueError, match="planar frames must be"):
+        S.stem_pool_planar(torch.zeros(9, 18, 28, 32, dtype=torch.uint8,
+                                       device=dev), *ops, impl="band")
+    with pytest.raises(ValueError, match="impl"):
+        S.stem_pool(torch.rand(9, 54, 96, 3, device=dev), *ops, impl="x")
+    c2 = (torch.zeros(5, 5, 64, 128, device=dev), torch.ones(128, device=dev),
+          torch.zeros(128, device=dev))
+    with pytest.raises(ValueError, match="too small"):
+        C2.conv2_bn_relu(torch.rand(4, 4, 9, 64, device=dev), *c2)
+    with pytest.raises(TypeError, match="float32"):
+        C2.conv2_bn_relu(torch.rand(4, 7, 9, 64, device=dev).double(), *c2)
+    with pytest.raises(ValueError, match="shape"):
+        C2.conv2_bn_relu(torch.rand(4, 7, 9, 64, device=dev), c2[0][:4],
+                         *c2[1:])
 
 
 def _qkvm(b, h, t, d, dev, seed=0):
@@ -266,6 +339,10 @@ def test_kernels_without_backward_refuse_gradients(dev):
     stacked = {k: v[None].contiguous() for k, v in w.items()}
     frames = torch.rand(9, 54, 96, 3, device=dev, requires_grad=True)
     sw = torch.zeros(5, 7, 7, 3, 64, device=dev)
+    sw_grad = sw.clone().requires_grad_(True)
+    planar = torch.zeros(9, 18, 27, 32, dtype=torch.uint8, device=dev)
+    c2x = torch.rand(4, 7, 9, 64, device=dev, requires_grad=True)
+    c2w = torch.zeros(5, 5, 64, 128, device=dev)
     q, k, v, mask = _qkvm(1, 8, 32, 64, dev)
     calls = [
         lambda: FL.attn_sublayer(x, w, 21, 8, prenorm=False, ln_kind="std"),
@@ -275,6 +352,14 @@ def test_kernels_without_backward_refuse_gradients(dev):
         lambda: S.stem_pool(frames, sw, torch.ones(64, device=dev),
                             torch.zeros(64, device=dev)),
         lambda: FA.flash_attention(q.requires_grad_(True), k, v, mask),
+        lambda: S.stem_pool(frames, sw, torch.ones(64, device=dev),
+                            torch.zeros(64, device=dev), impl="band"),
+        lambda: S.stem_pool_planar(planar, sw_grad, torch.ones(64, device=dev),
+                                   torch.zeros(64, device=dev)),
+        lambda: S.stem_pool_planar(planar, sw_grad, torch.ones(64, device=dev),
+                                   torch.zeros(64, device=dev), impl="band"),
+        lambda: C2.conv2_bn_relu(c2x, c2w, torch.ones(128, device=dev),
+                                 torch.zeros(128, device=dev)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward"):

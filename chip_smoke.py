@@ -12,15 +12,22 @@ Phases, in order; any failed check raises, so the script exits non-zero:
  2. every kernel under jegal_torch/csrc/ built with nvcc (one process per
     source, all started together), timed;
  3. each kernel held against its plain PyTorch twin at the main paths'
-    shapes, then timed (CUDA events, median of 20 warm launches) beside its
-    bound, its plain twin and one PyTorch yardstick call (`library_ms`):
+    shapes, then timed (CUDA events, median of 20 warm launches, each
+    queued while the device sleeps so that the host's queueing is not
+    timed) beside its bound, its plain twin and one PyTorch yardstick call
+    (`library_ms`):
     stem: a T=128 bucket, 152 padded frames; attention and FFN sublayers:
     the window head's 2688 rows in 21-row segments, post-norm, the gesture
     encoder's 128 rows, pre-norm with a partial key mask, and the text
     encoder's 32 rows at d 768 (8 heads of 96), pre-norm with the text's
     pad tail masked; encoder stack (XLM-R, 12 post-norm GELU layers): the
     12-word text's 32 rows, and 256 rows of two 128-token texts, one half
-    padded; flash attention: the training step's gesture (8, 8, 128, 64)
+    padded; for each shape of the attention, FFN and stack kernels (on the
+    shared 3xTF32 GEMM of csrc/gemm.cuh) the plan of each product, the
+    achieved rate, the bound share, and a second launch that must be
+    bit-identical with the first, their timings with the 50 MB L2 flushed
+    before each launch (each layer of the real path brings new weights);
+    flash attention: the training step's gesture (8, 8, 128, 64)
     and text (8, 8, 32, 96) shapes, with a pad tail in every batch row and
     one batch row fully masked, and the long clip's (1, 8, 1024, 64) with
     its 24-frame pad tail masked; then one backward through FlashAttention
@@ -85,7 +92,11 @@ phase 6(b)'s planar clip under the setting that runs each (`path`), and
 their times from phase 6(a) at that clip's entry: planar frames for both
 stems (the band stem's float-entry numbers under `per_launch`). Their
 library yardsticks are phase 3's `F.conv3d` stem on the float frames of the
-same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2.
+same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2. The
+attention, FFN and stack rows, whose products run in 3xTF32 on the tensor
+cores, state the 3xTF32 bound (`bound_ms`) and the all-float32 one
+(`bound_f32_ms`) beside it; their per-shape rows carry each product's
+plan, the achieved rate and the bound share.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -112,8 +123,11 @@ SEED = 0
 SMOKE_TEXT = "the quick brown fox jumps over the lazy dog and then sleeps"
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth. The kernels compute in float32 on CUDA cores.
+# cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The encoder
+# kernels' products run in 3xTF32 (three TF32 products per float32 one);
+# everything else computes in float32 on CUDA cores.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain twin on the card, max abs error: the twin sums the same
@@ -186,14 +200,56 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median device time of `fn` over `reps` warm runs (CUDA events)."""
+_L2_FLUSH = []
+
+
+def flush_l2():
+    """Overwrite a buffer twice the H100's 50 MB L2 cache."""
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(25 << 20, device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
+_CYCLES_PER_MS = []
+
+
+def device_sleep(ms: float):
+    """Keep the device busy for about `ms` (torch.cuda._sleep, calibrated
+    once against CUDA events)."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        _CYCLES_PER_MS.append(1e7 / a.elapsed_time(b))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def cuda_ms(fn, reps: int = 20, cold: bool = False) -> float:
+    """Median device time of `fn` over `reps` warm runs (CUDA events).
+    Before each run the device sleeps for twice the host's time to queue
+    `fn`, so that the events time the device's work and not the host's
+    queueing (which a chain of small launches would otherwise measure).
+    cold: the L2 cache flushed before each run (outside the timing)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if cold:
+            flush_l2()
+        device_sleep(2 * host_ms + 0.05)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -208,6 +264,52 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time (ms) the card could take, and what sets it."""
     t_op, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
+
+
+def bound_3xtf32(gemm_flops: float, other_flops: float, nbytes: float):
+    """Bound of a kernel whose products run in 3xTF32 on the tensor cores
+    (3 TF32 operations per float32 one at 495 TFLOP/s) and whose other
+    operations (attention) in float32 at 67 TFLOP/s: (ms, what sets it,
+    the all-float32 bound's ms beside it)."""
+    t_op = 3 * gemm_flops / PEAK_TF32_FLOPS + other_flops / PEAK_F32_FLOPS
+    t_mem = nbytes / PEAK_BYTES
+    f32_ms, _ = bound(gemm_flops + other_flops, nbytes)
+    return (1e3 * max(t_op, t_mem),
+            "operations" if t_op >= t_mem else "bytes", f32_ms)
+
+
+def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
+    """Phase 3's lines for a kernel on the shared GEMM: the plan of each
+    product (M, N, K) -> (BM, BN, splits), the achieved rate against what
+    bounds it, the bound share, and a second launch bit-identical with the
+    first (the split-K sums run in a fixed order)."""
+    import torch
+
+    from jegal_torch.ops.kernels import gemm_plan as GP
+
+    sms = GP.sm_count(torch.device("cuda"))
+    plans = [dict(mnk=[m, n, k], plan=list(GP.plan(m, n, k, sms)))
+             for m, n, k in products]
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError("two launches of the same inputs differ")
+    ms = row["ms"]
+    if row["bound_by"] == "bytes":
+        rate, unit = nbytes / ms / 1e6, "GB/s"
+    else:
+        rate, unit = flops / ms / 1e9, "TFLOP/s (float32 operations)"
+    share = row["bound_ms"] / ms
+    shown = ", ".join(f"{p['mnk']} -> {tuple(p['plan'])}" for p in plans)
+    log(f"  plans (M, N, K) -> (BM, BN, splits): {shown}; {rate:.1f} "
+        f"{unit}, {100 * share:.1f} % of its bound ({row['bound_by']}), "
+        f"float32 bound {row['bound_f32_ms']:.4f} ms; two launches "
+        f"bit-identical")
+    if share > 1:
+        raise AssertionError(f"the kernel ran faster than its bound "
+                             f"{row['bound_ms']:.4f} ms: the bound is wrong")
+    return dict(plans=plans, achieved=rate, achieved_unit=unit,
+                bound_share=share, bit_identical=True)
 
 
 def stem_flops(t_in: int, h: int, w: int) -> float:
@@ -368,26 +470,30 @@ def check_sublayers(gp, jp, dev, text_mask):
 
         e_a = max_err(attn(), attn_plain(), "attn_sublayer", KERNEL_ATOL)
         e_f = max_err(ffn(), ffn_plain(), "ffn_sublayer", KERNEL_ATOL)
-        attn_flops = 2.0 * r * d * 4 * d + 4.0 * n * heads * seg * seg * dk
+        attn_gemm = 2.0 * r * d * 4 * d
+        attn_other = 4.0 * n * heads * seg * seg * dk
         attn_bytes = 4.0 * (2 * r * d + 4 * d * d + 6 * d
                             + (r if km is not None else 0))
         ffn_flops = 4.0 * r * d * dff
         ffn_bytes = 4.0 * (2 * r * d + 2 * d * dff + dff + 3 * d)
-        for name, fn, plain, lib, err, fl, nb in (
+        products = FL.stack_products(r, d, dff)
+        for name, fn, plain, lib, err, gf, of, nb, prods in (
                 ("attn_sublayer", attn, attn_plain,
                  lambda: _library_attn(x, w, seg, heads, pre, km), e_a,
-                 attn_flops, attn_bytes),
+                 attn_gemm, attn_other, attn_bytes, products[:2]),
                 ("ffn_sublayer", ffn, ffn_plain,
-                 lambda: _library_ffn(x, w, pre), e_f, ffn_flops,
-                 ffn_bytes)):
-            b_ms, b_by = bound(fl, nb)
+                 lambda: _library_ffn(x, w, pre), e_f, ffn_flops, 0.0,
+                 ffn_bytes, products[2:])):
+            b_ms, b_by, f32_ms = bound_3xtf32(gf, of, nb)
             row = dict(shape=label, launches_per_clip=per_clip,
-                       ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
-                       library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                       max_abs_err=err)
-            rows[name].append(row)
+                       ms=cuda_ms(fn, cold=True),
+                       plain_ms=cuda_ms(plain, cold=True),
+                       library_ms=cuda_ms(lib, cold=True), bound_ms=b_ms,
+                       bound_by=b_by, bound_f32_ms=f32_ms, max_abs_err=err)
             log(f"  {name} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
                 f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+            row.update(gemm_kernel_stats(fn, prods, gf + of, nb, row))
+            rows[name].append(row)
     return rows
 
 
@@ -459,19 +565,25 @@ def check_stack(rp, dev, ids32, mask32, train_batch):
 
         err = max_err(kern(), plain(), "encoder_stack", STACK_ATOL)
         n, dk = r // seg, d // heads
-        flops = cfg.num_layers * (2.0 * r * d * 4 * d + 4.0 * r * d * dff
-                                  + 4.0 * n * heads * seg * seg * dk)
+        gemm_flops = cfg.num_layers * (2.0 * r * d * 4 * d
+                                       + 4.0 * r * d * dff)
+        attn_flops = cfg.num_layers * 4.0 * n * heads * seg * seg * dk
         nbytes = 4.0 * (sum(t.numel() for t in ops.values()) + 2 * r * d + r)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by, f32_ms = bound_3xtf32(gemm_flops, attn_flops, nbytes)
         row = dict(shape=label, launches_per_clip=per_clip_n,
                    launches_per_step=per_step_n,
-                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   ms=cuda_ms(kern, cold=True),
+                   plain_ms=cuda_ms(plain, cold=True),
                    library_ms=cuda_ms(
-                       lambda: _library_stack(x, ops, lt, seg, heads, km)),
-                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        rows.append(row)
+                       lambda: _library_stack(x, ops, lt, seg, heads, km),
+                       cold=True),
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+                   max_abs_err=err)
         log(f"  encoder_stack ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
             f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+        row.update(gemm_kernel_stats(kern, FL.stack_products(r, d, dff),
+                                     gemm_flops + attn_flops, nbytes, row))
+        rows.append(row)
     return rows
 
 
@@ -550,7 +662,8 @@ def per_clip(rows, key="launches_per_clip"):
     """Sum one kernel's per-launch numbers over its launches in one run of
     its path (`key` names the count: per clip, or per training step)."""
     out = {k: sum(r[k] * r[key] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_f32_ms") if k in rows[0]}
     out["bound_by"] = max(rows, key=lambda r: r["bound_ms"]
                           * r[key])["bound_by"]
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -1376,7 +1489,9 @@ def main() -> int:
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], per_launch=row["per_launch"]))
+            library_ms=row["library_ms"], per_launch=row["per_launch"],
+            **({"bound_f32_ms": row["bound_f32_ms"]}
+               if "bound_f32_ms" in row else {})))
     # phase 6's kernels: launches from the planar `vta` clip under the
     # setting that runs each (one a clip), times at that clip's entry (the
     # band stem's float-entry shape stays under per_launch)

@@ -9,7 +9,7 @@
 // left is an implicit-GEMM convolution:
 //   M = output positions (T * J2 * W2: 740 a 270x480 frame),
 //   N = 128 channels, K = 5 * 5 * 64 = 1600 in (kh, kw, c) order,
-// on the register-blocked 128x128 f32 core of gemm.cuh. A K-step of 8 lies
+// on the register-blocked 128x128 f32 tile of ffma_tile.cuh. A K-step of 8 lies
 // inside one (kh, kw) tap, so each thread loads its A values as one float4
 // of 4 channels straight from the stem output: the im2col matrix (700 MB
 // for a 5 s clip) is never materialised. The epilogue applies the scale,
@@ -19,7 +19,7 @@
 // Bound: operations. A 5 s clip (148 frames, J 43, Wp 78 -> J2 20, W2 37)
 // is 2*148*740*128*1600 = 44.9 GFLOP, 0.67 ms at the 67 TFLOP/s float32
 // rate; its bytes (127 MB in, 56 MB out, 0.8 MB of weights) take 0.055 ms.
-#include "gemm.cuh"
+#include "ffma_tile.cuh"
 
 namespace jt {
 

@@ -1,6 +1,7 @@
 // Device code shared by the encoder sources (fused_layer.cu: one sublayer a
-// call; encoder_stack.cu: a whole stack a call): the row LayerNorm and the
-// per-(segment, head) online-softmax attention. The products use gemm.cuh.
+// call; encoder_stack.cu: a whole stack a call): the per-(segment, head)
+// online-softmax attention. The products and the row LayerNorm are in
+// gemm.cuh.
 //
 // Attention is computed per segment (the 21-token GestSync windows, or one
 // T-token sequence), never as the TPU kernel's block-diagonal (rows x rows)
@@ -8,8 +9,7 @@
 // query rows of one (segment, head) and streams the segment's keys through
 // shared memory 32 at a time with an online softmax, so any segment length
 // fits (a 512-key segment's K and V alone would be 256 KB, more than a
-// block's 227 KB). LayerNorm owns whole rows: one warp per row, run after
-// the residual product has written the row.
+// block's 227 KB).
 #pragma once
 
 #include <math.h>
@@ -17,39 +17,6 @@
 #include "common.cuh"
 
 namespace jt {
-
-// y = LN(x) row-wise. kind 0: torch nn.LayerNorm (biased variance,
-// rsqrt(var + 1e-5)); kind 1: the reference LayerNorm (Bessel variance,
-// 1 / (sqrt(var) + 1e-6)). x may alias y: each element is read by the
-// thread that writes it, after the row statistics are complete.
-__global__ void layer_norm_rows(const float* x, const float* __restrict__ g,
-                                const float* __restrict__ b, float* y, int R,
-                                int d, int kind) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;
-  const float* xr = x + (size_t)row * d;
-  float* yr = y + (size_t)row * d;
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += xr[c];
-  const float mean = warp_sum(s) / (float)d;
-  float ss = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = xr[c] - mean;
-    ss = fmaf(t, t, ss);
-  }
-  ss = warp_sum(ss);
-  const float inv = (kind == 1) ? 1.f / (sqrtf(ss / (float)(d - 1)) + 1e-6f)
-                                : rsqrtf(ss / (float)d + 1e-5f);
-  for (int c = lane; c < d; c += 32) yr[c] = (xr[c] - mean) * inv * g[c] + b[c];
-}
-
-inline void layer_norm(const float* x, const float* g, const float* b,
-                       float* y, int R, int d, int kind, cudaStream_t s) {
-  const int rows_per_block = 8;  // 8 warps
-  layer_norm_rows<<<(R + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
-      x, g, b, y, R, d, kind);
-}
 
 constexpr int ATT_QT = 32;      // query rows per block
 constexpr int ATT_KT = 32;      // keys per shared-memory tile

@@ -20,18 +20,26 @@
 // (`y` after each attention sublayer, `out` after each FFN sublayer; the
 // input `x` is only read), and each layer's device kernels read their
 // weights at offset l of the caller's pre-stacked (L, ...) operands, so
-// nothing is gathered or concatenated per call. All 7L launches go on the
-// caller's stream from one C call.
+// nothing is gathered or concatenated per call. All its device launches go
+// on the caller's stream from one C call.
 //
 // What bounds it on the H100: at the text path's row counts (R = B * S_b,
 // 32..512) every weight byte is read once per call, 28.3 MB a layer for
 // XLM-R, and the products do only 2 R FLOP per weight element, so at
-// R = 32 the bound is the bytes (340 MB at 3.35 TB/s, 0.10 ms), with the
-// float32 operations close behind (5.5 GFLOP at 67 TFLOP/s). This first
-// version sequences the shared device kernels (gemm.cuh, encoder.cuh) per
-// layer; their 128x128 GEMM tile launches 6-24 blocks at R = 32, so it sits
-// far above that bound. A persistent kernel that streams the weights by TMA
-// is the later step.
+// R = 32 the bound is the bytes (340 MB at 3.35 TB/s, 0.10 ms); in 3xTF32
+// on the tensor cores the operations (3 x 5.5 GFLOP at 495 TFLOP/s) come
+// close behind. The products run on the shared GEMM of gemm.cuh: 32-row
+// tiles at R = 32, split over K until each product launches at least one
+// wave of blocks on the 132 SMs, a cp.async ring that keeps the weight
+// bytes in flight, and 3xTF32 mma.sync. The plans are computed once per
+// call by the wrapper (ops/kernels/gemm_plan.py), and the post-LayerNorms
+// run inside the split-K reductions. Device launches per post-norm layer:
+// a product and its reduction for each of the four products, and the
+// attention: 9 (108 for XLM-R), one after another, each a few
+// microseconds, which with the weights' 0.10 ms sets this design's floor.
+// The step after this one is a persistent kernel that streams each
+// layer's weights by TMA into wgmma (weights stored K-major at load time)
+// and keeps the (R, d) activations on chip, so a layer is not 9 launches.
 #include "encoder.cuh"
 #include "gemm.cuh"
 
@@ -39,15 +47,18 @@
 // row-major: wqkv (L, d, 3d), wo (L, d, d), w1 (L, d, dff), w2 (L, dff, d),
 // bqkv (L, 3d), bo (L, d), b1 (L, dff), b2 (L, d), g1/be1/g2/be2 (L, d).
 // kmask (R,) key validity (0 = masked) or null. Scratch (caller-allocated):
-// h (R, d) when prenorm, qkv (R, 3d), att (R, d), y (R, d), h1 (R, dff).
+// h (R, d) when prenorm, qkv (R, 3d), att (R, d), y (R, d), h1 (R, dff),
+// ws the split-K workspace. plans: {BM, BN, splits} of QKV, the output
+// product, W1 and W2, the same for every layer.
 // act: 1 ReLU, 2 exact-erf GELU; ln_kind: 0 std, 1 ref.
 extern "C" int jt_encoder_stack(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* g1, const float* be1, const float* g2,
     const float* be2, const float* kmask, float* h, float* qkv, float* att,
-    float* y, float* h1, float* out, int R, int d, int dff, int heads,
-    int seg, int L, int prenorm, int ln_kind, int act, void* stream) {
+    float* y, float* h1, float* out, float* ws, const int* plans, int R,
+    int d, int dff, int heads, int seg, int L, int prenorm, int ln_kind,
+    int act, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0 || L <= 0)
     return JT_ERR_SHAPE;
@@ -63,41 +74,37 @@ extern "C" int jt_encoder_stack(
     // attention sublayer: cur -> y
     const float* src = cur;
     if (prenorm) {
-      jt::layer_norm(cur, ln1_g, ln1_b, h, R, d, ln_kind, s);
-      JT_CHECK_LAUNCH();
+      const int rc = jt::layer_norm(cur, ln1_g, ln1_b, h, R, d, ln_kind, s);
+      if (rc != 0) return rc;
       src = h;
     }
-    jt::gemm_f32(src, wqkv + 3 * dd * l, bqkv + (size_t)3 * d * l, nullptr,
-                 qkv, R, 3 * d, d, jt::ACT_NONE, s);
-    JT_CHECK_LAUNCH();
-    const int rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
+    int rc = jt::gemm(plans, src, wqkv + 3 * dd * l, bqkv + (size_t)3 * d * l,
+                      nullptr, qkv, ws, R, 3 * d, d, jt::ACT_NONE, nullptr,
+                      nullptr, 0, s);
+    if (rc != 0) return rc;
+    rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
     if (rc != 0) return rc;
     JT_CHECK_LAUNCH();
-    jt::gemm_f32(att, wo + dd * l, bo + (size_t)d * l, cur, y, R, d, d,
-                 jt::ACT_NONE, s);
-    JT_CHECK_LAUNCH();
-    if (!prenorm) {
-      jt::layer_norm(y, ln1_g, ln1_b, y, R, d, ln_kind, s);
-      JT_CHECK_LAUNCH();
-    }
+    rc = jt::gemm(plans + 3, att, wo + dd * l, bo + (size_t)d * l, cur, y, ws,
+                  R, d, d, jt::ACT_NONE, prenorm ? nullptr : ln1_g, ln1_b,
+                  ln_kind, s);
+    if (rc != 0) return rc;
 
     // FFN sublayer: y -> out
     src = y;
     if (prenorm) {
-      jt::layer_norm(y, ln2_g, ln2_b, h, R, d, ln_kind, s);
-      JT_CHECK_LAUNCH();
+      rc = jt::layer_norm(y, ln2_g, ln2_b, h, R, d, ln_kind, s);
+      if (rc != 0) return rc;
       src = h;
     }
-    jt::gemm_f32(src, w1 + (size_t)d * dff * l, b1 + (size_t)dff * l,
-                 nullptr, h1, R, dff, d, act, s);
-    JT_CHECK_LAUNCH();
-    jt::gemm_f32(h1, w2 + (size_t)dff * d * l, b2 + (size_t)d * l, y, out, R,
-                 d, dff, jt::ACT_NONE, s);
-    JT_CHECK_LAUNCH();
-    if (!prenorm) {
-      jt::layer_norm(out, ln2_g, ln2_b, out, R, d, ln_kind, s);
-      JT_CHECK_LAUNCH();
-    }
+    rc = jt::gemm(plans + 6, src, w1 + (size_t)d * dff * l,
+                  b1 + (size_t)dff * l, nullptr, h1, ws, R, dff, d, act,
+                  nullptr, nullptr, 0, s);
+    if (rc != 0) return rc;
+    rc = jt::gemm(plans + 9, h1, w2 + (size_t)dff * d * l, b2 + (size_t)d * l,
+                  y, out, ws, R, d, dff, jt::ACT_NONE,
+                  prenorm ? nullptr : ln2_g, ln2_b, ln_kind, s);
+    if (rc != 0) return rc;
   }
   return 0;
 }

@@ -11,13 +11,16 @@
 //               residual -> [post-LN]
 //
 // What bounds it on the H100: the four products (QKV, output, W1, W2) are
-// ~99% of the operations; in float32 on the CUDA cores their bound is the
-// 67 TFLOP/s non-tensor rate, not memory (the window head's 2688-row
-// products do ~30 FLOP per byte moved even counting every operand once).
-// The design keeps them on one tiled register-blocked GEMM (gemm.cuh) with
-// bias, activation and residual fused into its epilogue, so the only extra
-// passes over device memory are the LayerNorm rows and the (R, 3d) QKV and
-// (R, d_ff) activations, which the TPU kernel kept in VMEM.
+// ~99% of the operations. At the window head's 2688 rows they are bound by
+// operations; at the gesture and text encoders' 128 and 32 rows by the
+// bytes of their weights. They run on the shared 3xTF32 tensor-core GEMM
+// (gemm.cuh) with bias, activation and residual fused into its epilogue,
+// split over K where the row tiles alone would leave SMs idle, and the
+// post-LayerNorm fused into the split-K reduction. The only extra passes
+// over device memory are the split partials, the pre-LayerNorm rows and
+// the (R, 3d) QKV and (R, d_ff) activations, which the TPU kernel kept in
+// VMEM. The wrapper plans each product (ops/kernels/gemm_plan.py) and
+// allocates the workspace; plans holds {BM, BN, splits} per product.
 //
 // Attention and LayerNorm are the device code shared with encoder_stack.cu
 // (encoder.cuh).
@@ -25,58 +28,54 @@
 #include "gemm.cuh"
 
 // One attention sublayer over R = n_segments * seg rows of width d.
-// Scratch (caller-allocated): h (R, d) when prenorm, qkv (R, 3d), att (R, d).
+// Scratch (caller-allocated): h (R, d) when prenorm, qkv (R, 3d), att (R, d),
+// ws the split-K workspace. plans: QKV, then the output product.
 extern "C" int jt_attn_sublayer(const float* x, const float* wqkv,
                                 const float* bqkv, const float* wo,
                                 const float* bo, const float* ln_g,
                                 const float* ln_b, const float* kmask,
                                 float* h, float* qkv, float* att, float* out,
-                                int R, int d, int heads, int seg, int prenorm,
-                                int ln_kind, void* stream) {
+                                float* ws, const int* plans, int R, int d,
+                                int heads, int seg, int prenorm, int ln_kind,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (seg <= 0 || R % seg != 0 || d % heads != 0) return JT_ERR_SHAPE;
   const float* src = x;
   if (prenorm) {
-    jt::layer_norm(x, ln_g, ln_b, h, R, d, ln_kind, s);
-    JT_CHECK_LAUNCH();
+    const int rc = jt::layer_norm(x, ln_g, ln_b, h, R, d, ln_kind, s);
+    if (rc != 0) return rc;
     src = h;
   }
-  jt::gemm_f32(src, wqkv, bqkv, nullptr, qkv, R, 3 * d, d, jt::ACT_NONE, s);
-  JT_CHECK_LAUNCH();
-  const int rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
+  int rc = jt::gemm(plans, src, wqkv, bqkv, nullptr, qkv, ws, R, 3 * d, d,
+                    jt::ACT_NONE, nullptr, nullptr, 0, s);
+  if (rc != 0) return rc;
+  rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
   if (rc != 0) return rc;
   JT_CHECK_LAUNCH();
-  jt::gemm_f32(att, wo, bo, x, out, R, d, d, jt::ACT_NONE, s);
-  JT_CHECK_LAUNCH();
-  if (!prenorm) {
-    jt::layer_norm(out, ln_g, ln_b, out, R, d, ln_kind, s);
-    JT_CHECK_LAUNCH();
-  }
-  return 0;
+  return jt::gemm(plans + 3, att, wo, bo, x, out, ws, R, d, d, jt::ACT_NONE,
+                  prenorm ? nullptr : ln_g, ln_b, ln_kind, s);
 }
 
 // One FFN sublayer over R rows. Scratch: h (R, d) when prenorm,
-// h1 (R, dff). act: 1 ReLU, 2 exact-erf GELU.
+// h1 (R, dff), ws the split-K workspace. plans: W1, then W2.
+// act: 1 ReLU, 2 exact-erf GELU.
 extern "C" int jt_ffn_sublayer(const float* x, const float* w1,
                                const float* b1, const float* w2,
                                const float* b2, const float* ln_g,
                                const float* ln_b, float* h, float* h1,
-                               float* out, int R, int d, int dff, int prenorm,
-                               int ln_kind, int act, void* stream) {
+                               float* out, float* ws, const int* plans, int R,
+                               int d, int dff, int prenorm, int ln_kind,
+                               int act, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* src = x;
   if (prenorm) {
-    jt::layer_norm(x, ln_g, ln_b, h, R, d, ln_kind, s);
-    JT_CHECK_LAUNCH();
+    const int rc = jt::layer_norm(x, ln_g, ln_b, h, R, d, ln_kind, s);
+    if (rc != 0) return rc;
     src = h;
   }
-  jt::gemm_f32(src, w1, b1, nullptr, h1, R, dff, d, act, s);
-  JT_CHECK_LAUNCH();
-  jt::gemm_f32(h1, w2, b2, x, out, R, d, dff, jt::ACT_NONE, s);
-  JT_CHECK_LAUNCH();
-  if (!prenorm) {
-    jt::layer_norm(out, ln_g, ln_b, out, R, d, ln_kind, s);
-    JT_CHECK_LAUNCH();
-  }
-  return 0;
+  const int rc = jt::gemm(plans, src, w1, b1, nullptr, h1, ws, R, dff, d,
+                          act, nullptr, nullptr, 0, s);
+  if (rc != 0) return rc;
+  return jt::gemm(plans + 3, h1, w2, b2, x, out, ws, R, d, dff, jt::ACT_NONE,
+                  prenorm ? nullptr : ln_g, ln_b, ln_kind, s);
 }

@@ -15,10 +15,12 @@ or one T- or S-token sequence); attention never crosses a segment.
     caller's.
 
 `attn_sublayer`, `ffn_sublayer` and `encoder_stack` launch their kernel
-for a CUDA tensor and run the plain twin for a CPU tensor. The kernels take
-float32 only and have no backward: on a CUDA tensor that needs a gradient
-they raise (training runs the layer loop, core/transformer.encoder_stack
-with fused=False).
+for a CUDA tensor and run the plain twin for a CPU tensor. Their products
+run on the shared 3xTF32 GEMM of csrc/gemm.cuh: the wrapper plans each
+product (gemm_plan.plan) and allocates the split-K workspace they share.
+The kernels take float32 only and have no backward: on a CUDA tensor that
+needs a gradient they raise (training runs the layer loop,
+core/transformer.encoder_stack with fused=False).
 """
 
 from __future__ import annotations
@@ -31,13 +33,14 @@ import torch.nn.functional as F
 
 from jegal_torch.core.layers import ref_layer_norm, std_layer_norm
 from jegal_torch.ops.kernels import _build
+from jegal_torch.ops.kernels import gemm_plan as GP
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _PLANS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGS = {
-    "jt_attn_sublayer": [_VP] * 12 + [_INT] * 6 + [_VP],
-    "jt_ffn_sublayer": [_VP] * 10 + [_INT] * 6 + [_VP],
+    "jt_attn_sublayer": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
+    "jt_ffn_sublayer": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
 }
-_STACK_SIG = [_VP] * 20 + [_INT] * 9 + [_VP]
+_STACK_SIG = [_VP] * 21 + [_PLANS] + [_INT] * 9 + [_VP]
 _ACT = {"relu": 1, "gelu": 2}
 _LN_KIND = {"std": 0, "ref": 1}
 HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
@@ -167,6 +170,12 @@ def _check_rows(x, seg: int | None = None, heads: int | None = None):
                          f"takes head widths {HEAD_DIMS}")
 
 
+def stack_products(r: int, d: int, dff: int):
+    """(M, N, K) of a layer's four products, in the order the sublayer
+    and stack entries take their plans: QKV, output, W1, W2."""
+    return ((r, 3 * d, d), (r, d, d), (r, dff, d), (r, d, dff))
+
+
 def _lib():
     lib = _build.library("fused_layer")
     for fn, args in _SIGS.items():
@@ -180,6 +189,19 @@ def _stack_lib():
     lib.jt_encoder_stack.argtypes = _STACK_SIG
     lib.jt_encoder_stack.restype = ctypes.c_int
     return lib
+
+
+def gemm_operands(products, sms: int, dev):
+    """Plans of the products (M, N, K), in the C entry's order, as the
+    entry's int array ({BM, BN, splits} each), and the split-K workspace
+    they share in turn (None when no product splits)."""
+    plans = [GP.plan(m, n, k, sms) for m, n, k in products]
+    n_ws = max(GP.workspace_floats(m, n, p[2])
+               for (m, n, _), p in zip(products, plans))
+    ws = (torch.empty(n_ws, device=dev, dtype=torch.float32) if n_ws
+          else None)
+    flat = [v for p in plans for v in p]
+    return (ctypes.c_int * len(flat))(*flat), ws
 
 
 def _kmask_operand(kmask, r: int, dev):
@@ -212,12 +234,15 @@ def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
     qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     att = torch.empty_like(x)
     h = torch.empty_like(x) if prenorm else None
+    plans, ws = gemm_operands(((r, 3 * d, d), (r, d, d)), GP.sm_count(dev),
+                              dev)
     lib = _lib()
     P = _build.ptr
     rc = lib.jt_attn_sublayer(
         P(x), P(w["wqkv"]), P(w["bqkv"]), P(w["wo"]), P(w["bo"]), P(w["g1"]),
-        P(w["be1"]), P(kmask), P(h), P(qkv), P(att), P(out), r, d, heads, seg,
-        int(prenorm), _LN_KIND[ln_kind], _build.stream_ptr(dev))
+        P(w["be1"]), P(kmask), P(h), P(qkv), P(att), P(out), P(ws), plans, r,
+        d, heads, seg, int(prenorm), _LN_KIND[ln_kind],
+        _build.stream_ptr(dev))
     _build.check(lib, rc, "attention sublayer kernel")
     _build.LAUNCHES["attn_sublayer"] += 1
     return out
@@ -240,12 +265,15 @@ def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
     out = torch.empty_like(x)
     h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
     h = torch.empty_like(x) if prenorm else None
+    plans, ws = gemm_operands(((r, dff, d), (r, d, dff)), GP.sm_count(dev),
+                              dev)
     lib = _lib()
     P = _build.ptr
     rc = lib.jt_ffn_sublayer(
         P(x), P(w["w1"]), P(w["b1"]), P(w["w2"]), P(w["b2"]), P(w["g2"]),
-        P(w["be2"]), P(h), P(h1), P(out), r, d, dff, int(prenorm),
-        _LN_KIND[ln_kind], _ACT[activation], _build.stream_ptr(dev))
+        P(w["be2"]), P(h), P(h1), P(out), P(ws), plans, r, d, dff,
+        int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
+        _build.stream_ptr(dev))
     _build.check(lib, rc, "FFN sublayer kernel")
     _build.LAUNCHES["ffn_sublayer"] += 1
     return out
@@ -278,12 +306,15 @@ def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
     qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
     h = torch.empty_like(x) if prenorm else None
+    plans, ws = gemm_operands(stack_products(r, d, dff), GP.sm_count(dev),
+                              dev)
     lib = _stack_lib()
     P = _build.ptr
     rc = lib.jt_encoder_stack(
         P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv), P(att),
-        P(y), P(h1), P(out), r, d, dff, heads, seg, n_l, int(prenorm),
-        _LN_KIND[ln_kind], _ACT[activation], _build.stream_ptr(dev))
+        P(y), P(h1), P(out), P(ws), plans, r, d, dff, heads, seg, n_l,
+        int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
+        _build.stream_ptr(dev))
     _build.check(lib, rc, "encoder stack kernel")
     _build.LAUNCHES["encoder_stack"] += 1
     return out

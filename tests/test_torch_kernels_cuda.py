@@ -5,6 +5,9 @@ activation, small stem geometries with a ragged pooled edge for both stem
 kernels (window and band) on both entries (float and planar frames) and
 the main path's, block 2 small and at the main path's shape, and the
 encoder-stack kernel over 1 and 12 layers in both norm placements; the
+sublayer and stack kernels at the main paths' small row counts (32, 128,
+256) and ragged ones (1, 21, 33), on every tile of the shared GEMM, and
+twice over with identical bits (the split-K sums run in a fixed order); the
 flash attention kernel at the training and long-clip shapes, forward and
 backward; the wrappers' refusals, a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
@@ -27,6 +30,7 @@ from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels import conv2 as C2
 from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
+from jegal_torch.ops.kernels import gemm_plan as GP
 from jegal_torch.ops.kernels import stem as S
 from jegal_torch.ops.video import s2d_repack, s2d_unpack
 
@@ -84,6 +88,12 @@ def test_attn_sublayer(dev, seg, n, heads, d, prenorm, kind, masked):
     (2688, 512, 2048, False, "std", "relu"),
     (77, 512, 2048, True, "ref", "relu"),
     (130, 768, 3072, False, "std", "gelu"),
+    (32, 768, 3072, True, "ref", "gelu"),      # the text encoder's FFN
+    (32, 768, 3072, False, "std", "gelu"),     # split-K + fused post-LN
+    (128, 512, 2048, True, "ref", "relu"),     # the gesture encoder's FFN
+    (1, 512, 2048, False, "std", "relu"),
+    (21, 768, 3072, False, "ref", "gelu"),
+    (33, 512, 2048, True, "std", "relu"),
 ])
 def test_ffn_sublayer(dev, rows, d, dff, prenorm, kind, act):
     w = _weights(d, dff, dev, seed=1)
@@ -108,6 +118,10 @@ def _stacked(n_layers, d, dff, dev):
     (12, 32, 2, 8, True, "ref", "relu", False),
     (1, 21, 4, 12, False, "ref", "relu", False),
     (12, 50, 2, 8, False, "std", "gelu", True),
+    (12, 32, 8, 12, False, "std", "gelu", True),   # XLM-R, a training step
+    (2, 1, 1, 12, False, "std", "gelu", False),     # ragged R = 1, 21, 33
+    (2, 21, 1, 12, False, "std", "gelu", True),
+    (2, 33, 1, 8, True, "ref", "relu", True),
 ])
 def test_encoder_stack(dev, n_layers, seg, n, heads, prenorm, kind, act,
                        masked):
@@ -130,6 +144,55 @@ def test_encoder_stack(dev, n_layers, seg, n, heads, prenorm, kind, act,
                                   ln_kind=kind, activation=act, kmask=km)
     atol = ATOL * max(1.0, want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_split_k_is_deterministic(dev):
+    """Two launches of the sublayer and stack kernels give identical bits:
+    the split-K partials are summed in a fixed order, without atomics."""
+    x = torch.randn(32, 768, device=dev)
+    w = _weights(768, 3072, dev, seed=1)
+    stacked = _stacked(2, 768, 3072, dev)
+    km = torch.ones(32, device=dev)
+    km[21:] = 0.0
+    assert GP.plan(32, 768, 3072, GP.sm_count(dev))[2] > 1
+    for run in (
+            lambda: FL.ffn_sublayer(x, w, prenorm=False, ln_kind="std",
+                                    activation="gelu"),
+            lambda: FL.attn_sublayer(x, w, 32, 8, prenorm=False,
+                                     ln_kind="std", kmask=km),
+            lambda: FL.encoder_stack(x, stacked, 32, 12, prenorm=False,
+                                     ln_kind="std", activation="gelu",
+                                     kmask=km)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", sorted(GP.TILES))
+@pytest.mark.parametrize("splits", [1, 3])
+def test_every_tile(dev, monkeypatch, tile, splits):
+    """Each built tile pair of the shared GEMM, unsplit and split, under
+    the FFN kernel (both products, ragged rows and a fused post-LN)."""
+    monkeypatch.setattr(GP, "plan", lambda m, n, k, sms: (*tile, splits))
+    w = _weights(512, 2048, dev, seed=2)
+    for rows, prenorm in ((77, False), (200, True)):
+        x = torch.randn(rows, 512, device=dev)
+        got = FL.ffn_sublayer(x, w, prenorm=prenorm, ln_kind="std",
+                              activation="gelu")
+        want = FL.ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind="std",
+                                     activation="gelu")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+def test_unbuilt_tile_raises(dev, monkeypatch):
+    """A plan the C code has no instance for is refused, never run on
+    another tile."""
+    monkeypatch.setattr(GP, "plan", lambda m, n, k, sms: (16, 64, 1))
+    w = _weights(512, 2048, dev)
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        FL.ffn_sublayer(torch.randn(8, 512, device=dev), w, prenorm=False,
+                        ln_kind="std")
 
 
 def test_roberta_on_the_card_runs_the_stack_kernel(dev):

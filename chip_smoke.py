@@ -30,8 +30,9 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     flash attention: the training step's gesture (8, 8, 128, 64)
     and text (8, 8, 32, 96) shapes, with a pad tail in every batch row and
     one batch row fully masked, and the long clip's (1, 8, 1024, 64) with
-    its 24-frame pad tail masked; then one backward through FlashAttention
-    against the plain twin's autograd;
+    its 24-frame pad tail masked, then a ragged (2, 3, 100, 96) checked and
+    not timed, each with two launches bit-identical; then one backward
+    through FlashAttention against the plain twin's autograd;
  4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
     5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
     samples of 16 kHz audio, 12 word boundaries), with every launch counter
@@ -93,10 +94,11 @@ their times from phase 6(a) at that clip's entry: planar frames for both
 stems (the band stem's float-entry numbers under `per_launch`). Their
 library yardsticks are phase 3's `F.conv3d` stem on the float frames of the
 same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2. The
-attention, FFN and stack rows, whose products run in 3xTF32 on the tensor
-cores, state the 3xTF32 bound (`bound_ms`) and the all-float32 one
-(`bound_f32_ms`) beside it; their per-shape rows carry each product's
-plan, the achieved rate and the bound share.
+attention, FFN, stack, flash attention and conv2 rows, whose products run
+in 3xTF32 on the tensor cores, state the 3xTF32 bound (`bound_ms`) and the
+all-float32 one (`bound_f32_ms`) beside it; the attention, FFN and stack
+rows' per-shape rows carry each product's plan, the achieved rate and the
+bound share.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -123,9 +125,10 @@ SEED = 0
 SMOKE_TEXT = "the quick brown fox jumps over the lazy dog and then sleeps"
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The encoder
-# kernels' products run in 3xTF32 (three TF32 products per float32 one);
-# everything else computes in float32 on CUDA cores.
+# cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The products
+# of the encoder kernels, flash attention and block 2 run in 3xTF32 (three
+# TF32 products per float32 one); everything else computes in float32 on
+# CUDA cores.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
@@ -278,6 +281,19 @@ def bound_3xtf32(gemm_flops: float, other_flops: float, nbytes: float):
             "operations" if t_op >= t_mem else "bytes", f32_ms)
 
 
+def relaunch_identical(fn, what: str):
+    """Two launches of the same inputs must give identical bits (no
+    kernel sums with atomics)."""
+    import torch
+
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{what}: two launches of the same inputs "
+                             f"differ")
+    log(f"  {what}: two launches bit-identical")
+
+
 def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
     """Phase 3's lines for a kernel on the shared GEMM: the plan of each
     product (M, N, K) -> (BM, BN, splits), the achieved rate against what
@@ -290,10 +306,7 @@ def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
     sms = GP.sm_count(torch.device("cuda"))
     plans = [dict(mnk=[m, n, k], plan=list(GP.plan(m, n, k, sms)))
              for m, n, k in products]
-    first, second = fn(), fn()
-    torch.cuda.synchronize()
-    if not torch.equal(first, second):
-        raise AssertionError("two launches of the same inputs differ")
+    relaunch_identical(fn, "the kernel")
     ms = row["ms"]
     if row["bound_by"] == "bytes":
         rate, unit = nbytes / ms / 1e6, "GB/s"
@@ -303,8 +316,7 @@ def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
     shown = ", ".join(f"{p['mnk']} -> {tuple(p['plan'])}" for p in plans)
     log(f"  plans (M, N, K) -> (BM, BN, splits): {shown}; {rate:.1f} "
         f"{unit}, {100 * share:.1f} % of its bound ({row['bound_by']}), "
-        f"float32 bound {row['bound_f32_ms']:.4f} ms; two launches "
-        f"bit-identical")
+        f"float32 bound {row['bound_f32_ms']:.4f} ms")
     if share > 1:
         raise AssertionError(f"the kernel ran faster than its bound "
                              f"{row['bound_ms']:.4f} ms: the bound is wrong")
@@ -598,8 +610,9 @@ def _library_flash(q, k, v, mask):
 
 def check_flash(dev):
     """The flash attention kernel at the training step's two shapes and
-    the long clip's, forward against its twin and timed; then one backward
-    through FlashAttention against the twin's autograd."""
+    the long clip's, forward against its twin and timed, and at a ragged
+    (2, 3, 100, 96), checked only; then one backward through
+    FlashAttention against the twin's autograd."""
     import torch
 
     from jegal_torch.ops.kernels import flash_attention as FA
@@ -612,7 +625,9 @@ def check_flash(dev):
             ("text encoder, training (8, 8, 32, 96)", (8, 8, 32, 96), 21,
              3, 0),
             ("gesture encoder, long clip (1, 8, 1024, 64)",
-             (1, 8, 1024, 64), 1000, 0, 6)):
+             (1, 8, 1024, 64), 1000, 0, 6),
+            ("ragged (2, 3, 100, 96), untimed", (2, 3, 100, 96), 77, None,
+             None)):
         q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev)
                    for _ in range(3))
         mask = torch.zeros(b, t)
@@ -630,17 +645,22 @@ def check_flash(dev):
             return FA.flash_attention_plain(q, k, v, mask)
 
         err = max_err(kern(), plain(), "flash_attention", KERNEL_ATOL)
-        b_ms, b_by = bound(4.0 * b * h * t * t * d,
-                           4.0 * (4 * b * h * t * d + b * t))
+        relaunch_identical(kern, "flash_attention")
+        if per_step is None:
+            continue
+        # products only: the softmax's few operations a score add < 2 %
+        b_ms, b_by, f32_ms = bound_3xtf32(4.0 * b * h * t * t * d, 0.0,
+                                          4.0 * (4 * b * h * t * d + b * t))
         row = dict(shape=label, launches_per_step=per_step,
                    launches_per_long_clip=per_long, ms=cuda_ms(kern),
                    plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(lambda: _library_flash(q, k, v, mask)),
-                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+                   max_abs_err=err)
         rows.append(row)
         log(f"  flash_attention ms {row['ms']:.4f} plain "
             f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
-            f"{b_ms:.4f} ({b_by})")
+            f"{b_ms:.4f} ({b_by}, 3xTF32; float32 {f32_ms:.4f})")
 
     q, k, v = (torch.randn(8, 8, 128, 64, generator=g).to(dev)
                for _ in range(3))
@@ -919,17 +939,20 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
                   "conv2", KERNEL_ATOL)
     max_err(C2.conv2_bn_relu(x, *c2), library().permute(0, 2, 3, 1),
             "conv2 vs F.conv2d + F.batch_norm + ReLU", KERNEL_ATOL)
-    b_ms, b_by = bound(2.0 * t2 * j2 * wp2 * c_out * 25 * 64,
-                       4.0 * (x.numel() + c2[0].numel() + 2 * c_out
-                              + t2 * j2 * wp2 * c_out))
+    relaunch_identical(lambda: C2.conv2_bn_relu(x, *c2), "conv2")
+    b_ms, b_by, f32_ms = bound_3xtf32(
+        2.0 * t2 * j2 * wp2 * c_out * 25 * 64, 0.0,
+        4.0 * (x.numel() + c2[0].numel() + 2 * c_out
+               + t2 * j2 * wp2 * c_out))
     row = dict(shape=f"{tuple(x.shape)}",
                ms=cuda_ms(lambda: C2.conv2_bn_relu(x, *c2)),
                plain_ms=cuda_ms(lambda: C2.conv2_bn_relu_plain(x, *c2)),
                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=err)
+               bound_f32_ms=f32_ms, max_abs_err=err)
     rows["conv2"].append(row)
     log(f"  conv2 ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library "
-        f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+        f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}, 3xTF32; "
+        f"float32 {f32_ms:.4f})")
     return rows
 
 
@@ -1511,7 +1534,9 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             path=f"the planar vta clip ({setting})",
-            per_launch=shapes if len(shapes) > 1 else None))
+            per_launch=shapes if len(shapes) > 1 else None,
+            **({"bound_f32_ms": row["bound_f32_ms"]}
+               if "bound_f32_ms" in row else {})))
     step_want = sum(r["launches_per_step"] for r in stack)
     if step_launches["encoder_stack"] != step_want:
         raise AssertionError(f"encoder_stack: {step_launches} in a training "

@@ -4,7 +4,10 @@
 //   C[M,N] = LN?( act(A[M,K] @ B[K,N] + bias[N]) + res[M,N] )
 //
 // All operands row-major and contiguous, 16-byte aligned, K and N multiples
-// of 4; bias, res and the row LayerNorm (g, b) are optional.
+// of 4; bias, res and the row LayerNorm (g, b) are optional. Its mainloop
+// (`tc_product`) takes the A rows from a loader, so the block-2 convolution
+// (conv2.cu) runs on it with an im2col gather; flash_attention.cu uses its
+// 3xTF32 and cp.async helpers.
 //
 // What bounds it: the encoders' products run at R = 1..2688 rows against
 // weights of 0.8-9.4 MB. At the text rows (R = 32..256) the weights are
@@ -123,41 +126,57 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The shape of one built (BM, BN) tile: its warps, each warp's mma tiles,
+// its shared-memory stage, and each thread's 16-byte copies a stage.
+template <int BM, int BN>
+struct Tile {
+  static constexpr int WM = TileWarps<BM, BN>::WM, WN = TileWarps<BM, BN>::WN;
+  static constexpr int NT = WM * WN * 32;
+  static constexpr int MF = BM / WM / 16, NF = BN / WN / 8;   // a warp's mma
+  static constexpr int AS = TC_BK + TC_APAD, BS = BN + TC_BPAD;
+  static constexpr int A_STAGE = BM * AS, B_STAGE = TC_BK * BS;
+  static constexpr int A_COPIES = BM * TC_BK / 4 / NT;
+  static constexpr int B_COPIES = TC_BK * BN / 4 / NT;
+  static_assert(A_COPIES * NT * 4 == BM * TC_BK, "A stage split evenly");
+  static_assert(B_COPIES * NT * 4 == TC_BK * BN, "B stage split evenly");
+};
+
 template <int BM, int BN>
 constexpr int tile_smem_bytes() {
   return TC_STAGES * (BM * (TC_BK + TC_APAD) + TC_BK * (BN + TC_BPAD)) *
          (int)sizeof(float);
 }
 
-// grid (ceil(N/BN), ceil(M/BM), splits). Block (n, m, s) computes the
-// product of K slice s, [s*per*BK, min(K, (s+1)*per*BK)), for its tile.
-// ws == null: the full epilogue, into C. Otherwise: the raw partial tile,
-// into ws[s].
+// A thread's A copy i of a stage: tile row r and the 4 columns from kc.
 template <int BM, int BN>
-__global__ void __launch_bounds__(TileWarps<BM, BN>::WM *
-                                  TileWarps<BM, BN>::WN * 32)
-gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
-               const float* __restrict__ bias, const float* __restrict__ res,
-               float* __restrict__ C, float* __restrict__ ws, int M, int N,
-               int K, int per, int act) {
-  constexpr int WM = TileWarps<BM, BN>::WM, WN = TileWarps<BM, BN>::WN;
-  constexpr int NT = WM * WN * 32;
-  constexpr int MF = BM / WM / 16, NF = BN / WN / 8;   // mma tiles a warp
-  constexpr int AS = TC_BK + TC_APAD, BS = BN + TC_BPAD;
-  constexpr int A_STAGE = BM * AS, B_STAGE = TC_BK * BS;
-  constexpr int A_COPIES = BM * TC_BK / 4 / NT, B_COPIES = TC_BK * BN / 4 / NT;
-  static_assert(A_COPIES * NT * 4 == BM * TC_BK, "A stage split evenly");
-  static_assert(B_COPIES * NT * 4 == TC_BK * BN, "B stage split evenly");
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ void a_copy_slot(int i, int& r, int& kc) {
+  const int c = threadIdx.x + i * Tile<BM, BN>::NT;
+  r = c / (TC_BK / 4);
+  kc = (c % (TC_BK / 4)) * 4;
+}
+
+// The block's (BM, BN) tile of A[:, k_begin:k_end] @ B[k_begin:k_end,
+// n0:n0+BN] into sum (the warp's mma fragments), through the cp.async ring
+// in `smem` (tile_smem_bytes). load_a(as, i, k0) issues the thread's A copy
+// i (a_copy_slot) of the stage at column k0 into `as`: the dense rows of
+// gemm_tc_kernel, or the im2col rows that conv2.cu gathers. B is row-major
+// (K, N). On return every copy has landed; the ring may be reused after a
+// __syncthreads.
+template <int BM, int BN, class LoadA>
+__device__ __forceinline__ void tc_product(
+    float* smem, const LoadA& load_a, const float* __restrict__ B, int N,
+    int n0, int k_begin, int k_end,
+    float (&sum)[Tile<BM, BN>::MF][Tile<BM, BN>::NF][4]) {
+  using TL = Tile<BM, BN>;
+  constexpr int WN = TL::WN, NT = TL::NT, MF = TL::MF, NF = TL::NF;
+  constexpr int AS = TL::AS, BS = TL::BS;
+  constexpr int A_STAGE = TL::A_STAGE, B_STAGE = TL::B_STAGE;
   float* As = smem;                           // [stage][BM][AS]
   float* Bs = smem + TC_STAGES * A_STAGE;     // [stage][BK][BS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm0 = (warp / WN) * MF * 16, wn0 = (warp % WN) * NF * 8;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * per * TC_BK;
-  const int k_end = min(K, k_begin + per * TC_BK);
   const int nsteps = (k_end - k_begin + TC_BK - 1) / TC_BK;
 
   auto load_stage = [&](int stage, int step) {
@@ -165,15 +184,9 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
     float* as = As + stage * A_STAGE;
     float* bs = Bs + stage * B_STAGE;
 #pragma unroll
-    for (int i = 0; i < A_COPIES; ++i) {
-      const int c = tid + i * NT;
-      const int r = c / (TC_BK / 4), kc = (c % (TC_BK / 4)) * 4;
-      const bool ok = m0 + r < M && k0 + kc < k_end;
-      cp_async16(as + r * AS + kc,
-                 ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
-    }
+    for (int i = 0; i < TL::A_COPIES; ++i) load_a(as, i, k0);
 #pragma unroll
-    for (int i = 0; i < B_COPIES; ++i) {
+    for (int i = 0; i < TL::B_COPIES; ++i) {
       const int c = tid + i * NT;
       const int r = c / (BN / 4), nc = (c % (BN / 4)) * 4;
       const bool ok = k0 + r < k_end && n0 + nc < N;
@@ -183,13 +196,12 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
   };
 
   float acc[MF][NF][4];   // this stage's products (mma accumulators)
-  float sum[MF][NF][4];   // the slice's sum, float32 adds
 #pragma unroll
   for (int i = 0; i < MF; ++i)
 #pragma unroll
     for (int j = 0; j < NF; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;   // float32 adds
 
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
@@ -251,6 +263,37 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
         for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
   }
   cp_async_wait<0>();
+}
+
+// grid (ceil(N/BN), ceil(M/BM), splits). Block (n, m, s) computes the
+// product of K slice s, [s*per*BK, min(K, (s+1)*per*BK)), for its tile.
+// ws == null: the full epilogue, into C. Otherwise: the raw partial tile,
+// into ws[s].
+template <int BM, int BN>
+__global__ void __launch_bounds__(Tile<BM, BN>::NT)
+gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
+               const float* __restrict__ bias, const float* __restrict__ res,
+               float* __restrict__ C, float* __restrict__ ws, int M, int N,
+               int K, int per, int act) {
+  using TL = Tile<BM, BN>;
+  constexpr int WN = TL::WN, MF = TL::MF, NF = TL::NF, AS = TL::AS;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / WN) * MF * 16, wn0 = (warp % WN) * NF * 8;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * per * TC_BK;
+  const int k_end = min(K, k_begin + per * TC_BK);
+
+  auto load_a = [&](float* as, int i, int k0) {
+    int r, kc;
+    a_copy_slot<BM, BN>(i, r, kc);
+    const bool ok = m0 + r < M && k0 + kc < k_end;
+    cp_async16(as + r * AS + kc, ok ? A + (size_t)(m0 + r) * K + k0 + kc : A,
+               ok);
+  };
+  float sum[MF][NF][4];   // the slice's sum
+  tc_product<BM, BN>(smem, load_a, B, N, n0, k_begin, k_end, sum);
 
   float* dst = ws != nullptr ? ws + (size_t)blockIdx.z * M * N : C;
 #pragma unroll
@@ -380,7 +423,7 @@ template <int BM, int BN>
 int gemm_launch(const float* A, const float* B, const float* bias,
                 const float* res, float* C, float* ws, int M, int N, int K,
                 int splits, int per, int act, cudaStream_t s) {
-  constexpr int NT = TileWarps<BM, BN>::WM * TileWarps<BM, BN>::WN * 32;
+  constexpr int NT = Tile<BM, BN>::NT;
   constexpr int SMEM = tile_smem_bytes<BM, BN>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_tc_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -85,6 +85,9 @@ def flash_attention(q, k, v, mask=None):
     if mask is not None:
         mask = mask.to(dtype=torch.float32).contiguous()
         _build.check_operand("mask", mask, (b, t), dev)
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned (the kernel "
+                         "copies their rows 16 bytes at a time)")
     out = torch.empty_like(q)
     lib = _lib()
     P = _build.ptr

@@ -9,7 +9,10 @@ sublayer and stack kernels at the main paths' small row counts (32, 128,
 256) and ragged ones (1, 21, 33), on every tile of the shared GEMM, and
 twice over with identical bits (the split-K sums run in a fixed order); the
 flash attention kernel at the training and long-clip shapes, forward and
-backward; the wrappers' refusals, a gradient through a kernel that has
+backward, and at ragged T (under one key tile, ragged last tiles) with
+and without a mask; block 2 at ragged M (under one tile, tiles across
+frames); both relaunched with identical bits; the wrappers' refusals, a
+misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
 takes. Marked `cuda`: each test skips without a card.
 
@@ -274,8 +277,12 @@ def test_stem_entries(dev, impl, t4, h, w):
 
 
 @pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),
-                                          (148, 43, 78)])
+                                          (148, 43, 78), (7, 9, 16),
+                                          (5, 13, 21)])
 def test_conv2(dev, t, n_j, w_pool):
+    """Ragged M: under one 128-position tile (3 and 126 positions) and
+    tiles that straddle frames (20, 45 and 740 positions a frame); one
+    launch counted, and a second launch bit-identical."""
     g = torch.Generator().manual_seed(4)
     x = torch.rand(t, n_j, w_pool, 64, generator=g).to(dev)
     weight = (torch.randn(5, 5, 64, 128, generator=g) * 0.03).to(dev)
@@ -290,6 +297,7 @@ def test_conv2(dev, t, n_j, w_pool):
     torch.testing.assert_close(got, C2.conv2_bn_relu_plain(x, weight, scale,
                                                            bias),
                                rtol=0, atol=ATOL)
+    assert torch.equal(C2.conv2_bn_relu(x, weight, scale, bias), got)
 
 
 def test_wrappers_refuse(dev):
@@ -345,8 +353,16 @@ def _qkvm(b, h, t, d, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(8, 8, 128, 64), (8, 8, 32, 96),
-                                   (1, 8, 1024, 64), (2, 3, 100, 96)])
+                                   (1, 8, 1024, 64), (2, 3, 100, 96),
+                                   (2, 3, 5, 64), (2, 3, 5, 96),
+                                   (2, 3, 100, 64), (2, 3, 1000, 64),
+                                   (2, 3, 1000, 96)])
 def test_flash_attention(dev, shape):
+    """The path's shapes, T under one 32-key tile (5) and ragged last query
+    and key tiles (100, 1000), each with a pad tail and, where B > 1, a
+    fully masked batch row, which averages V uniformly over its T keys;
+    one launch counted; a second launch (on the transposed head views)
+    bit-identical; and no mask."""
     q, k, v, mask = _qkvm(*shape, dev)
     _build.reset_launches()
     got = FA.flash_attention(q, k, v, mask)
@@ -355,10 +371,26 @@ def test_flash_attention(dev, shape):
         {k_: 0 for k_ in _build.LAUNCHES}, flash_attention=1)
     want = FA.flash_attention_plain(q, k, v, mask)
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if shape[0] > 1:
+        torch.testing.assert_close(
+            got[-1], v[-1].mean(1, keepdim=True).expand_as(v[-1]), rtol=0,
+            atol=ATOL)
     # the transposed head views of core/transformer._split_heads
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
     torch.testing.assert_close(FA.flash_attention(qt, k, v, mask), got,
                                rtol=0, atol=0)
+    torch.testing.assert_close(FA.flash_attention(q, k, v),
+                               FA.flash_attention_plain(q, k, v), rtol=0,
+                               atol=ATOL)
+
+
+def test_flash_attention_refuses_misaligned(dev):
+    """A contiguous view that does not start on 16 bytes is refused (the
+    kernel copies rows 16 bytes at a time), never run another way."""
+    buf = torch.randn(1 + 2 * 8 * 64 * 64, device=dev)
+    q = buf[1:].view(2, 8, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, q, q)
 
 
 def _grads(fn, q, k, v, mask, g):

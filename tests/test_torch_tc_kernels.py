@@ -1,0 +1,188 @@
+"""The arithmetic of kernels 6 and 7 on the tensor cores, emulated on the
+CPU and held against the JAX package and the port's plain twins. The
+kernels themselves run only on the card (tests/test_torch_kernels_cuda.py);
+these tests keep their schedules testable here:
+
+* flash attention (csrc/flash_attention.cu): keys in 32-key tiles, each
+  split into two 16-key halves that run their own online softmax (running
+  max from -2e9, the -1e9 fill, -inf past T) and merge at the end; S = (q *
+  scale) K^T in 3xTF32 with a float32 flush every 32 columns of D; each
+  tile's P V in 3xTF32 from zero, added to the rescaled O in float32;
+* block 2 (csrc/conv2.cu): the implicit GEMM's K in (kh, kw, c) order, 50
+  stages of 32, each stage's 3xTF32 product from zero and added to a
+  float32 sum, then the folded scale, bias and ReLU.
+
+A TF32 product is exact in float32, so float32 matmuls of the split
+operands stand in for the tensor cores (tests/test_torch_gemm.py).
+
+Tolerances: abs 1e-5 against float32 references at the same inputs (the
+3xTF32 products keep float32 accuracy: ~1e-6 here, where one TF32 pass is
+~1e-3 off); block 2 against the Pallas kernel interpreted at atol = rtol =
+1e-4, the JAX conv2 test's own bar (tests/test_conv2_pallas.py:63), as
+tests/test_torch_planar.py holds the plain twin."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from jegal_tpu.ops.pallas import conv2 as JC2
+from jegal_tpu.ops.pallas import flash_attention as JFA
+from jegal_tpu.ops.pallas import stem as JS
+from jegal_torch.convert import tree_to_torch
+from jegal_torch.ops.kernels import conv2 as TC2
+from jegal_torch.ops.kernels import flash_attention as FA
+from test_torch_gemm import _tf32
+from torch_threads import few_torch_threads  # noqa: F401
+
+ATOL = 1e-5
+KT, KH = 32, 16          # keys a ring stage, keys a warp of it
+NEG_FILL = -1e9
+
+
+def mm3(a, b):
+    """a @ b in 3xTF32: lo*hi + hi*lo + hi*hi, small terms first."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def flash_emulated(q, k, v, mask):
+    """Kernel 6's schedule on (B, H, T, D) float32 tensors and a (B, T)
+    key mask or None. Query rows are independent, so all of them run at
+    once; the key tiles, halves, flushes and merge are the kernel's."""
+    b, h, t, d = q.shape
+    qs = q * torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    halves = []
+    for half in (0, 1):
+        m = torch.full((b, h, t), 2 * NEG_FILL)
+        l = torch.zeros(b, h, t)
+        o = torch.zeros(b, h, t, d)
+        for k0 in range(half * KH, t, KT):
+            keys = torch.arange(k0, k0 + KH)
+            live = keys < t
+            at = keys.clamp(max=t - 1)
+            kt = k[:, :, at] * live[:, None]       # zero-filled past T
+            vt = v[:, :, at] * live[:, None]
+            s = torch.zeros(b, h, t, KH)
+            for c0 in range(0, d, 32):             # a float32 flush each 32
+                s = s + mm3(qs[..., c0:c0 + 32],
+                            kt[..., c0:c0 + 32].transpose(-1, -2))
+            if mask is not None:
+                filled = (mask[:, at] == 0)[:, None, None, :]
+                s = torch.where(filled, torch.tensor(NEG_FILL), s)
+            s = torch.where(live, s, torch.tensor(-math.inf))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + mm3(p, vt)
+            m = m_new
+        halves.append((m, l, o))
+    (m0, l0, o0), (m1, l1, o1) = halves
+    m_all = torch.maximum(m0, m1)
+    c0, c1 = torch.exp(m0 - m_all), torch.exp(m1 - m_all)
+    return (o0 * c0[..., None] + o1 * c1[..., None]) \
+        / (l0 * c0 + l1 * c1)[..., None]
+
+
+def _qkvm(seed, b, h, t, d):
+    """q, k, v (B, H, T, D) and a (B, T) key mask: a pad tail in every
+    batch row and, in the last, every key masked."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((b, t), np.float32)
+    mask[:, t - t // 4:] = 0.0
+    mask[-1] = 0.0
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("t", [16, 128, 256])
+@pytest.mark.parametrize("d", [64, 96])
+def test_flash_schedule_matches_pallas_kernel(t, d):
+    q, k, v, mask = _qkvm(t + d, 2, 2, t, d)
+    want = np.asarray(JFA.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        128, 128, True))
+    got = flash_emulated(*(torch.from_numpy(a) for a in (q, k, v, mask)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    # the fully masked row averages V uniformly over its T keys
+    np.testing.assert_allclose(got[-1].numpy(),
+                               np.broadcast_to(v[-1].mean(1, keepdims=True),
+                                               v[-1].shape), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("t", [5, 100])
+@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_schedule_matches_plain_twin_at_ragged_t(t, d, masked):
+    """T that no JAX block divides: under one tile (5) and a ragged last
+    tile (100), where one key half of a tile lies wholly past T."""
+    q, k, v, mask = (torch.from_numpy(a) for a in _qkvm(3 * t + d, 2, 3, t,
+                                                        d))
+    if not masked:
+        mask = None
+    torch.testing.assert_close(flash_emulated(q, k, v, mask),
+                               FA.flash_attention_plain(q, k, v, mask),
+                               rtol=0, atol=ATOL)
+
+
+def conv2_emulated(x, w, scale, bias):
+    """Kernel 7's schedule: x (T, J, Wp, 64) -> (T, J2, W2, 128)."""
+    t, n_j, w_pool, c = x.shape
+    _, j2, w2, n = TC2.out_shape(t, n_j, w_pool)
+    # im2col in (kh, kw, c) order: the rows the kernel gathers stage by stage
+    a = torch.cat([x[:, kh:kh + 2 * j2 - 1:2, kw:kw + 2 * w2 - 1:2]
+                   for kh in range(5) for kw in range(5)], dim=-1)
+    a = a.reshape(-1, 25 * c)
+    wk = w.reshape(25 * c, n)
+    acc = torch.zeros(a.shape[0], n)
+    for k0 in range(0, 25 * c, 32):
+        acc = acc + mm3(a[:, k0:k0 + 32], wk[k0:k0 + 32])
+    return torch.relu(acc * scale + bias).reshape(t, j2, w2, n)
+
+
+@pytest.mark.parametrize("t,n_j,w_pool", [(3, 11, 14), (2, 9, 16)])
+def test_conv2_schedule_matches_plain_twin(t, n_j, w_pool):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.random((t, n_j, w_pool, 64), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 5, 64, 128),
+                                             dtype=np.float32) * 0.03)
+    scale = torch.from_numpy(rng.random(128, dtype=np.float32) + 0.5)
+    bias = torch.from_numpy(rng.standard_normal(128, dtype=np.float32) * 0.1)
+    got = conv2_emulated(x, w, scale, bias)
+    assert tuple(got.shape) == TC2.out_shape(t, n_j, w_pool)
+    torch.testing.assert_close(got, TC2.conv2_bn_relu_plain(x, w, scale,
+                                                            bias),
+                               rtol=0, atol=ATOL)
+
+
+def test_conv2_schedule_matches_pallas_kernel():
+    """Against mgrid_conv2_fused interpreted, on a block-2 tree with
+    randomized BatchNorm statistics; the port's dense input is the
+    m-grid's even lanes (as tests/test_torch_planar.py builds it)."""
+    t, n_j, w_pool = 3, 11, 14
+    rng = np.random.default_rng(12)
+    blk2 = {"conv": {"kernel": rng.standard_normal((1, 5, 5, 64, 128),
+                                                   dtype=np.float32) * 0.03,
+                     "bias": rng.standard_normal(128, dtype=np.float32)
+                     * 0.1},
+            "bn": {"scale": rng.random(128, dtype=np.float32) + 0.5,
+                   "bias": rng.standard_normal(128, dtype=np.float32) * 0.1,
+                   "mean": rng.standard_normal(128, dtype=np.float32) * 0.1,
+                   "var": rng.random(128, dtype=np.float32) + 0.5}}
+    dense = rng.random((t, n_j, w_pool, 64), dtype=np.float32)
+    m = np.zeros((t, n_j, 64, JS.SLOT), np.float32)
+    m[..., 0:2 * w_pool:2] = dense.transpose(0, 1, 3, 2)
+    want = np.asarray(JC2.mgrid_conv2_fused(
+        jnp.asarray(m), *JC2.conv2_kernel_params(blk2), w_pool,
+        interpret=True))
+    ops = TC2.conv2_kernel_params(tree_to_torch(blk2))
+    got = conv2_emulated(torch.from_numpy(dense), *ops)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

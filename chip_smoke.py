@@ -94,11 +94,13 @@ their times from phase 6(a) at that clip's entry: planar frames for both
 stems (the band stem's float-entry numbers under `per_launch`). Their
 library yardsticks are phase 3's `F.conv3d` stem on the float frames of the
 same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2. The
-attention, FFN, stack, flash attention and conv2 rows, whose products run
-in 3xTF32 on the tensor cores, state the 3xTF32 bound (`bound_ms`) and the
-all-float32 one (`bound_f32_ms`) beside it; the attention, FFN and stack
-rows' per-shape rows carry each product's plan, the achieved rate and the
-bound share.
+window stem (both entries), attention, FFN, stack, flash attention and
+conv2 rows, whose products run in 3xTF32 on the tensor cores, state the
+3xTF32 bound (`bound_ms`; the planar stem's in two passes, its integer
+pixels being exact in TF32) and the all-float32 one (`bound_f32_ms`)
+beside it (the band stem computes in float32 on the CUDA cores); the
+attention, FFN and stack rows' per-shape rows carry each product's plan,
+the achieved rate and the bound share.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -269,12 +271,15 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
 
 
-def bound_3xtf32(gemm_flops: float, other_flops: float, nbytes: float):
+def bound_3xtf32(gemm_flops: float, other_flops: float, nbytes: float,
+                 passes: int = 3):
     """Bound of a kernel whose products run in 3xTF32 on the tensor cores
-    (3 TF32 operations per float32 one at 495 TFLOP/s) and whose other
-    operations (attention) in float32 at 67 TFLOP/s: (ms, what sets it,
-    the all-float32 bound's ms beside it)."""
-    t_op = 3 * gemm_flops / PEAK_TF32_FLOPS + other_flops / PEAK_F32_FLOPS
+    (3 TF32 operations per float32 one at 495 TFLOP/s; `passes` 2 where
+    one operand is exact in TF32) and whose other operations (attention)
+    in float32 at 67 TFLOP/s: (ms, what sets it, the all-float32 bound's
+    ms beside it)."""
+    t_op = (passes * gemm_flops / PEAK_TF32_FLOPS
+            + other_flops / PEAK_F32_FLOPS)
     t_mem = nbytes / PEAK_BYTES
     f32_ms, _ = bound(gemm_flops + other_flops, nbytes)
     return (1e3 * max(t_op, t_mem),
@@ -384,17 +389,20 @@ def check_stem(gp, dev):
                                 bn["bias"], False, 0.0, 1e-5))
         return F.max_pool3d(y, (1, 3, 3), (1, 2, 2))
 
+    relaunch_identical(lambda: S.stem_pool(frames, *ops), "stem_pool")
+    log(f"  stem_pool kernel: {S.kernel_info(planar=False)}")
     t_in, h, w = frames.shape[:3]
     t_out, j, wp, c = S.pooled_shape(t_in, h, w)
     nbytes = 4.0 * (frames.numel() + ops[0].numel() + 2 * c
                     + t_out * j * wp * c)
-    b_ms, b_by = bound(stem_flops(t_in, h, w), nbytes)
+    b_ms, b_by, f32_ms = bound_3xtf32(stem_flops(t_in, h, w), 0.0, nbytes)
     row = dict(ms=cuda_ms(lambda: S.stem_pool(frames, *ops)),
                plain_ms=cuda_ms(lambda: S.stem_pool_plain(frames, *ops)),
                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=err)
+               bound_f32_ms=f32_ms, max_abs_err=err)
     log(f"  stem_pool ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-        f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+        f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}, 3xTF32; "
+        f"float32 {f32_ms:.4f}), {100 * b_ms / row['ms']:.1f} % of it")
     return row, (u8, chin, frames, library)
 
 
@@ -910,15 +918,25 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
         err = max_err(kern(), plain(), label, KERNEL_ATOL)
         max_err(kern(), reference, f"{label} vs the window stem on the "
                 f"float frames", KERNEL_ATOL)
-        b_ms, b_by = bound(flops, in_bytes + param_bytes + out_bytes)
+        nbytes = in_bytes + param_bytes + out_bytes
+        if impl == "window":   # 3xTF32, two passes on the exact pixels
+            relaunch_identical(kern, label)
+            log(f"  {label} kernel: {S.kernel_info(planar=True)}")
+            b_ms, b_by, f32_ms = bound_3xtf32(flops, 0.0, nbytes, passes=2)
+            extra = dict(bound_f32_ms=f32_ms)
+            note = f"3xTF32 in two passes; float32 {f32_ms:.4f}"
+        else:                  # float32 on the CUDA cores
+            b_ms, b_by = bound(flops, nbytes)
+            extra, note = {}, "float32"
         row = dict(shape=f"{entry} frames {tuple(x.shape)}",
                    ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(stem_library), bound_ms=b_ms,
-                   bound_by=b_by, max_abs_err=err)
+                   bound_by=b_by, max_abs_err=err, **extra)
         rows[name].append(row)
         log(f"  {label} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
             f"library {row['library_ms']:.4f} (on the float frames) bound "
-            f"{b_ms:.4f} ({b_by})")
+            f"{b_ms:.4f} ({b_by}, {note}), {100 * b_ms / row['ms']:.1f} % "
+            f"of it")
 
     blk2 = gp["net_vid"][1]
     c2 = C2.conv2_kernel_params(blk2)

@@ -10,8 +10,11 @@
 //
 // A kernel is a template on its source, so one body serves both forms and
 // the uint8 -> float conversion happens as the pixels are staged into
-// shared memory. The planar form is read pixel by pixel in the raw frame's
-// order, (y, x, c) -> [t, y/3, ((y%3)*3 + x%3)*3 + c, x/3], so the kernel
+// shared memory. `exact` says every pixel is exact in TF32 (10 mantissa
+// bits): the integers 0..255 of the planar form are, so a tensor-core
+// kernel needs no low TF32 part of them (stem.cu). The planar form is read
+// pixel by pixel in the raw frame's order, (y, x, c) -> [t, y/3,
+// ((y%3)*3 + x%3)*3 + c, x/3], so the kernel
 // does the same 7x7x3 taps either way: read as its s2d form, a 3x3 kernel
 // over 27 channels, the 9x9 padded window would multiply 243 taps where 147
 // are nonzero.
@@ -34,6 +37,7 @@ __host__ __device__ inline int stem_pooled(int n) {
 }
 
 struct FloatFrames {
+  static constexpr bool exact = false;
   const float* p;
   int H, W;
   // xq = x * 3 + c; the caller keeps y < H and xq < 3 W
@@ -43,6 +47,7 @@ struct FloatFrames {
 };
 
 struct PlanarU8 {
+  static constexpr bool exact = true;
   const uint8_t* p;
   int H, W;  // raw frame size: 3 H3 x 3 W3
   __device__ __forceinline__ float at(int t, int y, int xq) const {

@@ -93,6 +93,21 @@ def _entry(impl, planar: bool):
     return lib, f
 
 
+def kernel_info(planar: bool) -> dict:
+    """What the compiler and the occupancy calculator say of the window
+    stem's kernel for an entry: registers and spill bytes a thread, dynamic
+    shared memory a block and resident blocks an SM (on the current card)."""
+    lib = _build.library("stem")
+    fn = lib.jt_stem_pool_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, fn(int(planar), ctypes.cast(info, ctypes.c_void_p)),
+                 "stem kernel info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
+
+
 def _check_impl(impl):
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -104,8 +119,8 @@ def _check_params(weight, scale, bias, device):
                            ("bias", bias, (C_OUT,))):
         _build.check_operand(name, t, shape, device)
     if weight.data_ptr() % 16:
-        raise ValueError("weight must be 16-byte aligned (the kernel reads "
-                         "it as float4)")
+        raise ValueError("weight must be 16-byte aligned (the kernels read "
+                         "it in 16-byte pieces)")
 
 
 def _launch(impl, planar, x, weight, scale, bias, t_in, h, w):

@@ -11,7 +11,9 @@ twice over with identical bits (the split-K sums run in a fixed order); the
 flash attention kernel at the training and long-clip shapes, forward and
 backward, and at ragged T (under one key tile, ragged last tiles) with
 and without a mask; block 2 at ragged M (under one tile, tiles across
-frames); both relaunched with identical bits; the wrappers' refusals, a
+frames); both relaunched with identical bits; the window stem's two
+entries relaunched with identical bits and on all-0 and all-255 pixels,
+and its block without spills; the wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
 takes. Marked `cuda`: each test skips without a card.
@@ -274,6 +276,41 @@ def test_stem_entries(dev, impl, t4, h, w):
     torch.testing.assert_close(got_p, S.stem_pool_planar_plain(planar, *ops),
                                rtol=0, atol=ATOL)
     torch.testing.assert_close(got_p, got_f, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("fill", [0, 255, None])
+def test_stem_window_relaunch_and_extreme_pixels(dev, fill):
+    """The window stem's two entries on frames of all 0, all 255 and
+    random bytes: planar against float frames and both against their
+    twins, and two launches of each entry bit-identical."""
+    t4, h, w = 9, 57, 102
+    if fill is None:
+        u8 = torch.randint(0, 256, (t4, h, w, 3),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.uint8)
+    else:
+        u8 = torch.full((t4, h, w, 3), fill, dtype=torch.uint8)
+    planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
+    frames = u8.to(dev).float() / 255.0
+    ops = _stem_weights(dev, seed=6)
+    got_f = S.stem_pool(frames, *ops)
+    got_p = S.stem_pool_planar(planar, *ops)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_f, S.stem_pool_plain(frames, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, S.stem_pool_planar_plain(planar, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, got_f, rtol=0, atol=ATOL)
+    assert torch.equal(S.stem_pool(frames, *ops), got_f)
+    assert torch.equal(S.stem_pool_planar(planar, *ops), got_p)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_stem_window_fits_an_sm_without_spills(dev, planar):
+    """The design's block fits an SM without spilling registers."""
+    info = S.kernel_info(planar)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),

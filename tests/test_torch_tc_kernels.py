@@ -1,4 +1,4 @@
-"""The arithmetic of kernels 6 and 7 on the tensor cores, emulated on the
+"""The arithmetic of kernels 1, 6 and 7 on the tensor cores, emulated on the
 CPU and held against the JAX package and the port's plain twins. The
 kernels themselves run only on the card (tests/test_torch_kernels_cuda.py);
 these tests keep their schedules testable here:
@@ -10,7 +10,12 @@ these tests keep their schedules testable here:
   tile's P V in 3xTF32 from zero, added to the rescaled O in float32;
 * block 2 (csrc/conv2.cu): the implicit GEMM's K in (kh, kw, c) order, 50
   stages of 32, each stage's 3xTF32 product from zero and added to a
-  float32 sum, then the folded scale, bias and ReLU.
+  float32 sum, then the folded scale, bias and ReLU;
+* the window stem (csrc/stem.cu): the implicit GEMM's K one temporal tap
+  at a time, each tap's 147 columns in (dy, dx, c) order padded with zero
+  weights to 152, a float32 flush every 32 columns; float frames in
+  3xTF32, the planar entry's integer pixels (exact in TF32) in two passes,
+  x w_lo + x w_hi; then the folded scale, bias, ReLU and the 3x3/2 pool.
 
 A TF32 product is exact in float32, so float32 matmuls of the split
 operands stand in for the tensor cores (tests/test_torch_gemm.py).
@@ -19,7 +24,9 @@ Tolerances: abs 1e-5 against float32 references at the same inputs (the
 3xTF32 products keep float32 accuracy: ~1e-6 here, where one TF32 pass is
 ~1e-3 off); block 2 against the Pallas kernel interpreted at atol = rtol =
 1e-4, the JAX conv2 test's own bar (tests/test_conv2_pallas.py:63), as
-tests/test_torch_planar.py holds the plain twin."""
+tests/test_torch_planar.py holds the plain twin; the stem against the
+Pallas kernel interpreted at 2e-5, the JAX planar stem test's bar, as
+tests/test_torch_planar.py holds the stem twins."""
 
 import math
 
@@ -35,6 +42,8 @@ from jegal_tpu.ops.pallas import stem as JS
 from jegal_torch.convert import tree_to_torch
 from jegal_torch.ops.kernels import conv2 as TC2
 from jegal_torch.ops.kernels import flash_attention as FA
+from jegal_torch.ops.kernels import stem as TS
+from jegal_torch.ops.video import s2d_repack, s2d_unpack
 from test_torch_gemm import _tf32
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -48,6 +57,13 @@ def mm3(a, b):
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def mm2(a, b):
+    """a @ b in two TF32 passes, a*lo + a*hi: float32 accuracy for an `a`
+    exact in TF32 (integers 0..255), one pass's error for any other."""
+    a, b_hi = _tf32(a), _tf32(b)
+    return a @ _tf32(b - b_hi) + a @ b_hi
 
 
 def flash_emulated(q, k, v, mask):
@@ -186,3 +202,96 @@ def test_conv2_schedule_matches_pallas_kernel():
     got = conv2_emulated(torch.from_numpy(dense), *ops)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+STEM_TAPS, STEM_KP, STEM_FLUSH = 147, 152, 32
+
+
+def stem_emulated(frames, w, scale, bias, exact=False):
+    """Kernel 1's schedule: frames (T4, H, W, 3), w (5, 7, 7, 3, 64) ->
+    (T4 - 4, J, W_pool, 64). Conv positions are independent, so all of
+    them run at once; the K order, padding and flushes are the kernel's.
+    exact: the pixels are exact in TF32 (the planar entry's integers)."""
+    t4, h, wd, _ = frames.shape
+    hc, wc = (h - 7) // 3 + 1, (wd - 7) // 3 + 1
+    mm = mm2 if exact else mm3
+    acc = torch.zeros((t4 - 4) * hc * wc, 64)
+    for dt in range(5):
+        # the tap's patch columns in (dy, dx, c) order, padded to 152
+        a = torch.cat([frames[dt:dt + t4 - 4, dy:dy + 3 * hc - 2:3,
+                              dx:dx + 3 * wc - 2:3]
+                       for dy in range(7) for dx in range(7)], dim=-1)
+        a = torch.cat([a.reshape(-1, STEM_TAPS),
+                       torch.zeros(a.numel() // STEM_TAPS,
+                                   STEM_KP - STEM_TAPS)], dim=1)
+        wk = torch.cat([w[dt].reshape(STEM_TAPS, 64),
+                        torch.zeros(STEM_KP - STEM_TAPS, 64)])
+        for k0 in range(0, STEM_KP, STEM_FLUSH):
+            acc = acc + mm(a[:, k0:k0 + STEM_FLUSH], wk[k0:k0 + STEM_FLUSH])
+    y = torch.relu(acc * scale + bias).reshape(t4 - 4, hc, wc, 64)
+    y = torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 3, 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def _stem_ops(seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal((5, 7, 7, 3, 64),
+                                                 dtype=np.float32) * 0.05),
+            torch.from_numpy(rng.random(64, dtype=np.float32) + 0.5),
+            torch.from_numpy(rng.standard_normal(64, dtype=np.float32) * 0.1))
+
+
+@pytest.mark.parametrize("shape", [(7, 30, 45, 3), (6, 61, 110, 3)])
+def test_stem_schedule_matches_plain_twin(shape):
+    """Float frames in [0, 1) of ragged size, three passes."""
+    frames = torch.from_numpy(np.random.default_rng(13).random(
+        shape, dtype=np.float32))
+    ops = _stem_ops(14)
+    got = stem_emulated(frames, *ops)
+    assert tuple(got.shape) == TS.pooled_shape(*shape[:3])
+    torch.testing.assert_close(got, TS.stem_pool_plain(frames, *ops),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(7, 30, 45, 3), (6, 63, 111, 3)])
+def test_stem_planar_schedule_matches_plain_twin(shape):
+    """The planar entry's two passes on integer pixels, with chin rows
+    masked, against the planar twin; the float three-pass schedule on the
+    same pixels / 255 agrees."""
+    rng = np.random.default_rng(15)
+    u8 = rng.integers(0, 256, shape, dtype=np.uint8)
+    cut = rng.integers(0, shape[1] // 2, shape[0])
+    planar = torch.from_numpy(s2d_repack(u8, cut))
+    ops = _stem_ops(16)
+    pixels = s2d_unpack(planar).to(torch.float32)
+    got = stem_emulated(pixels, ops[0] / 255.0, *ops[1:], exact=True)
+    torch.testing.assert_close(got, TS.stem_pool_planar_plain(planar, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got, stem_emulated(pixels / 255.0, *ops),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(13, 45, 48, 3), (9, 54, 96, 3)])
+def test_stem_schedule_matches_pallas_kernel(shape):
+    """Against stem_mgrid_x interpreted (the window kernel), on a block-1
+    tree with randomized BatchNorm statistics, as
+    tests/test_torch_planar.py drives it."""
+    t4, h, w, _ = shape
+    rng = np.random.default_rng(17)
+    blk = {"conv": {"kernel": rng.standard_normal((5, 7, 7, 3, 64),
+                                                  dtype=np.float32) * 0.05,
+                    "bias": rng.standard_normal(64, dtype=np.float32) * 0.1},
+           "bn": {"scale": rng.random(64, dtype=np.float32) + 0.5,
+                  "bias": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                  "mean": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                  "var": rng.random(64, dtype=np.float32) + 0.5}}
+    frames = rng.random(shape, dtype=np.float32)
+    m = JS.stem_mgrid_x(JS.s2d_lanes(jnp.asarray(frames)),
+                        *JS.stem_kernel_params(blk), w_valid=w // 3,
+                        interpret=True)
+    got = stem_emulated(torch.from_numpy(frames),
+                        *TS.stem_kernel_params(tree_to_torch(blk)))
+    w_pool = got.shape[2]
+    want = np.asarray(m)[..., 0:2 * w_pool:2].transpose(0, 1, 3, 2)
+    assert tuple(got.shape) == want.shape == TS.pooled_shape(t4, h, w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)

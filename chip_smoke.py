@@ -3,7 +3,13 @@
 planar frames, one clip and in batches, its training and a long clip on
 one card.
 
-    python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py             # from the repository root, one CUDA card
+    python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
+
+`--encoders` checks and times the attention, FFN and stack kernels as
+phase 3 does, with each launch's device kernels, reports what it finds
+without holding it to this design's counts, and prints no `ok` line: it
+runs on an older tree too, for a comparison of designs.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -27,7 +33,14 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     achieved rate, the bound share, and a second launch that must be
     bit-identical with the first, their timings with the 50 MB L2 flushed
     before each launch (each layer of the real path brings new weights);
-    flash attention: the training step's gesture (8, 8, 128, 64)
+    for each attention and stack shape, one launch profiled
+    (torch.profiler): its device kernels by name and ms, their count held
+    to the design's (4 at the window head, 5 at the gesture and text
+    encoders, a stack layer's from its plans), and the attention core's
+    device ms beside its own 3xTF32 bound (Q, K and V, or the split QKV
+    partials it sums, read once, the output written) and the share of it
+    achieved; the core's registers, spills and blocks an SM; flash
+    attention: the training step's gesture (8, 8, 128, 64)
     and text (8, 8, 32, 96) shapes, with a pad tail in every batch row and
     one batch row fully masked, and the long clip's (1, 8, 1024, 64) with
     its 24-frame pad tail masked, then a ragged (2, 3, 100, 96) checked and
@@ -39,7 +52,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     set to 0 just before and read just after (stem 1, attention 15, FFN 15,
     stack 1, every other kernel 0); unit-norm finite rows of the right
     shapes; warm ms/clip (median and quartiles of 30, host clock), and a
-    torch.profiler breakdown of one clip's device time; then the `va`
+    torch.profiler breakdown of one clip's device time (with the attention
+    core's device ms and the `row_epilogue_kernel` launches); then the `va`
     timing of the same clip as before;
  5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
     the port on the CPU (full-width XLM-R copied to the CPU);
@@ -271,17 +285,14 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
 
 
-def bound_3xtf32(gemm_flops: float, other_flops: float, nbytes: float,
-                 passes: int = 3):
+def bound_3xtf32(flops: float, nbytes: float, passes: int = 3):
     """Bound of a kernel whose products run in 3xTF32 on the tensor cores
     (3 TF32 operations per float32 one at 495 TFLOP/s; `passes` 2 where
-    one operand is exact in TF32) and whose other operations (attention)
-    in float32 at 67 TFLOP/s: (ms, what sets it, the all-float32 bound's
-    ms beside it)."""
-    t_op = (passes * gemm_flops / PEAK_TF32_FLOPS
-            + other_flops / PEAK_F32_FLOPS)
+    one operand is exact in TF32): (ms, what sets it, the all-float32
+    bound's ms beside it)."""
+    t_op = passes * flops / PEAK_TF32_FLOPS
     t_mem = nbytes / PEAK_BYTES
-    f32_ms, _ = bound(gemm_flops + other_flops, nbytes)
+    f32_ms, _ = bound(flops, nbytes)
     return (1e3 * max(t_op, t_mem),
             "operations" if t_op >= t_mem else "bytes", f32_ms)
 
@@ -327,6 +338,81 @@ def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
                              f"{row['bound_ms']:.4f} ms: the bound is wrong")
     return dict(plans=plans, achieved=rate, achieved_unit=unit,
                 bound_share=share, bit_identical=True)
+
+
+# Phase 3 asserts each encoder shape's count of device kernels a launch;
+# `--encoders` (a tree whose design may differ, such as a parent's) only
+# reports them.
+CHECK_KERNEL_COUNTS = True
+
+
+def kernel_breakdown(fn, what: str, want: int | None = None):
+    """The device kernels of one warm call of `fn` in launch order
+    (torch.profiler): [(name, ms)], logged by name. want: the count the
+    design launches (checked under CHECK_KERNEL_COUNTS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(name, us / 1e3) for name, us in device_events(prof)]
+    by_name: dict = {}
+    for name, ms in kernels:
+        short = name.split("(")[0].replace("void ", "")
+        n, total = by_name.get(short, (0, 0.0))
+        by_name[short] = (n + 1, total + ms)
+    log(f"  device kernels of one {what}: {len(kernels)}, "
+        f"{sum(ms for _, ms in kernels):.4f} ms")
+    for short, (n, ms) in by_name.items():
+        log(f"    {ms:8.4f} ms  x{n:<3d} {short[:80]}")
+    if CHECK_KERNEL_COUNTS and want is not None and len(kernels) != want:
+        raise AssertionError(f"{what}: {len(kernels)} device kernels a "
+                             f"launch, the design launches {want}")
+    return kernels
+
+
+def sublayer_kernels(plans, prenorm: bool) -> int:
+    """Device kernels of one attention sublayer under the plans of its QKV
+    and output products: the pre-LN, the QKV product (whose split
+    partials the attention core sums), the core, and the output product
+    with its split-K reduction or post-LN."""
+    return int(prenorm) + 3 + int(plans[1][2] > 1 or not prenorm)
+
+
+def stack_layer_kernels(plans, prenorm: bool) -> int:
+    """Device kernels of one layer of the stack kernel (plans: QKV, output,
+    W1, W2): the attention sublayer's, then the pre-LN, W1 and its
+    reduction, W2 and its reduction or post-LN."""
+    return (sublayer_kernels(plans[:2], prenorm) + int(prenorm) + 2
+            + int(plans[2][2] > 1) + int(plans[3][2] > 1 or not prenorm))
+
+
+def core_row(kernels, r: int, d: int, heads: int, seg: int,
+             qkv_splits: int, masked: bool, layers: int = 1):
+    """The attention core's row of a breakdown: its device ms, its own bound
+    and the share of that bound achieved. Bytes: Q, K and V read once (the
+    QKV product's split partials and its bias, where the core sums them),
+    the key mask, and the output written; operations: both products, in
+    3xTF32."""
+    core = [ms for name, ms in kernels if is_core(name)]
+    ms = sum(core)
+    folded = any("attention_core" in name for name, _ in kernels)
+    reads = (qkv_splits * r * 3 * d + 3 * d if folded and qkv_splits > 1
+             else 3 * r * d)
+    nbytes = 4.0 * layers * (reads + r * d + (r if masked else 0))
+    flops = layers * 4.0 * (r // seg) * heads * seg * seg * (d // heads)
+    b_ms, b_by, _ = bound_3xtf32(flops, nbytes)
+    source = (f"the QKV product's {qkv_splits} partials"
+              if folded and qkv_splits > 1 else "the QKV rows")
+    log(f"  attention core: {ms:.4f} ms over {len(core)} launches, bound "
+        f"{b_ms:.4f} ({b_by}, 3xTF32), {100 * b_ms / ms:.1f} % of it; reads "
+        f"{source}")
+    return dict(ms=ms, launches=len(core), bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms)
 
 
 def stem_flops(t_in: int, h: int, w: int) -> float:
@@ -395,7 +481,7 @@ def check_stem(gp, dev):
     t_out, j, wp, c = S.pooled_shape(t_in, h, w)
     nbytes = 4.0 * (frames.numel() + ops[0].numel() + 2 * c
                     + t_out * j * wp * c)
-    b_ms, b_by, f32_ms = bound_3xtf32(stem_flops(t_in, h, w), 0.0, nbytes)
+    b_ms, b_by, f32_ms = bound_3xtf32(stem_flops(t_in, h, w), nbytes)
     row = dict(ms=cuda_ms(lambda: S.stem_pool(frames, *ops)),
                plain_ms=cuda_ms(lambda: S.stem_pool_plain(frames, *ops)),
                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
@@ -408,8 +494,9 @@ def check_stem(gp, dev):
 
 def _sublayer_cases(gp, jp, dev, text_mask):
     """(label, layer weights, rows, seg, prenorm, ln kind, kmask, launches
-    per clip) at the main path's shapes for a T=125 clip and the 12-word
-    text (text_mask: its (32,) key validity)."""
+    per clip, device kernels an attention launch) at the main path's shapes
+    for a T=125 clip and the 12-word text (text_mask: its (32,) key
+    validity)."""
     import torch
 
     from jegal_torch.ops.kernels.fused_layer import fused_weights
@@ -423,13 +510,13 @@ def _sublayer_cases(gp, jp, dev, text_mask):
     return (
         ("window head R=2688 seg=21 post-norm std-LN",
          fused_weights(gp["transformer"]["layers"][0]), win, 21, False,
-         "std", None, 6),
+         "std", None, 6, 4),
         ("gesture encoder R=128 seg=128 pre-norm ref-LN masked",
          fused_weights(jp["encoder_rgb"]["layers"][0]), ges, 128, True,
-         "ref", kmask, 6),
+         "ref", kmask, 6, 5),
         ("text encoder R=32 seg=32 d=768 (8 heads of 96) pre-norm ref-LN "
          "masked", fused_weights(jp["encoder_text"]["layers"][0]), txt, 32,
-         True, "ref", text_mask.to(dev), 3),
+         True, "ref", text_mask.to(dev), 3, 5),
     )
 
 
@@ -463,9 +550,11 @@ def _library_ffn(x, w, prenorm):
 def check_sublayers(gp, jp, dev, text_mask):
     from jegal_torch.config import NUM_HEADS
     from jegal_torch.ops.kernels import fused_layer as FL
+    from jegal_torch.ops.kernels import gemm_plan as GP
 
     rows = {"attn_sublayer": [], "ffn_sublayer": []}
-    for label, w, x, seg, pre, kind, km, per_clip in _sublayer_cases(
+    sms = GP.sm_count(dev)
+    for label, w, x, seg, pre, kind, km, per_clip, n_kern in _sublayer_cases(
             gp, jp, dev, text_mask):
         log(f"sublayers: {label}")
         for name in ("wqkv", "wo", "w1", "w2"):
@@ -504,7 +593,7 @@ def check_sublayers(gp, jp, dev, text_mask):
                 ("ffn_sublayer", ffn, ffn_plain,
                  lambda: _library_ffn(x, w, pre), e_f, ffn_flops, 0.0,
                  ffn_bytes, products[2:])):
-            b_ms, b_by, f32_ms = bound_3xtf32(gf, of, nb)
+            b_ms, b_by, f32_ms = bound_3xtf32(gf + of, nb)
             row = dict(shape=label, launches_per_clip=per_clip,
                        ms=cuda_ms(fn, cold=True),
                        plain_ms=cuda_ms(plain, cold=True),
@@ -513,6 +602,16 @@ def check_sublayers(gp, jp, dev, text_mask):
             log(f"  {name} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
                 f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
             row.update(gemm_kernel_stats(fn, prods, gf + of, nb, row))
+            if name == "attn_sublayer":
+                plans = [GP.plan(*p, sms) for p in prods]
+                want = sublayer_kernels(plans, pre)
+                if CHECK_KERNEL_COUNTS and want != n_kern:
+                    raise AssertionError(f"{label}: the plans {plans} give "
+                                         f"{want} device kernels, not "
+                                         f"{n_kern}")
+                kernels = kernel_breakdown(fn, "attn_sublayer launch", want)
+                row.update(device_kernels=len(kernels), attention_core=core_row(
+                    kernels, r, d, heads, seg, plans[0][2], km is not None))
             rows[name].append(row)
     return rows
 
@@ -549,6 +648,7 @@ def check_stack(rp, dev, ids32, mask32, train_batch):
 
     from jegal_torch.models import roberta as R
     from jegal_torch.ops.kernels import fused_layer as FL
+    from jegal_torch.ops.kernels import gemm_plan as GP
 
     cfg = R.XLMR_BASE
     d, heads, dff = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
@@ -589,7 +689,7 @@ def check_stack(rp, dev, ids32, mask32, train_batch):
                                        + 4.0 * r * d * dff)
         attn_flops = cfg.num_layers * 4.0 * n * heads * seg * seg * dk
         nbytes = 4.0 * (sum(t.numel() for t in ops.values()) + 2 * r * d + r)
-        b_ms, b_by, f32_ms = bound_3xtf32(gemm_flops, attn_flops, nbytes)
+        b_ms, b_by, f32_ms = bound_3xtf32(gemm_flops + attn_flops, nbytes)
         row = dict(shape=label, launches_per_clip=per_clip_n,
                    launches_per_step=per_step_n,
                    ms=cuda_ms(kern, cold=True),
@@ -601,8 +701,15 @@ def check_stack(rp, dev, ids32, mask32, train_batch):
                    max_abs_err=err)
         log(f"  encoder_stack ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
             f"library {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
-        row.update(gemm_kernel_stats(kern, FL.stack_products(r, d, dff),
-                                     gemm_flops + attn_flops, nbytes, row))
+        products = FL.stack_products(r, d, dff)
+        row.update(gemm_kernel_stats(kern, products, gemm_flops + attn_flops,
+                                     nbytes, row))
+        plans = [GP.plan(*p, GP.sm_count(dev)) for p in products]
+        kernels = kernel_breakdown(
+            kern, "encoder_stack launch",
+            cfg.num_layers * stack_layer_kernels(plans, False))
+        row.update(device_kernels=len(kernels), attention_core=core_row(
+            kernels, r, d, heads, seg, plans[0][2], True, cfg.num_layers))
         rows.append(row)
     return rows
 
@@ -657,7 +764,7 @@ def check_flash(dev):
         if per_step is None:
             continue
         # products only: the softmax's few operations a score add < 2 %
-        b_ms, b_by, f32_ms = bound_3xtf32(4.0 * b * h * t * t * d, 0.0,
+        b_ms, b_by, f32_ms = bound_3xtf32(4.0 * b * h * t * t * d,
                                           4.0 * (4 * b * h * t * d + b * t))
         row = dict(shape=label, launches_per_step=per_step,
                    launches_per_long_clip=per_long, ms=cuda_ms(kern),
@@ -740,9 +847,33 @@ def profile_clip(engine, sample, modalities):
                        f"warm {modalities} clip")
 
 
+def device_events(prof):
+    """(name, us) of each device kernel a torch.profiler run recorded, in
+    launch order. A user annotation on the device timeline (the
+    optimizer's "Optimizer.step#AdamW.step") spans kernels counted on
+    their own, and is left out."""
+    import torch
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+# the attention core's device kernel: this design's, and the FFMA kernel it
+# replaced, so that a breakdown of the parent tree (`--encoders`) reads too
+CORE_NAMES = ("attention_core", "segment_attention")
+
+
+def is_core(name: str) -> bool:
+    return any(c in name for c in CORE_NAMES)
+
+
 def profile_run(fn, what: str):
     """Device time of one call of `fn` by kernel name (torch.profiler); `fn`
-    must end in a host fetch or a synchronize."""
+    must end in a host fetch or a synchronize. Also the attention core's
+    device ms and the split-K reductions' launches in the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -753,20 +884,25 @@ def profile_run(fn, what: str):
         fn()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict = {}
-    for e in prof.events():
-        # a user annotation on the device timeline (the optimizer's
-        # "Optimizer.step#AdamW.step") spans kernels counted on their own
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us in device_events(prof):
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + us)
     busy = sum(us for _, us in by_name.values())
     log(f"profile of one {what}: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(n for n, _ in by_name.values())} device events")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3)
+    core = [v for k, v in by_name.items() if is_core(k)]
+    core_ms = sum(us for _, us in core) / 1e3
+    core_n = sum(n for n, _ in core)
+    reductions = sum(n for k, (n, _) in by_name.items()
+                     if "row_epilogue_kernel" in k)
+    log(f"  attention core {core_ms:.3f} ms over {core_n} launches; "
+        f"row_epilogue_kernel {reductions} launches")
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                attention_core_ms=core_ms, attention_core_launches=core_n,
+                row_epilogue_launches=reductions)
 
 
 def counts(**want):
@@ -922,7 +1058,7 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
         if impl == "window":   # 3xTF32, two passes on the exact pixels
             relaunch_identical(kern, label)
             log(f"  {label} kernel: {S.kernel_info(planar=True)}")
-            b_ms, b_by, f32_ms = bound_3xtf32(flops, 0.0, nbytes, passes=2)
+            b_ms, b_by, f32_ms = bound_3xtf32(flops, nbytes, passes=2)
             extra = dict(bound_f32_ms=f32_ms)
             note = f"3xTF32 in two passes; float32 {f32_ms:.4f}"
         else:                  # float32 on the CUDA cores
@@ -959,7 +1095,7 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
             "conv2 vs F.conv2d + F.batch_norm + ReLU", KERNEL_ATOL)
     relaunch_identical(lambda: C2.conv2_bn_relu(x, *c2), "conv2")
     b_ms, b_by, f32_ms = bound_3xtf32(
-        2.0 * t2 * j2 * wp2 * c_out * 25 * 64, 0.0,
+        2.0 * t2 * j2 * wp2 * c_out * 25 * 64,
         4.0 * (x.numel() + c2[0].numel() + 2 * c_out
                + t2 * j2 * wp2 * c_out))
     row = dict(shape=f"{tuple(x.shape)}",
@@ -1443,6 +1579,11 @@ def smoke_text_ids():
 
 
 def main() -> int:
+    global CHECK_KERNEL_COUNTS
+    encoders_only = sys.argv[1:] == ["--encoders"]
+    if sys.argv[1:] and not encoders_only:
+        print(f"usage: {sys.argv[0]} [--encoders]", file=sys.stderr)
+        return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
               f"run it from a checkout of the repository", file=sys.stderr)
@@ -1484,6 +1625,21 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
+    if encoders_only:    # phase 3's encoder kernels, reported, no more
+        CHECK_KERNEL_COUNTS = False
+        sub = check_sublayers(gp, jp, dev, mask32[0])
+        stack = check_stack(rp, dev, ids32, mask32, train_batch)
+        log(json.dumps({"encoders": dict(sub, encoder_stack=stack)}))
+        return 0
+    from jegal_torch.ops.kernels import fused_layer as FL
+
+    for dk in FL.HEAD_DIMS:
+        for packed in (True, False):
+            info = FL.attention_info(dk, packed)
+            log(f"attention core, dk {dk}, "
+                f"{'packed' if packed else 'streamed'}: {info}")
+            if info["spill_bytes"]:
+                raise AssertionError(f"the attention core spills: {info}")
     stem, stem_inputs = check_stem(gp, dev)
     sub = check_sublayers(gp, jp, dev, mask32[0])
     stack = check_stack(rp, dev, ids32, mask32, train_batch)

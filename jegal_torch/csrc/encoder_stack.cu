@@ -33,13 +33,15 @@
 // wave of blocks on the 132 SMs, a cp.async ring that keeps the weight
 // bytes in flight, and 3xTF32 mma.sync. The plans are computed once per
 // call by the wrapper (ops/kernels/gemm_plan.py), and the post-LayerNorms
-// run inside the split-K reductions. Device launches per post-norm layer:
-// a product and its reduction for each of the four products, and the
-// attention: 9 (108 for XLM-R), one after another, each a few
-// microseconds, which with the weights' 0.10 ms sets this design's floor.
-// The step after this one is a persistent kernel that streams each
-// layer's weights by TMA into wgmma (weights stored K-major at load time)
-// and keeps the (R, d) activations on chip, so a layer is not 9 launches.
+// run inside the split-K reductions; a split QKV product's partials are
+// summed by the attention core as it loads them (encoder.cuh). Device
+// launches per post-norm layer at R = 32: a product and its reduction for
+// the output, W1 and W2 products, the QKV product and the attention core:
+// 8 (96 for XLM-R), one after another, each a few microseconds, which with
+// the weights' 0.10 ms sets this design's floor. The step after this one
+// is a persistent kernel that streams each layer's weights by TMA into
+// wgmma (weights stored K-major at load time) and keeps the (R, d)
+// activations on chip, so a layer is not 8 launches.
 #include "encoder.cuh"
 #include "gemm.cuh"
 
@@ -78,13 +80,17 @@ extern "C" int jt_encoder_stack(
       if (rc != 0) return rc;
       src = h;
     }
-    int rc = jt::gemm(plans, src, wqkv + 3 * dd * l, bqkv + (size_t)3 * d * l,
-                      nullptr, qkv, ws, R, 3 * d, d, jt::ACT_NONE, nullptr,
-                      nullptr, 0, s);
+    // a split QKV product's partials stay in ws for the attention core,
+    // which stream order runs to its end before the output product
+    // overwrites ws
+    const float* bq = bqkv + (size_t)3 * d * l;
+    int rc = jt::gemm(plans, src, wqkv + 3 * dd * l, bq, nullptr, qkv, ws, R,
+                      3 * d, d, jt::ACT_NONE, nullptr, nullptr, 0, s,
+                      /*reduce=*/false);
     if (rc != 0) return rc;
-    rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
+    rc = jt::attention(jt::qkv_source(plans, qkv, ws, bq, R, d), kmask, att,
+                       R, d, heads, seg, s);
     if (rc != 0) return rc;
-    JT_CHECK_LAUNCH();
     rc = jt::gemm(plans + 3, att, wo + dd * l, bo + (size_t)d * l, cur, y, ws,
                   R, d, d, jt::ACT_NONE, prenorm ? nullptr : ln1_g, ln1_b,
                   ln_kind, s);

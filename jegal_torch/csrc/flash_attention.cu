@@ -61,6 +61,7 @@
 namespace {
 
 using jt::cp_async16;
+using jt::cp_async4;
 using jt::mma_tf32;
 using jt::split_tf32;
 
@@ -79,15 +80,6 @@ struct FaSmem {
   static constexpr int STAGE = 2 * FA_KT * RS + FA_KT;   // K, V, mask
   static constexpr int BYTES = (Q + FA_STAGES * STAGE) * (int)sizeof(float);
 };
-
-// 4 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // grid: (B * H, ceil(T / 32)).
 template <int D>

@@ -29,7 +29,9 @@
 
 // One attention sublayer over R = n_segments * seg rows of width d.
 // Scratch (caller-allocated): h (R, d) when prenorm, qkv (R, 3d), att (R, d),
-// ws the split-K workspace. plans: QKV, then the output product.
+// ws the split-K workspace. plans: QKV, then the output product. Device
+// kernels: [pre-LN], QKV, the attention core, output [+ its split-K
+// reduction or the post-LN].
 extern "C" int jt_attn_sublayer(const float* x, const float* wqkv,
                                 const float* bqkv, const float* wo,
                                 const float* bo, const float* ln_g,
@@ -46,14 +48,23 @@ extern "C" int jt_attn_sublayer(const float* x, const float* wqkv,
     if (rc != 0) return rc;
     src = h;
   }
+  // A split QKV product's partials stay in ws, and the attention core sums
+  // them. The output product then reuses ws: stream order runs the core to
+  // its end before that product writes it.
   int rc = jt::gemm(plans, src, wqkv, bqkv, nullptr, qkv, ws, R, 3 * d, d,
-                    jt::ACT_NONE, nullptr, nullptr, 0, s);
+                    jt::ACT_NONE, nullptr, nullptr, 0, s, /*reduce=*/false);
   if (rc != 0) return rc;
-  rc = jt::attention(qkv, kmask, att, R, d, heads, seg, s);
+  rc = jt::attention(jt::qkv_source(plans, qkv, ws, bqkv, R, d), kmask, att,
+                     R, d, heads, seg, s);
   if (rc != 0) return rc;
-  JT_CHECK_LAUNCH();
   return jt::gemm(plans + 3, att, wo, bo, x, out, ws, R, d, d, jt::ACT_NONE,
                   prenorm ? nullptr : ln_g, ln_b, ln_kind, s);
+}
+
+// {registers, spill bytes, shared memory, blocks an SM} of the attention
+// core's schedule for head width dk, packed (seg <= 64) or streamed.
+extern "C" int jt_attention_info(int dk, int packed, int* info) {
+  return jt::attention_info(dk, packed != 0, info);
 }
 
 // One FFN sublayer over R rows. Scratch: h (R, d) when prenorm,

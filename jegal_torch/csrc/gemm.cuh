@@ -117,6 +117,15 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                : "memory");
 }
 
+// 4 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -455,12 +464,16 @@ inline int layer_norm(const float* x, const float* g, const float* b,
 
 // C = LN?(act(A @ B + bias) + res) under plan = {BM, BN, splits} (what
 // gemm_plan.plan returns). ws: (splits, M, N) floats when splits > 1.
-// ln_g null: no LayerNorm. A plan the code has no instance for, or a slice
-// split that leaves a slice empty, returns JT_ERR_SHAPE.
+// ln_g null: no LayerNorm. reduce false (with no act, res or LayerNorm): a
+// split product's partials stay in ws unreduced, for a reader that sums
+// them itself (encoder.cuh's attention core); unsplit, C is as before. A
+// plan the code has no instance for, or a slice split that leaves a slice
+// empty, returns JT_ERR_SHAPE.
 inline int gemm(const int* plan, const float* A, const float* B,
                 const float* bias, const float* res, float* C, float* ws,
                 int M, int N, int K, int act, const float* ln_g,
-                const float* ln_b, int ln_kind, cudaStream_t s) {
+                const float* ln_b, int ln_kind, cudaStream_t s,
+                bool reduce = true) {
   const int bm = plan[0], bn = plan[1], splits = plan[2];
   const int steps = (K + TC_BK - 1) / TC_BK;
   if (M < 1 || K < 4 || N < 4 || N % 4 != 0 || K % 4 != 0)
@@ -482,9 +495,12 @@ inline int gemm(const int* plan, const float* A, const float* B,
   if (bm == 128 && bn == 64) launch = gemm_launch<128, 64>;
   if (bm == 128 && bn == 128) launch = gemm_launch<128, 128>;
   if (launch == nullptr) return JT_ERR_SHAPE;
+  if (!reduce && (act != ACT_NONE || res != nullptr || ln_g != nullptr))
+    return JT_ERR_SHAPE;
   const int rc = launch(A, B, bias, res, C, ws, M, N, K, splits, per, act, s);
   if (rc != 0) return rc;
   JT_CHECK_LAUNCH();
+  if (splits > 1 && !reduce) return 0;
   if (splits > 1) {
     row_epilogue_kernel<<<M, ROW_THREADS, 0, s>>>(
         ws, splits, bias, act, res, ln_g, ln_b, ln_kind, nullptr, C, M, N);

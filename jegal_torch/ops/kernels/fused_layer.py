@@ -18,6 +18,8 @@ or one T- or S-token sequence); attention never crosses a segment.
 for a CUDA tensor and run the plain twin for a CPU tensor. Their products
 run on the shared 3xTF32 GEMM of csrc/gemm.cuh: the wrapper plans each
 product (gemm_plan.plan) and allocates the split-K workspace they share.
+Their attention runs on the attention core of csrc/encoder.cuh, on the
+same tensor cores, which also sums a split QKV product's partials.
 The kernels take float32 only and have no backward: on a CUDA tensor that
 needs a gradient they raise (training runs the layer loop,
 core/transformer.encoder_stack with fused=False).
@@ -39,6 +41,7 @@ _VP, _INT, _PLANS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGS = {
     "jt_attn_sublayer": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
     "jt_ffn_sublayer": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
+    "jt_attention_info": [_INT, _INT, _PLANS],
 }
 _STACK_SIG = [_VP] * 21 + [_PLANS] + [_INT] * 9 + [_VP]
 _ACT = {"relu": 1, "gelu": 2}
@@ -112,12 +115,11 @@ def stacked_weights(layers) -> dict:
 # Plain twins
 # ---------------------------------------------------------------------------
 
-def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
-                        ln_kind: str, kmask=None):
-    r, d = x.shape
+def attention_plain(qkv, seg: int, heads: int, kmask=None):
+    """Per-segment multi-head attention of (R, 3d) QKV rows -> (R, d), with
+    the kernels' -1e9 fill of masked keys: the attention core's twin."""
+    r, d = qkv.shape[0], qkv.shape[1] // 3
     n, dk = r // seg, d // heads
-    h = _ln(x, w["g1"], w["be1"], ln_kind) if prenorm else x
-    qkv = torch.matmul(h, w["wqkv"]) + w["bqkv"]
 
     def split(t):  # (R, d) -> (n, heads, seg, dk)
         return t.reshape(n, seg, heads, dk).transpose(1, 2)
@@ -127,7 +129,14 @@ def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
     if kmask is not None:
         s = s.masked_fill(kmask.reshape(n, 1, 1, seg) == 0, -1e9)
     a = torch.matmul(torch.softmax(s, dim=-1), v)
-    a = a.transpose(1, 2).reshape(r, d)
+    return a.transpose(1, 2).reshape(r, d)
+
+
+def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
+                        ln_kind: str, kmask=None):
+    h = _ln(x, w["g1"], w["be1"], ln_kind) if prenorm else x
+    qkv = torch.matmul(h, w["wqkv"]) + w["bqkv"]
+    a = attention_plain(qkv, seg, heads, kmask)
     y = x + (torch.matmul(a, w["wo"]) + w["bo"])
     return y if prenorm else _ln(y, w["g1"], w["be1"], ln_kind)
 
@@ -212,6 +221,20 @@ def _kmask_operand(kmask, r: int, dev):
     kmask = kmask.to(dtype=torch.float32).reshape(-1).contiguous()
     _build.check_operand("kmask", kmask, (r,), dev)
     return kmask
+
+
+def attention_info(dk: int, packed: bool) -> dict:
+    """What the compiler and the occupancy calculator say of the attention
+    core (csrc/encoder.cuh) for head width `dk` under one schedule, packed
+    (segments of up to 64 rows) or streamed: registers and spill bytes a
+    thread, dynamic shared memory a block and resident blocks an SM (on the
+    current card)."""
+    lib = _lib()
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, lib.jt_attention_info(dk, int(packed), info),
+                 "attention core info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
 
 
 def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,

@@ -8,6 +8,9 @@ encoder-stack kernel over 1 and 12 layers in both norm placements; the
 sublayer and stack kernels at the main paths' small row counts (32, 128,
 256) and ragged ones (1, 21, 33), on every tile of the shared GEMM, and
 twice over with identical bits (the split-K sums run in a fixed order); the
+attention core's packed and streamed schedules (seg 1 to 512, n 1, 2 and
+4 at seg 21) at head widths 64 and 96 on split and unsplit QKV plans,
+relaunched with identical bits, and each schedule without spills; the
 flash attention kernel at the training and long-clip shapes, forward and
 backward, and at ragged T (under one key tile, ragged last tiles) with
 and without a mask; block 2 at ragged M (under one tile, tiles across
@@ -67,18 +70,32 @@ def _weights(d, dff, dev, seed=0):
 
 
 @pytest.mark.parametrize("seg,n,heads,d,prenorm,kind,masked", [
-    (21, 7, 8, 512, False, "std", False),
-    (300, 2, 8, 512, True, "ref", True),
+    (21, 7, 8, 512, False, "std", False),     # packed, a ragged last tile
+    (300, 2, 8, 512, True, "ref", True),      # streamed
     (33, 3, 8, 768, False, "std", True),      # head width 96
     (1, 5, 8, 512, True, "ref", False),
+    (21, 1, 8, 512, False, "std", True),      # one window, QKV split
+    (21, 2, 8, 512, True, "ref", True),
+    (21, 4, 8, 512, False, "std", False),
+    (21, 128, 8, 512, False, "std", False),   # the window head, unsplit
+    (64, 2, 8, 512, True, "ref", True),       # one whole 64-row tile
+    (65, 2, 8, 512, False, "std", True),      # a 1-key second key tile
+    (128, 1, 8, 512, True, "ref", True),      # the gesture encoder, split
+    (512, 1, 8, 512, True, "ref", True),
+    (32, 1, 8, 768, True, "ref", True),       # the text encoder, split
+    (128, 2, 8, 768, False, "std", True),     # head width 96, streamed
 ])
 def test_attn_sublayer(dev, seg, n, heads, d, prenorm, kind, masked):
+    """The attention core's packed (seg <= 64) and streamed schedules at
+    head widths 64 and 96, on split and unsplit QKV plans, relaunched
+    with identical bits."""
     w = _weights(d, 4 * d, dev)
     x = torch.randn(n * seg, d, device=dev)
     km = None
     if masked:
         km = (torch.rand(n * seg, device=dev) > 0.4).float()
-        km[:seg] = 0.0                        # one fully masked segment
+        if n > 1:
+            km[:seg] = 0.0                    # one fully masked segment
     _build.reset_launches()
     got = FL.attn_sublayer(x, w, seg, heads, prenorm=prenorm, ln_kind=kind,
                            kmask=km)
@@ -87,6 +104,19 @@ def test_attn_sublayer(dev, seg, n, heads, d, prenorm, kind, masked):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["attn_sublayer"] == 1
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(got, FL.attn_sublayer(x, w, seg, heads,
+                                             prenorm=prenorm, ln_kind=kind,
+                                             kmask=km))
+
+
+@pytest.mark.parametrize("dk", FL.HEAD_DIMS)
+@pytest.mark.parametrize("packed", [True, False])
+def test_attention_core_fits_an_sm_without_spills(dev, dk, packed):
+    """Each schedule of the attention core fits an SM without spilling
+    registers."""
+    info = FL.attention_info(dk, packed)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("rows,d,dff,prenorm,kind,act", [
@@ -127,6 +157,12 @@ def _stacked(n_layers, d, dff, dev):
     (2, 1, 1, 12, False, "std", "gelu", False),     # ragged R = 1, 21, 33
     (2, 21, 1, 12, False, "std", "gelu", True),
     (2, 33, 1, 8, True, "ref", "relu", True),
+    (2, 21, 2, 12, False, "std", "gelu", True),    # packed, n 2 and 4
+    (2, 21, 4, 12, False, "std", "gelu", False),
+    (2, 64, 2, 12, False, "std", "gelu", True),
+    (2, 65, 2, 12, False, "std", "gelu", True),     # streamed
+    (2, 128, 1, 8, True, "ref", "relu", True),      # head width 96
+    (1, 512, 1, 12, False, "std", "gelu", True),
 ])
 def test_encoder_stack(dev, n_layers, seg, n, heads, prenorm, kind, act,
                        masked):

@@ -1,5 +1,5 @@
-"""The arithmetic of kernels 1, 6 and 7 on the tensor cores, emulated on the
-CPU and held against the JAX package and the port's plain twins. The
+"""The arithmetic of kernels 1, 3, 6 and 7 on the tensor cores, emulated on
+the CPU and held against the JAX package and the port's plain twins. The
 kernels themselves run only on the card (tests/test_torch_kernels_cuda.py);
 these tests keep their schedules testable here:
 
@@ -15,7 +15,14 @@ these tests keep their schedules testable here:
   at a time, each tap's 147 columns in (dy, dx, c) order padded with zero
   weights to 152, a float32 flush every 32 columns; float frames in
   3xTF32, the planar entry's integer pixels (exact in TF32) in two passes,
-  x w_lo + x w_hi; then the folded scale, bias, ReLU and the 3x3/2 pool.
+  x w_lo + x w_hi; then the folded scale, bias, ReLU and the 3x3/2 pool;
+* the encoders' attention core (csrc/encoder.cuh): a split QKV product's
+  partials summed in slice order, then the bias; segments of up to 64
+  rows packed whole into 64-row tiles with -inf across segments, the
+  tile's two 32-key halves on their own softmax, merged in order; longer
+  ones streamed in 64-key tiles whose four 16-key quarters run their own
+  online softmax and merge in order; the -1e9 fill, S with a float32 flush
+  every 32 columns, each 32 keys' P V from zero.
 
 A TF32 product is exact in float32, so float32 matmuls of the split
 operands stand in for the tensor cores (tests/test_torch_gemm.py).
@@ -26,7 +33,10 @@ Tolerances: abs 1e-5 against float32 references at the same inputs (the
 1e-4, the JAX conv2 test's own bar (tests/test_conv2_pallas.py:63), as
 tests/test_torch_planar.py holds the plain twin; the stem against the
 Pallas kernel interpreted at 2e-5, the JAX planar stem test's bar, as
-tests/test_torch_planar.py holds the stem twins."""
+tests/test_torch_planar.py holds the stem twins; the attention sublayer
+against `_attn_sublayer` interpreted at 2e-5, the JAX suite's own bar for
+its path equalities (tests/test_fused_engine.py:77), as
+tests/test_torch_kernels.py holds the sublayer twins."""
 
 import math
 
@@ -38,10 +48,14 @@ import jax.numpy as jnp
 
 from jegal_tpu.ops.pallas import conv2 as JC2
 from jegal_tpu.ops.pallas import flash_attention as JFA
+from jegal_tpu.ops.pallas import fused_layer as JF
 from jegal_tpu.ops.pallas import stem as JS
 from jegal_torch.convert import tree_to_torch
+from jegal_torch.core.layers import ref_layer_norm, std_layer_norm
 from jegal_torch.ops.kernels import conv2 as TC2
 from jegal_torch.ops.kernels import flash_attention as FA
+from jegal_torch.ops.kernels import fused_layer as TFL
+from jegal_torch.ops.kernels import gemm_plan as GP
 from jegal_torch.ops.kernels import stem as TS
 from jegal_torch.ops.video import s2d_repack, s2d_unpack
 from test_torch_gemm import _tf32
@@ -294,4 +308,230 @@ def test_stem_schedule_matches_pallas_kernel(shape):
     w_pool = got.shape[2]
     want = np.asarray(m)[..., 0:2 * w_pool:2].transpose(0, 1, 3, 2)
     assert tuple(got.shape) == want.shape == TS.pooled_shape(t4, h, w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+AC_KT, AC_QUARTER = 64, 16   # keys a tile; keys a warp of a streamed tile
+
+
+def sum_partials(parts, bias):
+    """A split product's partials summed as the attention core loads them:
+    slice 0, then 1, ..., then the bias (row_epilogue_kernel's order)."""
+    v = parts[0]
+    for p in parts[1:]:
+        v = v + p
+    return v + bias
+
+
+def _scores(qs, kt, dk):
+    """(q * scale) K^T in 3xTF32, a float32 flush every 32 columns of dk."""
+    s = 0
+    for c0 in range(0, dk, 32):
+        s = s + mm3(qs[..., c0:c0 + 32], kt[..., c0:c0 + 32].transpose(-1, -2))
+    return s
+
+
+def attention_core_emulated(parts, bias, seg, heads, kmask=None):
+    """The attention core's schedule (csrc/encoder.cuh) on the QKV product's
+    partials (a list of (R, 3d), one when unsplit) and its bias -> (R, d).
+    Query rows are independent, so all of a tile's run at once; the tiles,
+    flushes, fills, key quarters and merge are the kernel's."""
+    qkv = sum_partials(parts, bias)
+    r, d = qkv.shape[0], qkv.shape[1] // 3
+    dk = d // heads
+    scale = torch.tensor(1.0 / math.sqrt(dk), dtype=torch.float32)
+    q, k, v = (t.reshape(r, heads, dk).transpose(0, 1)   # (heads, R, dk)
+               for t in qkv.split(d, dim=1))
+    valid = torch.ones(r) if kmask is None else kmask
+    fill, ninf = torch.tensor(NEG_FILL), torch.tensor(-math.inf)
+    if seg <= AC_KT:
+        # packed: 64-row tiles of 64 // seg whole segments, zero-filled past
+        # R; keys are the tile's rows, -inf across segments
+        per = AC_KT // seg
+        tiles = -(-(r // seg) // per)
+        i = torch.arange(AC_KT)
+        rows = torch.arange(tiles)[:, None] * per * seg + i        # (tiles, 64)
+        live = (i < per * seg) & (rows < r)
+        at = rows.clamp(max=r - 1)
+        qt, kt, vt = (t[:, at] * live[..., None] for t in (q, k, v))
+        s = _scores(qt * scale, kt, dk)                   # (heads, tiles, 64, 64)
+        s = torch.where((valid[at] * live == 0)[:, None, :], fill, s)
+        s = torch.where((i[:, None] // seg) == (i[None, :] // seg), s, ninf)
+        halves = []      # each half of the keys on its own softmax
+        for k0 in (0, AC_KT // 2):
+            sh = s[..., k0:k0 + AC_KT // 2]
+            m = torch.maximum(torch.tensor(2 * NEG_FILL), sh.amax(-1))
+            p = torch.exp(sh - m[..., None])
+            halves.append((m, p.sum(-1),
+                           mm3(p, vt[..., k0:k0 + AC_KT // 2, :])))
+        out = torch.zeros(heads, r, dk)
+        out[:, rows[live]] = _merge(halves)[:, live]
+    else:
+        # streamed: keys in tiles of 64, each tile's 4 quarters of 16 keys
+        # on their own online softmax, merged in quarter order
+        n, nt = r // seg, -(-seg // AC_KT)
+        pad = nt * AC_KT - seg
+
+        def keyed(t):    # (..., R, c) -> (..., n, nt 64, c), zero-filled
+            t = t.reshape(*t.shape[:-2], n, seg, t.shape[-1])
+            return torch.nn.functional.pad(t, (0, 0, 0, pad))
+
+        qs = q.reshape(heads, n, seg, dk) * scale
+        kp, vp = keyed(k), keyed(v)
+        mp = keyed(valid.reshape(r, 1)).squeeze(-1)          # (n, nt 64)
+        livep = torch.arange(nt * AC_KT) < seg
+        quarters = []
+        for kq in range(AC_KT // AC_QUARTER):
+            m = torch.full((heads, n, seg), 2 * NEG_FILL)
+            l = torch.zeros(heads, n, seg)
+            o = torch.zeros(heads, n, seg, dk)
+            for k0 in range(kq * AC_QUARTER, nt * AC_KT, AC_KT):
+                keys = slice(k0, k0 + AC_QUARTER)
+                s = _scores(qs, kp[:, :, keys], dk)
+                s = torch.where((mp[:, keys] == 0)[None, :, None], fill, s)
+                s = torch.where(livep[keys], s, ninf)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                o = o * corr[..., None] + mm3(p, vp[:, :, keys])
+                m = m_new
+            quarters.append((m, l, o))
+        out = _merge(quarters).reshape(heads, r, dk)
+    return out.transpose(0, 1).reshape(r, d)
+
+
+def _merge(slices):
+    """The core's merge of (max, sum, O) over key slices, in key order."""
+    m_all = torch.stack([m for m, _, _ in slices]).amax(0)
+    o, l = 0, 0
+    for m, ls, os_ in slices:
+        c = torch.exp(m - m_all)
+        o, l = o + os_ * c[..., None], l + ls * c
+    return o / l[..., None]
+
+
+def staged_product(a, w, splits=1):
+    """The shared GEMM's partials of a @ w (csrc/gemm.cuh): one a K slice
+    (gemm_plan.k_slices), each a float32 sum of 32-deep 3xTF32 stages."""
+    parts = []
+    for k0, k1 in GP.k_slices(a.shape[1], splits):
+        acc = torch.zeros(a.shape[0], w.shape[1])
+        for s0 in range(k0, k1, 32):
+            acc = acc + mm3(a[:, s0:min(s0 + 32, k1)], w[s0:min(s0 + 32, k1)])
+        parts.append(acc)
+    return parts
+
+
+# (seg, segments, d, heads, masked, QKV splits): packed with one row a
+# segment, 7 windows of 21 (a ragged last tile of one window), head width
+# 96, a whole 64-row segment; streamed at 65 (a second key tile of one
+# key), 128 (the gesture encoder) and 300
+CORE_CASES = [(1, 5, 128, 2, False, 1), (21, 7, 128, 2, True, 3),
+              (33, 3, 768, 8, True, 4), (64, 2, 128, 2, True, 1),
+              (65, 2, 128, 2, True, 2), (128, 2, 128, 2, True, 8),
+              (300, 1, 128, 2, False, 1)]
+
+
+def _key_mask(rng, n, seg, masked):
+    """(R,) key validity or None: ~40 % masked, every segment keeping its
+    first key (a segment with every key masked is another case)."""
+    if not masked:
+        return None
+    km = (rng.random((n, seg)) > 0.4).astype(np.float32)
+    km[:, 0] = 1.0
+    return km.reshape(-1)
+
+
+def _core_inputs(seg, n, d, masked, splits, full=None):
+    """QKV partials, bias and key mask (segment `full` wholly masked). The
+    partials of a product's K slices sum to unit-scale rows, as q, k and v
+    are in the flash tests."""
+    rng = np.random.default_rng(seg * 10 + n)
+    parts = [torch.from_numpy(rng.standard_normal((n * seg, 3 * d),
+                                                  dtype=np.float32)
+                              / np.float32(math.sqrt(splits)))
+             for _ in range(splits)]
+    bias = torch.from_numpy(rng.standard_normal(3 * d, dtype=np.float32)
+                            * np.float32(0.1))
+    km = _key_mask(rng, n, seg, masked)
+    if full is not None:
+        km[full * seg:(full + 1) * seg] = 0.0
+    return parts, bias, None if km is None else torch.from_numpy(km)
+
+
+@pytest.mark.parametrize("seg,n,d,heads,masked,splits,full",
+                         [c + (None,) for c in CORE_CASES]
+                         + [(21, 4, 128, 2, True, 2, 1),
+                            (128, 2, 128, 2, True, 1, 0)])
+def test_attention_core_schedule_matches_plain_twin(seg, n, d, heads, masked,
+                                                    splits, full):
+    """The core on split partials against the twin's attention on their
+    sum. A segment with every key masked (`full`) averages its own keys
+    in both (the JAX kernel's -1e9 across segments would average all of
+    its block's keys instead)."""
+    parts, bias, km = _core_inputs(seg, n, d, masked, splits, full)
+    got = attention_core_emulated(parts, bias, seg, heads, km)
+    want = TFL.attention_plain(sum_partials(parts, bias), seg, heads, km)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if full is not None:
+        v = sum_partials(parts, bias)[full * seg:(full + 1) * seg, 2 * d:]
+        torch.testing.assert_close(
+            got[full * seg:(full + 1) * seg],
+            v.mean(0, keepdim=True).expand(seg, d), rtol=0, atol=ATOL)
+
+
+def _pallas_attn_sublayer(x, layer, seg, heads, prenorm, kind, kmask):
+    """JAX's _attn_sublayer interpreted, its blocks, segment matrix and key
+    columns built as fused_encoder_stack builds them."""
+    r = x.shape[0]
+    br = JF.block_rows(seg)
+    if r < br and r % 8 == 0:
+        br = r
+    rp = -(-r // br) * br
+    rows = np.arange(br)
+    segm = jnp.asarray((rows[:, None] // seg) == (rows[None, :] // seg),
+                       jnp.float32)
+    kc = np.ones(rp, np.float32) if kmask is None else np.pad(
+        (kmask != 0).astype(np.float32), (0, rp - r), constant_values=1.0)
+    out = JF._attn_sublayer(
+        jnp.asarray(np.pad(x, ((0, rp - r), (0, 0)))), layer["attn"],
+        layer["norm1"], segm, jnp.asarray(kc.reshape(rp // br, 1, br)),
+        heads=heads, prenorm=prenorm, ln_kind=kind, br=br, interpret=True)
+    return np.asarray(out)[:r]
+
+
+@pytest.mark.parametrize("seg,n,d,heads,masked,splits", CORE_CASES)
+@pytest.mark.parametrize("prenorm,kind", [(False, "std"), (True, "ref")])
+def test_attention_sublayer_schedule_matches_pallas_kernel(
+        seg, n, d, heads, masked, splits, prenorm, kind):
+    """The whole attention sublayer as the card runs it -- the QKV product's
+    split partials, the core, the output product, the LayerNorm -- with
+    every product in 3xTF32 stages, against _attn_sublayer interpreted."""
+    rng = np.random.default_rng(seg + 7 * n)
+
+    def rn(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    layer = {"attn": {name: {"kernel": rn(d, d, scale=d ** -0.5),
+                             "bias": rn(d, scale=0.1)}
+                      for name in ("q", "k", "v", "o")},
+             "norm1": {"scale": 1 + rn(d, scale=0.1), "bias": rn(d, scale=0.1)}}
+    x = rn(n * seg, d)
+    km = _key_mask(rng, n, seg, masked)
+    want = _pallas_attn_sublayer(x, layer, seg, heads, prenorm, kind, km)
+
+    a = {k: torch.from_numpy(v["kernel"]) for k, v in layer["attn"].items()}
+    b = {k: torch.from_numpy(v["bias"]) for k, v in layer["attn"].items()}
+    g, be = (torch.from_numpy(layer["norm1"][k]) for k in ("scale", "bias"))
+    xt = torch.from_numpy(x)
+    ln = ref_layer_norm if kind == "ref" else std_layer_norm
+    h = ln({"scale": g, "bias": be}, xt) if prenorm else xt
+    wqkv = torch.cat([a["q"], a["k"], a["v"]], dim=1)
+    bqkv = torch.cat([b["q"], b["k"], b["v"]])
+    att = attention_core_emulated(staged_product(h, wqkv, splits), bqkv, seg,
+                                  heads,
+                                  None if km is None else torch.from_numpy(km))
+    y = xt + (staged_product(att, a["o"])[0] + b["o"])
+    got = y if prenorm else ln({"scale": g, "bias": be}, y)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)

@@ -5,11 +5,15 @@ one card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
+    python3 chip_smoke.py --stems     # phases 1-3's and 6a's stem kernels
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
-without holding it to this design's counts, and prints no `ok` line: it
-runs on an older tree too, for a comparison of designs.
+without holding it to this design's counts, and prints no `ok` line.
+`--stems` checks and times both stem kernels on both entries (and block
+2) as phases 3 and 6a do, and prints no `ok` line. Both run on an older
+tree too (copy this script into its checkout), for a comparison of
+designs.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -49,26 +53,30 @@ Phases, in order; any failed check raises, so the script exits non-zero:
  4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
     5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
     samples of 16 kHz audio, 12 word boundaries), with every launch counter
-    set to 0 just before and read just after (stem 1, attention 15, FFN 15,
-    stack 1, every other kernel 0); unit-norm finite rows of the right
+    set to 0 just before and read just after (band stem 1, attention 15,
+    FFN 15, stack 1, every other kernel 0); unit-norm finite rows of the right
     shapes; warm ms/clip (median and quartiles of 30, host clock), and a
     torch.profiler breakdown of one clip's device time (with the attention
     core's device ms and the `row_epilogue_kernel` launches); then the `va`
     timing of the same clip as before;
  5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
     the port on the CPU (full-width XLM-R copied to the CPU);
- 6. planar frames, the band stem, block 2 and extract_many: (a) at phase
+ 6. planar frames, the stems, block 2 and extract_many: (a) at phase
     3's T=128 bucket, the window stem's planar entry on the (152, 90, 27,
     160) uint8 frames of the same pixels, the band stem on the float and
     the planar frames, and block 2 on the stem's (148, 43, 78, 64) output,
     each against its twin (and the stems against the window stem on the
-    float frames), then timed as in phase 3; (b) phase 4's clip repacked
+    float frames), two launches of each bit-identical, each stem's
+    registers, spills, shared memory and blocks an SM, then timed as in
+    phase 3; (b) phase 4's clip repacked
     by jegal_torch.ops.video.s2d_repack with its chin rows, `extract(
     modalities="vta", frames=planar)` under the tower's defaults (launches:
-    planar stem 1, attention 15, FFN 15, stack 1, every other kernel 0) and
-    with stem_impl="band", conv2_impl="kernel" (band stem 1, block 2 1,
-    the same others), each within abs 1e-4 and min row cosine 0.99999 of
-    phase 4's raw-frame embeddings, with warm ms/clip and a profile; (c)
+    band stem 1, attention 15, FFN 15, stack 1, every other kernel 0) and
+    with stem_impl="window", conv2_impl="kernel" (window stem's planar
+    entry 1, block 2 1, the same others; then phase 4's raw clip under the
+    same setting: the window stem's float entry 1, block 2 1), each within
+    abs 1e-4 and min row cosine 0.99999 of phase 4's raw-frame embeddings,
+    with warm ms/clip and a profile; (c)
     `extract_many` over eight planar `vta` clips (T = 100, 110, 120, 125,
     125, 128 and 200, 250: two T buckets; batch_size 4 and the ladder:
     chunks of 4, 2 and 2) under both settings: launches checked against the
@@ -102,19 +110,20 @@ adds nothing). `launches` is the count from phase 4. The flash attention
 row is per training step in the same way (6 gesture and 3 text launches);
 its `launches` is the count of one step of phase 7(b), and its long-clip
 shape, 0 launches a step, carries its 6 launches a clip from phase 8. The
-rows `stem_pool_planar`, `stem_band` and `conv2` take their launches from
-phase 6(b)'s planar clip under the setting that runs each (`path`), and
-their times from phase 6(a) at that clip's entry: planar frames for both
-stems (the band stem's float-entry numbers under `per_launch`). Their
-library yardsticks are phase 3's `F.conv3d` stem on the float frames of the
-same pixels, and `F.conv2d` + `F.batch_norm` + ReLU for block 2. The
-window stem (both entries), attention, FFN, stack, flash attention and
-conv2 rows, whose products run in 3xTF32 on the tensor cores, state the
-3xTF32 bound (`bound_ms`; the planar stem's in two passes, its integer
-pixels being exact in TF32) and the all-float32 one (`bound_f32_ms`)
-beside it (the band stem computes in float32 on the CUDA cores); the
-attention, FFN and stack rows' per-shape rows carry each product's plan,
-the achieved rate and the bound share.
+stem and block-2 rows take their launches from the run of the path that
+takes each (`path`): the band stem (the default) from phase 4's raw clip,
+its time at the float entry (the planar entry's numbers under
+`per_launch`); the window stem's float entry, its planar entry and block 2
+from phase 6(b)'s clips under stem_impl="window", conv2_impl="kernel",
+their times from phases 3 and 6(a). Their library yardsticks are phase
+3's `F.conv3d` stem on the float frames of the same pixels, and
+`F.conv2d` + `F.batch_norm` + ReLU for block 2. The
+stem (both kernels, both entries), attention, FFN, stack, flash
+attention and conv2 rows, whose products run in 3xTF32 on the tensor
+cores, state the 3xTF32 bound (`bound_ms`; a stem's planar entry in two
+passes, its integer pixels being exact in TF32) and the all-float32 one
+(`bound_f32_ms`) beside it; the attention, FFN and stack rows' per-shape
+rows carry each product's plan, the achieved rate and the bound share.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -142,9 +151,9 @@ SMOKE_TEXT = "the quick brown fox jumps over the lazy dog and then sleeps"
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The products
-# of the encoder kernels, flash attention and block 2 run in 3xTF32 (three
-# TF32 products per float32 one); everything else computes in float32 on
-# CUDA cores.
+# of the stems, the encoder kernels, flash attention and block 2 run in
+# 3xTF32 (three TF32 products per float32 one; two for a stem's planar
+# entry); everything else computes in float32 on CUDA cores.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
@@ -310,6 +319,19 @@ def relaunch_identical(fn, what: str):
     log(f"  {what}: two launches bit-identical")
 
 
+def stem_info(planar: bool, impl: str):
+    """The stem kernel's registers, spills, shared memory and blocks an SM
+    (stem.kernel_info), None where an older tree cannot say (its
+    kernel_info reports the window kernel only)."""
+    import inspect
+
+    from jegal_torch.ops.kernels import stem as S
+
+    if "impl" in inspect.signature(S.kernel_info).parameters:
+        return S.kernel_info(planar, impl=impl)
+    return S.kernel_info(planar) if impl == "window" else None
+
+
 def gemm_kernel_stats(fn, products, flops: float, nbytes: float, row):
     """Phase 3's lines for a kernel on the shared GEMM: the plan of each
     product (M, N, K) -> (BM, BN, splits), the achieved rate against what
@@ -461,8 +483,8 @@ def check_stem(gp, dev):
     ops = S.stem_kernel_params(blk)
     log(f"stem: frames {tuple(frames.shape)} -> "
         f"{S.pooled_shape(*frames.shape[:3])}")
-    err = max_err(S.stem_pool(frames, *ops), S.stem_pool_plain(frames, *ops),
-                  "stem_pool", KERNEL_ATOL)
+    err = max_err(S.stem_pool(frames, *ops, impl="window"),
+                  S.stem_pool_plain(frames, *ops), "stem_pool", KERNEL_ATOL)
 
     xc = frames.permute(3, 0, 1, 2)[None].contiguous()    # NCDHW
     wc = blk["conv"]["kernel"].permute(4, 3, 0, 1, 2).contiguous()
@@ -475,14 +497,17 @@ def check_stem(gp, dev):
                                 bn["bias"], False, 0.0, 1e-5))
         return F.max_pool3d(y, (1, 3, 3), (1, 2, 2))
 
-    relaunch_identical(lambda: S.stem_pool(frames, *ops), "stem_pool")
-    log(f"  stem_pool kernel: {S.kernel_info(planar=False)}")
+    def kern():
+        return S.stem_pool(frames, *ops, impl="window")
+
+    relaunch_identical(kern, "stem_pool")
+    log(f"  stem_pool kernel: {stem_info(False, 'window')}")
     t_in, h, w = frames.shape[:3]
     t_out, j, wp, c = S.pooled_shape(t_in, h, w)
     nbytes = 4.0 * (frames.numel() + ops[0].numel() + 2 * c
                     + t_out * j * wp * c)
     b_ms, b_by, f32_ms = bound_3xtf32(stem_flops(t_in, h, w), nbytes)
-    row = dict(ms=cuda_ms(lambda: S.stem_pool(frames, *ops)),
+    row = dict(ms=cuda_ms(kern),
                plain_ms=cuda_ms(lambda: S.stem_pool_plain(frames, *ops)),
                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
                bound_f32_ms=f32_ms, max_abs_err=err)
@@ -969,7 +994,7 @@ def run_slice(gp, jp, rp):
 
     # the va path of the first slice, timed as before
     res_va, _ = drive(engine, sample, "va", dict(
-        stem_pool=1, attn_sublayer=12, ffn_sublayer=12))
+        stem_band=1, attn_sublayer=12, ffn_sublayer=12))
     check_embeddings(res_va, 125, 12)
     va = dict(warm_ms(engine, sample, "va"),
               **profile_clip(engine, sample, "va"))
@@ -999,12 +1024,25 @@ def run_slice(gp, jp, rp):
 # ---------------------------------------------------------------------------
 
 # launches of one `vta` clip (phase 4) with the default tower settings
-VTA_LAUNCHES = dict(stem_pool=1, attn_sublayer=15, ffn_sublayer=15,
+VTA_LAUNCHES = dict(stem_band=1, attn_sublayer=15, ffn_sublayer=15,
                     encoder_stack=1)
-# the tower settings of phase 6: the defaults, then the band stem and the
-# block-2 kernel
+# the tower settings of phase 6: the defaults (the band stem, cuDNN's block
+# 2), then the window stem and the block-2 kernel
 SETTINGS = (("defaults", {}),
-            ("band + kernel", dict(stem_impl="band", conv2_impl="kernel")))
+            ("window + kernel",
+             dict(stem_impl="window", conv2_impl="kernel")))
+
+
+def tower_launches(kw: dict, n: int, planar: bool) -> dict:
+    """The stem and block-2 launches of `n` tower launches under the tower
+    settings `kw`."""
+    if kw.get("stem_impl", "band") == "band":
+        want = {"stem_band": n}
+    else:
+        want = {"stem_pool_planar" if planar else "stem_pool": n}
+    if kw.get("conv2_impl") == "kernel":
+        want["conv2"] = n
+    return want
 
 
 def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
@@ -1033,7 +1071,7 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
         f"{(t_out, n_j, wp, c)}; band stem on frames {tuple(frames.shape)} "
         f"and on the planar frames")
     rows: dict = {"stem_pool_planar": [], "stem_band": [], "conv2": []}
-    reference = S.stem_pool(frames, *ops)
+    reference = S.stem_pool(frames, *ops, impl="window")
     for name, entry, impl, x, in_bytes in (
             ("stem_pool_planar", "planar", "window", planar, planar.numel()),
             ("stem_band", "float", "band", frames, 4.0 * frames.numel()),
@@ -1055,24 +1093,20 @@ def check_planar_kernels(gp, dev, u8, chin, frames, stem_library):
         max_err(kern(), reference, f"{label} vs the window stem on the "
                 f"float frames", KERNEL_ATOL)
         nbytes = in_bytes + param_bytes + out_bytes
-        if impl == "window":   # 3xTF32, two passes on the exact pixels
-            relaunch_identical(kern, label)
-            log(f"  {label} kernel: {S.kernel_info(planar=True)}")
-            b_ms, b_by, f32_ms = bound_3xtf32(flops, nbytes, passes=2)
-            extra = dict(bound_f32_ms=f32_ms)
-            note = f"3xTF32 in two passes; float32 {f32_ms:.4f}"
-        else:                  # float32 on the CUDA cores
-            b_ms, b_by = bound(flops, nbytes)
-            extra, note = {}, "float32"
+        relaunch_identical(kern, label)
+        log(f"  {label} kernel: {stem_info(entry == 'planar', impl)}")
+        # 3xTF32; two passes on the planar entry's exact pixels
+        passes = 2 if entry == "planar" else 3
+        b_ms, b_by, f32_ms = bound_3xtf32(flops, nbytes, passes=passes)
         row = dict(shape=f"{entry} frames {tuple(x.shape)}",
                    ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(stem_library), bound_ms=b_ms,
-                   bound_by=b_by, max_abs_err=err, **extra)
+                   bound_by=b_by, bound_f32_ms=f32_ms, max_abs_err=err)
         rows[name].append(row)
         log(f"  {label} ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
             f"library {row['library_ms']:.4f} (on the float frames) bound "
-            f"{b_ms:.4f} ({b_by}, {note}), {100 * b_ms / row['ms']:.1f} % "
-            f"of it")
+            f"{b_ms:.4f} ({b_by}, 3xTF32 in {passes} passes; float32 "
+            f"{f32_ms:.4f}), {100 * b_ms / row['ms']:.1f} % of it")
 
     blk2 = gp["net_vid"][1]
     c2 = C2.conv2_kernel_params(blk2)
@@ -1154,7 +1188,7 @@ def many_samples():
     return out
 
 
-def many_launches(samples, batch_size: int, band_kernel: bool):
+def many_launches(samples, batch_size: int, kw: dict):
     """The launches extract_many must make: per chunk (of one T bucket)
     one tower launch per padded clip and 160-frame piece, and one JEGAL
     forward (15 attention and FFN sublayers, one XLM-R stack)."""
@@ -1170,11 +1204,9 @@ def many_launches(samples, batch_size: int, band_kernel: bool):
         for lo in range(0, n, batch_size):
             tower += batch_ladder(min(batch_size, n - lo), batch_size) * pieces
             chunks += 1
-    stem = "stem_band" if band_kernel else "stem_pool_planar"
-    want = {stem: tower, "attn_sublayer": 15 * chunks,
-            "ffn_sublayer": 15 * chunks, "encoder_stack": chunks}
-    if band_kernel:
-        want["conv2"] = tower
+    want = dict(tower_launches(kw, tower, True),
+                attn_sublayer=15 * chunks, ffn_sublayer=15 * chunks,
+                encoder_stack=chunks)
     return want, chunks
 
 
@@ -1212,7 +1244,8 @@ def settle_waits(eng, samples, busy_ms: float):
 def run_planar(gp, jp, engine, sample, raw_res):
     """Phase 6b-c: the `vta` clip of phase 4 as planar frames, and
     extract_many over eight planar clips, each under the tower's default
-    settings and with the band stem and the block-2 kernel."""
+    settings and with the window stem and the block-2 kernel (and phase
+    4's raw clip under the latter too)."""
     import torch
 
     from jegal_torch.api import JegalEngine
@@ -1231,10 +1264,8 @@ def run_planar(gp, jp, engine, sample, raw_res):
     for label, kw in SETTINGS:
         eng = JegalEngine(jp, gp, roberta_params=engine.roberta_params,
                           tokenizer=engine.tokenizer, **kw)
-        band_kernel = bool(kw)
-        want = dict(VTA_LAUNCHES, stem_pool=0)
-        want.update({"stem_band": 1, "conv2": 1} if band_kernel
-                    else {"stem_pool_planar": 1})
+        want = dict(VTA_LAUNCHES, stem_band=0)
+        want.update(tower_launches(kw, 1, planar=True))
         eng.extract(modalities="vta", **planar)              # first call
         res, got = drive(eng, planar, "vta", want,
                          f"the planar vta path ({label})")
@@ -1244,12 +1275,20 @@ def run_planar(gp, jp, engine, sample, raw_res):
                          f"(defaults), T = 125 vta clip")
         stats[label] = dict(vs_raw, **warm_ms(eng, planar, "vta"),
                             **profile_clip(eng, planar, "vta"))
+        if kw:   # phase 4's raw clip: the window stem's float entry
+            raw = f"{label} (raw frames)"
+            want = dict(VTA_LAUNCHES, stem_band=0)
+            want.update(tower_launches(kw, 1, planar=False))
+            res, launches[raw] = drive(eng, sample, "vta", want,
+                                       f"the raw vta path ({label})")
+            compare(res, raw_res, f"raw frames ({label}) vs raw frames "
+                    f"(defaults), T = 125 vta clip")
 
         log(f"extract_many ({label}): 8 planar vta clips, T = "
             f"{[s['frames'].shape[0] for s in samples]}, batch_size 4, "
             f"ladder on")
         singles = [eng.extract(modalities="vta", **s) for s in samples]
-        want_many, n_chunks = many_launches(samples, 4, band_kernel)
+        want_many, n_chunks = many_launches(samples, 4, kw)
         _build.reset_launches()
         results = eng.extract_many(samples, "vta", batch_size=4)
         got_many = dict(_build.LAUNCHES)
@@ -1580,9 +1619,10 @@ def smoke_text_ids():
 
 def main() -> int:
     global CHECK_KERNEL_COUNTS
-    encoders_only = sys.argv[1:] == ["--encoders"]
-    if sys.argv[1:] and not encoders_only:
-        print(f"usage: {sys.argv[0]} [--encoders]", file=sys.stderr)
+    mode = sys.argv[1:]
+    if mode not in ([], ["--encoders"], ["--stems"]):
+        print(f"usage: {sys.argv[0]} [--encoders | --stems]",
+              file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -1618,6 +1658,11 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED)
     gp = init_gestsync_params(g, dev)
+    if mode == ["--stems"]:   # phases 3's and 6a's stems, reported, no more
+        stem, stem_inputs = check_stem(gp, dev)
+        rows = check_planar_kernels(gp, dev, *stem_inputs)
+        log(json.dumps({"stems": dict(rows, stem_pool=[stem])}))
+        return 0
     jp = init_jegal_params(g, dev)
     t0 = time.perf_counter()
     rp = init_roberta_params(g, device=dev)                # xlm-roberta-base
@@ -1625,7 +1670,7 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
-    if encoders_only:    # phase 3's encoder kernels, reported, no more
+    if mode == ["--encoders"]:   # phase 3's encoder kernels, reported
         CHECK_KERNEL_COUNTS = False
         sub = check_sublayers(gp, jp, dev, mask32[0])
         stack = check_stack(rp, dev, ids32, mask32, train_batch)
@@ -1655,14 +1700,11 @@ def main() -> int:
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
     launches["flash_attention"] = step_launches["flash_attention"]
 
-    rows = {"stem_pool": dict(stem, per_launch=None),
-            "attn_sublayer": per_clip(sub["attn_sublayer"]),
+    rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
             "encoder_stack": per_clip(stack),
             "flash_attention": per_clip(flash, "launches_per_step")}
     where = {
-        "stem_pool": ("jegal_torch/csrc/stem.cu",
-                      "jegal_tpu/ops/pallas/stem.py:80"),
         "attn_sublayer": ("jegal_torch/csrc/fused_layer.cu",
                           "jegal_tpu/ops/pallas/fused_layer.py:104"),
         "ffn_sublayer": ("jegal_torch/csrc/fused_layer.cu",
@@ -1689,28 +1731,37 @@ def main() -> int:
             library_ms=row["library_ms"], per_launch=row["per_launch"],
             **({"bound_f32_ms": row["bound_f32_ms"]}
                if "bound_f32_ms" in row else {})))
-    # phase 6's kernels: launches from the planar `vta` clip under the
-    # setting that runs each (one a clip), times at that clip's entry (the
-    # band stem's float-entry shape stays under per_launch)
-    for name, source, replaces, setting in (
-            ("stem_pool_planar", "jegal_torch/csrc/stem.cu",
-             "jegal_tpu/ops/pallas/stem.py:80", "defaults"),
+    # the stems and block 2: launches from the clip whose path takes each
+    # (one a clip), times at that clip's entry (the band stem's planar
+    # entry under per_launch)
+    window = SETTINGS[1][0]
+    for name, source, replaces, shapes, got, path in (
             ("stem_band", "jegal_torch/csrc/stem_band.cu",
-             "jegal_tpu/ops/pallas/stem.py:219", "band + kernel"),
+             "jegal_tpu/ops/pallas/stem.py:219", planar_rows["stem_band"],
+             launches, "the raw vta clip (defaults)"),
+            ("stem_pool", "jegal_torch/csrc/stem.cu",
+             "jegal_tpu/ops/pallas/stem.py:80", [stem],
+             planar_launches[f"{window} (raw frames)"],
+             f"the raw vta clip ({window})"),
+            ("stem_pool_planar", "jegal_torch/csrc/stem.cu",
+             "jegal_tpu/ops/pallas/stem.py:80",
+             planar_rows["stem_pool_planar"], planar_launches[window],
+             f"the planar vta clip ({window})"),
             ("conv2", "jegal_torch/csrc/conv2.cu",
-             "jegal_tpu/ops/pallas/conv2.py:76", "band + kernel")):
-        shapes = planar_rows[name]
-        row = shapes[-1]
+             "jegal_tpu/ops/pallas/conv2.py:76", planar_rows["conv2"],
+             planar_launches[window], f"the planar vta clip ({window})")):
+        if got[name] != 1:
+            raise AssertionError(f"{name}: {got[name]} launches on {path}, "
+                                 f"the timed shapes assume 1")
+        row = shapes[0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=planar_launches[setting][name],
+            launches=got[name],
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            path=f"the planar vta clip ({setting})",
-            per_launch=shapes if len(shapes) > 1 else None,
-            **({"bound_f32_ms": row["bound_f32_ms"]}
-               if "bound_f32_ms" in row else {})))
+            path=path, per_launch=shapes if len(shapes) > 1 else None,
+            bound_f32_ms=row["bound_f32_ms"]))
     step_want = sum(r["launches_per_step"] for r in stack)
     if step_launches["encoder_stack"] != step_want:
         raise AssertionError(f"encoder_stack: {step_launches} in a training "

@@ -20,9 +20,10 @@ interface (for the real vocabulary, `WordTokenizer.from_file` on
 xlm-roberta-base's tokenizer.json, which needs the `tokenizers` package).
 
 The engine runs on the card unless the caller passes device="cpu"; with no
-card it raises rather than falling back. `stem_impl` ("window" | "band")
-and `conv2_impl` ("dense" | "kernel") choose the tower's block-1 and
-block-2 kernels (models/gestsync.py) for every tower call.
+card it raises rather than falling back. `stem_impl` ("band", the default,
+| "window") and `conv2_impl` ("dense", the default, | "kernel") choose the
+tower's block-1 and block-2 kernels (models/gestsync.py) for every tower
+call.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ class JegalEngine:
     def __init__(self, jegal_params, gestsync_params=None, device="cuda",
                  roberta_params=None, tokenizer=None,
                  roberta_cfg: R.RobertaConfig = R.XLMR_BASE,
-                 stem_impl: str = "window", conv2_impl: str = "dense"):
+                 stem_impl: str = "band", conv2_impl: str = "dense"):
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got "
                              f"{stem_impl!r}")

@@ -88,12 +88,9 @@ constexpr int ST_IR = ST_S * (ST_CR - 1) + ST_KH;   // 49 input rows
 constexpr int ST_IC = ST_S * (ST_CC - 1) + ST_KW;   // 55 input cols
 constexpr int ST_ROW = 168;              // staged row: 55 x 3, padded
 constexpr int ST_XS = ST_IR * ST_ROW;    // 8232 words a plane
-constexpr int ST_KP = 152;               // 147 taps padded to k8 steps
-constexpr int ST_KSTEPS = ST_KP / 8;     // 19
-constexpr int ST_FLUSH = 4;              // k8 steps a float32 flush
 constexpr int ST_WBUF = ST_KP * ST_C;    // floats of a tap's weights
 constexpr int ST_WARPS = 8, ST_THREADS = 32 * ST_WARPS;
-constexpr int ST_MF = 2, ST_NF = ST_C / 8;   // a warp's mma tiles
+constexpr int ST_MF = 2;                 // a warp's m16 tiles
 constexpr int ST_CS_LD = ST_C + 1;       // padded conv-tile row
 constexpr int ST_RUN = 32;               // bytes staged of a planar run
 static_assert(ST_WARPS * ST_MF * 16 >= ST_NPOS, "warps cover the tile");

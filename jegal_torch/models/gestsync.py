@@ -14,11 +14,11 @@ with a 4-frame halo, which bounds activation memory for long clips.
 either input: float frames in [0, 1], masked and edge-padded
 (ops/video.mask_frames_device), or host-repacked planar uint8
 (ops/video.s2d_repack), edge-padded here. Block 1 is the fused stem
-(ops/kernels/stem.py), `stem_impl` "window" or "band". Block 2 is cuDNN's
-convolution with `conv2_impl="dense"` (the default, the counterpart of the
-JAX package's `mgrid_conv2_dense`) or the fused block-2 kernel with
-"kernel" (ops/kernels/conv2.py), which raises for a stem output smaller
-than its 5x5 window rather than running cuDNN instead. Blocks 3-6 have
+(ops/kernels/stem.py), `stem_impl` "band" (the default) or "window".
+Block 2 is cuDNN's convolution with `conv2_impl="dense"` (the default, the
+counterpart of the JAX package's `mgrid_conv2_dense`) or the fused block-2
+kernel with "kernel" (ops/kernels/conv2.py), which raises for a stem output
+smaller than its 5x5 window rather than running cuDNN instead. Blocks 3-6 have
 k_t=1, so they run as plain 2-D convolutions with frames as the batch, in
 channels-first layout — in the JAX package they are XLA, not Pallas. On a
 CPU tensor every kernel is its plain twin. The window transformer runs
@@ -73,7 +73,7 @@ def tower_ops(params):
 
 
 def _tower_piece(params, ops, piece, planar: bool = False,
-                 stem_impl: str = "window", conv2_impl: str = "dense"):
+                 stem_impl: str = "band", conv2_impl: str = "dense"):
     """(n + 4, H, W, 3) float frames, or (n + 4, H3, 27, W3) planar uint8
     with planar=True -> (n, 512) conv tokens."""
     if conv2_impl not in CONV2_IMPLS:
@@ -104,7 +104,7 @@ def vgg_tower(params, x):
 
 
 def conv_tokens(params, frames, chunk: int = 160, planar: bool = False,
-                stem_impl: str = "window", conv2_impl: str = "dense",
+                stem_impl: str = "band", conv2_impl: str = "dense",
                 ops=None):
     """The conv tower once over the padded sequence, in `chunk`-frame
     pieces with a 4-frame halo: frames (T_pad, H, W, 3), or planar uint8
@@ -141,7 +141,7 @@ def window_head(params, tokens):
 
 
 def extract_features(params, frames, chunk: int = 160,
-                     stem_impl: str = "window", conv2_impl: str = "dense"):
+                     stem_impl: str = "band", conv2_impl: str = "dense"):
     """Masked, edge-padded frames (T + 24, 270, 480, 3) -> (T, 1024)."""
     return window_head(params, conv_tokens(
         params, frames, chunk=chunk, stem_impl=stem_impl,
@@ -149,7 +149,7 @@ def extract_features(params, frames, chunk: int = 160,
 
 
 def extract_features_planar(params, planar_u8, chunk: int = 160,
-                            stem_impl: str = "window",
+                            stem_impl: str = "band",
                             conv2_impl: str = "dense"):
     """Host-repacked planar uint8 frames (T, H3, 27, W3), masked but not
     edge-padded (ops/video.s2d_repack) -> (T, 1024). The +/-12 edge pad
@@ -160,7 +160,7 @@ def extract_features_planar(params, planar_u8, chunk: int = 160,
 
 
 def conv_tokens_batch(params, frames, chunk: int = 160, planar: bool = False,
-                      stem_impl: str = "window", conv2_impl: str = "dense"):
+                      stem_impl: str = "band", conv2_impl: str = "dense"):
     """Cross-clip conv tower: frames (B, T_pad, ...) of one form ->
     (B, T_pad - 4, 512), clip by clip and piece by piece (the JAX package
     maps the same (clip, piece) units)."""
@@ -181,7 +181,7 @@ def _batch_tokens_to_feats(params, tokens):
 
 
 def extract_features_batch(params, frames, chunk: int = 160,
-                           stem_impl: str = "window",
+                           stem_impl: str = "band",
                            conv2_impl: str = "dense"):
     """Masked, edge-padded frames (B, T + 24, 270, 480, 3) -> (B, T,
     1024), one window head for the batch."""
@@ -191,7 +191,7 @@ def extract_features_batch(params, frames, chunk: int = 160,
 
 
 def extract_features_batch_raw(params, frames_u8, cut, chunk: int = 160,
-                               stem_impl: str = "window",
+                               stem_impl: str = "band",
                                conv2_impl: str = "dense"):
     """Raw decoder frames (B, T, 270, 480, 3) uint8 and chin rows (B, T)
     -> (B, T, 1024). Each clip is masked and edge-padded on its own
@@ -205,7 +205,7 @@ def extract_features_batch_raw(params, frames_u8, cut, chunk: int = 160,
 
 
 def extract_features_batch_planar(params, planar_u8, chunk: int = 160,
-                                  stem_impl: str = "window",
+                                  stem_impl: str = "band",
                                   conv2_impl: str = "dense"):
     """Host-repacked planar uint8 (B, T, H3, 27, W3), masked but not
     edge-padded -> (B, T, 1024)."""

@@ -11,8 +11,9 @@ BatchNorm folded into a per-channel scale and bias, ReLU, and maxpool
 Two entries, as the JAX package's `stem_mgrid_x` and `stem_mgrid_planar`:
 `stem_pool` takes float frames in [0, 1], `stem_pool_planar` host-repacked
 uint8 planar frames (ops/video.s2d_repack) with /255 folded into the
-weights. Each takes `impl`: "window" (the default, as the JAX package's
-STEM_IMPL) or "band"; both compute the same function, and a CPU tensor
+weights. Each takes `impl`: "band" (the default: on the H100 it is the
+faster kernel on both entries, PERF.md §6) or "window" (the JAX package's
+STEM_IMPL default); both compute the same function, and a CPU tensor
 takes the same twin for either. `_rotate_lhs` has no counterpart: its
 phase rotation is a TPU K-band layout.
 """
@@ -93,12 +94,14 @@ def _entry(impl, planar: bool):
     return lib, f
 
 
-def kernel_info(planar: bool) -> dict:
-    """What the compiler and the occupancy calculator say of the window
+def kernel_info(planar: bool, impl: str = "band") -> dict:
+    """What the compiler and the occupancy calculator say of the `impl`
     stem's kernel for an entry: registers and spill bytes a thread, dynamic
     shared memory a block and resident blocks an SM (on the current card)."""
-    lib = _build.library("stem")
-    fn = lib.jt_stem_pool_info
+    _check_impl(impl)
+    name, fn = KERNELS[impl]
+    lib = _build.library(name)
+    fn = getattr(lib, fn + "_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 4)()
@@ -141,7 +144,7 @@ def _launch(impl, planar, x, weight, scale, bias, t_in, h, w):
     return out
 
 
-def stem_pool(frames, weight, scale, bias, impl: str = "window"):
+def stem_pool(frames, weight, scale, bias, impl: str = "band"):
     """Fused stem over float32 frames (T4, H, W, 3) in [0, 1] ->
     (T4 - 4, J, W_pool, 64). On a CUDA tensor the `impl` kernel ("window"
     or "band"; it has no backward, and raises when an operand needs a
@@ -159,7 +162,7 @@ def stem_pool(frames, weight, scale, bias, impl: str = "window"):
     return _launch(impl, False, frames, weight, scale, bias, t_in, h, w)
 
 
-def stem_pool_planar(planar, weight, scale, bias, impl: str = "window"):
+def stem_pool_planar(planar, weight, scale, bias, impl: str = "band"):
     """Fused stem over host-repacked uint8 planar frames (T4, H3, 27, W3)
     (ops/video.s2d_repack, edge-padded) -> (T4 - 4, J, W_pool, 64), the
     output of `stem_pool` on the raw frames / 255. `weight` is block 1's

@@ -16,6 +16,9 @@ backward, and at ragged T (under one key tile, ragged last tiles) with
 and without a mask; block 2 at ragged M (under one tile, tiles across
 frames); both relaunched with identical bits; the window stem's two
 entries relaunched with identical bits and on all-0 and all-255 pixels,
+and its block without spills; the band stem's two entries at t_in = 5 and
+J = 1, over ragged strips and frame groups, on planar widths that take
+plain loads, on all-0 and all-255 pixels, relaunched with identical bits,
 and its block without spills; the wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
@@ -329,22 +332,63 @@ def test_stem_window_relaunch_and_extreme_pixels(dev, fill):
     planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
     frames = u8.to(dev).float() / 255.0
     ops = _stem_weights(dev, seed=6)
-    got_f = S.stem_pool(frames, *ops)
-    got_p = S.stem_pool_planar(planar, *ops)
+    got_f = S.stem_pool(frames, *ops, impl="window")
+    got_p = S.stem_pool_planar(planar, *ops, impl="window")
     torch.cuda.synchronize()
     torch.testing.assert_close(got_f, S.stem_pool_plain(frames, *ops),
                                rtol=0, atol=ATOL)
     torch.testing.assert_close(got_p, S.stem_pool_planar_plain(planar, *ops),
                                rtol=0, atol=ATOL)
     torch.testing.assert_close(got_p, got_f, rtol=0, atol=ATOL)
-    assert torch.equal(S.stem_pool(frames, *ops), got_f)
-    assert torch.equal(S.stem_pool_planar(planar, *ops), got_p)
+    assert torch.equal(S.stem_pool(frames, *ops, impl="window"), got_f)
+    assert torch.equal(S.stem_pool_planar(planar, *ops, impl="window"),
+                       got_p)
 
 
 @pytest.mark.parametrize("planar", [False, True])
 def test_stem_window_fits_an_sm_without_spills(dev, planar):
     """The design's block fits an SM without spilling registers."""
-    info = S.kernel_info(planar)
+    info = S.kernel_info(planar, impl="window")
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
+
+
+
+@pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
+                                    (12, 45, 96)])
+@pytest.mark.parametrize("fill", [0, 255, None])
+def test_stem_band_shapes_relaunch_and_extreme_pixels(dev, t4, h, w, fill):
+    """The band stem's two entries at t_in = 5 and J = 1, over ragged
+    strips and frame groups, on planar widths W3 of 20, 37 and 50 (not a
+    multiple of 16: plain loads) and 32 (cp.async), on frames of all 0, all
+    255 (1.0) and random bytes: planar against float frames and both
+    against their twins, and two launches of each entry bit-identical."""
+    if fill is None:
+        u8 = torch.randint(0, 256, (t4, h, w, 3),
+                           generator=torch.Generator().manual_seed(7),
+                           dtype=torch.uint8)
+    else:
+        u8 = torch.full((t4, h, w, 3), fill, dtype=torch.uint8)
+    planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
+    frames = u8.to(dev).float() / 255.0
+    ops = _stem_weights(dev, seed=8)
+    got_f = S.stem_pool(frames, *ops, impl="band")
+    got_p = S.stem_pool_planar(planar, *ops, impl="band")
+    torch.cuda.synchronize()
+    assert got_f.shape == S.pooled_shape(t4, h, w)
+    torch.testing.assert_close(got_f, S.stem_pool_plain(frames, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, S.stem_pool_planar_plain(planar, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_p, got_f, rtol=0, atol=ATOL)
+    assert torch.equal(S.stem_pool(frames, *ops, impl="band"), got_f)
+    assert torch.equal(S.stem_pool_planar(planar, *ops, impl="band"), got_p)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_stem_band_fits_an_sm_without_spills(dev, planar):
+    """The band design's block fits an SM without spilling registers."""
+    info = S.kernel_info(planar, impl="band")
     assert info["spill_bytes"] == 0, info
     assert info["blocks_per_sm"] >= 1, info
 
@@ -518,12 +562,12 @@ def test_kernels_without_backward_refuse_gradients(dev):
         lambda: FL.encoder_stack(x, stacked, 21, 8, prenorm=False,
                                  ln_kind="std"),
         lambda: S.stem_pool(frames, sw, torch.ones(64, device=dev),
-                            torch.zeros(64, device=dev)),
+                            torch.zeros(64, device=dev), impl="window"),
         lambda: FA.flash_attention(q.requires_grad_(True), k, v, mask),
         lambda: S.stem_pool(frames, sw, torch.ones(64, device=dev),
                             torch.zeros(64, device=dev), impl="band"),
         lambda: S.stem_pool_planar(planar, sw_grad, torch.ones(64, device=dev),
-                                   torch.zeros(64, device=dev)),
+                                   torch.zeros(64, device=dev), impl="window"),
         lambda: S.stem_pool_planar(planar, sw_grad, torch.ones(64, device=dev),
                                    torch.zeros(64, device=dev), impl="band"),
         lambda: C2.conv2_bn_relu(c2x, c2w, torch.ones(128, device=dev),

@@ -1,4 +1,4 @@
-"""The arithmetic of kernels 1, 3, 6 and 7 on the tensor cores, emulated on
+"""The arithmetic of kernels 1, 2, 3, 6 and 7 on the tensor cores, emulated on
 the CPU and held against the JAX package and the port's plain twins. The
 kernels themselves run only on the card (tests/test_torch_kernels_cuda.py);
 these tests keep their schedules testable here:
@@ -16,6 +16,10 @@ these tests keep their schedules testable here:
   weights to 152, a float32 flush every 32 columns; float frames in
   3xTF32, the planar entry's integer pixels (exact in TF32) in two passes,
   x w_lo + x w_hi; then the folded scale, bias, ReLU and the 3x3/2 pool;
+* the band stem (csrc/stem_band.cu): the same products and K order, on
+  blocks of 8 pooled columns x 7 frames walking the pairs of conv rows
+  through a 10-row ring (6 new rows a pair), the carried row max of the
+  last pair, and runs of pooled rows that start one pair early;
 * the encoders' attention core (csrc/encoder.cuh): a split QKV product's
   partials summed in slice order, then the bias; segments of up to 64
   rows packed whole into 64-row tiles with -inf across segments, the
@@ -33,10 +37,11 @@ Tolerances: abs 1e-5 against float32 references at the same inputs (the
 1e-4, the JAX conv2 test's own bar (tests/test_conv2_pallas.py:63), as
 tests/test_torch_planar.py holds the plain twin; the stem against the
 Pallas kernel interpreted at 2e-5, the JAX planar stem test's bar, as
-tests/test_torch_planar.py holds the stem twins; the attention sublayer
-against `_attn_sublayer` interpreted at 2e-5, the JAX suite's own bar for
-its path equalities (tests/test_fused_engine.py:77), as
-tests/test_torch_kernels.py holds the sublayer twins."""
+tests/test_torch_planar.py holds the stem twins (the band stem against
+the band kernel); the attention sublayer against `_attn_sublayer`
+interpreted at 2e-5, the JAX suite's own bar for its path equalities
+(tests/test_fused_engine.py:77), as tests/test_torch_kernels.py holds the
+sublayer twins."""
 
 import math
 
@@ -310,6 +315,140 @@ def test_stem_schedule_matches_pallas_kernel(shape):
     assert tuple(got.shape) == want.shape == TS.pooled_shape(t4, h, w)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
+
+
+BAND_PI, BAND_F, BAND_RING = 8, 7, 10   # pooled cols, frames, ring rows
+
+
+def band_emulated(frames, w, scale, bias, exact=False, run=None):
+    """Kernel 2's schedule: frames (T4, H, W, 3), w (5, 7, 7, 3, 64) ->
+    (T4 - 4, J, W_pool, 64). Blocks of 8 pooled columns x 7 output frames
+    each walk runs of `run` pooled rows (all J by default) down the pairs of
+    conv rows: a 10-row ring a frame (row y in slot y % 10; rows past the
+    clip or the frame zero) starts with the run's first 10 rows and takes 6
+    new rows after each pair; pair m reads slots (6m + 3r + dy) % 10 for its
+    row 2m + r; each tap's 147 columns in (dy, dx, c) order padded to 152,
+    a float32 flush every 32; BN + ReLU; pooled row m - 1 from the carried
+    row max of pair m - 1, conv row 2m and the 3-column window; the carry
+    becomes pair m's row max; the run's first pair only makes the carry.
+    exact: the pixels are exact in TF32 (the planar entry's integers)."""
+    t4, h, wd, _ = frames.shape
+    t_out, n_j, wp, _ = TS.pooled_shape(t4, h, wd)
+    run = n_j if run is None else run
+    mm = mm2 if exact else mm3
+    cc, span = 2 * BAND_PI + 1, 6 * BAND_PI + 7     # conv, input columns
+    wk = [torch.cat([w[dt].reshape(STEM_TAPS, 64),
+                     torch.zeros(STEM_KP - STEM_TAPS, 64)]) for dt in range(5)]
+    out = torch.full((t_out, n_j, wp, 64), float("nan"))
+    for i0 in range(0, wp, BAND_PI):
+        x0 = 6 * i0
+        for t0 in range(0, t_out, BAND_F):
+            # the block's input frames and columns, zero past the clip
+            nf = min(BAND_F + 4, t4 - t0)
+            nx = min(span, wd - x0)
+            src = torch.zeros(BAND_F + 4, h, span, 3)
+            src[:nf, :, :nx] = frames[t0:t0 + nf, :, x0:x0 + nx]
+            for j_a in range(0, n_j, run):
+                j_b = min(n_j, j_a + run)
+                ring = torch.zeros(BAND_F + 4, BAND_RING, span, 3)
+
+                def stage(y0, n):
+                    for y in range(y0, min(y0 + n, h)):
+                        ring[:, y % BAND_RING] = src[:, y]
+
+                stage(6 * j_a, BAND_RING)
+                carry = None
+                for m in range(j_a, j_b + 1):
+                    sums = [torch.zeros(BAND_F * cc, 64) for _ in (0, 1)]
+                    for dt in range(5):
+                        fr = ring[dt:dt + BAND_F]
+                        for r in (0, 1):
+                            slots = [(6 * m + 3 * r + dy) % BAND_RING
+                                     for dy in range(7)]
+                            x = fr[:, slots]            # (F, dy, span, 3)
+                            a = torch.stack(
+                                [x[:, :, dx:dx + 3 * cc - 2:3]
+                                 for dx in range(7)], dim=3)
+                            # (F, dy, col, dx, c) -> (F col, dy dx c)
+                            a = a.permute(0, 2, 1, 3, 4).reshape(
+                                BAND_F * cc, STEM_TAPS)
+                            a = torch.cat([a, torch.zeros(
+                                a.shape[0], STEM_KP - STEM_TAPS)], dim=1)
+                            for k0 in range(0, STEM_KP, STEM_FLUSH):
+                                sums[r] = sums[r] + mm(
+                                    a[:, k0:k0 + STEM_FLUSH],
+                                    wk[dt][k0:k0 + STEM_FLUSH])
+                    y0, y1 = (torch.relu(v * scale + bias).reshape(
+                        BAND_F, cc, 64) for v in sums)
+                    if m > j_a:
+                        v = torch.maximum(carry, y0)
+                        pooled = torch.maximum(torch.maximum(
+                            v[:, 0:cc - 2:2], v[:, 1:cc - 1:2]), v[:, 2:cc:2])
+                        nt = min(BAND_F, t_out - t0)
+                        ni = min(BAND_PI, wp - i0)
+                        out[t0:t0 + nt, m - 1, i0:i0 + ni] = pooled[:nt, :ni]
+                    carry = torch.maximum(y0, y1)
+                    if m < j_b:
+                        stage(6 * m + BAND_RING, 6)
+    return out
+
+
+@pytest.mark.parametrize("shape,run", [((13, 30, 111, 3), None),
+                                       ((13, 30, 111, 3), 2),
+                                       ((5, 13, 60, 3), None)])
+def test_band_schedule_matches_plain_twin(shape, run):
+    """Float frames in [0, 1) in three passes, over ragged strips (17
+    pooled columns: 8, 8, 1) and frame groups (9 output frames: 7, 2), in
+    one run or runs of 2 pooled rows, and at J = 1 with t_in = 5."""
+    frames = torch.from_numpy(np.random.default_rng(23).random(
+        shape, dtype=np.float32))
+    ops = _stem_ops(24)
+    got = band_emulated(frames, *ops, run=run)
+    assert tuple(got.shape) == TS.pooled_shape(*shape[:3])
+    torch.testing.assert_close(got, TS.stem_pool_plain(frames, *ops),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(12, 30, 111, 3), (5, 15, 57, 3)])
+def test_band_planar_schedule_matches_plain_twin(shape):
+    """The planar entry's two passes on integer pixels, with chin rows
+    masked, against the planar twin, over ragged strips and at J = 1; the
+    float three-pass schedule on the same pixels / 255 agrees."""
+    rng = np.random.default_rng(25)
+    u8 = rng.integers(0, 256, shape, dtype=np.uint8)
+    cut = rng.integers(0, shape[1] // 2, shape[0])
+    planar = torch.from_numpy(s2d_repack(u8, cut))
+    ops = _stem_ops(26)
+    pixels = s2d_unpack(planar).to(torch.float32)
+    got = band_emulated(pixels, ops[0] / 255.0, *ops[1:], exact=True)
+    torch.testing.assert_close(got, TS.stem_pool_planar_plain(planar, *ops),
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(got, band_emulated(pixels / 255.0, *ops),
+                               rtol=0, atol=ATOL)
+
+
+def test_band_schedule_matches_pallas_band_kernel():
+    """Against stem_mgrid_x(impl="band") interpreted, on a block-1 tree
+    with randomized BatchNorm statistics, over a ragged strip."""
+    t4, h, w = 9, 45, 111
+    rng = np.random.default_rng(27)
+    blk = {"conv": {"kernel": rng.standard_normal((5, 7, 7, 3, 64),
+                                                  dtype=np.float32) * 0.05,
+                    "bias": rng.standard_normal(64, dtype=np.float32) * 0.1},
+           "bn": {"scale": rng.random(64, dtype=np.float32) + 0.5,
+                  "bias": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                  "mean": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                  "var": rng.random(64, dtype=np.float32) + 0.5}}
+    frames = rng.random((t4, h, w, 3), dtype=np.float32)
+    m = JS.stem_mgrid_x(JS.s2d_lanes(jnp.asarray(frames)),
+                        *JS.stem_kernel_params(blk), w_valid=w // 3,
+                        interpret=True, impl="band")
+    got = band_emulated(torch.from_numpy(frames),
+                        *TS.stem_kernel_params(tree_to_torch(blk)))
+    w_pool = got.shape[2]
+    want = np.asarray(m)[..., 0:2 * w_pool:2].transpose(0, 1, 3, 2)
+    assert tuple(got.shape) == want.shape == TS.pooled_shape(t4, h, w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 AC_KT, AC_QUARTER = 64, 16   # keys a tile; keys a warp of a streamed tile
 

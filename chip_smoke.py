@@ -52,13 +52,24 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     through FlashAttention against the plain twin's autograd;
  4. `JegalEngine.extract(modalities="vta", frames=...)` at full width on a
     5 s clip (125 frames of 270x480, chin rows, a 12-word text, 80,000
-    samples of 16 kHz audio, 12 word boundaries), with every launch counter
-    set to 0 just before and read just after (band stem 1, attention 15,
-    FFN 15, stack 1, every other kernel 0); unit-norm finite rows of the right
-    shapes; warm ms/clip (median and quartiles of 30, host clock), and a
-    torch.profiler breakdown of one clip's device time (with the attention
-    core's device ms and the `row_epilogue_kernel` launches); then the `va`
-    timing of the same clip as before;
+    samples of 16 kHz audio, 12 word boundaries). Every extract and
+    extract_many call replays a CUDA graph per (key, shape signature),
+    captured at its first call: each driven path runs as the first call
+    of its graphs, with every launch counter set to 0 just before and read
+    just after; the graphs it replayed must launch the path's kernels
+    (band stem 1, block-2 kernel 1, attention 15, FFN 15, stack 1, every
+    other kernel 0: the launches recorded at capture), and the counters
+    read twice that (the eager run before the capture, and the capture;
+    a replay counts nothing). Then the graph against an eager run of its
+    forward on the same inputs: outputs bit-identical, and one profiled
+    replay's device kernels the eager run's by name and count, each
+    counter's kernel as often as the capture counted it; unit-norm finite
+    rows of the right shapes; warm ms/clip (median and quartiles of 30,
+    host clock), a torch.profiler breakdown of one clip's device time
+    (with the attention core's device ms and the `row_epilogue_kernel`
+    launches), and the host's time by engine step (prep, frame staging,
+    upload and replay, the rest with the wait); then the `va` timing of
+    the same clip as before;
  5. the same weights on a 16-frame, 4-word clip: `vta` on the card against
     the port on the CPU (full-width XLM-R copied to the CPU);
  6. planar frames, the stems, block 2 and extract_many: (a) at phase
@@ -71,20 +82,27 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     phase 3; (b) phase 4's clip repacked
     by jegal_torch.ops.video.s2d_repack with its chin rows, `extract(
     modalities="vta", frames=planar)` under the tower's defaults (launches:
-    band stem 1, attention 15, FFN 15, stack 1, every other kernel 0) and
-    with stem_impl="window", conv2_impl="kernel" (window stem's planar
-    entry 1, block 2 1, the same others; then phase 4's raw clip under the
-    same setting: the window stem's float entry 1, block 2 1), each within
-    abs 1e-4 and min row cosine 0.99999 of phase 4's raw-frame embeddings,
-    with warm ms/clip and a profile; (c)
-    `extract_many` over eight planar `vta` clips (T = 100, 110, 120, 125,
-    125, 128 and 200, 250: two T buckets; batch_size 4 and the ladder:
-    chunks of 4, 2 and 2) under both settings: launches checked against the
-    count the chunks imply (a tower launch per padded clip and 160-frame
-    piece, 10 in all; 15 attention, 15 FFN and 1 stack a chunk), every
-    result within the same bars of the single-clip `extract` of its sample,
-    warm clips/s (median of 5 calls) with a profile of one call, and the
-    host's waits for the card in the pipeline's settles over one call;
+    band stem 1, block-2 kernel 1, attention 15, FFN 15, stack 1, every
+    other kernel 0), with stem_impl="window" (the window stem's planar
+    entry 1 instead of the band stem) and with conv2_impl="dense" (cuDNN's
+    block 2, no block-2 kernel), the latter two also on phase 4's raw
+    clip, each within abs 1e-4 and min row cosine 0.99999 of phase 4's
+    raw-frame embeddings, with its graph checked as in phase 4, warm
+    ms/clip and a profile; (c) `extract_many` over eight planar `vta`
+    clips (T = 100, 110, 120, 125, 125, 128 and 200, 250: two T buckets;
+    batch_size 4 and the ladder: chunks of 4, 2 and 2) under the three
+    settings: launches checked as in phase 4 against the count the chunks
+    imply (a tower launch per padded clip and 160-frame piece, 10 in all;
+    15 attention, 15 FFN and 1 stack a chunk), every result within the
+    same bars of the single-clip `extract` of its sample, warm clips/s
+    (median of 5 calls) with a profile of one call, the host's waits for
+    the card in the pipeline's settles over one call, and (defaults) the
+    host's time by step; (d) warm start on a new engine: `warmup_all`
+    over the main path's buckets and `warmup(frames_kind=...)` for the
+    fused graphs of (b) and (c) and a raw clip at T bucket 512, each with
+    the memory its capture added; then the raw and planar clips and
+    extract_many again, which must capture nothing (counters 0, no new
+    graph);
  7. training, full-width JEGAL with the frozen XLM-R base: (a) the entry
     point, `training.loop.train`, for 10 steps at batch 8 with warmup and
     cosine over a synthetic 16-clip corpus written to a temporary
@@ -113,9 +131,10 @@ shape, 0 launches a step, carries its 6 launches a clip from phase 8. The
 stem and block-2 rows take their launches from the run of the path that
 takes each (`path`): the band stem (the default) from phase 4's raw clip,
 its time at the float entry (the planar entry's numbers under
-`per_launch`); the window stem's float entry, its planar entry and block 2
-from phase 6(b)'s clips under stem_impl="window", conv2_impl="kernel",
-their times from phases 3 and 6(a). Their library yardsticks are phase
+`per_launch`) and block 2 (the default) from phase 4's raw clip, its
+time from phase 6(a); the window stem's float and planar entries from
+phase 6(b)'s clips under stem_impl="window", their times from phases 3
+and 6(a). Their library yardsticks are phase
 3's `F.conv3d` stem on the float frames of the same pixels, and
 `F.conv2d` + `F.batch_norm` + ReLU for block 2. The
 stem (both kernels, both entries), attention, FFN, stack, flash
@@ -937,21 +956,128 @@ def counts(**want):
     return dict({k: 0 for k in _build.LAUNCHES}, **want)
 
 
-def drive(engine, sample, modalities, want, what=None):
-    """One clip with every launch counter set to 0 just before and read just
-    after; `want` is the launch count of each kernel that must launch (every
-    other kernel must not)."""
+def replayed(fn):
+    """Run `fn` with every graph replay of the engine recorded: -> (fn's
+    result, the launches of the graphs it replayed, summed: what the card
+    ran, each graph's `_build.LAUNCHES` delta recorded at its capture)."""
+    from jegal_torch import api
     from jegal_torch.ops.kernels import _build
 
-    what = what or f"the {modalities} path"
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    call = api._Graph.__call__
+
+    def counted(self, *a, **kw):
+        for k, n in self.launches.items():
+            total[k] += n
+        return call(self, *a, **kw)
+
+    api._Graph.__call__ = counted
+    try:
+        out = fn()
+    finally:
+        api._Graph.__call__ = call
+    return out, total
+
+
+def drive_call(fn, want, what: str):
+    """One call of the engine that captures the graph of each key it runs
+    (the first of each key on its engine), with every launch counter set to
+    0 just before and read just after. The graphs it replayed must launch
+    `want` (every other kernel none); the counters read twice that: each
+    capture's eager run before it and the capture itself count one a
+    launch, and a replay adds nothing. -> (fn's result, the replayed
+    launches)."""
+    from jegal_torch.ops.kernels import _build
+
     want = counts(**want)
     _build.reset_launches()
-    res = engine.extract(modalities=modalities, **sample)
-    launches = dict(_build.LAUNCHES)
-    log(f"  launches on {what}: {launches}")
-    if launches != want:
-        raise AssertionError(f"{what}: launches {launches}, want {want}")
-    return res, launches
+    res, ran = replayed(fn)
+    counted = dict(_build.LAUNCHES)
+    log(f"  launches on {what}: graphs replayed {ran}; counters (eager "
+        f"runs and captures) {counted}")
+    if ran != want:
+        raise AssertionError(f"{what}: the graphs replayed launch {ran}, "
+                             f"want {want}")
+    if counted != {k: 2 * n for k, n in want.items()}:
+        raise AssertionError(f"{what}: counters {counted}, want twice "
+                             f"{want} (the run before each capture, and the "
+                             f"capture)")
+    return res, ran
+
+
+def drive(engine, sample, modalities, want, what=None):
+    """`drive_call` on one clip's extraction."""
+    return drive_call(lambda: engine.extract(modalities=modalities, **sample),
+                      want, what or f"the {modalities} path")
+
+
+# a counter's kernel among a profile's device events (its name holds all
+# the parts); `attn_sublayer` by the attention core, which the stack also
+# launches once a layer
+SIGNATURES = {"stem_band": ("stem_band_kernel",),
+              "stem_pool": ("stem_pool_kernel", "FloatFrames"),
+              "stem_pool_planar": ("stem_pool_kernel", "PlanarU8"),
+              "conv2": ("conv2_kernel",),
+              "attn_sublayer": ("attention_core",),
+              "flash_attention": ("flash_attention_fwd",)}
+
+
+def device_kernels(fn):
+    """One call of `fn` under torch.profiler -> (its result, {device event
+    name: count}). A memset's or memcpy's memory kinds are left out of its
+    name: in a graph the profiler sees them as "Unknown"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for name, _ in device_events(prof):
+        if name.startswith(("Memset", "Memcpy")):
+            name = name.split(" (")[0]
+        counts[name] = counts.get(name, 0) + 1
+    return result, counts
+
+
+def replay_check(engine, what: str, xlmr_layers: int = 12):
+    """The graph of the engine's last call, against an eager run of its
+    forward on the same static inputs: the outputs bit for bit, and the
+    device kernels of one profiled replay by name and count against the
+    eager run's and against the launches recorded at its capture (each
+    counter's kernel as often as counted)."""
+    import torch
+
+    entry = engine._graphs[engine.cached_graphs[-1]]
+    with torch.inference_mode():
+        _, replay = device_kernels(entry.graph.replay)
+        out = entry.out.clone()
+        eager_out, eager = device_kernels(lambda: entry.fn(**entry.inputs))
+        same = torch.equal(eager_out, out)
+    launches = {k: n for k, n in entry.launches.items() if n}
+    log(f"  graph of {what}: {sum(replay.values())} device events a replay "
+        f"({sum(eager.values())} eager), launches at capture {launches}; "
+        f"replay and eager outputs {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{what}: the replay differs from the eager run")
+    if replay != eager:
+        diff = {k: (replay.get(k, 0), eager.get(k, 0))
+                for k in set(replay) | set(eager)
+                if replay.get(k, 0) != eager.get(k, 0)}
+        raise AssertionError(f"{what}: replay vs eager device kernels "
+                             f"differ (replay, eager): {diff}")
+    for k, parts in SIGNATURES.items():
+        want = entry.launches[k]
+        if k == "attn_sublayer":
+            want += xlmr_layers * entry.launches["encoder_stack"]
+        got = sum(n for name, n in replay.items()
+                  if all(p in name for p in parts))
+        if got != want:
+            raise AssertionError(f"{what}: {got} {parts[0]} in a replay, "
+                                 f"the capture counted {want}")
+    return dict(device_events=sum(replay.values()), launches=launches)
 
 
 def warm_ms(engine, sample, modalities, reps: int = 30):
@@ -968,6 +1094,68 @@ def warm_ms(engine, sample, modalities, reps: int = 30):
     return dict(ms_per_clip=ms, ms_q1=q1, ms_q3=q3, clips_per_s=1e3 / ms)
 
 
+# the engine's host steps timed by `host_split`: (class, method); extract's
+# prep runs in the calling thread, extract_many's in its prep pool
+HOST_STEPS = {"prepare sample": ("JegalEngine", "_prepare_sample"),
+              "prep pool": ("JegalEngine", "_prep_map"),
+              "fill frames": ("JegalEngine", "_fill_frames"),
+              "stage": ("_Graph", "stage"),
+              "upload + replay": ("_Graph", "__call__"),
+              "fetch wait": ("JegalEngine", "_finish_fetch")}
+
+
+def host_split(fn, what: str, reps: int = 10) -> dict:
+    """Where the host's time goes in a warm call of `fn`: host-clock ms in
+    each engine step (HOST_STEPS; median over `reps` calls), and the rest
+    of the call (for `extract`, the wait for the card's result is in it).
+    A step that runs inside another (the samples' prep inside the prep
+    pool) is not subtracted twice."""
+    import inspect
+    import threading
+
+    from jegal_torch import api
+
+    lock = threading.Lock()
+    spent: dict = {}
+    saved = {}
+    for step, (cls_name, name) in HOST_STEPS.items():
+        cls = getattr(api, cls_name)
+        raw = inspect.getattr_static(cls, name)
+        saved[step] = (cls, name, raw)
+        func = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+        def timed(*a, _step=step, _func=func, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _func(*a, **kw)
+            finally:
+                with lock:
+                    spent[_step] = spent.get(_step, 0.0) \
+                        + 1e3 * (time.perf_counter() - t0)
+
+        setattr(cls, name, staticmethod(timed)
+                if isinstance(raw, staticmethod) else timed)
+    calls = []
+    try:
+        for _ in range(reps):
+            spent.clear()
+            t0 = time.perf_counter()
+            fn()
+            total = 1e3 * (time.perf_counter() - t0)
+            calls.append(dict(spent, total=total))
+    finally:
+        for cls, name, raw in saved.values():
+            setattr(cls, name, raw)
+    out = {k: statistics.median(c.get(k, 0.0) for c in calls)
+           for k in ("total", *HOST_STEPS)}
+    nested = {"prepare sample"} if out["prep pool"] else set()
+    out["rest"] = out["total"] - sum(out[k] for k in HOST_STEPS
+                                     if k not in nested)
+    log(f"  host split of a warm {what} (median of {reps}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items() if v))
+    return out
+
+
 def run_slice(gp, jp, rp):
     import numpy as np
 
@@ -980,21 +1168,23 @@ def run_slice(gp, jp, rp):
         f"{len(SMOKE_TEXT.split(' '))} words of text, "
         f"{sample['wav'].shape[0]} samples, "
         f"{len(sample['word_boundaries'])} word boundaries")
+    # the main path: vta, its first call capturing its graph
     t0 = time.perf_counter()
-    engine.extract(modalities="vta", **sample)
-    log(f"  first clip {1e3 * (time.perf_counter() - t0):.1f} ms")
-
-    # the main path: vta
     res, launches = drive(engine, sample, "vta", VTA_LAUNCHES)
+    log(f"  first clip (the graph's capture) "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
     check_embeddings(res, 125, 12)
     log(f"  gesture_emb {res['gesture_emb'].shape} content_emb "
         f"{res['content_emb'].shape}: finite, unit-norm rows")
+    graph = replay_check(engine, "the raw vta clip")
     vta = dict(warm_ms(engine, sample, "vta"),
-               **profile_clip(engine, sample, "vta"))
+               **profile_clip(engine, sample, "vta"), graph=graph,
+               host=host_split(lambda: engine.extract("vta", **sample),
+                               "raw vta clip"))
 
     # the va path of the first slice, timed as before
     res_va, _ = drive(engine, sample, "va", dict(
-        stem_band=1, attn_sublayer=12, ffn_sublayer=12))
+        stem_band=1, conv2=1, attn_sublayer=12, ffn_sublayer=12))
     check_embeddings(res_va, 125, 12)
     va = dict(warm_ms(engine, sample, "va"),
               **profile_clip(engine, sample, "va"))
@@ -1024,13 +1214,14 @@ def run_slice(gp, jp, rp):
 # ---------------------------------------------------------------------------
 
 # launches of one `vta` clip (phase 4) with the default tower settings
-VTA_LAUNCHES = dict(stem_band=1, attn_sublayer=15, ffn_sublayer=15,
+VTA_LAUNCHES = dict(stem_band=1, conv2=1, attn_sublayer=15, ffn_sublayer=15,
                     encoder_stack=1)
-# the tower settings of phase 6: the defaults (the band stem, cuDNN's block
-# 2), then the window stem and the block-2 kernel
+# the tower settings of phase 6: the defaults (the band stem, the block-2
+# kernel), the window stem and the block-2 kernel, and the band stem and
+# cuDNN's block 2
 SETTINGS = (("defaults", {}),
-            ("window + kernel",
-             dict(stem_impl="window", conv2_impl="kernel")))
+            ("window + kernel", dict(stem_impl="window")),
+            ("band + dense", dict(conv2_impl="dense")))
 
 
 def tower_launches(kw: dict, n: int, planar: bool) -> dict:
@@ -1040,7 +1231,7 @@ def tower_launches(kw: dict, n: int, planar: bool) -> dict:
         want = {"stem_band": n}
     else:
         want = {"stem_pool_planar" if planar else "stem_pool": n}
-    if kw.get("conv2_impl") == "kernel":
+    if kw.get("conv2_impl", "kernel") == "kernel":
         want["conv2"] = n
     return want
 
@@ -1244,12 +1435,12 @@ def settle_waits(eng, samples, busy_ms: float):
 def run_planar(gp, jp, engine, sample, raw_res):
     """Phase 6b-c: the `vta` clip of phase 4 as planar frames, and
     extract_many over eight planar clips, each under the tower's default
-    settings and with the window stem and the block-2 kernel (and phase
-    4's raw clip under the latter too)."""
+    settings, with the window stem and the block-2 kernel, and with the
+    band stem and the block-2 kernel (and phase 4's raw clip under the
+    latter two too), every call replaying its graph."""
     import torch
 
     from jegal_torch.api import JegalEngine
-    from jegal_torch.ops.kernels import _build
     from jegal_torch.ops.video import s2d_repack
 
     planar = dict(sample, frames=s2d_repack(sample["frames"],
@@ -1264,39 +1455,43 @@ def run_planar(gp, jp, engine, sample, raw_res):
     for label, kw in SETTINGS:
         eng = JegalEngine(jp, gp, roberta_params=engine.roberta_params,
                           tokenizer=engine.tokenizer, **kw)
-        want = dict(VTA_LAUNCHES, stem_band=0)
+        want = dict(VTA_LAUNCHES, stem_band=0, conv2=0)
         want.update(tower_launches(kw, 1, planar=True))
-        eng.extract(modalities="vta", **planar)              # first call
         res, got = drive(eng, planar, "vta", want,
                          f"the planar vta path ({label})")
         launches[label] = got
         check_embeddings(res, 125, 12)
+        graph = replay_check(eng, f"the planar vta clip ({label})")
         vs_raw = compare(res, raw_res, f"planar ({label}) vs raw frames "
                          f"(defaults), T = 125 vta clip")
         stats[label] = dict(vs_raw, **warm_ms(eng, planar, "vta"),
-                            **profile_clip(eng, planar, "vta"))
-        if kw:   # phase 4's raw clip: the window stem's float entry
+                            **profile_clip(eng, planar, "vta"), graph=graph)
+        if not kw:
+            stats[label]["host"] = host_split(
+                lambda: eng.extract("vta", **planar), "planar vta clip")
+        if kw:   # phase 4's raw clip: this setting's float entries
             raw = f"{label} (raw frames)"
-            want = dict(VTA_LAUNCHES, stem_band=0)
+            want = dict(VTA_LAUNCHES, stem_band=0, conv2=0)
             want.update(tower_launches(kw, 1, planar=False))
             res, launches[raw] = drive(eng, sample, "vta", want,
                                        f"the raw vta path ({label})")
             compare(res, raw_res, f"raw frames ({label}) vs raw frames "
                     f"(defaults), T = 125 vta clip")
+            stats[raw] = dict(warm_ms(eng, sample, "vta"),
+                              **profile_clip(eng, sample, "vta"))
 
         log(f"extract_many ({label}): 8 planar vta clips, T = "
             f"{[s['frames'].shape[0] for s in samples]}, batch_size 4, "
             f"ladder on")
         singles = [eng.extract(modalities="vta", **s) for s in samples]
         want_many, n_chunks = many_launches(samples, 4, kw)
-        _build.reset_launches()
-        results = eng.extract_many(samples, "vta", batch_size=4)
-        got_many = dict(_build.LAUNCHES)
-        log(f"  launches in one extract_many call ({n_chunks} chunks): "
-            f"{got_many}")
-        if got_many != counts(**want_many):
-            raise AssertionError(f"extract_many ({label}): launches "
-                                 f"{got_many}, want {counts(**want_many)}")
+        # each of the call's chunks is the first of its key (padded batches
+        # 4 and 2 at T bucket 128, 2 at 256)
+        results, got_many = drive_call(
+            lambda: eng.extract_many(samples, "vta", batch_size=4),
+            want_many, f"one extract_many call ({label}, {n_chunks} chunks)")
+        many_graph = replay_check(eng, f"the last extract_many chunk "
+                                  f"({label})")
         worst = dict(err=0.0, cos=1.0)
         for s, r, one in zip(samples, results, singles):
             check_embeddings(r, s["frames"].shape[0], 12)
@@ -1316,13 +1511,102 @@ def run_planar(gp, jp, engine, sample, raw_res):
             f"(median of 5, min {min(walls) * 1e3:.3f} max "
             f"{max(walls) * 1e3:.3f}), {len(samples) / wall:.3f} clips/s")
         overlap = settle_waits(eng, samples, prof["device_busy_ms"])
+        if not kw:
+            overlap["host"] = host_split(
+                lambda: eng.extract_many(samples, "vta", batch_size=4),
+                "extract_many call", reps=5)
         stats[f"extract_many ({label})"] = dict(
-            launches=got_many, chunks=n_chunks, ms_per_call=wall * 1e3,
+            launches=got_many, graph=many_graph, chunks=n_chunks,
+            ms_per_call=wall * 1e3,
             clips_per_s=len(samples) / wall, max_abs_err=worst["err"],
             min_row_cos=worst["cos"], **prof, **overlap)
         eng.close()
     torch.cuda.synchronize()
     return launches, stats
+
+
+def run_graphs(gp, jp, rp, sample):
+    """Phase 6d, warm start: on a new engine, `warmup_all` over the main
+    path's buckets (T 128, S 32, W 16, mel 512; the two-stage graphs of
+    vta, va and v), then `warmup(frames_kind=...)` for the fused graphs
+    that phases 4 and 6 run (the raw and the planar clip at T bucket 128,
+    extract_many's chunks of 4 and 2 at 128 and of 2 at 256) and for a raw
+    clip at T bucket 512, the largest single-clip graph; each with the
+    seconds it took and what its capture added to the memory the caching
+    allocator holds, its cache emptied before and after (all of an
+    engine's graphs share one pool). Then
+    live calls at the warmed buckets: no capture (every launch counter
+    stays 0), no new ledger entry, and the replays' launches."""
+    import torch
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.ops.kernels import _build
+    from jegal_torch.ops.video import s2d_repack
+
+    eng = JegalEngine(jp, gp, roberta_params=rp, tokenizer=word_tokenizer())
+    warmup, added = eng.warmup, []
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # what is held, not what is cached
+        return torch.cuda.memory_reserved()
+
+    def measured(**kw):
+        before = reserved()
+        t0 = time.perf_counter()
+        warmup(**kw)
+        seconds = time.perf_counter() - t0
+        added.append(dict(kw, seconds=seconds,
+                          reserved_mib=(reserved() - before) / 2 ** 20))
+        log(f"  warmup {kw}: {added[-1]['seconds']:.3f} s, reserved "
+            f"+{added[-1]['reserved_mib']:.1f} MiB")
+
+    eng.warmup = measured
+    log("warm start: warmup_all over the main path's buckets")
+    try:
+        records = eng.warmup_all(combos=("vta", "va", "v"), t_buckets=(128,),
+                                 s_buckets=(32,), w_buckets=(16,),
+                                 mel_buckets=(512,))
+        for rec, mem in zip(records, added):
+            log(f"  warmup_all record {rec}: reserved "
+                f"+{mem['reserved_mib']:.1f} MiB")
+        log("warm start: the fused graphs of phases 4 and 6, and a raw clip "
+            "at T bucket 512")
+        content = dict(modalities="vta", s=32, w=16, mel=512)
+        for kw in (dict(t=128, frames_kind="raw"),
+                   dict(t=128, frames_kind="planar"),
+                   dict(t=128, batch=4, frames_kind="planar"),
+                   dict(t=128, batch=2, frames_kind="planar"),
+                   dict(t=256, batch=2, frames_kind="planar"),
+                   dict(t=512, frames_kind="raw")):
+            measured(**content, **kw)
+    finally:
+        del eng.warmup
+    n = len(eng.cached_graphs)
+    planar = dict(sample, frames=s2d_repack(sample["frames"],
+                                            sample["chin_rows"]))
+    del planar["chin_rows"]
+    samples = many_samples()
+    live = {}
+    for what, fn in (
+            ("the raw vta clip", lambda: eng.extract("vta", **sample)),
+            ("the planar vta clip", lambda: eng.extract("vta", **planar)),
+            ("extract_many", lambda: eng.extract_many(samples, "vta",
+                                                      batch_size=4))):
+        _build.reset_launches()
+        _, ran = replayed(fn)
+        counted = {k: v for k, v in _build.LAUNCHES.items() if v}
+        live[what] = {k: v for k, v in ran.items() if v}
+        log(f"  {what} after warmup: graphs replayed {live[what]}, "
+            f"counters {counted}, {len(eng.cached_graphs)} graphs")
+        if counted or len(eng.cached_graphs) != n:
+            raise AssertionError(f"{what}: a live call after warmup "
+                                 f"captured a graph")
+    total = reserved() / 2 ** 20
+    log(f"  {n} graphs cached; the caching allocator holds {total:.1f} MiB "
+        f"in all (this engine's and the earlier phases' live tensors)")
+    return dict(warmup_all=records, warmups=added, live_launches=live,
+                graphs=n, reserved_mib=total)
 
 
 # ---------------------------------------------------------------------------
@@ -1574,6 +1858,7 @@ def run_long_clip(engine, jp):
     res, launches = drive(engine, dict(visual_feats=feats), "v", dict(
         stem_pool=0, attn_sublayer=0, ffn_sublayer=0, encoder_stack=0,
         flash_attention=6))
+    replay_check(engine, "the long clip")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1695,6 +1980,8 @@ def main() -> int:
     planar_launches, planar_stats = run_planar(gp, jp, engine, sample,
                                                raw_res)
     log("planar: " + json.dumps(planar_stats))
+    log("graphs: " + json.dumps(run_graphs(gp, jp, engine.roberta_params,
+                                           sample)))
     training, step_launches = run_training(jp, engine.roberta_params,
                                            train_batch)
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
@@ -1749,7 +2036,7 @@ def main() -> int:
              f"the planar vta clip ({window})"),
             ("conv2", "jegal_torch/csrc/conv2.cu",
              "jegal_tpu/ops/pallas/conv2.py:76", planar_rows["conv2"],
-             planar_launches[window], f"the planar vta clip ({window})")):
+             launches, "the raw vta clip (defaults)")):
         if got[name] != 1:
             raise AssertionError(f"{name}: {got[name]} launches on {path}, "
                                  f"the timed shapes assume 1")

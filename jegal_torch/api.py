@@ -10,9 +10,21 @@ branch, beside the text branch (XLM-R -> text encoder -> word pooling) and
 the audio branch, with no host round trip between the stages; embeddings
 come back once and are L2-normalized in float32 on the host.
 `extract_many` batches samples of one shape bucket (api.py:978-1185): per
-T bucket, chunks padded to a power-of-two ladder, run through a depth-1
-pipeline that prepares and uploads the next chunk while the card computes
-the current one.
+T bucket, chunks padded to a power-of-two ladder (or always to batch_size
+with ladder=False), run through a depth-1 pipeline that prepares and
+uploads the next chunk while the card computes the current one.
+
+Graphs per bucket, the counterpart of the JAX engine's one jit per (combo,
+shape bucket): on the card every `extract` / `extract_many` forward replays
+one CUDA graph per graph key — (v, t, a) for the two-stage forward, or
+("fused", frame kind, t, a, batched) for frames -> embeddings — and shape
+signature of its inputs. The first call of a key captures it (`_Graph`);
+`warmup` / `warmup_all` capture ahead of traffic; at most
+`max_cached_graphs` signatures are kept, evicted least recently used by
+combo, exactly as the JAX engine's ledger does (`cached_graphs`). Inputs
+are written on the host into pinned staging buffers kept with each graph
+and uploaded without blocking the host. A capture that fails raises. On
+the CPU the same ledger holds the eager forward, which runs as it is.
 
 The text modality needs XLM-R parameters and a tokenizer: a
 `jegal_torch.text.WordTokenizer` over any backend with its duck-typed
@@ -21,14 +33,22 @@ xlm-roberta-base's tokenizer.json, which needs the `tokenizers` package).
 
 The engine runs on the card unless the caller passes device="cpu"; with no
 card it raises rather than falling back. `stem_impl` ("band", the default,
-| "window") and `conv2_impl` ("dense", the default, | "kernel") choose the
-tower's block-1 and block-2 kernels (models/gestsync.py) for every tower
-call.
+| "window") and `conv2_impl` ("kernel", the default, | "dense": cuDNN's
+convolution, the JAX package's default) choose the tower's block-1 and
+block-2 kernels (models/gestsync.py) for every tower call; on the H100 the
+block-2 kernel left less device time than cuDNN on the clips and batches
+measured (PERF.md); `fusion_strategy` ("concat" | the warned "avg") the
+content fusion (models/jegal.fuse_content).
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
+import os
+import pickle
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,6 +68,7 @@ from jegal_torch.models import gestsync as G
 from jegal_torch.models import jegal as J
 from jegal_torch.models import roberta as R
 from jegal_torch.ops.audio import wav2filterbanks_np
+from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels.stem import IMPLS as STEM_IMPLS
 from jegal_torch.ops.pooling import (
     build_audio_pooling,
@@ -58,6 +79,14 @@ from jegal_torch.ops.video import FALLBACK_ROWS, mask_frames_device
 
 RAW_FRAME = (270, 480, 3)
 PLANAR_FRAME = (90, 27, 160)
+FRAME_SHAPES = {"raw": RAW_FRAME, "planar": PLANAR_FRAME}
+INT_INPUTS = {"frames": torch.uint8, "cut": torch.int64,
+              "input_ids": torch.int64, "audio_valid": torch.int64}
+
+
+def input_dtype(name: str) -> torch.dtype:
+    """The dtype of a graph input: its integer type, else float32."""
+    return INT_INPUTS.get(name, torch.float32)
 
 
 class ClientError(ValueError):
@@ -74,6 +103,97 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _Graph:
+    """One entry of the engine's graph cache: the forward of one graph key
+    at one set of input shapes.
+
+    On the card it is captured at construction, following the
+    `torch.cuda.graphs` recipe: static input buffers on the device (zeros),
+    one eager run on a side stream (which also builds every kernel and
+    fills every cache the forward reads, such as the shared GEMM's SM
+    count), then the capture into the engine's memory pool. It holds the
+    `torch.cuda.CUDAGraph`, its static output (the packed embeddings of
+    `_pack_emb`) and `launches`, the `_build.LAUNCHES` delta recorded while
+    it was captured: the kernels one replay launches (a replay itself adds
+    nothing to the counts; the eager run and the capture add one each).
+    A capture that fails raises.
+
+    A call writes its host inputs into `stage()`'s pinned buffers, then
+    `__call__` uploads them with non_blocking=True into the static inputs,
+    copies device-resident inputs, and replays on the current stream. The
+    returned output is the graph's own buffer: its caller copies it out,
+    in stream order, before the next replay of any graph in the pool.
+
+    Two sets of staging buffers (allocated at first use): extract_many's
+    depth-1 pipeline stages chunk k+1 while chunk k's upload may still be
+    in flight, and `stage()` never hands out a buffer whose upload has not
+    completed (it takes the other set, or waits for the older upload).
+
+    On the CPU the entry holds the eager forward alone, `stage()` returns
+    fresh arrays and `__call__` runs the forward on them."""
+
+    def __init__(self, fn, shapes: dict, device: torch.device, pool=None):
+        self.fn = fn
+        self.shapes = shapes
+        self.graph = None
+        self.launches = dict.fromkeys(_build.LAUNCHES, 0)
+        if device.type != "cuda":
+            return
+        self._staging: list = [{}, {}]
+        self._uploaded: list = [None, None]     # each set's last upload
+        self._slot = self._last = 0
+        self.inputs = {k: torch.zeros(s, dtype=input_dtype(k), device=device)
+                       for k, s in shapes.items()}
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(**self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_build.LAUNCHES)
+        with torch.cuda.graph(graph, pool=pool):
+            self.out = fn(**self.inputs)
+        self.launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        self.graph = graph
+
+    def stage(self, names) -> dict:
+        """Host buffers for the inputs `names`, to be filled completely and
+        passed to `__call__`: numpy views of pinned memory on the card."""
+        if self.graph is None:
+            return {k: torch.empty(self.shapes[k],
+                                   dtype=input_dtype(k)).numpy()
+                    for k in names}
+        free = [i for i in (0, 1) if self._uploaded[i] is None
+                or self._uploaded[i].query()]
+        self._slot = free[0] if free else 1 - self._last
+        if not free:
+            self._uploaded[self._slot].synchronize()
+        bufs = self._staging[self._slot]
+        for k in names:
+            if k not in bufs:
+                bufs[k] = torch.empty(self.shapes[k], dtype=input_dtype(k),
+                                      pin_memory=True)
+        return {k: bufs[k].numpy() for k in names}
+
+    def __call__(self, staged: dict, device_inputs=None) -> torch.Tensor:
+        """Run the forward on the staged host inputs and the tensors of
+        `device_inputs` (on the engine's device) -> packed embeddings."""
+        device_inputs = device_inputs or {}
+        if self.graph is None:
+            return self.fn(**{k: torch.from_numpy(v)
+                              for k, v in staged.items()}, **device_inputs)
+        bufs = self._staging[self._slot]
+        for k in staged:
+            self.inputs[k].copy_(bufs[k], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._uploaded[self._slot], self._last = done, self._slot
+        for k, v in device_inputs.items():
+            self.inputs[k].copy_(v)
+        self.graph.replay()
+        return self.out
+
+
 class JegalEngine:
     """Holds parameter trees (jegal_torch.convert layout) on one device, and
     the tokenizer, and extracts L2-normalized embeddings."""
@@ -81,7 +201,9 @@ class JegalEngine:
     def __init__(self, jegal_params, gestsync_params=None, device="cuda",
                  roberta_params=None, tokenizer=None,
                  roberta_cfg: R.RobertaConfig = R.XLMR_BASE,
-                 stem_impl: str = "band", conv2_impl: str = "dense"):
+                 stem_impl: str = "band", conv2_impl: str = "kernel",
+                 fusion_strategy: str = "concat",
+                 max_cached_graphs: int = 64):
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got "
                              f"{stem_impl!r}")
@@ -103,6 +225,12 @@ class JegalEngine:
         self.roberta_cfg = roberta_cfg
         self.tower_kw = dict(chunk=160, stem_impl=stem_impl,
                              conv2_impl=conv2_impl)
+        self.fusion_strategy = fusion_strategy
+        self.max_cached_graphs = max_cached_graphs
+        self._graph_ledger: dict = {}      # (key, shape signature) -> seq no
+        self._graph_seq = 0
+        self._graphs: dict = {}            # (key, shape signature) -> _Graph
+        self._graph_pool = None            # one memory pool for all graphs
         # a tokenizer backend need not be thread-safe (HF's raises
         # "Already borrowed"): extract_many's prep threads take turns
         self._tok_lock = threading.Lock()
@@ -135,7 +263,7 @@ class JegalEngine:
         edge-padded +/-12 (the reference's own preprocessed layout) ->
         (T, 1024) numpy, or a device tensor with as_device=True."""
         gp = self._gestsync()
-        frames = torch.as_tensor(masked_frames).to(self.device, torch.float32)
+        frames = self._to_device(masked_frames)
         with torch.inference_mode():
             feats = G.extract_features(gp, frames, **self.tower_kw)
         return self._features_out(feats, feats.shape[0], as_device)
@@ -170,8 +298,8 @@ class JegalEngine:
         t = frames_u8.shape[0]
         with torch.inference_mode():
             masked = mask_frames_device(
-                torch.as_tensor(frames_u8).to(self.device),
-                torch.as_tensor(self._chin(chin_rows, t)).to(self.device))
+                self._to_device(frames_u8),
+                self._to_device(self._chin(chin_rows, t)))
             feats = G.extract_features(gp, masked, **self.tower_kw)
         return self._features_out(feats, t, as_device)
 
@@ -186,8 +314,7 @@ class JegalEngine:
                               "frames")
         with torch.inference_mode():
             feats = G.extract_features_planar(
-                gp, torch.as_tensor(planar_u8).to(self.device),
-                **self.tower_kw)
+                gp, self._to_device(planar_u8), **self.tower_kw)
         return self._features_out(feats, planar_u8.shape[0], as_device)
 
     def gestsync_features_from_raw_many(self, clips: list,
@@ -199,7 +326,7 @@ class JegalEngine:
         as one batched tower call per chunk of batch_size (padded to the
         power-of-two ladder), through the depth-1 pipeline. -> per clip
         (T, 1024) features (device tensors with as_device=True)."""
-        gp = self._gestsync()
+        self._gestsync()
         kinds = {self._frames_kind(np.asarray(f)) for f, _ in clips}
         if len(kinds) > 1:
             raise ClientError("clips must be all raw or all planar")
@@ -221,32 +348,52 @@ class JegalEngine:
         with torch.inference_mode():
             self._pipeline(
                 ((chunk, feats if as_device else self._start_fetch(feats))
-                 for chunk, _, _, feats in self._tower_chunks(
-                     gp, groups, clips.__getitem__, batch_size)),
+                 for chunk, feats in self._tower_chunks(
+                     groups, clips.__getitem__, batch_size)),
                 settle)
         return results
 
-    def _tower_chunks(self, gp, groups: dict, clip_of, batch_size: int):
-        """The batched tower's dispatches, shared by extract_many and
-        gestsync_features_from_raw_many. groups: {(kind, T bucket, ...):
-        [sample indices]}; clip_of(i) -> (frames, chin_rows | None). Each
-        group runs in chunks of batch_size, padded to the power-of-two
-        ladder, stacked and uploaded, through one batched tower call a
-        chunk. Yields (chunk, T bucket, padded batch b, features (b, T
+    def _tower_chunks(self, groups: dict, clip_of, batch_size: int):
+        """The batched tower's dispatches of gestsync_features_from_raw_many
+        (eager: extract_many's chunks replay graphs instead). groups: {(kind,
+        T bucket): [clip indices]}; clip_of(i) -> (frames, chin_rows |
+        None). Each group runs in chunks of batch_size, padded to the
+        power-of-two ladder, stacked in pinned memory and uploaded, through
+        one batched tower call a chunk. Yields (chunk, features (b, T
         bucket, 1024) on the device)."""
-        for (kind, t_bucket, *_), idxs in groups.items():
+        for (kind, t_bucket), idxs in groups.items():
             for lo in range(0, len(idxs), batch_size):
                 chunk = idxs[lo:lo + batch_size]
                 b = batch_ladder(len(chunk), batch_size)
-                fr, cut = self._stack_frames(kind, t_bucket, b,
-                                             [clip_of(i) for i in chunk])
-                if kind == "planar":
-                    feats = G.extract_features_batch_planar(
-                        gp, fr, **self.tower_kw)
-                else:
-                    feats = G.extract_features_batch_raw(
-                        gp, fr, cut, **self.tower_kw)
-                yield chunk, t_bucket, b, feats
+                pinned = self.device.type == "cuda"
+                fr = torch.empty((b, t_bucket) + FRAME_SHAPES[kind],
+                                 dtype=torch.uint8, pin_memory=pinned)
+                cut = None if kind == "planar" else torch.empty(
+                    (b, t_bucket), dtype=torch.int64, pin_memory=pinned)
+                self._fill_frames(fr.numpy(), None if cut is None
+                                  else cut.numpy(),
+                                  [clip_of(i) for i in chunk])
+                feats = self._tower(kind, self._to_device(fr),
+                                    None if cut is None
+                                    else self._to_device(cut), batched=True)
+                yield chunk, feats
+
+    def _tower(self, kind: str, frames, cut, batched: bool):
+        """GestSync features of device frames: (b, T bucket, ...) with
+        batched=True, else one clip (T bucket, ...) -> (1, T bucket, 1024).
+        Raw frames are masked by their chin rows `cut` on the device;
+        planar frames come masked (cut is None)."""
+        gp = self._gestsync()
+        if batched:
+            if kind == "planar":
+                return G.extract_features_batch_planar(gp, frames,
+                                                       **self.tower_kw)
+            return G.extract_features_batch_raw(gp, frames, cut,
+                                                **self.tower_kw)
+        if kind == "planar":
+            return G.extract_features_planar(gp, frames, **self.tower_kw)[None]
+        return G.extract_features(gp, mask_frames_device(frames, cut),
+                                  **self.tower_kw)[None]
 
     @staticmethod
     def _chin(chin_rows, t: int) -> np.ndarray:
@@ -260,27 +407,27 @@ class JegalEngine:
                               f"({t},), got shape {cr.shape}")
         return cr.astype(np.int64)
 
-    def _stack_frames(self, kind, t_bucket, b, clips):
-        """Stack n <= b clips [(frames, chin_rows | None)] into a (b,
-        t_bucket, ...) uint8 batch on the device: each clip edge-repeats its
-        last frame (and chin row) to the bucket, rows past n are zeros.
-        The batch is built in pinned host memory and uploaded without
-        blocking the host. -> (frames, cut (b, t_bucket) int64)."""
-        shape = PLANAR_FRAME if kind == "planar" else RAW_FRAME
-        fr = torch.empty((b, t_bucket) + shape, dtype=torch.uint8,
-                         pin_memory=self.device.type == "cuda")
-        fr_np = fr.numpy()
-        cut = np.full((b, t_bucket), FALLBACK_ROWS, np.int64)
+    def _fill_frames(self, fr, cut, clips) -> None:
+        """Write n <= b clips [(frames, chin_rows | None)] into the host
+        batch fr (b, T bucket, ...) uint8 and, for raw frames, their chin
+        rows into cut (b, T bucket) (None for planar frames): each clip
+        edge-repeats its last frame (and chin row) to the bucket, the frames
+        of rows past n are zeros. Every element is written (the buffers of
+        a graph are reused)."""
         for bi, (frames, chin) in enumerate(clips):
+            if isinstance(frames, torch.Tensor):
+                frames = frames.cpu()
             frames = np.asarray(frames)
             t = frames.shape[0]
-            fr_np[bi, :t] = frames
-            fr_np[bi, t:] = frames[-1]
-            cr = self._chin(chin, t)
-            cut[bi, :t] = cr
-            cut[bi, t:] = cr[-1]
-        fr_np[len(clips):] = 0
-        return self._to_device(fr), self._to_device(cut)
+            fr[bi, :t] = frames
+            fr[bi, t:] = frames[-1]
+            if cut is not None:
+                cr = self._chin(chin, t)
+                cut[bi, :t] = cr
+                cut[bi, t:] = cr[-1]
+        fr[len(clips):] = 0
+        if cut is not None:
+            cut[len(clips):] = FALLBACK_ROWS
 
     # ------------------------------------------------------------------
     # Host-side preparation
@@ -426,9 +573,6 @@ class JegalEngine:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _upload(self, arrays: dict) -> dict:
-        return {k: self._to_device(v) for k, v in arrays.items()}
-
     def _start_fetch(self, t):
         """Queue the device->host copy of a dispatched result behind the
         kernels that compute it, into pinned memory, and return (host
@@ -451,10 +595,128 @@ class JegalEngine:
             done.synchronize()
         return host.numpy()
 
-    def _forward(self, use_v: bool, use_t: bool, use_a: bool, **arrays):
+    # ------------------------------------------------------------------
+    # Graphs per (key, shape bucket)
+    # ------------------------------------------------------------------
+
+    def _jegal(self, use_v: bool, use_t: bool, use_a: bool, **arrays):
+        """The JEGAL forward of one combo -> packed embeddings."""
         return self._pack_emb(*J.forward_inference(
             self.jegal_params, self.roberta_params, use_v=use_v, use_t=use_t,
-            use_a=use_a, roberta_cfg=self.roberta_cfg, **arrays))
+            use_a=use_a, roberta_cfg=self.roberta_cfg,
+            fusion_strategy=self.fusion_strategy, **arrays))
+
+    def _key_fn(self, key):
+        """The eager forward of a graph key, over its named inputs: (v, t,
+        a) is the two-stage forward; ("fused", kind, t, a, batched) runs
+        the tower on the frames (raw frames with their chin rows `cut`)
+        and the JEGAL forward on its features, which never leave the
+        device."""
+        if key[0] != "fused":
+            return functools.partial(self._jegal, *key)
+        _, kind, use_t, use_a, batched = key
+
+        def fn(frames, visual_mask, cut=None, **content):
+            return self._jegal(True, use_t, use_a, visual_feats=self._tower(
+                kind, frames, cut, batched), visual_mask=visual_mask,
+                **content)
+
+        return fn
+
+    def _graph(self, key, shapes: dict) -> _Graph:
+        """The cache entry of `key` at the input shapes {name: shape},
+        captured at its first use (the ledger is updated first, so that an
+        eviction frees memory before the capture)."""
+        sig = (key, tuple(sorted((k, tuple(v)) for k, v in shapes.items())))
+        self._account_graph(sig)
+        entry = self._graphs.get(sig)
+        if entry is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            try:
+                entry = _Graph(self._key_fn(key), dict(sig[1]), self.device,
+                               self._graph_pool)
+            except BaseException:
+                self._graph_ledger.pop(sig, None)
+                raise
+            self._graphs[sig] = entry
+        return entry
+
+    def _account_graph(self, sig) -> None:
+        """LRU ledger of the cached (key, shape signature) graphs, the JAX
+        engine's policy (its api.py:441-470): past `max_cached_graphs`, the
+        least recently used key loses all its graphs; when the active key
+        alone exceeds the budget, only the signature in flight stays.
+
+        All of an engine's graphs share one memory pool, so its memory
+        follows the largest graph, not their sum. That is safe because the
+        graphs replay one at a time on one stream, and each call copies its
+        output out, in stream order, before the next replay (extract's host
+        copy; extract_many's `_start_fetch`, queued right behind its
+        replay): no replay can overwrite another graph's output before it
+        was read. Dropping a graph frees it."""
+        self._graph_seq += 1
+        self._graph_ledger[sig] = self._graph_seq
+        if len(self._graph_ledger) <= self.max_cached_graphs:
+            return
+        by_key: dict = {}
+        for (key, _), seq in self._graph_ledger.items():
+            by_key[key] = max(by_key.get(key, 0), seq)
+        victim = min((k for k in by_key if k != sig[0]), key=by_key.get,
+                     default=None)
+        if victim is None:
+            keep = {sig}
+        else:
+            keep = {s for s in self._graph_ledger if s[0] != victim}
+        self._graph_ledger = {s: n for s, n in self._graph_ledger.items()
+                              if s in keep}
+        self._graphs = {s: g for s, g in self._graphs.items() if s in keep}
+
+    @property
+    def cached_graphs(self) -> list:
+        """Cached (key, shape signature) graphs, oldest first."""
+        return [s for s, _ in sorted(self._graph_ledger.items(),
+                                     key=lambda kv: kv[1])]
+
+    def _forward(self, use, arrays: dict):
+        """The two-stage forward of combo `use` on `arrays` (each with its
+        batch axis: host arrays, or tensors on the engine's device) through
+        its graph -> packed embeddings on the device."""
+        on_device = {k: self._to_device(v) for k, v in arrays.items()
+                     if isinstance(v, torch.Tensor) and v.device == self.device}
+        entry = self._graph(tuple(use), {k: v.shape
+                                         for k, v in arrays.items()})
+        staged = entry.stage([k for k in arrays if k not in on_device])
+        for k, buf in staged.items():
+            buf[...] = arrays[k]
+        return entry(staged, on_device)
+
+    def _fused(self, kind: str, use_t: bool, use_a: bool, t_bucket: int, b,
+               clips, content: dict):
+        """One replay of a fused graph: n <= b clips [(frames, chin_rows |
+        None)] padded to the T bucket (and the batch to b rows), and the
+        content arrays (each with its batch axis), written into the graph's
+        staging buffers -> packed embeddings on the device. b is None for
+        the single-clip graph, whose frames have no batch axis."""
+        lead = () if b is None else (b,)
+        shapes = {"frames": lead + (t_bucket,) + FRAME_SHAPES[kind],
+                  "visual_mask": (b or 1, t_bucket),
+                  **{k: tuple(v.shape) for k, v in content.items()}}
+        if kind == "raw":
+            shapes["cut"] = lead + (t_bucket,)
+        entry = self._graph(("fused", kind, use_t, use_a, b is not None),
+                            shapes)
+        staged = entry.stage(shapes)
+        fr, cut = staged["frames"], staged.get("cut")
+        if b is None:
+            fr, cut = fr[None], None if cut is None else cut[None]
+        self._fill_frames(fr, cut, clips)
+        staged["visual_mask"][:] = 0.0
+        for bi, (frames, _) in enumerate(clips):
+            staged["visual_mask"][bi, :frames.shape[0]] = 1.0
+        for k, v in content.items():
+            staged[k][...] = v
+        return entry(staged)
 
     @staticmethod
     def _pack_emb(gesture, content):
@@ -554,8 +816,8 @@ class JegalEngine:
                 return None
             arrays, t_true, w_true = prep
             use_v, use_t, use_a = (c in modalities for c in "vta")
-            packed = self._forward(use_v, use_t, use_a,
-                                   **self._upload(arrays)).cpu().numpy()
+            packed = self._forward((use_v, use_t, use_a),
+                                   arrays).cpu().numpy()
             t_split = arrays["visual_feats"].shape[1] if use_v else None
             gesture, content = self._unpack_emb(packed, t_split, use_v,
                                                 use_t or use_a)
@@ -564,37 +826,30 @@ class JegalEngine:
 
     def _extract_fused(self, modalities, frames, chin_rows, text,
                        word_boundaries, wav, fname):
-        """Frames -> tower -> JEGAL on the device, one host fetch at the
-        end. Bucket-padded tail frames repeat the last frame (and its chin
-        row); visual_mask keeps them out of every valid row's attention,
-        and rows past T are sliced off."""
-        gp = self._gestsync()
+        """Frames -> tower -> JEGAL on the device through the single-clip
+        graph of (kind, T bucket, content shapes), one host fetch at the
+        end. The frames are padded to the bucket on the host, in the
+        graph's pinned staging buffer: tail frames repeat the last frame
+        (and its chin row); visual_mask keeps them out of every valid row's
+        attention, and rows past T are sliced off. The true length reaches
+        the graph only as data (frames, cut, visual_mask)."""
+        self._gestsync()
         kind = self._frames_kind(frames)
         if kind == "planar" and chin_rows is not None:
             raise ClientError("planar input is already masked; "
                               "chin_rows must be None")
         use_t, use_a = "t" in modalities, "a" in modalities
         t = frames.shape[0]
-        cr = None if kind == "planar" else self._chin(chin_rows, t)
+        if kind == "raw":
+            self._chin(chin_rows, t)
         prep = self._prepare_sample(modalities.replace("v", ""), None, text,
                                     word_boundaries, wav)
         if prep is None:
             return None
         arrays, _, w_true = prep
         t_bucket = next_bucket(t, T_BUCKETS)
-        fr = torch.as_tensor(frames).to(self.device)
-        if t_bucket != t:
-            fr = torch.cat([fr, fr[-1:].expand(t_bucket - t, -1, -1, -1)])
-        vmask = np.zeros((1, t_bucket), np.float32)
-        vmask[0, :t] = 1.0
-        if kind == "planar":
-            feats = G.extract_features_planar(gp, fr, **self.tower_kw)
-        else:
-            cr = np.concatenate([cr, np.full(t_bucket - t, cr[-1])])
-            masked = mask_frames_device(fr, torch.as_tensor(cr).to(self.device))
-            feats = G.extract_features(gp, masked, **self.tower_kw)
-        packed = self._forward(True, use_t, use_a, visual_feats=feats[None],
-                               **self._upload(dict(arrays, visual_mask=vmask)))
+        packed = self._fused(kind, use_t, use_a, t_bucket, None,
+                             [(frames, chin_rows)], arrays)
         gesture, content = self._unpack_emb(packed.cpu().numpy(), t_bucket,
                                             True, use_t or use_a)
         return self._postprocess(gesture, content, 0, t, w_true, text,
@@ -605,9 +860,9 @@ class JegalEngine:
     # ------------------------------------------------------------------
 
     def _stack_parts(self, parts, b: int):
-        """Stack per-sample arrays into a (b, ...) batch on the device,
-        zero rows past len(parts). Device tensors stack on the device;
-        host arrays stack on the host and ride one upload."""
+        """Stack per-sample arrays into a (b, ...) batch, zero rows past
+        len(parts). Device tensors stack on the device; host arrays stack
+        on the host, for the graph's staging buffer."""
         if any(isinstance(p, torch.Tensor) and p.device == self.device
                for p in parts):
             parts = [self._to_device(p) for p in parts]
@@ -616,7 +871,7 @@ class JegalEngine:
         parts = [np.asarray(p) for p in parts]
         out = np.zeros((b,) + parts[0].shape, parts[0].dtype)
         out[:len(parts)] = parts
-        return self._to_device(out)
+        return out
 
     def _prep_map(self, fn, items):
         """Order-preserving map of per-sample host prep. A few items run
@@ -671,11 +926,23 @@ class JegalEngine:
 
         return label
 
+    @staticmethod
+    def _chunk_b(n: int, batch_size: int, ladder: bool) -> int:
+        """Padded batch length of an n-sample chunk: the power-of-two
+        ladder, or always batch_size with ladder=False."""
+        return batch_ladder(n, batch_size) if ladder else batch_size
+
     def extract_many(self, samples: list[dict], modalities: str = "vta",
-                     batch_size: int = 16) -> list[dict | None]:
+                     batch_size: int = 16,
+                     ladder: bool = True) -> list[dict | None]:
         """Batched extraction: samples sharing a shape bucket run as one
-        batch on the device, in chunks of batch_size; a straggler chunk is
-        padded to the power-of-two ladder, not to batch_size.
+        batch on the device, in chunks of batch_size, each chunk one replay
+        of its key's graph. ladder=True pads a straggler chunk to the
+        power-of-two ladder, not to batch_size (less tail work, at most
+        log2(batch_size) + 1 graphs a signature); ladder=False always pads
+        to batch_size: one graph a signature, for callers that warmed it
+        (a serving batcher warms exactly batch_size and must never meet a
+        new ladder size inside a live request).
 
         samples: dicts with visual_feats / text / word_boundaries / wav /
         fname; for 'v' combos a sample may instead carry "frames" (T, 270,
@@ -739,13 +1006,13 @@ class JegalEngine:
         with torch.inference_mode():
             if fused:
                 self._extract_many_fused(samples, fused, use, results,
-                                         batch_size)
+                                         batch_size, ladder)
             self._extract_many_two_stage(samples, prepared, use, results,
-                                         batch_size)
+                                         batch_size, ladder)
         return results
 
     def _extract_many_two_stage(self, samples, prepared, use, results,
-                                batch_size):
+                                batch_size, ladder):
         """extract_many's samples without frames: per shape signature,
         chunks of stacked arrays through the JEGAL forward. Writes into
         `results`."""
@@ -772,21 +1039,23 @@ class JegalEngine:
             for idxs in groups.values():
                 for lo in range(0, len(idxs), batch_size):
                     chunk = idxs[lo:lo + batch_size]
-                    b = batch_ladder(len(chunk), batch_size)
+                    b = self._chunk_b(len(chunk), batch_size, ladder)
                     arrays = {k: self._stack_parts(
                         [prepared[i][0][k][0] for i in chunk], b)
                         for k in prepared[chunk[0]][0]}
-                    yield chunk, self._start_fetch(self._forward(*use,
-                                                                 **arrays))
+                    yield chunk, self._start_fetch(self._forward(use,
+                                                                 arrays))
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 
-    def _extract_many_fused(self, samples, fused, use, results, batch_size):
+    def _extract_many_fused(self, samples, fused, use, results, batch_size,
+                            ladder):
         """extract_many's frame-carrying samples: per (kind, T bucket,
-        content shapes) chunk, one batched tower call and one batched JEGAL
-        forward, the features never leaving the device. Writes into
-        `results`."""
-        gp = self._gestsync()
+        content shapes) chunk, one replay of the batched fused graph (tower
+        and JEGAL forward, the features never leaving the device), its
+        frames, chin rows, mask and content written into the graph's
+        pinned staging buffers. Writes into `results`."""
+        self._gestsync()
         groups: dict = {}
         for i, prep in fused.items():
             if prep is None:
@@ -808,17 +1077,110 @@ class JegalEngine:
                     s.get("text"), s.get("word_boundaries"), s.get("fname"))
 
         def dispatches():
-            for chunk, t_bucket, b, feats in self._tower_chunks(
-                    gp, groups, lambda i: fused[i][1:3], batch_size):
-                vmask = np.zeros((b, t_bucket), np.float32)
-                for bi, i in enumerate(chunk):
-                    vmask[bi, :fused[i][1].shape[0]] = 1.0
-                arrays = {k: self._stack_parts(
-                    [fused[i][3][k][0] for i in chunk], b)
-                    for k in fused[chunk[0]][3]}
-                packed = self._forward(
-                    True, use[1], use[2], visual_feats=feats,
-                    visual_mask=self._to_device(vmask), **arrays)
-                yield chunk, t_bucket, self._start_fetch(packed)
+            for (kind, t_bucket, _), idxs in groups.items():
+                for lo in range(0, len(idxs), batch_size):
+                    chunk = idxs[lo:lo + batch_size]
+                    b = self._chunk_b(len(chunk), batch_size, ladder)
+                    arrays = {k: self._stack_parts(
+                        [fused[i][3][k][0] for i in chunk], b)
+                        for k in fused[chunk[0]][3]}
+                    packed = self._fused(kind, use[1], use[2], t_bucket, b,
+                                         [fused[i][1:3] for i in chunk],
+                                         arrays)
+                    yield chunk, t_bucket, self._start_fetch(packed)
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
+
+    # ------------------------------------------------------------------
+    # Warm start and the .pkl output
+    # ------------------------------------------------------------------
+
+    def warmup(self, modalities: str = "vta", t: int = 128, s: int = 64,
+               w: int = 16, mel: int = 512, batch: int = 1,
+               frames_kind: str | None = None) -> None:
+        """Capture (on the CPU: run) the graph of one (combo, bucket) so
+        that the first real request replays it (the JAX engine's warmup,
+        api.py:1187, without `mesh`). Shapes are bucket values from
+        jegal_torch.data.bucketing.
+
+        frames_kind ('planar' | 'raw'): the fused frames -> embeddings
+        graph instead of the two-stage forward: batch == 1 warms the
+        single-clip graph (`extract(frames=...)`), batch > 1 the batched
+        chunk graph (`extract_many`'s chunks of that padded batch). The
+        inputs take the shapes, dtypes and staging that live requests use,
+        so that they hit the graph warmed here."""
+        self._check_modalities(modalities)
+        use_v, use_t, use_a = (c in modalities for c in "vta")
+        batched = batch > 1
+        arrays: dict = {}
+        if use_t:
+            ids = np.full((batch, s), 1, np.int64)
+            ids[:, 0] = 0
+            arrays.update(input_ids=ids,
+                          text_mask=(ids != 1).astype(np.float32),
+                          text_pool=np.zeros((batch, w, s), np.float32))
+        if use_a:
+            arrays.update(audio_mel=np.zeros((batch, mel, 80), np.float32),
+                          audio_pool=np.zeros((batch, w, mel // 4),
+                                              np.float32),
+                          audio_valid=np.full((batch,), mel, np.int64))
+        with torch.inference_mode():
+            if frames_kind is None:
+                if use_v:
+                    arrays.update(
+                        visual_feats=np.zeros((batch, t, 1024), np.float32),
+                        visual_mask=np.ones((batch, t), np.float32))
+                out = self._forward((use_v, use_t, use_a), arrays)
+            else:
+                if not use_v:
+                    raise ValueError("frames_kind requires a 'v' combo")
+                if frames_kind not in FRAME_SHAPES:
+                    raise ValueError(f"frames_kind must be one of "
+                                     f"{tuple(FRAME_SHAPES)}, got "
+                                     f"{frames_kind!r}")
+                # no clip: zero frames, the fallback chin rows
+                out = self._fused(frames_kind, use_t, use_a, t,
+                                  batch if batched else None, [], arrays)
+            out.reshape(-1)[:1].cpu()            # waits for the run
+
+    def warmup_all(self, combos=("vta", "vt", "va", "ta", "v", "t", "a"),
+                   t_buckets=(128,), s_buckets=(64,), w_buckets=(16,),
+                   mel_buckets=(512,), batch: int = 1) -> list[dict]:
+        """Warm the two-stage graphs of every combo at the given buckets
+        (the cross product of each combo's axes), as the JAX engine's
+        warmup_all (api.py:1283). -> one record a graph: combo, its axes,
+        batch, and the seconds its capture and first run took."""
+        records = []
+        for combo in combos:
+            axes: dict = {}
+            if "v" in combo:
+                axes["t"] = t_buckets
+            if "t" in combo:
+                axes["s"] = s_buckets
+                axes["w"] = w_buckets
+            if "a" in combo:
+                axes["w"] = w_buckets
+                axes["mel"] = mel_buckets
+            keys = sorted(axes)
+            for shape in itertools.product(*(axes[k] for k in keys)):
+                kw = dict(zip(keys, shape))
+                t0 = time.perf_counter()
+                self.warmup(modalities=combo, batch=batch, **kw)
+                records.append({"combo": combo, **kw, "batch": batch,
+                                "seconds": round(time.perf_counter() - t0,
+                                                 3)})
+        return records
+
+    def extract_to_pkl(self, res_dir: str, **kw) -> str | None:
+        """`extract(**kw)` written to <res_dir>/<fname or "sample">.pkl (the
+        reference's .pkl schema: gesture_emb, content_emb, info) -> its
+        path, or None (and no file) for an invalid sample."""
+        feats = self.extract(**kw)
+        if feats is None:
+            return None
+        os.makedirs(res_dir, exist_ok=True)
+        out = os.path.join(res_dir,
+                           (feats["info"]["fname"] or "sample") + ".pkl")
+        with open(out, "wb") as f:
+            pickle.dump(feats, f)
+        return out

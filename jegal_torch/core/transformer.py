@@ -30,6 +30,7 @@ Parameter trees (JAX layout):
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -43,7 +44,15 @@ from jegal_torch.ops.kernels import fused_layer as FL
 def sinusoidal_position_encoding(max_len: int, d_model: int,
                                  device=None) -> torch.Tensor:
     """(max_len, d_model) sin/cos table, built in float32 with numpy so it
-    is bit-equal to the JAX package's table (transformer.py:47-61)."""
+    is bit-equal to the JAX package's table (transformer.py:47-61). The
+    table is built and copied to `device` once and then shared (callers
+    only read it): a forward captured into a CUDA graph may not copy from
+    the host, and the eager run before each capture fills this cache."""
+    return _pe_table(max_len, d_model, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=16)
+def _pe_table(max_len: int, d_model: int, device: torch.device):
     position = np.arange(max_len, dtype=np.float32)[:, None]
     div_term = np.exp(
         np.arange(0, d_model, 2, dtype=np.float32)
@@ -51,7 +60,8 @@ def sinusoidal_position_encoding(max_len: int, d_model: int,
     pe = np.zeros((max_len, d_model), dtype=np.float32)
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)
-    return torch.from_numpy(pe).to(device)
+    with torch.inference_mode(False):     # a normal tensor, for training too
+        return torch.from_numpy(pe).to(device)
 
 
 def _split_heads(x, h: int):

@@ -385,10 +385,12 @@ static int launch_stem_pool(Src src, const float* w, const float* scale,
   constexpr int smem = (int)sizeof(float) * ST_SMEM_WORDS<Src>;
   const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
-  cudaError_t e = cudaFuncSetAttribute(
+  // once per entry, not at every launch (a launcher's static has internal
+  // linkage here, so it is this library's own)
+  static const cudaError_t attr = cudaFuncSetAttribute(
       stem_pool_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (e != cudaSuccess) return (int)e;
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Wp + ST_PI - 1) / ST_PI, (J + ST_PJ - 1) / ST_PJ, t_in - 4);
   stem_pool_kernel<Src><<<grid, ST_THREADS, smem, stream>>>(
       src, w, scale, bias, out, J, Wp, async);

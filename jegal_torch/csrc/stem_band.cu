@@ -405,6 +405,31 @@ static int band_run(int units, int J, int slots) {
   return best;
 }
 
+// An entry's shared-memory limit raised, and the blocks the card holds at
+// once (SMs x resident blocks an SM) for band_run.
+struct BandSetup {
+  cudaError_t err;
+  int slots;
+};
+
+template <class Src>
+static BandSetup band_setup() {
+  using namespace jt;
+  constexpr int smem = (int)sizeof(float) * SB_SMEM_WORDS<Src>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(stem_band_kernel<Src>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem)) != cudaSuccess ||
+      (e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, stem_band_kernel<Src>, SB_THREADS, smem)) != cudaSuccess)
+    return {e, 0};
+  return {cudaSuccess, sms * (per_sm > 0 ? per_sm : 1)};
+}
+
 template <class Src>
 static int launch_stem_band(Src src, const float* w, const float* scale,
                             const float* bias, float* out, int t_in,
@@ -413,22 +438,14 @@ static int launch_stem_band(Src src, const float* w, const float* scale,
   constexpr int smem = (int)sizeof(float) * SB_SMEM_WORDS<Src>;
   const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_band_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, stem_band_kernel<Src>, SB_THREADS, smem)) != cudaSuccess)
-    return (int)e;
+  // once per entry, not at every launch (a launcher's static has internal
+  // linkage here, so it is this library's own)
+  static const BandSetup setup = band_setup<Src>();
+  if (setup.err != cudaSuccess) return (int)setup.err;
   const int t_out = t_in - (ST_KT - 1);
   const int strips = (Wp + SB_PI - 1) / SB_PI;
   const int groups = (t_out + SB_F - 1) / SB_F;
-  const int run =
-      band_run(strips * groups, J, sms * (per_sm > 0 ? per_sm : 1));
+  const int run = band_run(strips * groups, J, setup.slots);
   dim3 grid(strips, groups, (J + run - 1) / run);
   stem_band_kernel<Src><<<grid, SB_THREADS, smem, stream>>>(
       src, w, scale, bias, out, t_in, J, Wp, run, async);

@@ -1,9 +1,9 @@
 """Static-shape bucketing (the JAX package's data/bucketing.py).
 
-The port runs eagerly, so buckets do not bound any compile cache here; they
-are kept because the engine's padding (edge-repeat frames, zero mel, masked
-attention, zero pooling rows) must produce the same rows as the JAX engine,
-and because a later slice captures CUDA graphs per bucket."""
+On the card the engine captures one CUDA graph per bucket signature, so
+the buckets bound its graph cache as they bound the JAX engine's compile
+cache; the engine's padding (edge-repeat frames, zero mel, masked
+attention, zero pooling rows) produces the same rows as the JAX engine's."""
 
 from __future__ import annotations
 

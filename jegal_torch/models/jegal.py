@@ -8,7 +8,8 @@ reference models/jegal.py:16-420):
            proj_op_text 768->256 -> subword->word mean pooling
   audio:   log-mel (B,T,80) -> 6x conv2d CNN (time/4, freq 80->1) -> 256 ->
            proj_op_audio -> frame->word mean pooling
-  fusion:  concat([audio, text]) -> 512 -> proj_op_fusion_content ->
+  fusion:  concat([audio, text]) (or the warned 'avg') -> 512 ->
+           proj_op_fusion_content ->
            [inference] proj_op_align_content
 
 A missing content branch is replaced by zeros, as in the reference
@@ -16,6 +17,8 @@ A missing content branch is replaced by zeros, as in the reference
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -98,11 +101,26 @@ def forward_audio(params, mel, valid_lens=None):
     return linear(params["proj_op_audio"], x)
 
 
-def fuse_content(params, audio_words, text_words, align: bool):
-    """[audio, text] concat -> fusion MLP (-> align MLP): (B, W, 512). The
-    reference's default 'concat' strategy (jegal.py:319-320)."""
-    content = _mlp2(params["proj_op_fusion_content"],
-                    torch.cat([audio_words, text_words], dim=-1))
+def fuse_content(params, audio_words, text_words, align: bool,
+                 strategy: str = "concat"):
+    """Fusion -> MLP (-> align MLP): (B, W, 512). strategy: 'concat' (the
+    reference's default, [audio, text] order, jegal.py:319-320) or 'avg'.
+    The reference's 'avg' (jegal.py:321-322) is 256-d, which the 512-d
+    fusion MLP cannot take; as in the JAX package, the 256-d average is
+    tiled twice to 512-d, with a warning that the outputs match no
+    reference output."""
+    if strategy == "concat":
+        content = torch.cat([audio_words, text_words], dim=-1)
+    elif strategy == "avg":
+        warnings.warn(
+            "fusion_strategy='avg' tiles the 256-d average to 512-d; the "
+            "reference's 'avg' crashes, so these outputs are not comparable "
+            "to any reference output", stacklevel=2)
+        avg = (audio_words + text_words) / 2
+        content = torch.cat([avg, avg], dim=-1)
+    else:
+        raise ValueError(f"unknown fusion strategy: {strategy}")
+    content = _mlp2(params["proj_op_fusion_content"], content)
     if align:
         content = _mlp2(params["proj_op_align_content"], content)
     return content
@@ -112,11 +130,13 @@ def forward_inference(params, roberta_params=None, *, use_v: bool,
                       use_t: bool, use_a: bool, visual_feats=None,
                       visual_mask=None, input_ids=None, text_mask=None,
                       text_pool=None, audio_mel=None, audio_pool=None,
-                      audio_valid=None, roberta_cfg=None):
+                      audio_valid=None, roberta_cfg=None,
+                      fusion_strategy: str = "concat"):
     """Reference forward_inference (models/jegal.py:377-420) for the seven
     combos of v, t and a. text_pool / audio_pool: (B, W, S) / (B, W,
-    T_audio) pooling matrices (ops/pooling.py). -> (gesture_emb | None,
-    content_emb | None)."""
+    T_audio) pooling matrices (ops/pooling.py); fusion_strategy as
+    `fuse_content`'s strategy. -> (gesture_emb | None, content_emb |
+    None)."""
     if not (use_v or use_t or use_a):
         raise ValueError("forward_inference needs at least one modality")
     gesture = None
@@ -138,4 +158,5 @@ def forward_inference(params, roberta_params=None, *, use_v: bool,
         text_words = torch.zeros_like(audio_words)
     if audio_words is None:
         audio_words = torch.zeros_like(text_words)
-    return gesture, fuse_content(params, audio_words, text_words, align=True)
+    return gesture, fuse_content(params, audio_words, text_words, align=True,
+                                 strategy=fusion_strategy)

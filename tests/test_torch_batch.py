@@ -280,13 +280,13 @@ def test_tower_front_doors_agree(port_engine, clip):
 
 
 def test_engine_passes_its_tower_settings(weights, clip):
-    """JegalEngine(stem_impl="band", conv2_impl="kernel") runs every tower
-    call with them (on the CPU, their twins: the same features to 2e-5);
-    unknown settings raise."""
+    """JegalEngine(stem_impl="window", conv2_impl="dense"), the settings
+    other than the defaults, runs every tower call with them (on the CPU,
+    their twins: the same features to 2e-5); unknown settings raise."""
     planar = clip[2][:2]
     want = _port_engine(weights).gestsync_features(planar)
-    got = _port_engine(weights, stem_impl="band",
-                       conv2_impl="kernel").gestsync_features(planar)
+    got = _port_engine(weights, stem_impl="window",
+                       conv2_impl="dense").gestsync_features(planar)
     np.testing.assert_allclose(got, want, **TOL)
     for kw in (dict(stem_impl="rotate"), dict(conv2_impl="mgrid")):
         with pytest.raises(ValueError, match="impl"):

@@ -22,7 +22,12 @@ plain loads, on all-0 and all-255 pixels, relaunched with identical bits,
 and its block without spills; the wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
-takes. Marked `cuda`: each test skips without a card.
+takes; and the engine's CUDA graphs: a replay against an eager run of
+its forward bit for bit (a raw and a planar clip, a batched chunk, the
+two-stage forward), pipelined chunks of one key and of two against single
+clips, a replay that counts no launch, a graph evicted and captured again,
+and a capture that raises when a kernel fails inside it. Marked `cuda`:
+each test skips without a card.
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
@@ -32,6 +37,7 @@ tolerance is 1e-4 times its largest output magnitude when that exceeds 1:
 a pre-norm stack has no norm on its residual stream, which grows with
 depth, and the float32 rounding grows with it."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -609,3 +615,132 @@ def test_card_routing_raises_where_no_kernel_takes_the_input(dev):
         with torch.no_grad(), pytest.raises(ValueError):
             call()
         assert not any(_build.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# The engine's CUDA graphs (va: the tower, the gesture encoder, the audio CNN)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def graph_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from jegal_torch.convert import init_gestsync_params, init_jegal_params
+
+    g = torch.Generator().manual_seed(7)
+    return init_jegal_params(g, "cuda"), init_gestsync_params(g, "cuda")
+
+
+def _graph_engine(graph_weights, **kw):
+    from jegal_torch.api import JegalEngine
+
+    jp, gp = graph_weights
+    return JegalEngine(jp, gp, **kw)
+
+
+def _graph_clip(t: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return dict(frames=rng.integers(0, 256, (t, 270, 480, 3), dtype=np.uint8),
+                chin_rows=rng.integers(90, 200, t),
+                wav=(rng.standard_normal(t * 640) * 1000).astype(np.float32),
+                word_boundaries=[["a", 0, t // 3], ["b", t // 3 + 1, t - 1]])
+
+
+def _last_graph(eng):
+    entry = eng._graphs[eng.cached_graphs[-1]]
+    assert entry.graph is not None
+    return entry
+
+
+@pytest.mark.parametrize("form", ["raw", "planar", "batched", "two_stage"])
+def test_graph_replay_equals_eager(dev, graph_weights, form):
+    eng = _graph_engine(graph_weights)
+    clip = _graph_clip(20, 1)
+    if form == "raw":
+        eng.extract("va", **clip)
+    elif form == "planar":
+        eng.extract("va", frames=s2d_repack(clip["frames"], clip["chin_rows"]),
+                    wav=clip["wav"], word_boundaries=clip["word_boundaries"])
+    elif form == "batched":
+        eng.extract_many([clip, _graph_clip(14, 2)], "va", batch_size=2)
+    else:
+        feats = np.random.default_rng(3).standard_normal((20, 1024))
+        eng.extract("va", visual_feats=feats.astype(np.float32),
+                    wav=clip["wav"], word_boundaries=clip["word_boundaries"])
+    entry = _last_graph(eng)
+    with torch.inference_mode():
+        entry.graph.replay()
+        replay = entry.out.clone()
+        eager = entry.fn(**entry.inputs)
+    assert torch.equal(replay, eager)
+
+
+def test_second_replay_adds_no_launches(dev, graph_weights):
+    eng = _graph_engine(graph_weights)
+    clip = _graph_clip(20, 4)
+    _build.reset_launches()
+    first = eng.extract("va", **clip)
+    entry = _last_graph(eng)
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    want.update(stem_band=1, conv2=1, attn_sublayer=12, ffn_sublayer=12)
+    assert entry.launches == want
+    # the eager run before the capture, and the capture
+    assert _build.LAUNCHES == {k: 2 * n for k, n in want.items()}
+    _build.reset_launches()
+    second = eng.extract("va", **clip)
+    assert not any(_build.LAUNCHES.values())
+    for key in ("gesture_emb", "content_emb"):
+        np.testing.assert_array_equal(first[key], second[key])
+
+
+def _close(got, want):
+    for key in ("gesture_emb", "content_emb"):
+        assert got[key].shape == want[key].shape
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-4)
+        assert (got[key] * want[key]).sum(-1).min() >= 0.99999
+
+
+def test_pipelined_chunks_match_single_clips(dev, graph_weights):
+    """Chunks of one key back to back (T bucket 32, two chunks of 2: the
+    second is staged while the first may still upload), then a chunk of
+    another key (T bucket 64), each clip against its own `extract`."""
+    eng = _graph_engine(graph_weights)
+    clips = [_graph_clip(t, 10 + i)
+             for i, t in enumerate((20, 24, 28, 30, 40, 50))]
+    many = eng.extract_many(clips, "va", batch_size=2)
+    assert len(eng.cached_graphs) == 2
+    for got, clip in zip(many, clips):
+        _close(got, eng.extract("va", **clip))
+
+
+def test_evicted_graph_is_captured_again(dev, graph_weights):
+    eng = _graph_engine(graph_weights, max_cached_graphs=1)
+    short, long = _graph_clip(20, 5), _graph_clip(40, 6)
+    first = eng.extract("va", **short)
+    eng.extract("va", **long)
+    assert len(eng._graphs) == 1
+    assert dict(eng.cached_graphs[0][1])["frames"][0] == 64
+    again = eng.extract("va", **short)
+    assert dict(eng.cached_graphs[0][1])["frames"][0] == 32
+    for key in ("gesture_emb", "content_emb"):
+        np.testing.assert_array_equal(first[key], again[key])
+
+
+def test_failed_capture_raises(dev, graph_weights, monkeypatch):
+    """A kernel wrapper that fails inside the capture makes the call raise
+    (nothing runs eagerly in its place) and leaves no graph behind."""
+    real = _build.check
+
+    def failing(lib, rc, what):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what} failed on purpose")
+        real(lib, rc, what)
+
+    eng = _graph_engine(graph_weights)
+    clip = _graph_clip(20, 7)
+    monkeypatch.setattr(_build, "check", failing)
+    with pytest.raises(RuntimeError, match="on purpose"):
+        eng.extract("va", **clip)
+    assert not eng.cached_graphs and not eng._graphs
+    monkeypatch.undo()
+    assert eng.extract("va", **clip)["gesture_emb"].shape == (20, 512)

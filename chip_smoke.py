@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, drive its `vta` extraction on raw and
-planar frames, one clip and in batches, its training and a long clip on
-one card.
+planar frames, one clip and in batches, its training, a long clip, and
+reference-format checkpoints through an engine, forward_validation and
+the eval on one card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
@@ -116,18 +117,49 @@ Phases, in order; any failed check raises, so the script exits non-zero:
  8. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
     with T = 1000 (bucket 1024, past the fused gate's 512): 6 flash
     launches and no sublayer launch, and the card against the CPU;
- 9. a `training` JSON line, one `kernels` JSON line, the card line, and
-    last the `ok` JSON line.
+ 9. checkpoints, validation and eval, in a temporary directory under
+    build/ that is removed afterwards: (a) phase 4's trees (GestSync with
+    a seeded audio branch) written in the reference's formats by
+    tests/torch_ref_state_dicts.py, the GestSync and JEGAL `.pth`
+    ({"state_dict": ...}, `module.` prefixes) and XLM-R base as an HF
+    directory (model.safetensors where safetensors imports, else
+    pytorch_model.bin), each loaded by jegal_torch.convert.checkpoints
+    (MB, seconds) and held to the trees written, leaf for leaf and bit for
+    bit, then written to `.npz` and read back the same way; (b) a
+    `JegalEngine` built from the loaded trees extracts phase 4's raw `vta`
+    clip (launches as phase 4's) within abs 1e-4 and min row cosine
+    0.99999 of phase 4's embeddings; (c) `forward_validation` under
+    no_grad at phase 7b's training batch: launches (attention 9, FFN 9,
+    stack 1, flash 0), card against its CPU run on the same batch
+    (L2-normalized rows, the same bars), warm ms (host clock with a
+    synchronize, median and quartiles of 20) and one call's device busy
+    ms, and on phase 5's small clip card against CPU too; (d) the torch
+    log-mel on phase 4's 80,000 samples against the host's numpy copy
+    (rtol 2e-4, atol 2e-3), and the audio branch on (1, 80, 500, 1): its
+    whole (1, 1024, 1, 13) map against its CPU run, `forward_aud` (the
+    first column) timed (CUDA events); (e) phase 6c's eight planar clips,
+    each with audio of its own, written by `extract_to_pkl`, the even
+    clips with a planted spotting hit, and evaluated on the card by
+    retrieval, spotting (each video's predicted frame and score against
+    `spot_word`'s, and the hits at its thresholds) and ASD (each clip a
+    query, the other seven its negatives), each with the same ranks, hits
+    and counts as its numpy path and rates within 1e-6; then
+    `compute_metrics_device` on 5,000 seeded 512-d pairs with spread ranks
+    (R@1 about 0.2), checked and timed against numpy;
+10. a `training` JSON line, a `checkpoints` JSON line, one `kernels` JSON
+    line, the card line, and last the `ok` JSON line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
 each shape's per-launch time times the launches a T=125 `vta` clip makes at
 that shape (6 layers in the window head, 6 in the gesture encoder, 3 in the
 text encoder, one XLM-R stack), with each shape's own numbers under
 `per_launch` (a shape with 0 launches per clip is checked and timed, and
-adds nothing). `launches` is the count from phase 4. The flash attention
-row is per training step in the same way (6 gesture and 3 text launches);
-its `launches` is the count of one step of phase 7(b), and its long-clip
-shape, 0 launches a step, carries its 6 launches a clip from phase 8. The
+adds nothing). `launches` is the count from phase 4, and
+`launches_validation` that of one forward_validation (phase 9c). The flash
+attention row is per training step in the same way (6 gesture and 3 text
+launches); its `launches` is the count of one step of phase 7(b), and its
+long-clip shape, 0 launches a step, carries its 6 launches a clip from
+phase 8. The
 stem and block-2 rows take their launches from the run of the path that
 takes each (`path`): the band stem (the default) from phase 4's raw clip,
 its time at the float entry (the planar entry's numbers under
@@ -1882,6 +1914,492 @@ def run_long_clip(engine, jp):
     return launches, dict(ms_per_clip=statistics.median(walls),
                           max_abs_err=err, min_row_cos=cos)
 
+# ---------------------------------------------------------------------------
+# Phase 9: checkpoints, validation and eval
+# ---------------------------------------------------------------------------
+
+# launches of one forward_validation (inference, fused=True): the gesture
+# encoder's 6 and the text encoder's 3 pre-norm layers as fused sublayers,
+# and XLM-R as one stack
+VALIDATION_LAUNCHES = dict(attn_sublayer=9, ffn_sublayer=9, encoder_stack=1)
+# forward_aud, card against CPU: eight conv layers of up to 3,456-term
+# float32 sums in another order (cuDNN, oneDNN); max abs err within this
+# share of the output's largest magnitude (the CPU port is within 7e-7 of
+# the JAX package's at the same width)
+AUD_RTOL = 1e-5
+# log-mel, card against the host's numpy copy: the JAX suite's bar for its
+# two mel paths (tests/test_audio.py:100)
+MEL_RTOL, MEL_ATOL = 2e-4, 2e-3
+
+
+def same_leaves(got, want, what: str):
+    """Every leaf of `got` equal to `want`'s exactly: keys (the .npz
+    scheme's), dtype, shape, values."""
+    import numpy as np
+
+    from jegal_torch.convert.checkpoints import flatten
+
+    g, w = flatten(got), flatten(want)
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{what}: keys differ: "
+                             f"{sorted(set(g) ^ set(w))[:5]}")
+    bad = [k for k in w if g[k].dtype != w[k].dtype
+           or not np.array_equal(g[k], w[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. "
+                             f"{bad[:3]}")
+    log(f"  {what}: {len(w)} leaves equal to the tree written, exactly")
+
+
+def _mb(path: Path) -> float:
+    files = path.rglob("*") if path.is_dir() else [path]
+    return sum(f.stat().st_size for f in files if f.is_file()) / 1e6
+
+
+def timed_load(fn, path: Path, what: str):
+    """fn() -> its result, with the file's MB and the load's seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    sec = time.perf_counter() - t0
+    mb = _mb(path)
+    log(f"  {what}: {mb:.1f} MB loaded in {sec:.3f} s ({mb / sec:.0f} MB/s)")
+    return out, dict(mb=mb, seconds=sec, mb_per_s=mb / sec)
+
+
+def write_checkpoints(root: Path, gs_tree, jp, rp):
+    """Phase 9a's reference-format files: the GestSync and JEGAL .pth
+    ({"state_dict": ...} under `module.` prefixes) and XLM-R as an HF
+    directory (model.safetensors where safetensors imports, else
+    pytorch_model.bin). -> {name: path}."""
+    import torch
+
+    # the tests' helper tests/torch_ref_state_dicts.py (in every checkout;
+    # it imports only numpy and torch) writes a tree in the reference's
+    # torch names and layouts
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ref_state_dicts import (
+        gestsync_state_dict,
+        jegal_state_dict,
+        roberta_hf_state_dict,
+    )
+
+    paths = {"gestsync": root / "gestsync.pth", "jegal": root / "jegal.pth"}
+    t0 = time.perf_counter()
+    torch.save({"state_dict": gestsync_state_dict(gs_tree)},
+               paths["gestsync"])
+    torch.save({"state_dict": jegal_state_dict(jp)}, paths["jegal"])
+    hf = root / "xlm-roberta-base"
+    hf.mkdir()
+    sd = roberta_hf_state_dict(rp)
+    try:
+        from safetensors.torch import save_file
+    except ImportError:
+        torch.save(sd, hf / "pytorch_model.bin")
+        fmt = "pytorch_model.bin (safetensors does not import here)"
+    else:
+        save_file(sd, str(hf / "model.safetensors"))
+        fmt = "model.safetensors"
+    paths["roberta"] = hf
+    log(f"  wrote the reference-format files in "
+        f"{time.perf_counter() - t0:.2f} s; XLM-R base as {fmt}")
+    return paths, fmt
+
+
+def _validate(jp, rp, batch):
+    """forward_validation under no_grad on the batch's device."""
+    import torch
+
+    from jegal_torch.models import jegal as J
+    from jegal_torch.models.roberta import XLMR_BASE
+
+    fields = {k: v for k, v in batch.items() if k != "word_mask"}
+    with torch.no_grad():
+        return J.forward_validation(jp, rp, roberta_cfg=XLMR_BASE, **fields)
+
+
+def _unit_rows(x):
+    import numpy as np
+
+    x = x.cpu().numpy().reshape(-1, x.shape[-1])
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+
+def _hold_validation(card, cpu, what: str) -> dict:
+    """forward_validation's gesture and content rows, card against CPU,
+    L2-normalized, within SLICE_ATOL and SLICE_MIN_COS."""
+    import numpy as np
+
+    worst = dict(err=0.0, cos=1.0)
+    for name, a, b in zip(("gesture", "content"), card, cpu):
+        a, b = _unit_rows(a), _unit_rows(b)
+        err = float(np.abs(a - b).max())
+        cos = float((a * b).sum(-1).min())
+        ok = err <= SLICE_ATOL and cos >= SLICE_MIN_COS
+        log(f"  card vs CPU, forward_validation on {what}, {name} rows "
+            f"{a.shape[0]} (L2-normalized): max abs err {err:.3e} (tolerance "
+            f"{SLICE_ATOL:g}), min row cosine {cos:.8f} (tolerance "
+            f"{SLICE_MIN_COS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"forward_validation {name} on {what}: the "
+                                 f"card disagrees with the CPU")
+        worst = dict(err=max(worst["err"], err), cos=min(worst["cos"], cos))
+    return worst
+
+
+def run_validation(eng, engine, loaded, train_batch):
+    """Phase 9c: forward_validation at phase 7b's training batch on the
+    loaded weights (launches, warm ms, device busy), card against CPU on
+    that batch and on phase 5's small clip."""
+    import torch
+
+    from jegal_torch.ops.kernels import _build
+    from jegal_torch.training.data import collate_training_batch
+
+    batch = {k: v.cuda() for k, v in train_batch.items()}
+    _build.reset_launches()
+    g, c = _validate(eng.jegal_params, eng.roberta_params, batch)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = counts(**VALIDATION_LAUNCHES)
+    log(f"validation: forward_validation at the training batch (B 8, T "
+        f"128, S 32): launches {launches}")
+    if launches != want:
+        raise AssertionError(f"forward_validation: launches {launches}, "
+                             f"want {want}")
+    if g.shape != (8, 128, 512) or c.shape != (8, 16, 512) \
+            or not (torch.isfinite(g).all() and torch.isfinite(c).all()):
+        raise AssertionError(f"forward_validation: {g.shape}, {c.shape}")
+    # the kernels at this batch's shapes (gesture sublayers at R 1024,
+    # segment 128; text sublayers at R 256, segment 32, d 768; the stack
+    # at 8 x 32 tokens) against the CPU run on the same batch
+    t0 = time.perf_counter()
+    cpu = _validate(loaded["jegal"], loaded["roberta"], train_batch)
+    log(f"  the CPU run of the training batch took "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch_err = _hold_validation((g, c), cpu, "the training batch")
+
+    def run():
+        _validate(eng.jegal_params, eng.roberta_params, batch)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        run()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    q1, ms, q3 = statistics.quantiles(walls, n=4)
+    prof = profile_run(run, "forward_validation at the training batch")
+    log(f"  warm forward_validation {ms:.3f} ms (median of 20, quartiles "
+        f"{q1:.3f} / {q3:.3f}); device busy {prof['device_busy_ms']:.3f} ms")
+
+    small = dict(clip(16, 4, SEED + 4), text="the quick brown fox")
+    feats = engine.gestsync_features(small["frames"], small["chin_rows"])
+    one = collate_training_batch([dict(
+        visual_feats=feats, text=small["text"], wav=small["wav"],
+        word_boundaries=small["word_boundaries"])], word_tokenizer())
+    card = _validate(eng.jegal_params, eng.roberta_params,
+                     {k: v.cuda() for k, v in one.items()})
+    cpu = _validate(loaded["jegal"], loaded["roberta"], one)
+    clip_err = _hold_validation(card, cpu, "the 16-frame 4-word clip")
+    return dict(launches=launches, ms=ms, ms_q1=q1, ms_q3=q3,
+                device_busy_ms=prof["device_busy_ms"],
+                device_idle_share=1 - prof["device_busy_ms"] / ms,
+                card_vs_cpu_batch=batch_err, card_vs_cpu_clip=clip_err)
+
+
+def run_audio(eng, loaded, sample):
+    """Phase 9d: the torch log-mel on the card against the host's numpy
+    copy on phase 4's 80,000 samples, and forward_aud on (1, 80, 500, 1)
+    against its CPU run; each timed."""
+    import numpy as np
+    import torch
+
+    from jegal_torch.models import gestsync as G
+    from jegal_torch.ops import audio as A
+
+    wav = torch.from_numpy(sample["wav"][None]).cuda()
+    got = A.wav2filterbanks(wav).cpu().numpy()
+    want = A.wav2filterbanks_np(sample["wav"])
+    err = float(np.abs(got - want).max())
+    ok = got.shape == want.shape and np.allclose(got, want, rtol=MEL_RTOL,
+                                                 atol=MEL_ATOL)
+    mel_ms = cuda_ms(lambda: A.wav2filterbanks(wav))
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        A.wav2filterbanks_np(sample["wav"])
+        walls.append(1e3 * (time.perf_counter() - t0))
+    host_ms = statistics.median(walls)
+    log(f"audio: wav2filterbanks on the card, {wav.shape[1]} samples -> "
+        f"{got.shape}: max abs err {err:.3e} against wav2filterbanks_np "
+        f"(rtol {MEL_RTOL:g}, atol {MEL_ATOL:g}) {'ok' if ok else 'FAIL'}; "
+        f"{mel_ms:.4f} ms on the card (CUDA events, median of 20), numpy "
+        f"on the host {host_ms:.3f} ms (median of 20)")
+    if not ok:
+        raise AssertionError("wav2filterbanks: the card disagrees with the "
+                             "numpy copy")
+    x = torch.from_numpy(np.random.default_rng(SEED + 12).standard_normal(
+        (1, 80, 500, 1), dtype=np.float32))
+    xd = x.cuda()
+    # the whole (1, 1024, 1, 13) map that the timed call computes, before
+    # forward_aud keeps its first column
+    card = G.aud_feature_map(eng.gestsync_params, xd).cpu()
+    cpu = G.aud_feature_map(loaded["gestsync"], x)
+    aud_err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    ok = card.shape == cpu.shape == (1, 1024, 1, 13) \
+        and aud_err <= AUD_RTOL * scale \
+        and G.forward_aud(eng.gestsync_params, xd).shape == (1, 1024, 1)
+    aud_ms = cuda_ms(lambda: G.forward_aud(eng.gestsync_params, xd))
+    log(f"  the audio branch on (1, 80, 500, 1) -> map {tuple(card.shape)}: "
+        f"card vs CPU max abs err {aud_err:.3e} (tolerance {AUD_RTOL:g} of "
+        f"the largest output, {scale:.3f}) {'ok' if ok else 'FAIL'}; "
+        f"forward_aud {aud_ms:.4f} ms on the card")
+    if not ok:
+        raise AssertionError("forward_aud: the card disagrees with the CPU")
+    return dict(mel_max_abs_err=err, mel_ms=mel_ms, mel_numpy_host_ms=host_ms,
+                forward_aud_max_abs_err=aud_err, forward_aud_ms=aud_ms)
+
+
+class Rows:
+    """The ASD table as the eval reads it: `iterrows()` of (index, row)."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def iterrows(self):
+        return enumerate(self.rows)
+
+
+def _same_rates(dev: dict, host: dict, what: str, exact=()):
+    """Integer fields (`exact`) equal, every rate within 1e-6."""
+    bad = [k for k in host if (dev[k] != host[k] if k in exact
+                               else abs(dev[k] - host[k]) > 1e-6)]
+    log(f"  {what}: device {dev}; numpy {host} "
+        f"{'FAIL' if bad or sorted(dev) != sorted(host) else 'ok'}")
+    if bad or sorted(dev) != sorted(host):
+        raise AssertionError(f"{what}: the device path disagrees on {bad}")
+
+
+def same_spots(res_dir: str):
+    """spotting.predict_device's frame and score for each video against
+    spot_word's: frames equal, scores within 1e-6. -> the hits and misses
+    at the default thresholds."""
+    from jegal_torch.eval import common, spotting
+
+    preds = spotting.predict_device(res_dir)
+    files = common.list_embedding_files(res_dir)
+    hits = 0
+    for (_, pred, score), fname in zip(preds, files):
+        feats = common.load_pkl(fname)
+        info = feats["info"]
+        ok, want_pred, want_score = spotting.spot_word(
+            feats["gesture_emb"], feats["content_emb"],
+            info["word_boundaries"], info["target_word_boundary"])
+        if pred != want_pred or abs(score - want_score) > 1e-6:
+            raise AssertionError(f"spotting {fname}: device frame {pred} "
+                                 f"score {score}, numpy {want_pred} "
+                                 f"{want_score}")
+        hits += int(ok)
+    if len(preds) != len(files):
+        raise AssertionError(f"spotting: {len(preds)} predictions for "
+                             f"{len(files)} files")
+    log(f"  spotting: {len(preds)} videos' frames and scores from the card "
+        f"equal spot_word's ({hits} hits, {len(preds) - hits} misses) ok")
+    return hits, len(preds) - hits
+
+
+def spread_pairs(seed: int, n: int = 5000, d: int = 512,
+                 margin: float = 1e-6):
+    """n seeded (query, key) pairs with spread ranks: noise 8 puts a
+    pair's cosine (about 0.12) among the other keys' (standard deviation
+    about 0.044), for R@1 about 0.2 and MR about 13. No key's cosine lies
+    within `margin` of its row's diagonal in float64: the float32 paths
+    round each cosine by at most about 1.3e-7, so a closer pair would order
+    by the rounding, and the card's rank and numpy's could differ by it.
+    A row with such a pair has its key moved toward its query (1 % of it)
+    until none is left."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((n, d), dtype=np.float32)
+    k = q + 8.0 * rng.standard_normal((n, d), dtype=np.float32)
+    qn = q / np.linalg.norm(q.astype(np.float64), axis=1, keepdims=True)
+    for _ in range(20):
+        kn = k / np.linalg.norm(k.astype(np.float64), axis=1, keepdims=True)
+        sim = qn @ kn.T
+        gap = np.abs(sim - np.diag(sim)[:, None])
+        np.fill_diagonal(gap, np.inf)
+        near = np.flatnonzero(gap.min(axis=1) < margin)
+        if not len(near):
+            return q, k
+        k[near] += 0.01 * q[near]
+    raise AssertionError(f"spread_pairs: {len(near)} rows still within "
+                         f"{margin:g} of their diagonal")
+
+
+def run_eval(eng, root: Path):
+    """Phase 9e: phase 6c's eight planar clips, each with audio of its own
+    (so that no two content rows tie: the reference's sort counts a tied
+    row's every index), written by `extract_to_pkl` with each clip's
+    target word in its info, as the CSV extractor writes it, and in the
+    even clips the target word's content row redrawn and planted as a
+    gesture peak in its span;
+    then retrieval, spotting (each video's frame and score too) and ASD on
+    the card against their numpy paths; and compute_metrics_device on
+    5,000 seeded 512-d pairs with spread ranks, checked and timed against
+    numpy."""
+    import pickle
+
+    import numpy as np
+
+    from jegal_torch.eval import asd, common, retrieval, spotting
+
+    res_dir = root / "embs"
+    names = []
+    t0 = time.perf_counter()
+    for i, s in enumerate(many_samples()):
+        t = s["frames"].shape[0]
+        wav = (np.random.default_rng(SEED + 30 + i).standard_normal(80000)
+               * 3000).astype(np.float32)
+        path = eng.extract_to_pkl(str(res_dir), modalities="vta",
+                                  **dict(s, wav=wav, fname=f"clip{i}__t{t}"))
+        with open(path, "rb") as f:
+            feats = pickle.load(f)
+        info = feats["info"]
+        wbs = common.parse_word_boundaries(info["word_boundaries"])
+        wi = (3 * i) % len(wbs)
+        info["target_word_boundary"] = info["word_boundaries"][wi]
+        if i % 2 == 0:
+            # a hit: the target word's row redrawn (seeded, so about
+            # orthogonal to the other words') and planted as the gesture
+            # peak at its span's start; its score there is about 1
+            cont = feats["content_emb"]
+            row = np.random.default_rng(SEED + 40 + i).standard_normal(
+                cont.shape[1]).astype(np.float32)
+            cont[wi] = row * (np.linalg.norm(cont[wi]) / np.linalg.norm(row))
+            feats["gesture_emb"][wbs[wi][1]] = 8 * cont[wi]
+        with open(path, "wb") as f:
+            pickle.dump(feats, f)
+        names.append(f"clip{i}/t{t}")
+    log(f"eval: {len(names)} .pkl files written by extract_to_pkl in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    ret_dev, ret_host = retrieval.evaluate_device(str(res_dir)), \
+        retrieval.evaluate(str(res_dir))
+    for mode in ("c2g", "g2c"):
+        _same_rates(ret_dev[mode], ret_host[mode], f"retrieval {mode}",
+                    exact=("MR",))
+    hits, misses = same_spots(str(res_dir))
+    if not (hits and misses):
+        raise AssertionError(f"spotting: {hits} hits and {misses} misses; "
+                             f"the planted set should give both")
+    spot_dev, spot_host = spotting.evaluate_device(str(res_dir)), \
+        spotting.evaluate(str(res_dir))
+    _same_rates(spot_dev, spot_host, "spotting", exact=("correct", "total"))
+    table = Rows([{"filename": n, "neg_files": str([m for m in names
+                                                     if m != n])}
+                  for n in names])
+    asd_dev, asd_host = asd.evaluate_device(str(res_dir), table), \
+        asd.evaluate(str(res_dir), table)
+    _same_rates(asd_dev, asd_host, "asd", exact=("evaluated",))
+    out.update(retrieval=ret_dev, spotting=spot_dev, asd=asd_dev)
+
+    q, k = spread_pairs(SEED + 13)
+    host = retrieval.compute_metrics(retrieval.similarity_matrix(q, k))
+    dev = retrieval.compute_metrics_device(q, k)
+    _same_rates(dev, host, "compute_metrics_device, 5000 x 512",
+                exact=("MR",))
+    if not (0.05 < host["R1"] < 0.5 and host["MR"] > 1):
+        raise AssertionError(f"the 5000-row set should spread its ranks: "
+                             f"{host}")
+
+    def median_ms(fn, reps=5):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(walls)
+
+    import torch
+
+    qd, kd = torch.from_numpy(q).cuda(), torch.from_numpy(k).cuda()
+    valid = torch.ones(5000, device=qd.device)
+    dev_ms = median_ms(lambda: retrieval.compute_metrics_device(q, k))
+    core_ms = cuda_ms(lambda: retrieval._metrics_on_device(qd, kd, valid))
+    host_ms = median_ms(lambda: retrieval.compute_metrics(
+        retrieval.similarity_matrix(q, k)))
+    log(f"  compute_metrics_device on 5000 x 512: {dev_ms:.3f} ms a call "
+        f"(host clock, median of 5, uploads and the scalars' fetch "
+        f"included), {core_ms:.3f} ms on the card (CUDA events, median of "
+        f"20); numpy {host_ms:.3f} ms (median of 5)")
+    out["metrics_5000"] = dict(device_call_ms=dev_ms, device_ms=core_ms,
+                               numpy_ms=host_ms)
+    return out
+
+
+def run_checkpoints(gp, jp, rp, engine, sample, raw_res, train_batch):
+    """Phase 9: reference-format checkpoints written and loaded without
+    JAX (a), an engine built from them (b), forward_validation (c), the
+    torch log-mel and forward_aud (d), the eval on the card (e)."""
+    import tempfile
+
+    import torch
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.convert import checkpoints as CK
+    from jegal_torch.convert import init_gestsync_audio_params
+
+    out: dict = {}
+    gs_tree = dict(gp, **init_gestsync_audio_params(
+        torch.Generator().manual_seed(SEED + 11)))
+    rp_tree = {"embeddings": rp["embeddings"], "layers": rp["layers"]}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        log("checkpoints: the phase-4 trees (GestSync with a seeded audio "
+            "branch) as reference-format files")
+        paths, out["xlmr_format"] = write_checkpoints(root, gs_tree, jp,
+                                                      rp_tree)
+        loaded, loads = {}, {}
+        for name, fn in (("gestsync", CK.load_gestsync),
+                         ("jegal", CK.load_jegal),
+                         ("roberta", lambda p: CK.load_roberta(p)[0])):
+            loaded[name], loads[name] = timed_load(
+                lambda: fn(str(paths[name])), paths[name],
+                f"{paths[name].name} through convert.checkpoints")
+        for name, want in (("gestsync", gs_tree), ("jegal", jp),
+                           ("roberta", rp_tree)):
+            same_leaves(loaded[name], want, f"loaded {name}")
+        for name in loaded:
+            npz = root / f"{name}.npz"
+            save, read = ((CK.save_roberta_npz,
+                           lambda p: CK.load_roberta(p)[0])
+                          if name == "roberta" else (CK.save_npz,
+                                                     CK.load_npz))
+            t0 = time.perf_counter()
+            save(loaded[name], str(npz))
+            write_s = time.perf_counter() - t0
+            back, loads[npz.name] = timed_load(lambda: read(str(npz)), npz,
+                                               npz.name)
+            loads[npz.name]["write_s"] = write_s
+            same_leaves(back, loaded[name], f"{npz.name} read back")
+        out["loads"] = loads
+
+        eng = JegalEngine(loaded["jegal"], loaded["gestsync"],
+                          roberta_params=loaded["roberta"],
+                          tokenizer=word_tokenizer())      # device="cuda"
+        res, _ = drive(eng, sample, "vta", VTA_LAUNCHES,
+                       "the loaded engine's raw vta clip")
+        check_embeddings(res, 125, 12)
+        out["engine_vs_phase4"] = compare(res, raw_res,
+                                          "loaded engine vs phase 4")
+        out["validation"] = run_validation(eng, engine, loaded, train_batch)
+        out["audio"] = run_audio(eng, loaded, sample)
+        out["eval"] = run_eval(eng, root)
+        eng.close()
+    return out
+
 
 def smoke_text_ids():
     """The smoke text as the engine tokenizes it: (1, 32) ids padded to its
@@ -1986,6 +2504,8 @@ def main() -> int:
                                            train_batch)
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
     launches["flash_attention"] = step_launches["flash_attention"]
+    checkpoints = run_checkpoints(gp, jp, rp, engine, sample, raw_res,
+                                  train_batch)
 
     rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
@@ -2057,7 +2577,12 @@ def main() -> int:
     if long_launches["flash_attention"] != long_want:
         raise AssertionError(f"flash_attention: {long_launches} on the long "
                              f"clip, the timed shapes assume {long_want}")
+    for row in kernels:     # rows 3-5: launches of one forward_validation
+        if row["name"] in VALIDATION_LAUNCHES:
+            row["launches_validation"] = \
+                checkpoints["validation"]["launches"][row["name"]]
     log(json.dumps({"training": training}))
+    log(json.dumps({"checkpoints": checkpoints}))
     log(json.dumps({"kernels": kernels}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {

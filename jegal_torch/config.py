@@ -20,3 +20,15 @@ D_MODEL = 512
 D_MODEL_TEXT = 768       # XLM-R base hidden width, the text encoder's d
 NUM_HEADS = 8
 PE_MAX_LEN = 500
+
+# evaluation: the similarity temperature of every eval task (reference
+# evaluate_spotting.py:39, evaluate_asd.py:43, plot_heatmap.py:34); the
+# spotting thresholds (evaluation/evaluate_spotting.py:13-14), the ASD
+# candidate counts (evaluate_asd.py) and the heatmap overlay
+# (plot_heatmap.py), as the JAX package's EvalConfig holds them
+TEMPERATURE = 0.07
+SPOT_THRESHOLD = 0.5          # a spotted word's attention must reach this
+SPOT_FRAME_THRESHOLD = 9      # frames of slack around the true word span
+ASD_SPEAKERS = (2, 4, 6)      # candidate counts the accuracy is read at
+HEATMAP_THRESHOLD = 0.8       # attention below it is drawn faint
+HEATMAP_ALPHA = 0.6           # overlay weight of the thresholded heatmap

@@ -6,6 +6,10 @@ The port computes on nested dicts of float32 tensors in the JAX layouts
 compute with the same weights. Random trees randomize the BatchNorm running
 statistics and the LayerNorm parameters: identity statistics would hide a
 BN or LN that is skipped or applied twice.
+
+The reference's own checkpoint files (.pth, HF XLM-R, and the flat .npz
+that both packages write) load without JAX through `convert.checkpoints`,
+on the converters of `convert.torch_import`.
 """
 
 from __future__ import annotations
@@ -16,7 +20,12 @@ import numpy as np
 import torch
 
 from jegal_torch.config import D_MODEL_TEXT
-from jegal_torch.models.gestsync import CHANNELS, VGG_SPEC
+from jegal_torch.models.gestsync import (
+    AUD_CHANNELS,
+    AUD_SPEC,
+    CHANNELS,
+    VGG_SPEC,
+)
 from jegal_torch.models.jegal import AUDIO_CHANNELS, AUDIO_CNN_SPEC
 from jegal_torch.models.roberta import XLMR_BASE, RobertaConfig
 
@@ -39,9 +48,10 @@ def tree_to_torch(tree, device="cpu"):
 
 def gestsync_params_from_jax(tree, device="cpu"):
     """jegal_tpu GestSync pytree (G.init_params / G.params_from_torch
-    layout) -> the port's tree. The unused audio sync branch is dropped."""
-    return tree_to_torch({k: tree[k] for k in
-                          ("net_vid", "transformer", "ff1", "ff2")}, device)
+    layout) -> the port's tree, with the audio sync branch (`net_aud`,
+    `ff_aud`, for models.gestsync.forward_aud) when the tree has it."""
+    keys = ("net_vid", "transformer", "ff1", "ff2", "net_aud", "ff_aud")
+    return tree_to_torch({k: tree[k] for k in keys if k in tree}, device)
 
 
 def jegal_params_from_jax(tree, device="cpu"):
@@ -112,6 +122,20 @@ def init_gestsync_params(generator: torch.Generator, device="cpu"):
         "ff1": _linear(g, 512, 512),
         "ff2": _linear(g, 512, 1024),
     }, device)
+
+
+def init_gestsync_audio_params(generator: torch.Generator, device="cpu"):
+    """Random audio sync branch of GestSync ({"net_aud", "ff_aud"}, the
+    checkpoint's extra entries that models.gestsync.forward_aud runs), to
+    merge into an `init_gestsync_params` tree."""
+    g = generator
+    net_aud = [{"conv": _conv(g, spec["k"] + (AUD_CHANNELS[i],
+                                              AUD_CHANNELS[i + 1])),
+                "bn": _batch_norm(g, AUD_CHANNELS[i + 1])}
+               for i, spec in enumerate(AUD_SPEC)]
+    ff_aud = {"fc7": _conv(g, (1, 1, 512, 512)), "bn7": _batch_norm(g, 512),
+              "fc8": _conv(g, (1, 1, 512, 1024))}
+    return tree_to_torch({"net_aud": net_aud, "ff_aud": ff_aud}, device)
 
 
 def init_roberta_params(generator: torch.Generator,

@@ -26,6 +26,13 @@ through core/transformer.torch_encoder_stack (fused sublayer kernels on the
 card); its ff1/ff2 head is two torch.matmul calls, as JAX leaves it to XLA.
 
 Output: (T, 1024) a clip, (B, T, 1024) from the batched entries.
+
+The reference checkpoint also holds an audio sync branch (`net_aud`,
+`ff_aud`, reference models/gestsync.py:23-32,89-168), which the gesture
+pipeline never runs: `forward_aud` computes it (cuDNN convolutions, as the
+JAX package leaves it to XLA), and `params_from_torch` keeps it when the
+state dict has it. The LSTM head is dead weight in the reference too and
+is not converted.
 """
 
 from __future__ import annotations
@@ -226,3 +233,83 @@ def forward_vid_windowed(params, clips):
     x = torch_encoder_stack(params["transformer"], x, None, NUM_HEADS)
     x = linear(params["ff2"], torch.relu(linear(params["ff1"], x)))
     return x.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Audio sync branch (in the reference checkpoint, unused by the gesture
+# pipeline; reference models/gestsync.py:89-168)
+# ---------------------------------------------------------------------------
+
+AUD_SPEC = (
+    dict(k=(3, 3), s=(2, 2), p=(1, 1), mp=((3, 3), (2, 2))),
+    dict(k=(3, 3), s=(1, 2), p=(1, 1), mp=((3, 3), (2, 2))),
+    dict(k=(3, 3), s=(1, 1), p=(1, 1), mp=None),
+    dict(k=(3, 3), s=(1, 1), p=(1, 1), mp=None),
+    dict(k=(3, 3), s=(1, 1), p=(1, 1), mp=((2, 3), (2, 2))),
+    dict(k=(4, 2), s=(1, 1), p=(0, 0), mp=None),  # fc2d block
+)
+AUD_CHANNELS = (1, 64, 192, 384, 256, 256, 512)
+
+
+def aud_feature_map(params, x):
+    """Audio sync branch before the squeeze: x (B, F, T, 1) NHWC -> the
+    NCHW map (B, 1024, F', T') of the reference's net_aud -> NetFC_2D
+    (models/gestsync.py:164-167), channels-first inside. F 80 gives F' 1;
+    the reference's 100-frame window gives T' 1."""
+    x = x.permute(0, 3, 1, 2)
+    for spec, blk in zip(AUD_SPEC, params["net_aud"]):
+        x = conv2d_nchw(x, blk["conv"]["kernel"], blk["conv"].get("bias"),
+                        spec["s"], spec["p"])
+        x = torch.relu(batch_norm_nchw(blk["bn"], x))
+        if spec["mp"] is not None:
+            x = F.max_pool2d(x, spec["mp"][0], spec["mp"][1])
+    # NetFC_2D head: 1x1 convs 512 -> 512 -> 1024, BN and ReLU between
+    ff = params["ff_aud"]
+    x = conv2d_nchw(x, ff["fc7"]["kernel"], ff["fc7"].get("bias"))
+    x = torch.relu(batch_norm_nchw(ff["bn7"], x))
+    return conv2d_nchw(x, ff["fc8"]["kernel"], ff["fc8"].get("bias"))
+
+
+def forward_aud(params, x):
+    """x (B, F, T, 1) NHWC -> (B, 1024, F'), F' 1 for 80 mel bins: the
+    reference forward_aud (models/gestsync.py:164-168) on its 100-frame
+    window, where T' is 1. At other T the reference's squeeze(-1) keeps
+    all T' columns; this keeps the first, as the JAX package does
+    (x[:, :, 0, :] in NHWC)."""
+    return aud_feature_map(params, x)[:, :, :, 0]
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion
+# ---------------------------------------------------------------------------
+
+def params_from_torch(sd):
+    """The reference GestSync state dict (DataParallel-prefixed torch .pth,
+    reference inference_embs.py:92-119) -> the port's tree; `net_aud` and
+    `ff_aud` when the state dict has the audio branch. The LSTM and
+    logits_scale entries are skipped."""
+    from jegal_torch.convert import torch_import as TI
+
+    sd = TI.strip_module_prefix(sd)
+
+    def blocks(branch, conv):
+        names = [f"conv{i}" for i in range(1, 6)] + ["fc6"]
+        return [{"conv": conv(sd, f"{branch}.{name}"),
+                 "bn": TI.batch_norm_from_torch(sd, f"{branch}.bn{i}")}
+                for i, name in enumerate(names, start=1)]
+
+    params = {
+        "net_vid": blocks("net_vid", TI.conv3d_from_torch),
+        "transformer": TI.torch_encoder_stack_from_torch(
+            sd, "transformer_encoder", 6),
+        "ff1": TI.linear_from_torch(sd, "ff_vid.0"),
+        "ff2": TI.linear_from_torch(sd, "ff_vid.2"),
+    }
+    if "net_aud.conv1.weight" in sd:
+        params["net_aud"] = blocks("net_aud", TI.conv2d_from_torch)
+        params["ff_aud"] = {
+            "fc7": TI.conv2d_from_torch(sd, "ff_aud.fc7"),
+            "bn7": TI.batch_norm_from_torch(sd, "ff_aud.bn7"),
+            "fc8": TI.conv2d_from_torch(sd, "ff_aud.fc8"),
+        }
+    return params

@@ -13,7 +13,9 @@ reference models/jegal.py:16-420):
            [inference] proj_op_align_content
 
 A missing content branch is replaced by zeros, as in the reference
-(jegal.py:393-402).
+(jegal.py:393-402). `forward_validation` is `forward_inference` without
+the align heads (the representation the training loss sees);
+`params_from_torch` converts the reference's .pth state dict.
 """
 
 from __future__ import annotations
@@ -160,3 +162,79 @@ def forward_inference(params, roberta_params=None, *, use_v: bool,
         audio_words = torch.zeros_like(text_words)
     return gesture, fuse_content(params, audio_words, text_words, align=True,
                                  strategy=fusion_strategy)
+
+
+def forward_validation(params, roberta_params=None, *, use_t: bool = True,
+                       use_a: bool = True, visual_feats=None,
+                       visual_mask=None, input_ids=None, text_mask=None,
+                       text_pool=None, audio_mel=None, audio_pool=None,
+                       audio_valid=None, roberta_cfg=None,
+                       fusion_strategy: str = "concat", fused: bool = True):
+    """Reference validation forward (models/jegal.py:330-375; the JAX
+    package's jegal.py:227-279): `forward_inference` WITHOUT the align
+    heads. The visual branch is always on; a missing content branch is
+    zeros. -> (gesture (B, T, 512), content (B, W, 512)).
+
+    Validation runs without gradients, so with fused=True (the default)
+    the gesture and text encoders take the fused sublayer kernels on a CUDA
+    tensor and XLM-R the stack kernel, as in `forward_inference`; an input
+    that no kernel takes raises there. fused=False runs the encoders'
+    layer loop (flash attention on the card), as training does."""
+    gesture = forward_gestures(params, visual_feats, visual_mask,
+                               fused=fused)
+    text_words = audio_words = None
+    if use_t:
+        hidden = R.forward(roberta_params, input_ids, text_mask,
+                           roberta_cfg or R.XLMR_BASE)
+        text_words = pool_words(
+            text_pool, forward_text(params, hidden, text_mask, fused=fused))
+    if use_a:
+        audio_words = pool_words(
+            audio_pool, forward_audio(params, audio_mel, audio_valid))
+    if text_words is None:
+        text_words = torch.zeros_like(audio_words)
+    if audio_words is None:
+        audio_words = torch.zeros_like(text_words)
+    return gesture, fuse_content(params, audio_words, text_words,
+                                 align=False, strategy=fusion_strategy)
+
+
+def params_from_torch(sd):
+    """The reference JEGAL state dict (.pth 'state_dict', possibly
+    DataParallel-prefixed) -> the port's tree. The XLM-R backbone is not in
+    it (the reference loads it from HF, jegal.py:13-14). The audio CNN's
+    nn.Sequential indices count the BatchNorm and ReLU modules too."""
+    from jegal_torch.convert import torch_import as TI
+
+    sd = TI.strip_module_prefix(sd)
+    cnn = []
+    seq = 0
+    for spec in AUDIO_CNN_SPEC:
+        blk = {"conv": TI.conv2d_from_torch(sd, f"cnn.{seq}")}
+        seq += 1
+        if spec["bn"]:
+            blk["bn"] = TI.batch_norm_from_torch(sd, f"cnn.{seq}")
+            seq += 2                                  # BatchNorm, ReLU
+        cnn.append(blk)
+
+    def lin(name):
+        return TI.linear_from_torch(sd, name)
+
+    def mlp2(name):
+        return [lin(f"{name}.0"), lin(f"{name}.2")]
+
+    return {
+        "proj_ip_rgb": [lin("proj_ip_rgb.0"), lin("proj_ip_rgb.3")],
+        "proj_ip_ln": TI.layer_norm_from_torch(sd, "proj_ip_rgb.1"),
+        "encoder_rgb": TI.encoder_stack_from_annotated_torch(
+            sd, "encoder_rgb", 6),
+        "proj_op_rgb": lin("proj_op_rgb"),
+        "encoder_text": TI.encoder_stack_from_annotated_torch(
+            sd, "encoder_text", 3),
+        "proj_op_text": lin("proj_op_text"),
+        "cnn": cnn,
+        "proj_op_audio": lin("proj_op_audio"),
+        "proj_op_fusion_content": mlp2("proj_op_fusion_content"),
+        "proj_op_align_gesture": mlp2("proj_op_align_gesture"),
+        "proj_op_align_content": mlp2("proj_op_align_content"),
+    }

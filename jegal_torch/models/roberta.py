@@ -22,9 +22,10 @@ Parameter tree (the JAX package's `params_from_hf` layout):
   {"embeddings": {"word", "position", "token_type", "ln"},
    "layers": [{"q", "k", "v", "attn_out", "attn_ln", "inter", "out",
                "out_ln"}, ...]}
-`stack_layers` adds "fused_ops", the stack kernel's (L, ...) operands, once
-at load time. (The JAX package also stacks "layers" for a lax.scan; the
-eager loop here has no use for that copy.)
+`params_from_hf` converts an HF XLMRobertaModel state dict. `stack_layers`
+adds "fused_ops", the stack kernel's (L, ...) operands, once at load time.
+(The JAX package also stacks "layers" for a lax.scan; the eager loop here
+has no use for that copy.)
 """
 
 from __future__ import annotations
@@ -143,3 +144,42 @@ def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE):
     for layer in params["layers"]:
         x = encoder_layer(layer, x, ext_mask, cfg)
     return x
+
+
+def params_from_hf(sd, cfg: RobertaConfig = XLMR_BASE):
+    """An HF XLMRobertaModel / RobertaModel state dict -> the port's tree
+    (the JAX package's roberta.py:191-215). Keys may come with or without
+    the 'roberta.' prefix; the pooler is ignored."""
+    from jegal_torch.convert.torch_import import (
+        _get,
+        layer_norm_from_torch,
+        linear_from_torch,
+    )
+
+    if not any(k.startswith("embeddings.") for k in sd):
+        sd = {k.split(".", 1)[1]: v for k, v in sd.items() if "." in k}
+    emb = {
+        "word": _get(sd, "embeddings.word_embeddings.weight"),
+        "position": _get(sd, "embeddings.position_embeddings.weight"),
+        "token_type": _get(sd, "embeddings.token_type_embeddings.weight"),
+        "ln": layer_norm_from_torch(sd, "embeddings.LayerNorm"),
+    }
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}"
+
+        def lin(name):
+            return linear_from_torch(sd, f"{p}.{name}")
+
+        def ln(name):
+            return layer_norm_from_torch(sd, f"{p}.{name}")
+
+        layers.append({
+            "q": lin("attention.self.query"), "k": lin("attention.self.key"),
+            "v": lin("attention.self.value"),
+            "attn_out": lin("attention.output.dense"),
+            "attn_ln": ln("attention.output.LayerNorm"),
+            "inter": lin("intermediate.dense"), "out": lin("output.dense"),
+            "out_ln": ln("output.LayerNorm"),
+        })
+    return {"embeddings": emb, "layers": layers}

@@ -1,6 +1,5 @@
-"""Host (numpy) audio front end: wav -> log-mel filterbanks, a copy of the
-JAX package's numpy path (ops/audio.py:68-170) with the reference contract
-(utils/audio_utils.py:11-66):
+"""Audio front end: wav -> log-mel filterbanks, with the JAX package's
+ops/audio.py's reference contract (utils/audio_utils.py:11-66):
 
   * sr 16 kHz, n_fft 512, periodic Hann of 320 zero-padded to 512, hop 160;
   * torch.stft semantics: center=True with reflect padding of n_fft // 2;
@@ -8,6 +7,13 @@ JAX package's numpy path (ops/audio.py:68-170) with the reference contract
   * magnitude mel with librosa Slaney filters (fmin 0, fmax sr/2, Slaney
     area norm), log(mel + 1e-20), out (B, T, 80);
   * samples at raw int16 amplitude, not rescaled.
+
+`wav2filterbanks_np` is the host (numpy) copy that the engine's prep runs
+per sample, as the JAX engine does. `wav2filterbanks` (with
+`frame_signal`, `stft_magnitude`, `stft_mag_phase`) computes the same in
+torch on the wav's device: reflect pad, the padded Hann window,
+`torch.fft.rfft`, the float32 Slaney matrix. `reconstruct_wav` inverts an
+STFT on the host with scipy.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from jegal_torch.config import (
     HOP_LENGTH,
@@ -81,6 +89,76 @@ def _padded_hann(win_length: int = WIN_LENGTH, n_fft: int = N_FFT
     out = np.zeros(n_fft, dtype=np.float64)
     out[left:left + win_length] = w
     return out.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_constants(device: torch.device):
+    """The padded Hann window and the mel matrix on `device`, copied once
+    (a forward captured into a CUDA graph may not copy from the host)."""
+    return (torch.from_numpy(_padded_hann()).to(device),
+            torch.from_numpy(mel_filterbank()).to(device))
+
+
+def frame_signal(wav, n_fft: int = N_FFT, hop: int = HOP_LENGTH):
+    """Center-pad (reflect) and slice into overlapping frames: wav (B, S)
+    -> (B, 1 + S // hop, n_fft)."""
+    pad = n_fft // 2
+    x = F.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+    return x.unfold(-1, n_fft, hop)
+
+
+def _spectrum(wav):
+    """(B, S) float32 -> the windowed one-sided STFT (B, F, T + 1)."""
+    window, _ = _device_constants(wav.device)
+    frames = frame_signal(wav.to(torch.float32)) * window
+    return torch.fft.rfft(frames, dim=-1).transpose(1, 2)
+
+
+def stft_magnitude(wav):
+    """|STFT| with torch.stft(center=True, reflect) semantics: (B, F, T +
+    1); the last frame is still there (`wav2filterbanks` drops it)."""
+    return _spectrum(wav).abs()
+
+
+def wav2filterbanks(wav):
+    """wav (B, S) float32 tensor (raw int16 scale) -> log-mel (B, S // 160,
+    80) on its device; the last STFT frame is dropped."""
+    _, mel_basis = _device_constants(wav.device)
+    mel = torch.matmul(mel_basis, stft_magnitude(wav)[:, :, :-1])
+    return torch.log(mel + LOG_OFFSET).transpose(1, 2)
+
+
+def stft_mag_phase(wav):
+    """|STFT| and phase, (B, F, T) each, the last frame dropped (the
+    reference's wav2filterbanks also returns them, utils/audio_utils.py:
+    50-51,66)."""
+    spec = _spectrum(wav)[:, :, :-1]
+    return spec.abs(), spec.angle()
+
+
+def reconstruct_wav(mag, phase) -> np.ndarray:
+    """Inverse STFT of magnitude and phase (B, F, T) on the host (scipy),
+    the reference's librosa istft helpers (utils/audio_utils.py:69-97)."""
+    from scipy.signal import istft
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    spec = host(mag) * np.exp(1j * host(phase))
+    _, wav = istft(spec, fs=SAMPLE_RATE,
+                   window=np.asarray(_padded_hann(), dtype=np.float64),
+                   nperseg=N_FFT, noverlap=N_FFT - HOP_LENGTH, nfft=N_FFT,
+                   input_onesided=True, boundary=True)
+    # scipy's overlap-add normalization differs from the analysis
+    # convention by the hop length
+    return (wav / HOP_LENGTH).astype(np.float32)
+
+
+def audio_token_mask(mel_t: int) -> np.ndarray:
+    """ones(mel_T // 4): one entry per 25 Hz audio token (reference
+    inference_embs.py:470)."""
+    return np.ones((mel_t // 4,), dtype=np.float32)
 
 
 def wav2filterbanks_np(wav, mel_basis: np.ndarray | None = None

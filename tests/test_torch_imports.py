@@ -2,7 +2,9 @@
 nor anything of the JAX package, checked in the source and in a fresh
 interpreter's sys.modules after importing every module of the port. Nor do
 they import pandas, optax or orbax, which the card machine lacks (the JAX
-package's training loop and checkpoints use them)."""
+package's training loop and checkpoints use them); safetensors and
+matplotlib, which it may lack, only inside the functions that need
+them."""
 
 import ast
 import subprocess
@@ -19,7 +21,13 @@ REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.ops.kernels.conv2", "jegal_torch.ops.video",
             "jegal_torch.training.trainer", "jegal_torch.training.data",
             "jegal_torch.training.loop", "jegal_torch.parallel.checkpoint",
-            "jegal_torch.text.normalize", "jegal_torch.utils.logging")
+            "jegal_torch.text.normalize", "jegal_torch.utils.logging",
+            "jegal_torch.convert.torch_import",
+            "jegal_torch.convert.checkpoints", "jegal_torch.eval.common",
+            "jegal_torch.eval.retrieval", "jegal_torch.eval.spotting",
+            "jegal_torch.eval.asd", "jegal_torch.eval.heatmap")
+# optional packages: imported lazily, by the functions that need them
+LAZY = ("pandas", "matplotlib", "safetensors")
 SOURCES = sorted((ROOT / "jegal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -75,3 +83,29 @@ def test_text_modules_import_without_tokenizers():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "from_file needs tokenizers"
+
+
+def test_port_imports_with_optional_packages_blocked():
+    """Every module of the port imports with pandas, matplotlib and
+    safetensors unavailable; loading a .safetensors file then raises an
+    error that names the package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for name in {LAZY!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import jegal_torch\n"
+        "for m in pkgutil.walk_packages(jegal_torch.__path__, 'jegal_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {REQUIRED!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "from jegal_torch.convert.checkpoints import load_roberta\n"
+        "try:\n"
+        "    load_roberta('model.safetensors')\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == ("loading model.safetensors needs the "
+                                "safetensors package")

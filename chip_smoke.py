@@ -7,6 +7,7 @@ the eval on one card.
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
     python3 chip_smoke.py --stems     # phases 1-3's and 6a's stem kernels
+    python3 chip_smoke.py --profiler  # torch.profiler's window, probed
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -14,7 +15,10 @@ without holding it to this design's counts, and prints no `ok` line.
 `--stems` checks and times both stem kernels on both entries (and block
 2) as phases 3 and 6a do, and prints no `ok` line. Both run on an older
 tree too (copy this script into its checkout), for a comparison of
-designs.
+designs. `--profiler` profiles a CUDA graph's replay and the same forward
+eager, a few hundred times with and without `profiled()`'s idle settle,
+logs how often their device kernel counts differ, and prints no `ok`
+line.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -185,6 +189,7 @@ backend with the duck-typed interface of jegal_torch.text.WordTokenizer.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -424,12 +429,10 @@ def kernel_breakdown(fn, what: str, want: int | None = None):
     (torch.profiler): [(name, ms)], logged by name. want: the count the
     design launches (checked under CHECK_KERNEL_COUNTS)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [(name, us / 1e3) for name, us in device_events(prof)]
@@ -923,6 +926,84 @@ def profile_clip(engine, sample, modalities):
                        f"warm {modalities} clip")
 
 
+# host seconds the profiler's window is held open, idle, before and after
+# the profiled work: torch.profiler keeps only device events whose time,
+# mapped onto the host clock, falls inside the window, and a kernel that
+# starts within microseconds of the window's opening can be mapped before
+# it and dropped (a replay against an eager run once counted the eager
+# run's first 14 kernels, its BatchNorm folds, as missing; `--profiler`
+# measures how often)
+PROFILE_SETTLE_S = 0.01
+
+
+@contextlib.contextmanager
+def profiled(settle: float = PROFILE_SETTLE_S):
+    """torch.profiler over the body, CPU and CUDA activity, with the
+    device idle for `settle` s at each end of the window; the body must
+    leave its work synchronized. Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(settle)
+
+
+def profiler_window(pairs: int = 200) -> None:
+    """`--profiler`: `replay_check`'s two profiles (a graph's replay, then
+    the same forward eager: two BatchNorm-style folds of 7 kernels, then
+    100 matmul layers), `pairs` times with no settle and `pairs` times
+    with PROFILE_SETTLE_S, interleaved; logs how often the two device
+    kernel counts differ. Raises if they differ under the settle."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    var = torch.rand(64, device=dev, generator=g) + 0.5
+    w = torch.randn(512, 512, device=dev, generator=g) / 512 ** 0.5
+    x = torch.randn(256, 512, device=dev, generator=g)
+
+    def fn():
+        folds = [var * torch.rsqrt(var + 1e-5) for _ in range(2)]
+        folds = [(var - var * f) + var * f for f in folds]
+        y = x
+        for _ in range(100):
+            y = torch.relu(y @ w) + y
+        return y + folds[0].sum() + folds[1].sum()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+
+    def n_kernels(f, settle):
+        with profiled(settle) as prof:
+            f()
+        return len(device_events(prof))
+
+    seen = {0.0: {}, PROFILE_SETTLE_S: {}}
+    for i in range(2 * pairs):
+        settle = PROFILE_SETTLE_S if i % 2 else 0.0
+        key = (n_kernels(graph.replay, settle), n_kernels(fn, settle))
+        seen[settle][key] = seen[settle].get(key, 0) + 1
+    for settle, got in seen.items():
+        differ = sum(n for (r, e), n in got.items() if r != e)
+        log(f"profiler window, settle {settle} s: replay and eager kernel "
+            f"counts differ in {differ} of {pairs} pairs; (replay, eager) "
+            f"counts {got}")
+    if any(r != e for r, e in seen[PROFILE_SETTLE_S]):
+        raise AssertionError("the profiler lost device events under the "
+                             "settle")
+
+
 def device_events(prof):
     """(name, us) of each device kernel a torch.profiler run recorded, in
     launch order. A user annotation on the device timeline (the
@@ -950,12 +1031,7 @@ def profile_run(fn, what: str):
     """Device time of one call of `fn` by kernel name (torch.profiler); `fn`
     must end in a host fetch or a synchronize. Also the attention core's
     device ms and the split-K reductions' launches in the call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         fn()
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -1059,11 +1135,8 @@ def device_kernels(fn):
     name: count}). A memset's or memcpy's memory kinds are left out of its
     name: in a graph the profiler sees them as "Unknown"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         result = fn()
         torch.cuda.synchronize()
     counts: dict = {}
@@ -2423,8 +2496,8 @@ def smoke_text_ids():
 def main() -> int:
     global CHECK_KERNEL_COUNTS
     mode = sys.argv[1:]
-    if mode not in ([], ["--encoders"], ["--stems"]):
-        print(f"usage: {sys.argv[0]} [--encoders | --stems]",
+    if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"]):
+        print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler]",
               file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
@@ -2453,6 +2526,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if mode == ["--profiler"]:
+        profiler_window()
+        return 0
 
     t0 = time.perf_counter()
     libs = _build.build_all()

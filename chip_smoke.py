@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, drive its `vta` extraction on raw and
-planar frames, one clip and in batches, its training, a long clip, and
-reference-format checkpoints through an engine, forward_validation and
-the eval on one card.
+planar frames, one clip and in batches, its training, a long clip,
+reference-format checkpoints through an engine, forward_validation, the
+eval, and the CLI's device subcommands on one card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
     python3 chip_smoke.py --stems     # phases 1-3's and 6a's stem kernels
     python3 chip_smoke.py --profiler  # torch.profiler's window, probed
+    python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -18,7 +19,8 @@ tree too (copy this script into its checkout), for a comparison of
 designs. `--profiler` profiles a CUDA graph's replay and the same forward
 eager, a few hundred times with and without `profiled()`'s idle settle,
 logs how often their device kernel counts differ, and prints no `ok`
-line.
+line. `--cli` runs phase 10 alone on phase 4's weights and engine, and
+prints its `cli` line and no `ok` line.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -150,8 +152,37 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     and counts as its numpy path and rates within 1e-6; then
     `compute_metrics_device` on 5,000 seeded 512-d pairs with spread ranks
     (R@1 about 0.2), checked and timed against numpy;
-10. a `training` JSON line, a `checkpoints` JSON line, one `kernels` JSON
-    line, the card line, and last the `ok` JSON line.
+10. the CLI (`jegal_torch.cli.main.main(argv)` in-process, in a temporary
+    directory under build/, on phase 4's weights written as in phase 9a),
+    each subcommand with every launch counter set to 0 just before and
+    read just after: (a) the libav decoder built from
+    jegal_torch/host/csrc/decoder.cc, four synthetic 270x480 clips (T 125,
+    125, 200, 200) with 16 kHz audio written by `encode_av`, each with its
+    .wav and transcript, verify's two 50-frame samples, and the CSV;
+    where the card machine has no libav the decoder does not build, and
+    `_decode_for_features` is replaced at the host boundary by the numpy
+    repack of the same frames (a log line says so); (b) `convert` of the
+    .pth files and the HF directory to .npz, leaves bit for bit; (c)
+    `infer --modalities vta --profile_dir` on the first clip: launches as
+    phase 4's, the .pkl within abs 1e-4 and min row cosine 0.99999 of
+    `JegalEngine.extract` on the same planar frames, and the band stem's
+    kernel in the trace; (d) `extract-feats --batch_size 4
+    --decode_workers 2`: each .npy within the same bars of
+    `gestsync_features`, every clip stacked on the card from the decode
+    threads' uploads, band stem and block 2 6 launches each (attention and
+    FFN 12, the window head's 6 a chunk), wall seconds
+    and clips/s, then a run that skips all four; (e) `extract-embs
+    --batch_size 4` on those features against `extract_many`, info equal
+    to the CSV row; (f) `eval-retrieval`, `eval-spotting` and `eval-asd`
+    with and without `--on_device`: equal counts and ranks, rates within
+    1e-6; (g) `verify` on goldens the engine wrote: exit 0, and exit 1
+    with one golden row negated; (h) `warmup` at the main path's buckets;
+    (i) `train --steps 3` on phase 7a's corpus: a finite loss, stack 3 and
+    flash 27 launches;
+11. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
+    (each subcommand's wall seconds and launches, whether the decoder was
+    real), one `kernels` JSON line, the card line, and last the `ok` JSON
+    line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
 each shape's per-launch time times the launches a T=125 `vta` clip makes at
@@ -159,7 +190,8 @@ that shape (6 layers in the window head, 6 in the gesture encoder, 3 in the
 text encoder, one XLM-R stack), with each shape's own numbers under
 `per_launch` (a shape with 0 launches per clip is checked and timed, and
 adds nothing). `launches` is the count from phase 4, and
-`launches_validation` that of one forward_validation (phase 9c). The flash
+`launches_validation` that of one forward_validation (phase 9c), and
+`launches_cli` each CLI subcommand's (phase 10). The flash
 attention row is per training step in the same way (6 gesture and 3 text
 launches); its `launches` is the count of one step of phase 7(b), and its
 long-clip shape, 0 launches a step, carries its 6 launches a clip from
@@ -2234,16 +2266,6 @@ def run_audio(eng, loaded, sample):
                 forward_aud_max_abs_err=aud_err, forward_aud_ms=aud_ms)
 
 
-class Rows:
-    """The ASD table as the eval reads it: `iterrows()` of (index, row)."""
-
-    def __init__(self, rows):
-        self.rows = rows
-
-    def iterrows(self):
-        return enumerate(self.rows)
-
-
 def _same_rates(dev: dict, host: dict, what: str, exact=()):
     """Integer fields (`exact`) equal, every rate within 1e-6."""
     bad = [k for k in host if (dev[k] != host[k] if k in exact
@@ -2326,6 +2348,7 @@ def run_eval(eng, root: Path):
 
     import numpy as np
 
+    from jegal_torch.cli.main import Rows
     from jegal_torch.eval import asd, common, retrieval, spotting
 
     res_dir = root / "embs"
@@ -2474,6 +2497,485 @@ def run_checkpoints(gp, jp, rp, engine, sample, raw_res, train_batch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the CLI
+# ---------------------------------------------------------------------------
+
+# the four clips of phase 10: two in the T = 128 bucket, two in 256
+CLI_CLIPS = (125, 125, 200, 200)
+# verify's two samples (T bucket 64)
+VERIFY_T = 50
+
+
+def cli_frames(t: int, seed: int):
+    """A synthetic 270x480 clip that a codec keeps close: a horizontal
+    gradient, a square drifting across it, and low noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.linspace(40, 220, 480).astype(np.uint8)[None, :, None]
+    frames = np.repeat(np.repeat(base, 270, axis=0), 3, axis=2)[None]
+    frames = np.repeat(frames, t, axis=0)
+    for i in range(t):
+        x = (3 * i) % 380
+        frames[i, 120:220, x:x + 100] = (200, 90, 60)
+    return frames + rng.integers(0, 12, frames.shape, dtype=np.uint8)
+
+
+def cli_words(t: int, n: int = 12):
+    """n words over t frames: (word, start s, end s) and the [word, start
+    frame, end frame] boundaries load_text makes of them."""
+    words = SMOKE_TEXT.split(" ")[:n]
+    secs = [(w, round(0.04 * (i * t // n) + 0.04, 2),
+             round(0.04 * ((i + 1) * t // n) - 0.04, 2))
+            for i, w in enumerate(words)]
+    return secs, [[w, round(s * 25), round(e * 25)] for w, s, e in secs]
+
+
+def write_transcript(path: Path, secs):
+    rows = [f"{w}, {s}, {e}, 0.9" for w, s, e in secs]
+    path.write_text("\n".join(["Text: " + " ".join(w for w, _, _ in secs),
+                               "Lang: en", "", "WORD, START, END, SCORE",
+                               *rows]) + "\n")
+
+
+class CliRun:
+    """The port's CLI called in-process: `run(name, argv)` -> (its stdout,
+    the exit code SystemExit gave or 0), with every launch counter set to
+    0 just before and read just after, and its wall seconds, kept by
+    subcommand."""
+
+    def __init__(self):
+        self.walls: dict = {}
+        self.launches: dict = {}
+
+    def run(self, name: str, argv, expect_code: int = 0):
+        import contextlib
+        import io
+
+        from jegal_torch.cli.main import main as cli
+        from jegal_torch.ops.kernels import _build
+
+        out = io.StringIO()
+        code = 0
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli(argv)
+        except SystemExit as e:
+            code = e.code
+        wall = time.perf_counter() - t0
+        self.launches[name] = {k: n for k, n in _build.LAUNCHES.items() if n}
+        self.walls[name] = wall
+        log(f"  python -m jegal_torch {' '.join(argv[:1] + argv[1:9])}"
+            f"{' ...' if len(argv) > 9 else ''}: exit {code} in {wall:.2f} s, "
+            f"launches {self.launches[name]}")
+        if code != expect_code:
+            raise AssertionError(f"{name}: exit {code}, want {expect_code}; "
+                                 f"output {out.getvalue()[-2000:]}")
+        return out.getvalue()
+
+
+def last_json(text: str):
+    """The JSON document the CLI printed last (one line, or indented)."""
+    start = text.rfind("\n{")
+    return json.loads(text[start + 1 if start >= 0 else text.index("{"):])
+
+
+def hold_features(got, want, what: str):
+    """(T, 1024) features of two runs within SLICE_ATOL, each row's cosine
+    within SLICE_MIN_COS."""
+    import numpy as np
+
+    err = float(np.abs(got - want).max())
+    g = got / np.linalg.norm(got, axis=-1, keepdims=True)
+    w = want / np.linalg.norm(want, axis=-1, keepdims=True)
+    cos = float((g * w).sum(-1).min())
+    ok = got.shape == want.shape and err <= SLICE_ATOL and cos >= SLICE_MIN_COS
+    log(f"  {what}: max abs err {err:.3e}, min row cosine {cos:.8f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the runs disagree")
+    return dict(err=err, cos=cos)
+
+
+def trace_has(trace_dir: Path, needle: str) -> int:
+    """Device kernels named with `needle` in the Chrome traces under
+    trace_dir."""
+    n = 0
+    for f in trace_dir.glob("*.json"):
+        for ev in json.loads(f.read_text()).get("traceEvents", []):
+            if ev.get("cat") == "kernel" and needle in ev.get("name", ""):
+                n += 1
+    return n
+
+
+def cli_inputs(root: Path):
+    """Phase 10a: the decoder built (or, where the card machine has no
+    libav, `_decode_for_features` replaced at the host boundary by the
+    numpy repack of the same synthetic frames), four clips and verify's
+    two samples with their .wav and transcripts, and the CSVs. -> dict."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from jegal_torch.cli import main as C
+    from jegal_torch.host import media
+    from jegal_torch.ops.video import FALLBACK_ROWS, s2d_repack
+
+    try:
+        t0 = time.perf_counter()
+        media._get_lib()                  # builds, then loads with libav's
+        real = True
+        log(f"cli: the libav decoder built and loaded in "
+            f"{time.perf_counter() - t0:.2f} s: "
+            f"{media.library_path().relative_to(ROOT)}")
+    except (RuntimeError, OSError) as e:
+        real = False
+        log(f"cli: the libav decoder does not build or load here "
+            f"({str(e).strip().splitlines()[-1][:200]})")
+    videos = root / "videos"
+    clips, frames_of = [], {}
+    for i, t in enumerate(CLI_CLIPS):
+        (videos / f"spk{i}").mkdir(parents=True)
+        name = f"spk{i}/clip{i}"
+        frames = cli_frames(t, SEED + 50 + i)
+        wav = (np.random.default_rng(SEED + 60 + i).standard_normal(t * 640)
+               * 3000).astype(np.int16)
+        secs, wbs = cli_words(t)
+        clips.append(dict(name=name, t=t, secs=secs, wbs=wbs))
+        frames_of[str(videos / f"{name}.avi")] = frames
+        wavfile.write(videos / f"{name}.wav", 16000, wav)
+        write_transcript(videos / f"{name}.txt", secs)
+    samples = root / "samples"
+    samples.mkdir()
+    for i in (1, 2):
+        frames = cli_frames(VERIFY_T, SEED + 70 + i)
+        wav = (np.random.default_rng(SEED + 72 + i).standard_normal(
+            VERIFY_T * 640) * 3000).astype(np.int16)
+        frames_of[str(samples / f"sample{i}.avi")] = frames
+        wavfile.write(samples / f"sample{i}.wav", 16000, wav)
+        write_transcript(samples / f"sample{i}.txt", cli_words(VERIFY_T, 6)[0])
+    if real:
+        t0 = time.perf_counter()
+        for path, frames in frames_of.items():
+            wav_path = Path(path).with_suffix(".wav")
+            _, wav = wavfile.read(wav_path)
+            media.encode_av(path, frames, wav)
+        log(f"  {len(frames_of)} clips written by encode_av (mpeg4 + AAC) "
+            f"in {time.perf_counter() - t0:.2f} s")
+        decode = C._decode_for_features
+    else:
+        def decode(video_path, planar=True):
+            frames = frames_of[video_path]
+            cuts = np.full((frames.shape[0],), FALLBACK_ROWS, np.int32)
+            return (s2d_repack(frames, cuts), None) if planar \
+                else (frames, None)
+
+        C._decode_for_features = decode
+        log("cli: DECODE SUBSTITUTED: jegal_torch.cli.main."
+            "_decode_for_features is the numpy repack (ops/video.s2d_repack, "
+            "fallback chin rows) of the synthetic frames kept in memory; "
+            "everything from the planar frames on is the CLI's own")
+    names = [c["name"] for c in clips]
+    rows = ["filename,phrase,word_boundaries,target_word_boundary,"
+            "neg_files,start"]
+    for i, c in enumerate(clips):
+        phrase = " ".join(w for w, _, _ in c["secs"])
+        negs = [n for n in names if n != c["name"]]
+        rows.append(",".join([c["name"], phrase, json.dumps(str(c["wbs"])),
+                              json.dumps(str(c["wbs"][(3 * i) % 12])),
+                              json.dumps(str(negs)), str(10 * i)]))
+    (root / "set.csv").write_text("\n".join(rows) + "\n")
+    return dict(real=real, clips=clips, decode=decode, videos=videos,
+                samples=samples, csv=root / "set.csv")
+
+
+def run_cli(gp, jp, rp, engine):
+    """Phase 10: the CLI's device subcommands in-process, at full width on
+    phase 4's weights written as reference-format files: (a) inputs, (b)
+    convert, (c) infer, (d) extract-feats, (e) extract-embs, (f) the evals,
+    (g) verify, (h) warmup, (i) train. -> the `cli` line's dict."""
+    import math
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from jegal_torch import api
+    from jegal_torch.cli import main as C
+    from jegal_torch.convert import checkpoints as CK
+    from jegal_torch.convert import init_gestsync_audio_params
+    from jegal_torch.data.datasets import read_csv
+    from jegal_torch.host.media import load_audio_any
+    from jegal_torch.text.normalize import load_text
+    from jegal_torch.text.tokenizer import WordTokenizer
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    runs = CliRun()
+    from_file = WordTokenizer.__dict__["from_file"]
+    decode = C._decode_for_features
+    WordTokenizer.from_file = classmethod(
+        lambda cls, path, **kw: cls(PieceTokenizer(), **kw))
+    log("cli: --tokenizer_path resolves to a WordTokenizer over "
+        "PieceTokenizer (WordTokenizer.from_file patched in chip_smoke.py; "
+        "the card machine has no tokenizers wheel)")
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            root = Path(tmp)
+            inp = cli_inputs(root)
+            out["decoder_real"] = inp["real"]
+
+            # (b) convert: reference-format files -> .npz, bit for bit
+            gs_tree = dict(gp, **init_gestsync_audio_params(
+                torch.Generator().manual_seed(SEED + 11)))
+            rp_tree = {"embeddings": rp["embeddings"], "layers": rp["layers"]}
+            src, _ = write_checkpoints(root, gs_tree, jp, rp_tree)
+            npz = {k: root / f"{k}.npz" for k in src}
+            for name in ("gestsync", "jegal", "roberta"):
+                runs.run(f"convert {name}", ["convert", "--model", name,
+                                             "--src", str(src[name]),
+                                             "--dst", str(npz[name])])
+            same_leaves(CK.load_npz(str(npz["gestsync"])), gs_tree,
+                        "convert gestsync")
+            same_leaves(CK.load_npz(str(npz["jegal"])), jp, "convert jegal")
+            same_leaves(CK.load_roberta(str(npz["roberta"]))[0], rp_tree,
+                        "convert roberta")
+            ckpt = ["--checkpoint_path_jegal", str(npz["jegal"]),
+                    "--checkpoint_path_gestsync", str(npz["gestsync"]),
+                    "--roberta_path", str(npz["roberta"]),
+                    "--tokenizer_path", "piece-tokenizer"]
+
+            # (c) infer vta on one clip, profiled
+            c0 = inp["clips"][0]
+            video = inp["videos"] / f"{c0['name']}.avi"
+            trace_dir = root / "trace"
+            res = root / "infer"
+            t0 = time.perf_counter()
+            _, ran = drive_call(lambda: runs.run("infer", [
+                "infer", *ckpt, "--modalities", "vta", "--video_path",
+                str(video), "--text_path", str(video.with_suffix(".txt")),
+                "--audio_path", str(video.with_suffix(".wav")),
+                "--res_dir", str(res), "--profile_dir", str(trace_dir)]),
+                VTA_LAUNCHES, "infer --modalities vta")
+            with open(res / "clip0.pkl", "rb") as f:
+                got = pickle.load(f)
+            planar, _ = inp["decode"](str(video))
+            text, wbs = load_text(str(video.with_suffix(".txt")))
+            want = engine.extract(
+                modalities="vta", frames=planar, text=text,
+                word_boundaries=wbs,
+                wav=load_audio_any(str(video.with_suffix(".wav"))),
+                fname="clip0")
+            check_embeddings(got, c0["t"], 12)
+            out["infer"] = dict(compare(got, want,
+                                        "infer vs JegalEngine.extract"),
+                                replayed=ran)
+            n_band = trace_has(trace_dir, "stem_band_kernel")
+            log(f"  the --profile_dir trace holds {n_band} stem_band_kernel "
+                f"device kernels")
+            if not n_band:
+                raise AssertionError("infer: the trace has no band stem "
+                                     "kernel")
+            out["infer"]["trace_stem_band_kernels"] = n_band
+
+            # (d) extract-feats over the four clips, uploads on the decode
+            # threads
+            stacked = []
+            stack = api.JegalEngine._stack_on_device
+
+            def counted(fr, clips):
+                stacked.extend(f.device.type for f, _ in clips)
+                return stack(fr, clips)
+
+            api.JegalEngine._stack_on_device = staticmethod(counted)
+            feats_dir = root / "feats"
+            argv = ["extract-feats", "--file_path", str(inp["csv"]),
+                    "--video_dir", str(inp["videos"]), "--res_dir",
+                    str(feats_dir), "--checkpoint_path", str(npz["gestsync"]),
+                    "--batch_size", "4", "--decode_workers", "2"]
+            try:
+                stats = last_json(runs.run("extract-feats", argv))
+            finally:
+                api.JegalEngine._stack_on_device = staticmethod(stack)
+            wall = runs.walls["extract-feats"]
+            # a stem and a block-2 launch a padded clip and 160-frame
+            # piece; the window head's 6 attention and FFN sublayers a chunk
+            tower, chunks = many_launches([dict(frames=np.empty((t, 1)))
+                                           for t in CLI_CLIPS], 4, {})
+            want_launches = dict(stem_band=tower["stem_band"],
+                                 conv2=tower["conv2"],
+                                 attn_sublayer=6 * chunks,
+                                 ffn_sublayer=6 * chunks)
+            log(f"  extract-feats: {stats}; {wall:.2f} s, "
+                f"{len(CLI_CLIPS) / wall:.2f} clips/s (engine load and "
+                f"decode included); {len(stacked)} clips stacked on "
+                f"{set(stacked)}")
+            if stats != {"done": 4, "skipped": 0, "failed": 0}:
+                raise AssertionError(f"extract-feats: {stats}")
+            if stacked != ["cuda"] * 4:
+                raise AssertionError(f"extract-feats: the clips were not "
+                                     f"stacked on the card: {stacked}")
+            if runs.launches["extract-feats"] != want_launches:
+                raise AssertionError(f"extract-feats: launches "
+                                     f"{runs.launches['extract-feats']}, "
+                                     f"want {want_launches}")
+            worst = dict(err=0.0, cos=1.0)
+            decode_s = []
+            for c in inp["clips"]:
+                t0 = time.perf_counter()
+                planar, _ = inp["decode"](str(inp["videos"]
+                                              / f"{c['name']}.avi"))
+                decode_s.append(time.perf_counter() - t0)
+                r = hold_features(np.load(feats_dir / f"{c['name']}.npy"),
+                                  engine.gestsync_features(planar),
+                                  f"extract-feats {c['name']} vs "
+                                  f"gestsync_features")
+                worst = dict(err=max(worst["err"], r["err"]),
+                             cos=min(worst["cos"], r["cos"]))
+            again = last_json(runs.run("extract-feats (resume)", argv))
+            if again != {"done": 0, "skipped": 4, "failed": 0}:
+                raise AssertionError(f"extract-feats resume: {again}")
+            out["extract_feats"] = dict(
+                wall_s=wall, clips_per_s=len(CLI_CLIPS) / wall,
+                clips_stacked_on_card=len(stacked), vs_engine=worst,
+                decode_ms_per_clip=(1e3 * statistics.mean(decode_s)
+                                    if inp["real"] else None))
+
+            # (e) extract-embs on those features
+            embs_root = root / "embs"
+            stats = last_json(runs.run("extract-embs", [
+                "extract-embs", "--file_path", str(inp["csv"]),
+                "--checkpoint_path", str(npz["jegal"]), *ckpt[4:],
+                "--res_dir", str(embs_root), "--video_dir",
+                str(inp["videos"]), "--feature_dir", str(feats_dir),
+                "--batch_size", "4"]))
+            if stats != {"done": 4, "skipped": 0, "failed": 0, "invalid": 0}:
+                raise AssertionError(f"extract-embs: {stats}")
+            rows = read_csv(str(inp["csv"]))
+            direct = engine.extract_many([dict(
+                visual_feats=np.load(feats_dir / f"{r['filename']}.npy"),
+                text=r["phrase"], word_boundaries=c["wbs"],
+                wav=wavfile.read(inp["videos"] / f"{r['filename']}.wav")[1]
+                .astype(np.float32)) for r, c in zip(rows, inp["clips"])],
+                modalities="vta", batch_size=4)
+            embs_dir = embs_root / "vta"
+            worst = dict(err=0.0, cos=1.0)
+            for r, want in zip(rows, direct):
+                a, b = r["filename"].split("/")
+                with open(embs_dir / f"{a}__{b}.pkl", "rb") as f:
+                    got = pickle.load(f)
+                if got["info"] != r:
+                    raise AssertionError(f"extract-embs info {got['info']} "
+                                         f"!= the CSV row {r}")
+                e = compare(got, want, f"extract-embs {r['filename']} vs "
+                                       f"extract_many")
+                worst = dict(err=max(worst["err"], e["err"]),
+                             cos=min(worst["cos"], e["cos"]))
+            out["extract_embs"] = dict(wall_s=runs.walls["extract-embs"],
+                                       vs_extract_many=worst)
+
+            # (f) the evals, host and device
+            evals = {}
+            for name, extra in (("eval-retrieval", []),
+                                ("eval-spotting", []),
+                                ("eval-asd", ["--file", str(inp["csv"])])):
+                argv = [name, "--path", str(embs_dir), *extra]
+                host = last_json(runs.run(name, argv))
+                dev = last_json(runs.run(f"{name} --on_device",
+                                         argv + ["--on_device"]))
+                for key in host if name == "eval-retrieval" else [None]:
+                    d, h = (dev[key], host[key]) if key else (dev, host)
+                    _same_rates(d, h, f"{name}{' ' + key if key else ''}",
+                                exact=("MR", "correct", "total",
+                                       "evaluated"))
+                evals[name] = dev
+            out["evals"] = evals
+
+            # (g) verify against goldens the engine wrote
+            golden = root / "golden"
+            golden.mkdir()
+            for i in (1, 2):
+                base = inp["samples"] / f"sample{i}"
+                planar, _ = inp["decode"](str(base.with_suffix(".avi")))
+                text, wbs = load_text(str(base.with_suffix(".txt")))
+                wav = load_audio_any(str(base.with_suffix(".wav")))
+                for combo in ("vta", "vt", "va", "ta", "v", "t", "a"):
+                    g = engine.extract(
+                        modalities=combo,
+                        frames=planar if "v" in combo else None,
+                        text=text if "t" in combo else None,
+                        word_boundaries=wbs,
+                        wav=wav if "a" in combo else None,
+                        fname=f"sample{i}_{combo}")
+                    with open(golden / f"sample{i}_{combo}.pkl", "wb") as f:
+                        pickle.dump(g, f)
+            argv = ["verify", *ckpt, "--samples_dir", str(inp["samples"]),
+                    "--golden_dir", str(golden)]
+            verdict = last_json(runs.run("verify", argv + [
+                "--res_dir", str(root / "verify")]))
+            log(f"  verify: ok {verdict['ok']}, combos {verdict['combos']}, "
+                f"retrieval smoke {verdict.get('retrieval_smoke')}")
+            if not verdict["ok"] or len(verdict["combos"]) != 7:
+                raise AssertionError(f"verify: {verdict}")
+            with open(golden / "sample2_vta.pkl", "rb") as f:
+                g = pickle.load(f)
+            g["gesture_emb"][3] = -g["gesture_emb"][3]
+            with open(golden / "sample2_vta.pkl", "wb") as f:
+                pickle.dump(g, f)
+            bad = last_json(runs.run("verify (one golden row negated)",
+                                     argv + ["--res_dir",
+                                             str(root / "verify_bad")],
+                                     expect_code=1))
+            failed = [(s, c) for s, rep in bad["samples"].items()
+                      for c, r in rep.items() if not r["ok"]]
+            log(f"  verify with sample2_vta's gesture row 3 negated: exit 1, "
+                f"failed {failed}")
+            if failed != [("sample2", "vta")]:
+                raise AssertionError(f"verify: failed {failed}")
+            out["verify"] = dict(combos=verdict["combos"], failed_bad=failed)
+
+            # (h) warmup at the main path's buckets
+            table = last_json(runs.run("warmup", [
+                "warmup", "--checkpoint_path", str(npz["jegal"]),
+                *ckpt[2:], "--modalities", "vta", "--t_buckets", "128",
+                "--s_buckets", "32", "--w_buckets", "16", "--mel_buckets",
+                "512"]))
+            log(f"  warmup: {table}")
+            out["warmup"] = table
+
+            # (i) train on phase 7a's corpus
+            corpus = root / "corpus"
+            corpus.mkdir()
+            csv, feat_dir = write_corpus(corpus)
+            result = last_json(runs.run("train", [
+                "train", "--file_path", str(csv), "--feature_dir",
+                str(feat_dir), "--checkpoint_path", str(npz["jegal"]),
+                "--roberta_path", str(npz["roberta"]), "--tokenizer_path",
+                "piece-tokenizer", "--steps", "3", "--batch_size", "8",
+                "--log_path", str(corpus / "train.jsonl")]))
+            log(f"  train: {result}")
+            if result["steps"] != 3 or not math.isfinite(
+                    result["final_loss"]):
+                raise AssertionError(f"train: {result}")
+            if runs.launches["train"] != {"encoder_stack": 3,
+                                          "flash_attention": 27}:
+                raise AssertionError(f"train: launches "
+                                     f"{runs.launches['train']}")
+            out["train"] = result
+    finally:
+        WordTokenizer.from_file = from_file
+        C._decode_for_features = decode
+    out["walls_s"] = runs.walls
+    out["launches"] = runs.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"cli: phase 10 took {out['phase_s']:.1f} s")
+    return out
+
+
 def smoke_text_ids():
     """The smoke text as the engine tokenizes it: (1, 32) ids padded to its
     S bucket, and the (1, 32) key mask."""
@@ -2496,9 +2998,10 @@ def smoke_text_ids():
 def main() -> int:
     global CHECK_KERNEL_COUNTS
     mode = sys.argv[1:]
-    if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"]):
-        print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler]",
-              file=sys.stderr)
+    if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"],
+                    ["--cli"]):
+        print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler | "
+              f"--cli]", file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -2549,6 +3052,13 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
+    if mode == ["--cli"]:        # phase 10 alone, on phase 4's engine
+        from jegal_torch.api import JegalEngine
+
+        engine = JegalEngine(jp, gp, roberta_params=rp,
+                             tokenizer=word_tokenizer())
+        log(json.dumps({"cli": run_cli(gp, jp, rp, engine)}))
+        return 0
     if mode == ["--encoders"]:   # phase 3's encoder kernels, reported
         CHECK_KERNEL_COUNTS = False
         sub = check_sublayers(gp, jp, dev, mask32[0])
@@ -2582,6 +3092,7 @@ def main() -> int:
     launches["flash_attention"] = step_launches["flash_attention"]
     checkpoints = run_checkpoints(gp, jp, rp, engine, sample, raw_res,
                                   train_batch)
+    cli = run_cli(gp, jp, rp, engine)
 
     rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
@@ -2657,8 +3168,22 @@ def main() -> int:
         if row["name"] in VALIDATION_LAUNCHES:
             row["launches_validation"] = \
                 checkpoints["validation"]["launches"][row["name"]]
+        # each CLI subcommand's counts in phase 10 (eager runs and captures)
+        row["launches_cli"] = {cmd: n[row["name"]]
+                               for cmd, n in cli["launches"].items()
+                               if n.get(row["name"])}
+    for name, cmds in (("stem_band", ("infer", "extract-feats")),
+                       ("conv2", ("infer", "extract-feats")),
+                       ("attn_sublayer", ("infer", "extract-embs")),
+                       ("ffn_sublayer", ("infer", "extract-embs")),
+                       ("encoder_stack", ("infer", "extract-embs", "train")),
+                       ("flash_attention", ("train",))):
+        for cmd in cmds:
+            if not cli["launches"][cmd].get(name):
+                raise AssertionError(f"{name}: no launch in the CLI's {cmd}")
     log(json.dumps({"training": training}))
     log(json.dumps({"checkpoints": checkpoints}))
+    log(json.dumps({"cli": cli}))
     log(json.dumps({"kernels": kernels}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {

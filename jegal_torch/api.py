@@ -95,11 +95,15 @@ class ClientError(ValueError):
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device without a card raises."""
+    """torch.device for `device` ("cuda" becomes the current card's
+    index); a CUDA device without a card raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        # indexed, so that it compares equal to a tensor's device
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -325,9 +329,15 @@ class JegalEngine:
         None); a call is all raw or all planar. Clips of one T bucket run
         as one batched tower call per chunk of batch_size (padded to the
         power-of-two ladder), through the depth-1 pipeline. -> per clip
-        (T, 1024) features (device tensors with as_device=True)."""
+        (T, 1024) features (device tensors with as_device=True).
+
+        The frames are host arrays, or uint8 tensors the caller already put
+        on the engine's device (the extract-feats driver uploads on its
+        decode threads): those stack on the device and never come back to
+        the host. A call mixing the two is a client error."""
         self._gestsync()
-        kinds = {self._frames_kind(np.asarray(f)) for f, _ in clips}
+        on_device = self._clips_on_device(clips)
+        kinds = {self._frames_kind(f) for f, _ in clips}
         if len(kinds) > 1:
             raise ClientError("clips must be all raw or all planar")
         kind = kinds.pop() if kinds else "raw"
@@ -349,30 +359,56 @@ class JegalEngine:
             self._pipeline(
                 ((chunk, feats if as_device else self._start_fetch(feats))
                  for chunk, feats in self._tower_chunks(
-                     groups, clips.__getitem__, batch_size)),
+                     groups, clips.__getitem__, batch_size, on_device)),
                 settle)
         return results
 
-    def _tower_chunks(self, groups: dict, clip_of, batch_size: int):
+    def _clips_on_device(self, clips) -> bool:
+        """True when every clip's frames are a tensor on the engine's
+        device, False when every clip's are on the host (numpy or a CPU
+        tensor); a mix, or frames on another device, is a client error."""
+        where = {isinstance(f, torch.Tensor) and f.device.type != "cpu"
+                 for f, _ in clips}
+        if len(where) > 1:
+            raise ClientError("clips must be all host arrays or all tensors "
+                              "on the engine's device, not a mix")
+        if where == {True} and any(f.device != self.device
+                                   for f, _ in clips):
+            raise ClientError(f"clip frames on another device than the "
+                              f"engine's {self.device}")
+        return where == {True}
+
+    def _tower_chunks(self, groups: dict, clip_of, batch_size: int,
+                      on_device: bool = False):
         """The batched tower's dispatches of gestsync_features_from_raw_many
         (eager: extract_many's chunks replay graphs instead). groups: {(kind,
         T bucket): [clip indices]}; clip_of(i) -> (frames, chin_rows |
         None). Each group runs in chunks of batch_size, padded to the
-        power-of-two ladder, stacked in pinned memory and uploaded, through
-        one batched tower call a chunk. Yields (chunk, features (b, T
-        bucket, 1024) on the device)."""
+        power-of-two ladder, through one batched tower call a chunk: host
+        clips stacked in pinned memory and uploaded, device clips
+        (on_device) stacked on the device by device-to-device copies
+        (`_stack_on_device`). Yields (chunk, features (b, T bucket, 1024)
+        on the device)."""
         for (kind, t_bucket), idxs in groups.items():
             for lo in range(0, len(idxs), batch_size):
                 chunk = idxs[lo:lo + batch_size]
+                clips = [clip_of(i) for i in chunk]
                 b = batch_ladder(len(chunk), batch_size)
                 pinned = self.device.type == "cuda"
-                fr = torch.empty((b, t_bucket) + FRAME_SHAPES[kind],
-                                 dtype=torch.uint8, pin_memory=pinned)
+                shape = (b, t_bucket) + FRAME_SHAPES[kind]
                 cut = None if kind == "planar" else torch.empty(
                     (b, t_bucket), dtype=torch.int64, pin_memory=pinned)
-                self._fill_frames(fr.numpy(), None if cut is None
-                                  else cut.numpy(),
-                                  [clip_of(i) for i in chunk])
+                if on_device:
+                    fr = torch.empty(shape, dtype=torch.uint8,
+                                     device=self.device)
+                    self._stack_on_device(fr, clips)
+                    if cut is not None:
+                        self._fill_cut(cut.numpy(), clips)
+                else:
+                    fr = torch.empty(shape, dtype=torch.uint8,
+                                     pin_memory=pinned)
+                    self._fill_frames(fr.numpy(), None if cut is None
+                                      else cut.numpy(), clips)
                 feats = self._tower(kind, self._to_device(fr),
                                     None if cut is None
                                     else self._to_device(cut), batched=True)
@@ -414,20 +450,39 @@ class JegalEngine:
         edge-repeats its last frame (and chin row) to the bucket, the frames
         of rows past n are zeros. Every element is written (the buffers of
         a graph are reused)."""
-        for bi, (frames, chin) in enumerate(clips):
+        for bi, (frames, _) in enumerate(clips):
             if isinstance(frames, torch.Tensor):
                 frames = frames.cpu()
             frames = np.asarray(frames)
             t = frames.shape[0]
             fr[bi, :t] = frames
             fr[bi, t:] = frames[-1]
-            if cut is not None:
-                cr = self._chin(chin, t)
-                cut[bi, :t] = cr
-                cut[bi, t:] = cr[-1]
         fr[len(clips):] = 0
         if cut is not None:
-            cut[len(clips):] = FALLBACK_ROWS
+            self._fill_cut(cut, clips)
+
+    @staticmethod
+    def _stack_on_device(fr, clips) -> None:
+        """`_fill_frames`'s frames for clips already on the device: each
+        clip copied into the device batch fr (b, T bucket, ...) by a
+        device-to-device copy, its last frame repeated to the bucket, rows
+        past n zeros."""
+        for bi, (frames, _) in enumerate(clips):
+            t = frames.shape[0]
+            fr[bi, :t].copy_(frames)
+            fr[bi, t:] = frames[-1]
+        fr[len(clips):] = 0
+
+    def _fill_cut(self, cut, clips) -> None:
+        """The chin rows of n <= b raw clips into the host batch cut (b, T
+        bucket), each clip's last row repeated to the bucket and the
+        fallback row past n."""
+        for bi, (frames, chin) in enumerate(clips):
+            t = frames.shape[0]
+            cr = self._chin(chin, t)
+            cut[bi, :t] = cr
+            cut[bi, t:] = cr[-1]
+        cut[len(clips):] = FALLBACK_ROWS
 
     # ------------------------------------------------------------------
     # Host-side preparation

@@ -1,0 +1,798 @@
+"""The port's command-line drivers: `python -m jegal_torch <subcommand>`,
+the device subcommands of the JAX package's cli/main.py with its flags and
+names.
+
+  infer           <- inference_embs.py       (single sample, 7 modality combos)
+  extract-feats   <- preprocess/extract_gestsync_feats.py  (CSV -> .npy bank)
+  extract-embs    <- evaluation/extract_jegal_embs.py      (CSV -> .pkl dir)
+  eval-retrieval  <- evaluation/evaluate_retrieval.py
+  eval-spotting   <- evaluation/evaluate_spotting.py
+  eval-asd        <- evaluation/evaluate_asd.py
+  heatmap         <- utils/plot_heatmap.py
+  verify          one-command verification against goldens (verify.py)
+  warmup          capture the engine's graphs ahead of traffic
+  convert         torch .pth / HF -> .npz (both packages read the files)
+  train           contrastive JEGAL training (training/loop.py)
+
+One flag the JAX CLI lacks: `--device` (default `cuda`) on every
+subcommand that computes on a device; `--device cpu` runs the port's plain
+CPU path (the JAX CLI takes that choice from JAX_PLATFORMS). Without a card
+a `cuda` run raises: nothing falls back to the CPU. `--bf16` and
+`--data_parallel` (and `train --model_parallel` above 1) exit with the
+ROADMAP item that will bring them.
+
+The JAX CLI's persistent XLA compilation cache (`setup_compilation_cache`)
+has no counterpart here: the port compiles its CUDA kernels once into
+build/jegal_torch_kernels/ and its decoder into build/jegal_torch_host/,
+each named by a digest of its source, and later processes load them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import threading
+
+COMBOS = ["vta", "vt", "va", "ta", "v", "t", "a"]
+NOT_YET = {
+    "bf16": "--bf16 needs the bf16 engine, ROADMAP queue 1 item 3 (bf16); "
+            "the port computes in float32",
+    "data_parallel": "--data_parallel needs the multi-GPU port, ROADMAP "
+                     "queue 1 item 4 (multi-GPU)",
+}
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to compute on (default: the card; "
+                        "'cpu' for the plain CPU path)")
+
+
+def _add_shard(p):
+    p.add_argument("--rank", type=int, default=None,
+                   help="file-shard index (default: torch.distributed's "
+                        "rank when it is initialized, else 0)")
+    p.add_argument("--nshard", type=int, default=None,
+                   help="file-shard count (default: torch.distributed's "
+                        "world size when it is initialized, else 1)")
+
+
+def _add_infer(sub):
+    p = sub.add_parser("infer", help="extract JEGAL embeddings for one sample")
+    p.add_argument("--checkpoint_path_gestsync", type=str, default=None)
+    p.add_argument("--checkpoint_path_jegal", type=str, required=True)
+    p.add_argument("--roberta_path", type=str, default=None,
+                   help="HF xlm-roberta-base checkpoint (dir/.bin/.safetensors) or .npz")
+    p.add_argument("--tokenizer_path", type=str, default=None,
+                   help="tokenizers-format tokenizer.json (xlm-roberta-base)")
+    p.add_argument("--modalities", type=str, default="vta", choices=COMBOS)
+    p.add_argument("--video_path", type=str, default=None)
+    p.add_argument("--text_path", type=str, default=None)
+    p.add_argument("--audio_path", type=str, default=None)
+    p.add_argument("--res_dir", type=str, default="results")
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--fusion_strategy", default="concat",
+                   choices=["concat", "avg"])
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (Chrome trace JSON) "
+                        "of the extraction into this directory")
+    _add_device(p)
+
+
+def _add_common_eval(sub, name, help_):
+    p = sub.add_parser(name, help=help_)
+    p.add_argument("--path", type=str, required=True,
+                   help="directory of extracted .pkl embeddings")
+    return p
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="jegal_torch", description="JEGAL on PyTorch and CUDA")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    _add_infer(sub)
+
+    p = sub.add_parser("extract-feats",
+                       help="GestSync visual features for a CSV of videos")
+    p.add_argument("--file_path", required=True, help="CSV with filename column")
+    p.add_argument("--video_dir", required=True)
+    p.add_argument("--res_dir", required=True)
+    p.add_argument("--checkpoint_path", required=True)
+    _add_shard(p)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help=">1 stacks same-length clips into one batched "
+                        "GestSync tower call")
+    p.add_argument("--decode_workers", type=int, default=4,
+                   help="parallel C++ decode threads feeding the device "
+                        "loop (the ctypes call releases the GIL, so "
+                        "threads scale)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help=NOT_YET["data_parallel"])
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    _add_device(p)
+
+    p = sub.add_parser("extract-embs",
+                       help="JEGAL embeddings for a CSV (batch)")
+    p.add_argument("--file_path", required=True)
+    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--roberta_path", default=None)
+    p.add_argument("--tokenizer_path", default=None)
+    p.add_argument("--res_dir", required=True)
+    p.add_argument("--video_dir", required=True)
+    p.add_argument("--feature_dir", required=True)
+    p.add_argument("--modalities", default="vta", choices=COMBOS)
+    _add_shard(p)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help=">1 groups samples into device batches")
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    _add_device(p)
+
+    p = _add_common_eval(sub, "eval-retrieval", "AVS-Ret cross-modal retrieval")
+    p.add_argument("--on_device", action="store_true",
+                   help="similarity and rank math on the device")
+    _add_device(p)
+
+    p = _add_common_eval(sub, "eval-spotting", "AVS-Spot word spotting")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--frame_threshold", type=int, default=9)
+    p.add_argument("--on_device", action="store_true",
+                   help="attention and argmax math on the device")
+    _add_device(p)
+
+    p = _add_common_eval(sub, "eval-asd", "AVS-Asd active speaker detection")
+    p.add_argument("--file", type=str, required=True, help="AVS-Asd CSV")
+    p.add_argument("--on_device", action="store_true",
+                   help="candidate scoring on the device")
+    _add_device(p)
+
+    p = sub.add_parser("heatmap", help="word-frame attention heatmap")
+    p.add_argument("--path", required=True, help=".pkl embedding file")
+    p.add_argument("--fname", default="heatmap")
+
+    p = sub.add_parser("verify",
+                       help="one-command real-weight verification: extract "
+                            "the demo samples under every combo, diff "
+                            "against reference goldens, smoke the evals")
+    p.add_argument("--checkpoint_path_jegal", required=True)
+    p.add_argument("--checkpoint_path_gestsync", default=None)
+    p.add_argument("--roberta_path", default=None)
+    p.add_argument("--tokenizer_path", default=None)
+    p.add_argument("--samples_dir", required=True,
+                   help="directory with sample{1,2}.{avi,wav,txt} "
+                        "(the reference repo's samples/)")
+    p.add_argument("--golden_dir", default=None,
+                   help="reference-generated .pkl goldens "
+                        "(<sample>_<combo>.pkl); omit to only check "
+                        "schema/shapes")
+    p.add_argument("--res_dir", default="verify_out")
+    p.add_argument("--tolerance", type=float, default=1e-3,
+                   help="per-row cosine must exceed 1 - tolerance")
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    _add_device(p)
+
+    p = sub.add_parser("warmup",
+                       help="capture the engine's graphs ahead of traffic")
+    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--roberta_path", default=None)
+    p.add_argument("--tokenizer_path", default=None)
+    p.add_argument("--checkpoint_path_gestsync", default=None)
+    p.add_argument("--all_combos", action="store_true",
+                   help="warm every modality combo (default: only --modalities)")
+    p.add_argument("--modalities", default="vta", choices=COMBOS)
+    p.add_argument("--t_buckets", type=int, nargs="+", default=[128])
+    p.add_argument("--s_buckets", type=int, nargs="+", default=[64])
+    p.add_argument("--w_buckets", type=int, nargs="+", default=[16])
+    p.add_argument("--mel_buckets", type=int, nargs="+", default=[512])
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    _add_device(p)
+
+    p = sub.add_parser("convert", help="convert checkpoints to .npz")
+    p.add_argument("--model", required=True,
+                   choices=["gestsync", "jegal", "roberta"])
+    p.add_argument("--src", required=True)
+    p.add_argument("--dst", required=True)
+
+    p = sub.add_parser("train", help="contrastive JEGAL training")
+    p.add_argument("--file_path", required=True,
+                   help="CSV with filename,text_path,audio_path columns")
+    p.add_argument("--feature_dir", required=True,
+                   help="GestSync feature bank (.npy per clip)")
+    p.add_argument("--checkpoint_path", default=None,
+                   help="initial JEGAL weights (.pth/.npz); random init if absent")
+    p.add_argument("--roberta_path", required=True)
+    p.add_argument("--tokenizer_path", required=True)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=0,
+                   help="linear LR warmup steps")
+    p.add_argument("--cosine_decay", action="store_true",
+                   help="cosine-decay the LR to 0 over --steps")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient accumulation micro-steps per update")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute branch forwards in the backward pass")
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--ckpt_every", type=int, default=500)
+    p.add_argument("--log_path", default=None)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help=">1 needs the multi-GPU port, ROADMAP queue 1 "
+                        "item 4 (multi-GPU)")
+    p.add_argument("--seed", type=int, default=0)
+    _add_device(p)
+
+    return ap
+
+
+def _load_engine(args, need_gestsync=False):
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.convert import checkpoints as C
+
+    jegal_params = C.load_jegal(
+        getattr(args, "checkpoint_path_jegal", None) or args.checkpoint_path)
+    roberta_params = None
+    roberta_cfg = None
+    if getattr(args, "roberta_path", None):
+        roberta_params, roberta_cfg = C.load_roberta(args.roberta_path)
+    gestsync_params = None
+    gs_path = getattr(args, "checkpoint_path_gestsync", None)
+    if gs_path:
+        gestsync_params = C.load_gestsync(gs_path)
+    elif need_gestsync:
+        raise SystemExit("--checkpoint_path_gestsync is required for modality 'v'")
+    tokenizer = None
+    if getattr(args, "tokenizer_path", None):
+        from jegal_torch.text.tokenizer import WordTokenizer
+
+        tokenizer = WordTokenizer.from_file(args.tokenizer_path)
+    kw = {"fusion_strategy": getattr(args, "fusion_strategy", "concat")}
+    if roberta_cfg is not None:
+        kw["roberta_cfg"] = roberta_cfg
+    return JegalEngine(
+        jegal_params=jegal_params,
+        roberta_params=roberta_params,
+        gestsync_params=gestsync_params,
+        tokenizer=tokenizer,
+        device=args.device,
+        **kw,
+    )
+
+
+def cmd_infer(args):
+    import contextlib
+
+    from jegal_torch.text.normalize import load_text
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile_dir:
+        from jegal_torch.utils.profiling import trace
+
+        profile_ctx = trace(args.profile_dir)
+
+    # modality-specific input validation (reference inference_embs.py:649-667)
+    if "v" in args.modalities and args.video_path is None:
+        raise SystemExit("--video_path must be specified for modality 'v'")
+    if "a" in args.modalities and args.audio_path is None:
+        raise SystemExit("--audio_path must be specified for modality 'a'")
+    if "t" in args.modalities and args.text_path is None and args.audio_path is None:
+        raise SystemExit("for modality 't', specify --text_path or --audio_path "
+                         "(text can be transcribed from audio)")
+
+    engine = _load_engine(args, need_gestsync="v" in args.modalities)
+
+    text = word_boundaries = wav = frames = chin_rows = None
+    fname = None
+
+    if "v" in args.modalities:
+        # decode (+ keypoints) and the planar repack on the host; the mask,
+        # the GestSync tower and the JEGAL forward then run as one graph
+        # in engine.extract(frames=...), the (T, 1024) features never
+        # leaving the device (reference inference_embs.py:526-646 makes
+        # two model calls)
+        decoded = _decode_for_features(args.video_path)
+        if decoded is None:
+            print("The gestures in the input video are not visible! "
+                  "Please give a video with visible gestures as input.")
+            sys.exit(0)
+        frames, chin_rows = decoded
+        print(f"Input video frames (decoder-repacked s2d): {frames.shape}")
+        fname = os.path.basename(args.video_path).split(".")[0]
+
+    # the reference loads the transcript whenever --text_path is given —
+    # audio-only combos still take their word boundaries from it
+    # (inference_embs.py:573-604 nulls `text` only after loading)
+    if args.text_path is not None:
+        text, wbs = load_text(args.text_path)
+        word_boundaries = wbs
+        if "t" in args.modalities:
+            fname = fname or os.path.basename(args.text_path).split(".")[0]
+
+    if "a" in args.modalities:
+        from jegal_torch.host.media import load_audio_any
+
+        wav = load_audio_any(args.audio_path)
+        fname = fname or os.path.basename(args.audio_path).split(".")[0]
+
+    # transcribe whenever word boundaries are still needed and audio is
+    # available — including 't'-only runs with just --audio_path (the
+    # reference's documented contract, inference_embs.py:663-667); 'v'-only
+    # runs never need boundaries
+    needs_boundaries = "t" in args.modalities or "a" in args.modalities
+    if needs_boundaries and word_boundaries is None and args.audio_path is not None:
+        print("Getting word boundaries via ASR backend...")
+        tf = _transcribe(args.audio_path, args.res_dir)
+        text, word_boundaries = load_text(tf)
+        fname = fname or os.path.basename(args.audio_path).split(".")[0]
+
+    if "t" not in args.modalities:
+        text = None
+
+    with profile_ctx:
+        out = engine.extract_to_pkl(
+            args.res_dir,
+            modalities=args.modalities,
+            frames=frames,
+            chin_rows=chin_rows,
+            text=text,
+            word_boundaries=word_boundaries,
+            wav=wav,
+            fname=fname,
+        )
+    if out is None:
+        raise SystemExit("sample rejected (invalid words/tokenization)")
+    print(f"Saved the embeddings: {out}")
+
+
+def _try_keypoints(frames):
+    """Holistic keypoints if a backend is installed; None -> fallback mask."""
+    try:
+        from jegal_torch.host.keypoints import extract_keypoints
+
+        return extract_keypoints(frames)
+    except (ImportError, RuntimeError) as e:
+        print(f"[warn] no keypoint backend ({e}); using fallback top-strip mask")
+        return None
+
+
+def _decode_for_features(video_path, planar: bool = True):
+    """Host-side half of the feature path: decode -> (keypoints) -> chin
+    lines -> C++ s2d repack+mask. Runs on a decode thread in the batch
+    driver (no device work).
+
+    planar=True (default): -> (planar_u8 (T, 90, 27, 160), None), repacked
+    AND face-masked in C++ (host.media.s2d_repack), the stem's layout.
+    planar=False: -> (frames_u8 (T, 270, 480, 3), chin_rows | None) for the
+    engine's on-device mask (the same features). Returns None when the
+    gesture-visibility gate rejects the video (reference
+    inference_embs.py:195-233)."""
+    import numpy as np
+
+    from jegal_torch.host import masking, media
+
+    keypoints = None
+    chin_rows = None
+    try:
+        import mediapipe  # noqa: F401 -- probe before decoding full-res
+
+        frames_full, _ = media.decode_video(video_path, target_fps=0.0)
+        keypoints = _try_keypoints(frames_full)
+        if not masking.check_visible_gestures(keypoints):
+            return None
+        if keypoints is not None:
+            from jegal_torch.ops.video import chin_lines
+
+            chin_rows = chin_lines(keypoints, frames_full.shape[1:3])
+    except ImportError:
+        pass
+
+    frames, _ = media.decode_video(video_path, target_w=480, target_h=270,
+                                   target_fps=0.0)
+    if not planar:
+        return frames, chin_rows
+    from jegal_torch.ops.video import FALLBACK_ROWS
+
+    cuts = (np.asarray(chin_rows, np.int32) if chin_rows is not None
+            else np.full((frames.shape[0],), FALLBACK_ROWS, np.int32))
+    return media.s2d_repack(frames, cuts), None
+
+
+def _transcribe(audio_path, res_dir):
+    from jegal_torch.host.transcribe import transcribe_to_file
+
+    return transcribe_to_file(audio_path, res_dir)
+
+
+def _resolve_shard(args):
+    """--rank/--nshard default to torch.distributed's rank and world size
+    when a process group is initialized, so that each process of a
+    distributed launch takes its own file shard; standalone runs resolve to
+    0/1. Explicit flags always win (the reference's manual --rank/--nshard
+    launch style, extract_kps.py:23-26)."""
+    import torch.distributed as dist
+
+    rank, nshard = args.rank, args.nshard
+    if dist.is_available() and dist.is_initialized():
+        rank = dist.get_rank() if rank is None else rank
+        nshard = dist.get_world_size() if nshard is None else nshard
+    return (0 if rank is None else rank), (1 if nshard is None else nshard)
+
+
+_decode_thread = threading.local()    # a decode thread's upload stream
+
+
+def _upload(frames, device):
+    """Start a decoded clip's copy to the card from this (decode) thread:
+    pinned memory, a side stream of the thread's own, and an event the
+    compute thread waits on before it reads the tensor. -> (uint8 tensor on
+    the card, the copy's event)."""
+    import torch
+
+    stream = getattr(_decode_thread, "stream", None)
+    if stream is None:
+        stream = _decode_thread.stream = torch.cuda.Stream(device)
+    host = torch.from_numpy(frames).pin_memory()
+    with torch.cuda.stream(stream):
+        dev = host.to(device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return dev, done
+
+
+def cmd_extract_feats(args):
+    """GestSync feature bank builder with host/device pipelining: a pool of
+    decode threads feeds a bounded queue while the card runs the batched
+    tower (same-bucket clips share one call —
+    engine.gestsync_features_from_raw_many). The reference's counterpart
+    is the strictly serial extract_gestsync_feats.py:273-351 loop."""
+    import queue
+
+    import numpy as np
+    import torch
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.convert import checkpoints as C
+    from jegal_torch.data.datasets import read_csv
+
+    rank, nshard = _resolve_shard(args)
+    files = [r["filename"] for r in read_csv(args.file_path)]
+    files = files[rank::nshard] if nshard > 1 else files
+    engine = JegalEngine(
+        jegal_params=None,
+        gestsync_params=C.load_gestsync(args.checkpoint_path),
+        device=args.device,
+    )
+    on_card = engine.device.type == "cuda"
+    os.makedirs(args.res_dir, exist_ok=True)
+    stats = {"done": 0, "skipped": 0, "failed": 0}
+
+    pending = []
+    for f in files:
+        out = os.path.join(args.res_dir, f + ".npy")
+        if os.path.exists(out):  # idempotent file-level resume
+            stats["skipped"] += 1
+        else:
+            pending.append((f, out))
+
+    q: queue.Queue = queue.Queue(maxsize=max(2, args.batch_size))
+    workers = max(1, args.decode_workers)
+
+    def _decode_and_put(video):
+        """Decode (+ repack and mask) on this worker thread, then start the
+        clip's upload to the card HERE, so that uploads overlap the decode
+        of the next clips and the tower of the previous batch. -> (frames,
+        the upload's event or None, chin_rows) or None."""
+        decoded = _decode_for_features(video)
+        if decoded is None:
+            return None
+        frames, chin = decoded
+        if not on_card:
+            return frames, None, chin
+        return (*_upload(frames, engine.device), chin)
+
+    def feeder():
+        """Decode on a worker pool, deliver in submission order through the
+        bounded queue (q.put blocks, so the clips in flight are capped at
+        the queue's size plus the pool's)."""
+        import collections
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            futs: collections.deque = collections.deque()
+            it = iter(pending)
+
+            def submit_next():
+                try:
+                    f, out = next(it)
+                except StopIteration:
+                    return
+                video = os.path.join(args.video_dir, f + ".avi")
+                futs.append((f, out, ex.submit(_decode_and_put, video)))
+
+            for _ in range(workers + 1):
+                submit_next()
+            while futs:
+                f, out, fut = futs.popleft()
+                try:
+                    q.put((f, out, fut.result(), None))
+                except Exception as e:
+                    q.put((f, out, None, e))
+                submit_next()
+        q.put(None)
+
+    threading.Thread(target=feeder, daemon=True).start()
+
+    batch: list = []
+
+    def save_one(f, out, feat):
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        np.save(out, feat)
+        stats["done"] += 1
+
+    # one engine call in flight on a worker thread: the tower of batch k
+    # overlaps the decode pool AND the np.save of batch k-1
+    from concurrent.futures import ThreadPoolExecutor
+
+    compute_pool = ThreadPoolExecutor(max_workers=1)
+    inflight: list = []  # [(batch_items, future)] -- at most 1 entry
+
+    def compute(items):
+        """Runs ONLY on the single-worker pool thread: the engine's caches
+        are not lock-protected, so every engine call (batched AND the
+        per-clip fallback that keeps one bad clip from sinking its
+        batchmates) stays on this one thread. Each clip's upload is waited
+        for on this thread's stream first. Errors come back as (feats,
+        error_records) so the main thread only saves and prints."""
+        clips = []
+        for _, _, (fr, done, chin) in items:
+            if done is not None:
+                stream = torch.cuda.current_stream(engine.device)
+                stream.wait_event(done)
+                fr.record_stream(stream)    # allocated on the side stream
+            clips.append((fr, chin))
+        errors = []
+        try:
+            feats = engine.gestsync_features_from_raw_many(
+                clips, batch_size=args.batch_size)
+        except Exception:
+            feats = []
+            for (f, _, _), (fr, chin) in zip(items, clips):
+                try:
+                    feats.append(engine.gestsync_features(fr, chin))
+                except Exception as e:
+                    feats.append(None)
+                    errors.append((f, str(e)))
+        return feats, errors
+
+    def drain():
+        """Save the results of the previous in-flight batch, with
+        per-file error capture — a failed np.save must not trigger
+        recompute or double-count clips that already saved."""
+        if not inflight:
+            return
+        items, fut = inflight.pop(0)
+        feats, errors = fut.result()
+        for f, msg in errors:
+            stats["failed"] += 1
+            print(json.dumps({"file": f, "error": msg}), file=sys.stderr)
+        for (f, out, _), feat in zip(items, feats):
+            if feat is None:
+                continue
+            try:
+                save_one(f, out, feat)
+            except Exception as e:
+                stats["failed"] += 1
+                print(json.dumps({"file": f, "error": str(e)}),
+                      file=sys.stderr)
+
+    def flush():
+        if not batch:
+            return
+        items = batch[:]
+        batch.clear()
+        fut = compute_pool.submit(compute, items)
+        drain()  # save the PREVIOUS batch while this one computes
+        inflight.append((items, fut))
+
+    while True:
+        item = q.get()
+        if item is None:
+            break
+        f, out, decoded, err = item
+        if err is not None:  # structured error ledger, not silent skip
+            stats["failed"] += 1
+            print(json.dumps({"file": f, "error": str(err)}), file=sys.stderr)
+            continue
+        if decoded is None:  # gesture-visibility gate rejected the video
+            stats["failed"] += 1
+            print(json.dumps({"file": f, "error": "gestures not visible"}),
+                  file=sys.stderr)
+            continue
+        batch.append((f, out, decoded))
+        if len(batch) >= args.batch_size:
+            flush()
+    flush()
+    drain()
+    compute_pool.shutdown(wait=True)
+    print(json.dumps(stats))
+
+
+def cmd_extract_embs(args):
+    from jegal_torch.data.datasets import extract_embeddings_csv
+
+    rank, nshard = _resolve_shard(args)
+    engine = _load_engine(args)
+    stats = extract_embeddings_csv(
+        engine,
+        csv_path=args.file_path,
+        video_dir=args.video_dir,
+        feature_dir=args.feature_dir,
+        res_dir=os.path.join(args.res_dir, args.modalities),
+        modalities=args.modalities,
+        rank=rank,
+        nshard=nshard,
+        batch_size=args.batch_size,
+    )
+    print(json.dumps(stats))
+
+
+def cmd_eval_retrieval(args):
+    from jegal_torch.eval import retrieval
+
+    if args.on_device:
+        res = retrieval.evaluate_device(args.path, device=args.device)
+    else:
+        res = retrieval.evaluate(args.path)
+    print(json.dumps(res, indent=2))
+
+
+def cmd_eval_spotting(args):
+    from jegal_torch.eval import spotting
+
+    if args.on_device:
+        res = spotting.evaluate_device(args.path, args.threshold,
+                                       args.frame_threshold,
+                                       device=args.device)
+    else:
+        res = spotting.evaluate(args.path, args.threshold,
+                                args.frame_threshold)
+    print(json.dumps(res, indent=2))
+
+
+class Rows:
+    """A CSV's rows as the ASD eval reads a table: `iterrows()` of (index,
+    row)."""
+
+    def __init__(self, rows: list):
+        self.rows = rows
+
+    def iterrows(self):
+        return enumerate(self.rows)
+
+
+def cmd_eval_asd(args):
+    from jegal_torch.data.datasets import read_csv
+    from jegal_torch.eval import asd
+
+    table = Rows(read_csv(args.file))
+    if args.on_device:
+        res = asd.evaluate_device(args.path, table, device=args.device)
+    else:
+        res = asd.evaluate(args.path, table)
+    print(json.dumps(res, indent=2))
+
+
+def cmd_heatmap(args):
+    from jegal_torch.eval import heatmap
+
+    out = heatmap.plot_from_pkl(args.path, fname=args.fname)
+    print(json.dumps({"saved": out}))
+
+
+def cmd_verify(args):
+    from jegal_torch.verify import run_verification
+
+    engine = _load_engine(args)
+    verdict = run_verification(
+        engine,
+        samples_dir=args.samples_dir,
+        res_dir=args.res_dir,
+        golden_dir=args.golden_dir,
+        tolerance=args.tolerance,
+    )
+    print(json.dumps(verdict, indent=2))
+    if not verdict["ok"]:
+        raise SystemExit(1)
+
+
+def cmd_warmup(args):
+    """Capture (combo, bucket) graphs on the engine (on the CPU: run them
+    once). Emits the table of seconds as JSON."""
+    engine = _load_engine(args)
+    combos = tuple(COMBOS) if args.all_combos else (args.modalities,)
+    records = engine.warmup_all(
+        combos=combos, t_buckets=tuple(args.t_buckets),
+        s_buckets=tuple(args.s_buckets), w_buckets=tuple(args.w_buckets),
+        mel_buckets=tuple(args.mel_buckets), batch=args.batch_size)
+    print(json.dumps({"graphs": records,
+                      "total_seconds": round(sum(r["seconds"]
+                                                 for r in records), 3)}))
+
+
+def cmd_convert(args):
+    from jegal_torch.convert import checkpoints as C
+
+    if args.model == "roberta":
+        params, cfg = C.load_roberta(args.src)
+        C.save_roberta_npz(params, args.dst, cfg.num_heads)
+    else:
+        loader = {"gestsync": C.load_gestsync, "jegal": C.load_jegal}[args.model]
+        C.save_npz(loader(args.src), args.dst)
+    print(json.dumps({"saved": args.dst}))
+
+
+def cmd_train(args):
+    import torch
+
+    from jegal_torch.convert import checkpoints as C
+    from jegal_torch.convert import init_jegal_params
+    from jegal_torch.text.tokenizer import WordTokenizer
+    from jegal_torch.training.loop import train
+
+    if args.checkpoint_path:
+        jegal_params = C.load_jegal(args.checkpoint_path)
+    else:
+        jegal_params = init_jegal_params(
+            torch.Generator().manual_seed(args.seed))
+    roberta_params, roberta_cfg = C.load_roberta(args.roberta_path)
+    result = train(
+        csv_path=args.file_path,
+        feature_dir=args.feature_dir,
+        jegal_params=jegal_params,
+        roberta_params=roberta_params,
+        roberta_cfg=roberta_cfg,
+        tokenizer=WordTokenizer.from_file(args.tokenizer_path),
+        steps=args.steps,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        warmup_steps=args.warmup_steps,
+        cosine_decay=args.cosine_decay,
+        accum_steps=args.accum_steps,
+        remat=args.remat,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        log_path=args.log_path,
+        seed=args.seed,
+        model_parallel=args.model_parallel,
+        device=args.device,
+    )
+    print(json.dumps(result))
+
+
+COMMANDS = {
+    "infer": cmd_infer,
+    "extract-feats": cmd_extract_feats,
+    "extract-embs": cmd_extract_embs,
+    "eval-retrieval": cmd_eval_retrieval,
+    "eval-spotting": cmd_eval_spotting,
+    "eval-asd": cmd_eval_asd,
+    "heatmap": cmd_heatmap,
+    "verify": cmd_verify,
+    "warmup": cmd_warmup,
+    "convert": cmd_convert,
+    "train": cmd_train,
+}
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    for flag, msg in NOT_YET.items():
+        if getattr(args, flag, False):
+            raise SystemExit(msg)
+    if getattr(args, "model_parallel", 1) > 1:
+        raise SystemExit("--model_parallel > 1 needs the multi-GPU port, "
+                         "ROADMAP queue 1 item 4 (multi-GPU)")
+    COMMANDS[args.cmd](args)

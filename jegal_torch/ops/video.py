@@ -21,6 +21,24 @@ import torch
 from jegal_torch.config import EDGE_PAD_FRAMES as EDGE_PAD
 
 FALLBACK_ROWS = 111
+MASK_HEIGHT = 270
+
+
+def chin_lines(keypoints, resolution, out_height: int = MASK_HEIGHT):
+    """Per-frame chin rows (T,) int32 from Holistic keypoints, scaled from
+    the decoded `resolution` (H, W[, 3]) to the decoder's output height;
+    frames with no face get the fallback row (the JAX package's
+    ops/video.py:47-62)."""
+    from jegal_torch.host.masking import face_bbox_bottom
+
+    scale = out_height / resolution[0]
+    out = np.full((len(keypoints),), FALLBACK_ROWS, np.int32)
+    for i, kp in enumerate(keypoints):
+        face = kp.get("face")
+        if face is not None:
+            # the reference masks rows 0..y2+15 inclusive -> y2+16 rows
+            out[i] = int((face_bbox_bottom(face, resolution) + 16) * scale)
+    return out
 
 
 def s2d_repack(frames_u8, cut_rows=None) -> np.ndarray:

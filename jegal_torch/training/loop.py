@@ -65,8 +65,8 @@ def train(
     The caller's parameter trees are not modified."""
     if model_parallel > 1:
         raise NotImplementedError(
-            "model_parallel > 1 needs the multi-GPU port (ROADMAP section 1, "
-            "item 13: torch.distributed in place of the JAX mesh)")
+            "model_parallel > 1 needs the multi-GPU port (ROADMAP queue 1 "
+            "item 4, multi-GPU: torch.distributed in place of the JAX mesh)")
     dev = resolve_device(device)
     log = get_logger("train")
     metrics = MetricWriter(log_path)

@@ -15,8 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "jegal_tpu", "pandas", "optax", "orbax")
-# modules every walk of the package must reach (the training and planar
-# slices' too)
+# modules every walk of the package must reach (the training, planar and
+# CLI slices' too)
 REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.ops.kernels.conv2", "jegal_torch.ops.video",
             "jegal_torch.training.trainer", "jegal_torch.training.data",
@@ -25,7 +25,11 @@ REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.convert.torch_import",
             "jegal_torch.convert.checkpoints", "jegal_torch.eval.common",
             "jegal_torch.eval.retrieval", "jegal_torch.eval.spotting",
-            "jegal_torch.eval.asd", "jegal_torch.eval.heatmap")
+            "jegal_torch.eval.asd", "jegal_torch.eval.heatmap",
+            "jegal_torch.host.media", "jegal_torch.host.masking",
+            "jegal_torch.host.keypoints", "jegal_torch.host.transcribe",
+            "jegal_torch.utils.profiling", "jegal_torch.data.datasets",
+            "jegal_torch.verify", "jegal_torch.cli.main")
 # optional packages: imported lazily, by the functions that need them
 LAZY = ("pandas", "matplotlib", "safetensors")
 SOURCES = sorted((ROOT / "jegal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

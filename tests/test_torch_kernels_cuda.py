@@ -25,7 +25,8 @@ no backward among them; and the encoders' refusal of an input no kernel
 takes; and the engine's CUDA graphs: a replay against an eager run of
 its forward bit for bit (a raw and a planar clip, a batched chunk, the
 two-stage forward), pipelined chunks of one key and of two against single
-clips, a replay that counts no launch, a graph evicted and captured again,
+clips, the batched tower on clips already on the card against host clips,
+a replay that counts no launch, a graph evicted and captured again,
 and a capture that raises when a kernel fails inside it. Marked `cuda`:
 each test skips without a card.
 
@@ -711,6 +712,27 @@ def test_pipelined_chunks_match_single_clips(dev, graph_weights):
     assert len(eng.cached_graphs) == 2
     for got, clip in zip(many, clips):
         _close(got, eng.extract("va", **clip))
+
+
+def test_raw_many_stacks_device_clips_on_the_card(dev, graph_weights):
+    """gestsync_features_from_raw_many on clips already on the card (the
+    extract-feats driver uploads on its decode threads): raw clips with
+    chin rows and planar clips over two T buckets give the host clips'
+    features bit for bit; a call mixing the two is refused."""
+    eng = _graph_engine(graph_weights)
+    clips = [_graph_clip(t, 20 + i) for i, t in enumerate((20, 24, 40))]
+    for planar in (False, True):
+        host = [(s2d_repack(c["frames"], c["chin_rows"]), None) if planar
+                else (c["frames"], c["chin_rows"]) for c in clips]
+        on_card = [(torch.from_numpy(f).cuda(), chin) for f, chin in host]
+        want = eng.gestsync_features_from_raw_many(host, batch_size=2)
+        got = eng.gestsync_features_from_raw_many(on_card, batch_size=2)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    from jegal_torch.api import ClientError
+
+    with pytest.raises(ClientError, match="not a mix"):
+        eng.gestsync_features_from_raw_many([host[0], on_card[1]])
 
 
 def test_evicted_graph_is_captured_again(dev, graph_weights):

@@ -2,13 +2,14 @@
 """Build the port's CUDA kernels, drive its `vta` extraction on raw and
 planar frames, one clip and in batches, its training, a long clip,
 reference-format checkpoints through an engine, forward_validation, the
-eval, and the CLI's device subcommands on one card.
+eval, the CLI's device subcommands and the HTTP server on one card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --encoders  # phases 1-3's encoder kernels only
     python3 chip_smoke.py --stems     # phases 1-3's and 6a's stem kernels
     python3 chip_smoke.py --profiler  # torch.profiler's window, probed
     python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
+    python3 chip_smoke.py --serve     # phase 11 (serving) alone
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -20,7 +21,8 @@ designs. `--profiler` profiles a CUDA graph's replay and the same forward
 eager, a few hundred times with and without `profiled()`'s idle settle,
 logs how often their device kernel counts differ, and prints no `ok`
 line. `--cli` runs phase 10 alone on phase 4's weights and engine, and
-prints its `cli` line and no `ok` line.
+prints its `cli` line and no `ok` line; `--serve` runs phase 11 alone the
+same way and prints its `serve` line.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -179,10 +181,37 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     with one golden row negated; (h) `warmup` at the main path's buckets;
     (i) `train --steps 3` on phase 7a's corpus: a finite loss, stack 3 and
     flash 27 launches;
-11. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
+11. serving (jegal_torch/serving.py), on phase 4's weights: (a) `python
+    -m jegal_torch serve --port 0 --warmup_combos vta,ta --warmup_frames
+    planar --batch_window_ms 5 --max_batch 8` in a child process on phase
+    9's reference-format files (its tokenizer file resolving to
+    PieceTokenizer, as in phase 10): the first line's URL, /healthz, a
+    JSON `ta`, a binary planar `vta` and a binary raw `vta` request (the
+    raw frames repacked by the C++ repack, host/csrc/repack.cc, in the
+    server), each within abs 1e-4 and min row cosine 0.99999 of
+    `JegalEngine.extract` on the same sample, a 422 sample and a 400
+    frames shape, /healthz's graph count unchanged by them (they fall in
+    the buckets serve warms), then the server stopped; (b) in-process, a
+    new engine warmed by the same `serving.warmup` call (T 128, S 64, W
+    16, mel 512, batch 8; the MiB each capture adds) behind
+    `create_server` with the batcher, decode_binary and the repack first
+    timed alone on one clip: 80 binary `vta` clips (T 100 and 125, every
+    fifth raw frames) then 128 JSON `ta` requests from 8 threads of a
+    client process, once with every graph replay recorded (requests/s,
+    p50, p99 and max ms, the batch sizes the batcher formed, the host ms
+    in decode_binary and the repack a request) and once profiled (the
+    device busy ms and idle share over each kind's window): every launch
+    counter stays 0 and the engine's graphs do not grow (no capture
+    inside a request), the replayed graphs launch kernels 2, 7, 3, 4 and
+    5, and every answer equals `extract` at the bars above; (c) a
+    200-frame clip (T bucket 256, not warmed) sent while 7 client threads
+    are mid-request: it captures one graph and answers within the bars,
+    and so do the others; 8 more such clips then replay it, capturing
+    nothing;
+12. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
     (each subcommand's wall seconds and launches, whether the decoder was
-    real), one `kernels` JSON line, the card line, and last the `ok` JSON
-    line.
+    real), a `serve` JSON line, one `kernels` JSON line, the card line,
+    and last the `ok` JSON line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
 each shape's per-launch time times the launches a T=125 `vta` clip makes at
@@ -190,8 +219,9 @@ that shape (6 layers in the window head, 6 in the gesture encoder, 3 in the
 text encoder, one XLM-R stack), with each shape's own numbers under
 `per_launch` (a shape with 0 launches per clip is checked and timed, and
 adds nothing). `launches` is the count from phase 4, and
-`launches_validation` that of one forward_validation (phase 9c), and
-`launches_cli` each CLI subcommand's (phase 10). The flash
+`launches_validation` that of one forward_validation (phase 9c),
+`launches_cli` each CLI subcommand's (phase 10), and `launches_serve` the
+launches of the graphs phase 11b's served batches replayed. The flash
 attention row is per training step in the same way (6 gesture and 3 text
 launches); its `launches` is the count of one step of phase 7(b), and its
 long-clip shape, 0 launches a step, carries its 6 launches a clip from
@@ -2976,6 +3006,743 @@ def run_cli(gp, jp, rp, engine):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving
+# ---------------------------------------------------------------------------
+
+# the load of 11b, at the buckets `serve` warms (T 128; S 64, W 16, mel 512):
+# binary planar vta clips (T 100 and 125) with every fifth a raw-frames one
+# the server repacks, then JSON ta requests, from SERVE_THREADS threads of
+# a client process
+SERVE_CLIPS = (100, 125)
+SERVE_VTA = 80
+SERVE_TA = 128
+SERVE_THREADS = 8
+SERVE_MAX_BATCH = 8
+SERVE_WINDOW_MS = 5
+# 12 words of 3-5 pieces: 49 tokens, the S 64 bucket that `serve` warms
+SERVE_TEXT = ("remarkable gentlemen carefully considered extraordinary "
+              "circumstances whenever thunderstorms approached "
+              "neighbouring countryside villages")
+# 11c: a clip of an un-warmed T bucket (256) among warmed ones, then
+# SERVE_THREADS more of that bucket, which replay its new graph
+SERVE_COLD_T = 200
+# `python -m jegal_torch serve` in a child process; the card machine has no
+# tokenizers wheel, so --tokenizer_path resolves to PieceTokenizer there,
+# as in phase 10; everything else is the CLI's own
+SERVE_CHILD = (
+    "import runpy, sys\n"
+    "sys.path.insert(0, sys.argv.pop(1))\n"
+    "import chip_smoke\n"
+    "from jegal_torch.text.tokenizer import WordTokenizer\n"
+    "WordTokenizer.from_file = classmethod(\n"
+    "    lambda cls, path, **kw: cls(chip_smoke.PieceTokenizer(), **kw))\n"
+    "sys.argv[0] = 'jegal_torch'\n"
+    "runpy.run_module('jegal_torch', run_name='__main__', alter_sys=True)\n")
+# the load client of 11b and 11c, a process of its own: its threads encode
+# and send the bodies without sharing the server's interpreter lock
+SERVE_CLIENT = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv.pop(1))\n"
+    "import chip_smoke\n"
+    "chip_smoke.load_client(*sys.argv[1:])\n")
+
+
+def http(url: str, path: str = "/healthz", body: bytes | None = None,
+         content_type: str | None = None, binary_answer: bool = False):
+    """One request -> (status, answer): a dict for JSON, (meta, arrays)
+    for a binary answer; HTTP errors are answers too."""
+    import urllib.error
+    import urllib.request
+
+    from jegal_torch import serving
+
+    headers = {}
+    if content_type:
+        headers["Content-Type"] = content_type
+    if binary_answer:
+        headers["Accept"] = serving.BINARY_CONTENT_TYPE
+    req = urllib.request.Request(url + path, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            data = resp.read()
+            if resp.headers.get("Content-Type") == \
+                    serving.BINARY_CONTENT_TYPE:
+                return resp.status, serving.decode_binary(data)
+            return resp.status, json.loads(data)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def encode_request(meta: dict, arrays: dict, binary: bool):
+    """An /extract body, binary (JGL1 framing) or JSON (arrays as base64
+    .npy) -> (body, content type, binary)."""
+    from jegal_torch import serving
+
+    if binary:
+        return (serving.encode_binary(meta, arrays),
+                serving.BINARY_CONTENT_TYPE, True)
+    return (json.dumps(dict(meta, **{k: serving.encode_array(v)
+                                     for k, v in arrays.items()})).encode(),
+            "application/json", False)
+
+
+def post(url: str, body: bytes, content_type: str, binary: bool):
+    """POST an encoded /extract body, a binary answer asked for a binary
+    body -> (status, result dict with numpy embeddings | error dict)."""
+    from jegal_torch import serving
+
+    status, ans = http(url, "/extract", body, content_type,
+                       binary_answer=binary)
+    if status != 200:
+        return status, ans
+    if binary:
+        rmeta, rarr = ans
+        return status, dict(gesture_emb=rarr.get("gesture_emb"),
+                            content_emb=rarr.get("content_emb"),
+                            info=rmeta["info"])
+    return status, dict(gesture_emb=serving.decode_array(ans["gesture_emb"]),
+                        content_emb=serving.decode_array(ans["content_emb"]),
+                        info=ans["info"])
+
+
+def serve_request(url: str, meta: dict, arrays: dict, binary: bool):
+    """An /extract request, binary both ways or JSON."""
+    return post(url, *encode_request(meta, arrays, binary))
+
+
+def hold_answer(got, want, what: str) -> dict:
+    """A served answer against `extract`'s on the same sample: each
+    embedding within SLICE_ATOL and min row cosine SLICE_MIN_COS, info
+    equal. -> the worst error and cosine."""
+    import numpy as np
+
+    worst = dict(err=0.0, cos=1.0)
+    for key in ("gesture_emb", "content_emb"):
+        a, b = got[key], want[key]
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{what}: {key} should be None")
+            continue
+        if a is None or a.shape != b.shape:
+            raise AssertionError(f"{what}: {key} shape "
+                                 f"{None if a is None else a.shape}, want "
+                                 f"{b.shape}")
+        err = float(np.abs(a - b).max())
+        cos = float((a * b).sum(-1).min())
+        if not (err <= SLICE_ATOL and cos >= SLICE_MIN_COS):
+            raise AssertionError(f"{what}: {key} max abs err {err:.3e}, min "
+                                 f"row cosine {cos:.8f}")
+        worst = dict(err=max(worst["err"], err), cos=min(worst["cos"], cos))
+    if got["info"] != want["info"]:
+        raise AssertionError(f"{what}: info {got['info']} != "
+                             f"{want['info']}")
+    return worst
+
+
+def serve_samples():
+    """The samples of phase 11: planar `vta` clips at T 100 and 125 (two
+    of each, their chin rows folded in by the numpy repack) and their raw
+    frames, SERVE_TEXT with phase 4's 5 s wav and 12 word boundaries: the
+    buckets `serve` warms (T 128, S 64, W 16, mel 512)."""
+    import numpy as np
+
+    from jegal_torch.ops.video import s2d_repack
+
+    base = clip(125, 12, SEED + 3)
+    content = dict(text=SERVE_TEXT, word_boundaries=base["word_boundaries"])
+    clips = []
+    for i, t in enumerate(SERVE_CLIPS * 2):
+        rng = np.random.default_rng(SEED + 80 + i)
+        raw = rng.integers(0, 256, (t, 270, 480, 3), dtype=np.uint8)
+        clips.append(dict(raw=raw, frames=s2d_repack(
+            raw, rng.integers(90, 200, t)), t=t))
+    return base, content, clips
+
+
+def cold_clip(i: int):
+    """Clip i of the un-warmed T bucket of 11c: (planar frames, raw)."""
+    import numpy as np
+
+    from jegal_torch.ops.video import s2d_repack
+
+    rng = np.random.default_rng(SEED + 90 + i)
+    raw = rng.integers(0, 256, (SERVE_COLD_T, 270, 480, 3), dtype=np.uint8)
+    return s2d_repack(raw, rng.integers(90, 200, SERVE_COLD_T))
+
+
+def request_of(kind: str, i: int, base, content, clips):
+    """(meta, arrays, the extract() kwargs) of request i of a kind: 'vta'
+    planar frames, 'vta_raw' raw frames (the server repacks them at the
+    fallback chin row), 'cold' 11c's planar clip i at SERVE_COLD_T (all
+    binary); 'ta' (JSON)."""
+    import numpy as np
+
+    meta = dict(modalities="ta" if kind == "ta" else "vta",
+                fname=f"{kind}_{i}", **content)
+    if kind == "ta":
+        wav = base["wav"] if i % 2 == 0 else np.roll(base["wav"], 1000)
+        return meta, {"wav": wav}, dict(wav=wav)
+    if kind == "cold":
+        frames = cold_clip(i)
+    else:
+        c = clips[i % len(clips)]
+        frames = c["raw"] if kind == "vta_raw" else c["frames"]
+    return meta, {"frames": frames, "wav": base["wav"]}, dict(
+        frames=frames, wav=base["wav"])
+
+
+def sample_key(kind: str, i: int, n_clips: int):
+    """The sample a request of `request_of` carries, its fname aside."""
+    return kind, (i % n_clips if kind.startswith("vta") else
+                  i % 2 if kind == "ta" else i)
+
+
+def expected(engine, meta, kw):
+    return engine.extract(modalities=meta["modalities"], fname=meta["fname"],
+                          text=meta["text"],
+                          word_boundaries=meta["word_boundaries"], **kw)
+
+
+def run_serve_cli(root: Path, gp, jp, rp, engine) -> dict:
+    """Phase 11a: `python -m jegal_torch serve --port 0 --warmup_combos
+    vta,ta --warmup_frames planar --batch_window_ms 5 --max_batch 8` in a
+    child process on phase 9's reference-format files; /healthz, a JSON
+    `ta`, a binary planar and a binary raw `vta` request (the raw one
+    repacked by the C++ repack in the server), a 422 sample and a 400
+    frames shape, each 200 held to `engine.extract` on the same sample;
+    /healthz's graph count unchanged by them (they fall in the buckets
+    the CLI warms, so none captures); then the server is stopped."""
+    import selectors
+
+    import numpy as np
+    import torch
+
+    from jegal_torch import serving
+    from jegal_torch.convert import init_gestsync_audio_params
+
+    gs_tree = dict(gp, **init_gestsync_audio_params(
+        torch.Generator().manual_seed(SEED + 11)))
+    src, _ = write_checkpoints(root, gs_tree, jp,
+                               {"embeddings": rp["embeddings"],
+                                "layers": rp["layers"]})
+    argv = ["serve", "--checkpoint_path", str(src["jegal"]),
+            "--checkpoint_path_gestsync", str(src["gestsync"]),
+            "--roberta_path", str(src["roberta"]),
+            "--tokenizer_path", "piece-tokenizer", "--port", "0",
+            "--warmup_combos", "vta,ta", "--warmup_frames", "planar",
+            "--batch_window_ms", str(SERVE_WINDOW_MS),
+            "--max_batch", str(SERVE_MAX_BATCH)]
+    log(f"serve: python -m jegal_torch {' '.join(argv)} (a child process; "
+        f"--tokenizer_path resolves to PieceTokenizer there, as in phase "
+        f"10)")
+    err_path = root / "serve_stderr.txt"
+    out: dict = {}
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", SERVE_CHILD,
+                                 str(ROOT), *argv], cwd=ROOT,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    try:
+        sel = selectors.DefaultSelector()
+        sel.register(proc.stdout, selectors.EVENT_READ)
+        if not sel.select(timeout=600):
+            raise AssertionError("serve printed no first line in 600 s")
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve exited {proc.wait()}: "
+                                 f"{err_path.read_text()[-3000:]}")
+        first = json.loads(line)
+        out["start_s"] = time.perf_counter() - t0
+        log(f"  first line after {out['start_s']:.2f} s: {first}")
+        url = first["serving"]
+        if (first["warmed"] != ["vta", "ta"] or url.endswith(":0")
+                or first["batch_window_ms"] != SERVE_WINDOW_MS):
+            raise AssertionError(f"serve's first line: {first}")
+        status, health = http(url)
+        log(f"  GET /healthz: {status} {health}")
+        if status != 200 or not health["ok"] or health["graphs"] != 3 \
+                or health["queue_depth"] != 0:
+            raise AssertionError(f"/healthz: {status} {health}")
+        base, content, clips = serve_samples()
+        worst = {}
+        for kind, binary in (("ta", False), ("vta", True),
+                             ("vta_raw", True)):
+            meta, arrays, kw = request_of(kind, 0, base, content, clips)
+            t1 = time.perf_counter()
+            status, got = serve_request(url, meta, arrays, binary)
+            wall = time.perf_counter() - t1
+            if status != 200:
+                raise AssertionError(f"{kind}: HTTP {status} {got}")
+            worst[kind] = hold_answer(got, expected(engine, meta, kw),
+                                      f"serve CLI, {kind}")
+            log(f"  {kind} ({'binary' if binary else 'JSON'}): 200 in "
+                f"{1e3 * wall:.1f} ms, against extract: max abs err "
+                f"{worst[kind]['err']:.3e}, min row cosine "
+                f"{worst[kind]['cos']:.8f}")
+        meta, arrays, _ = request_of("ta", 0, base, content, clips)
+        bad = dict(meta, word_boundaries=meta["word_boundaries"][:3])
+        status, ans = serve_request(url, bad, arrays, binary=False)
+        log(f"  ta with 3 boundaries for 12 words: {status} {ans}")
+        if status != 422:
+            raise AssertionError(f"want 422, got {status}")
+        status, ans = serve_request(url, dict(meta, modalities="vta"), {
+            "frames": np.zeros((4, 135, 240, 3), np.uint8),
+            "wav": arrays["wav"]}, binary=True)
+        log(f"  frames (4, 135, 240, 3): {status} {ans}")
+        if status != 400:
+            raise AssertionError(f"want 400, got {status}")
+        status, health = http(url)
+        log(f"  GET /healthz after the requests: {status} {health}")
+        if status != 200 or health["graphs"] != 3:
+            raise AssertionError(f"a request captured in the CLI's server: "
+                                 f"{health}")
+        out["answers"] = worst
+    finally:
+        proc.terminate()
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        proc.stdout.close()
+    log(f"  server stopped (exit {code}); its stderr: "
+        f"{err_path.read_text()[-500:]!r}")
+    out["first_line"] = first
+    return out
+
+
+def union_ms(prof) -> float:
+    """Device busy ms of a torch.profiler run: the union of its device
+    events' intervals (user annotations left out)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def load_client(url: str, out_dir: str) -> None:
+    """The client process of 11b and 11c (SERVE_CLIENT). Per JSON line on
+    stdin, {"name", "jobs": [[kind, i], ...], "threads"}: it encodes every
+    job's body (`request_of` on `serve_samples`; binary but for `ta`)
+    first, prints "ready", and on "go" sends them from `threads` threads,
+    pickles each job's (status, answer, seconds) and the wall seconds to
+    <out_dir>/<name>.pkl and prints "done". An empty line ends it."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    base, content, clips = serve_samples()
+    while line := sys.stdin.readline().strip():
+        cmd = json.loads(line)
+        bodies = [encode_request(*request_of(kind, i, base, content,
+                                             clips)[:2], kind != "ta")
+                  for kind, i in cmd["jobs"]]
+        print("ready", flush=True)
+        if sys.stdin.readline().strip() != "go":
+            raise SystemExit("load client: want 'go'")
+
+        def one(req):
+            t0 = time.perf_counter()
+            status, ans = post(url, *req)
+            return status, ans, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(cmd["threads"]) as ex:
+            res = list(ex.map(one, bodies))
+        wall = time.perf_counter() - t0
+        with open(Path(out_dir) / f"{cmd['name']}.pkl", "wb") as f:
+            pickle.dump(dict(results=res, wall_s=wall), f)
+        print("done", flush=True)
+
+
+class LoadClient:
+    """SERVE_CLIENT in a child process, driven a command at a time:
+    `prepare` (it encodes the bodies), `go`, `finish` -> the results with
+    requests/s, p50 / p99 / max ms."""
+
+    def __init__(self, url: str, out_dir: Path):
+        import selectors
+
+        self.out_dir = out_dir
+        self.err = out_dir / "client_stderr.txt"
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", SERVE_CLIENT, str(ROOT), url,
+                 str(out_dir)], cwd=ROOT, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        self.sel = selectors.DefaultSelector()
+        self.sel.register(self.proc.stdout, selectors.EVENT_READ)
+
+    def _send(self, line: str):
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def _expect(self, word: str, timeout: float = 600):
+        while True:
+            if not self.sel.select(timeout=timeout):
+                raise AssertionError(f"load client: no '{word}' in "
+                                     f"{timeout} s")
+            line = self.proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"load client exited "
+                                     f"{self.proc.wait()}: "
+                                     f"{self.err.read_text()[-3000:]}")
+            if line.strip() == word:
+                return
+            log(f"  load client: {line.rstrip()}")
+
+    def prepare(self, name: str, jobs, threads: int = SERVE_THREADS):
+        self.name, self.n = name, len(jobs)
+        self._send(json.dumps(dict(name=name, jobs=jobs, threads=threads)))
+        self._expect("ready")
+
+    def go(self):
+        self._send("go")
+
+    def finish(self) -> dict:
+        import pickle
+
+        import numpy as np
+
+        self._expect("done", timeout=900)
+        with open(self.out_dir / f"{self.name}.pkl", "rb") as f:
+            res = pickle.load(f)
+        lat = np.array([dt for _, _, dt in res["results"]]) * 1e3
+        return dict(res, requests=self.n,
+                    requests_per_s=self.n / res["wall_s"],
+                    p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)),
+                    max_ms=float(lat.max()))
+
+    def close(self):
+        if self.proc.poll() is None:
+            try:
+                self._send("")
+                self.proc.wait(timeout=60)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait()
+        self.proc.stdin.close()
+        self.proc.stdout.close()
+
+
+def vta_jobs(n: int):
+    """11b's vta jobs: every fifth a raw-frames one."""
+    return [["vta_raw" if i % 5 == 4 else "vta", i] for i in range(n)]
+
+
+def warm_measured(eng, *args) -> list:
+    """`serving.warmup(eng, *args)` with each of its engine.warmup calls
+    recorded: combo, frames kind, seconds, and the MiB the capture added
+    to the memory the caching allocator holds (its cache emptied around
+    each call)."""
+    import torch
+
+    from jegal_torch import serving
+
+    records = []
+    warmup = eng.warmup
+
+    def measured(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        warmup(**kw)
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        records.append(dict(combo=kw["modalities"], batch=kw["batch"],
+                            frames_kind=kw.get("frames_kind"),
+                            seconds=seconds, reserved_mib=(
+                                torch.cuda.memory_reserved() - before)
+                            / 2 ** 20))
+
+    eng.warmup = measured
+    try:
+        serving.warmup(eng, *args)
+    finally:
+        del eng.warmup
+    return records
+
+
+def run_serve_load(gp, jp, rp, engine) -> dict:
+    """Phase 11b and 11c, the server in-process and its clients in a
+    process of their own (LoadClient): `serving.warmup` as the CLI of 11a
+    runs it (vta and ta, planar frames, batch 8, the default buckets) on a
+    new engine, each capture's MiB measured around it; `create_server`
+    with the batcher. (b) SERVE_VTA binary `vta` clips (T 100 and 125,
+    every fifth raw frames the server repacks) then SERVE_TA JSON `ta`
+    requests from SERVE_THREADS client threads, once measured
+    (requests/s, p50 / p99, the batch sizes the batcher formed, the host
+    ms a request in decode_binary and in the repack) with every graph
+    replay recorded, once profiled (device busy and idle share over each
+    kind's window); no capture inside a request, kernels 2, 7, 3, 4 and 5
+    in the replayed graphs, every answer equal to `extract`. (c) a clip of
+    an un-warmed T bucket sent while the client's other threads are
+    mid-request: it captures one graph, answers, and the others answer as
+    before; then SERVE_THREADS clips of that bucket replay it. Before the
+    load, decode_binary and the repack are timed alone on one clip."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from jegal_torch import serving
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.ops.kernels import _build
+
+    eng = JegalEngine(jp, gp, roberta_params=rp, tokenizer=word_tokenizer())
+    base, content, clips = serve_samples()
+    out: dict = {}
+    t0 = time.perf_counter()
+    records = warm_measured(eng, ("vta", "ta"), SERVE_WINDOW_MS,
+                            SERVE_MAX_BATCH, "planar")
+    out["warmup_s"] = time.perf_counter() - t0
+    for r in records:
+        log(f"  serving.warmup {r['combo']} frames {r['frames_kind']} batch "
+            f"{r['batch']}: {r['seconds']:.3f} s, reserved "
+            f"+{r['reserved_mib']:.1f} MiB")
+    out["warmup"] = records
+    n_graphs = len(eng.cached_graphs)
+    if n_graphs != 3:
+        raise AssertionError(f"serve's warm-up of vta, ta and planar "
+                             f"frames should capture 3 graphs, got "
+                             f"{n_graphs}")
+
+    # the server's two host steps on the longest clip with no other thread
+    # busy, the yardstick of their ms a request under load
+    c = clips[1]
+    body = encode_request({"fname": "alone"}, {"frames": c["frames"],
+                                               "wav": base["wav"]}, True)[0]
+    alone = {}
+    for name, fn, arg in (("decode_binary", serving.decode_binary, body),
+                          ("repack", serving._repack_raw, c["raw"])):
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn(arg)
+            times.append(1e3 * (time.perf_counter() - t1))
+        alone[name] = statistics.median(times)
+    log(f"  alone, median of 5: decode_binary of a {len(body) / 1e6:.1f} MB "
+        f"body {alone['decode_binary']:.1f} ms, repack of T {c['t']} raw "
+        f"frames {alone['repack']:.1f} ms")
+    out["alone_ms"] = alone
+
+    batches: list = []
+    host_ms: dict = {"decode_binary": [], "repack": []}
+    extract_many = eng.extract_many
+
+    def counted_many(samples, **kw):
+        batches.append(len(samples))
+        return extract_many(samples, **kw)
+
+    def timed(name, fn):
+        def call(*a):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                host_ms[name].append(1e3 * (time.perf_counter() - t1))
+        return call
+
+    originals = serving.decode_binary, serving._repack_raw
+    eng.extract_many = counted_many
+    serving.decode_binary = timed("decode_binary", serving.decode_binary)
+    serving._repack_raw = timed("repack", serving._repack_raw)
+    server = serving.create_server(eng, port=0,
+                                   batch_window_ms=SERVE_WINDOW_MS,
+                                   max_batch=SERVE_MAX_BATCH)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    client = LoadClient(url, Path(tmp.name))
+    try:
+        phases = (("vta", vta_jobs(SERVE_VTA)),
+                  ("ta", [["ta", i] for i in range(SERVE_TA)]))
+        # the references on phase 4's engine
+        keys = {sample_key(k, i, len(clips)): (k, i)
+                for _, jobs in phases for k, i in jobs}
+        keys.update({("cold", i): ("cold", i)
+                     for i in range(SERVE_THREADS + 1)})
+        want = {}
+        for key, (k, i) in keys.items():
+            meta, _, kw = request_of(k, i, base, content, clips)
+            want[key] = expected(engine, meta, kw)
+
+        def check(jobs, res, what="served"):
+            """Each answer against the reference of its sample, with the
+            request's own fname in `info`."""
+            worst = dict(err=0.0, cos=1.0)
+            for (k, i), (status, ans, _) in zip(jobs, res):
+                if status != 200:
+                    raise AssertionError(f"{k}_{i}: HTTP {status} {ans}")
+                w = want[sample_key(k, i, len(clips))]
+                got = hold_answer(ans, dict(w, info=dict(
+                    w["info"], fname=f"{k}_{i}")), f"{what} {k}_{i}")
+                worst = dict(err=max(worst["err"], got["err"]),
+                             cos=min(worst["cos"], got["cos"]))
+            return worst
+
+        def mean(xs):
+            return float(np.mean(xs)) if xs else None
+
+        def ms(x):
+            return "none" if x is None else f"{x:.1f} ms"
+
+        for rep in ("measured", "profiled"):
+            rep_out: dict = {}
+            for kind, jobs in phases:
+                client.prepare(f"{rep}_{kind}", jobs)
+                _build.reset_launches()
+                batches.clear()
+                for v in host_ms.values():
+                    v.clear()
+                ctx = profiled() if rep == "profiled" else \
+                    contextlib.nullcontext()
+                with ctx as prof:
+                    t_window = time.perf_counter()
+                    stats, ran = replayed(
+                        lambda: (client.go(), client.finish())[1])
+                    window_s = time.perf_counter() - t_window
+                counted = {k: n for k, n in _build.LAUNCHES.items() if n}
+                if counted or len(eng.cached_graphs) != n_graphs:
+                    raise AssertionError(
+                        f"{rep} {kind}: a request captured a graph: "
+                        f"counters {counted}, {len(eng.cached_graphs)} "
+                        f"graphs, {n_graphs} warmed")
+                r = rep_out[kind] = dict(
+                    {k: v for k, v in stats.items() if k != "results"},
+                    batches=list(batches), replayed={
+                        k: n for k, n in ran.items() if n},
+                    decode_binary_ms=mean(host_ms["decode_binary"]),
+                    repack_ms=mean(host_ms["repack"]),
+                    repacks=len(host_ms["repack"]),
+                    vs_extract=check(jobs, stats["results"]))
+                log(f"  {rep} {kind}: {len(jobs)} requests from "
+                    f"{SERVE_THREADS} threads of the client process in "
+                    f"{r['wall_s']:.3f} s: {r['requests_per_s']:.2f} "
+                    f"requests/s, p50 {r['p50_ms']:.1f} ms, p99 "
+                    f"{r['p99_ms']:.1f} ms, max {r['max_ms']:.1f} ms; "
+                    f"{len(batches)} batches {r['batches']}; decode_binary "
+                    f"{ms(r['decode_binary_ms'])} a request; repack "
+                    f"{ms(r['repack_ms'])} a raw request ({r['repacks']}); "
+                    f"replayed {r['replayed']}; against extract max abs "
+                    f"err {r['vs_extract']['err']:.3e}, min row cosine "
+                    f"{r['vs_extract']['cos']:.8f}")
+                if rep == "profiled":
+                    busy = union_ms(prof)
+                    r.update(window_ms=1e3 * window_s, busy_ms=busy,
+                             idle_share=1 - busy / (1e3 * window_s))
+                    log(f"  profiled {kind} window {1e3 * window_s:.1f} "
+                        f"ms: device busy {busy:.1f} ms, idle share "
+                        f"{r['idle_share']:.3f}")
+            out[rep] = rep_out
+        served = {}
+        for kind, _ in phases:
+            for k, n in out["measured"][kind]["replayed"].items():
+                served[k] = served.get(k, 0) + n
+        out["launches"] = served
+        missing = [k for k in ("stem_band", "conv2", "attn_sublayer",
+                               "ffn_sublayer", "encoder_stack")
+                   if not served.get(k)]
+        if missing:
+            raise AssertionError(f"served batches launched no {missing}: "
+                                 f"{served}")
+        if not out["measured"]["vta"]["repacks"]:
+            raise AssertionError("no raw-frames request was repacked")
+        log(f"  served batches replayed {served}; no capture in a request "
+            f"(counters 0, {n_graphs} graphs)")
+
+        # (c) a capture under load: the client's other threads send warm
+        # clips, this process the cold one once they are mid-request
+        warm_jobs = [["vta", i] for i in range(3 * (SERVE_THREADS - 1))]
+        cold_body = encode_request(*request_of("cold", 0, base, content,
+                                               clips)[:2], True)
+        client.prepare("under_capture", warm_jobs, SERVE_THREADS - 1)
+        _build.reset_launches()
+        client.go()
+        time.sleep(0.5)               # the warm clients are mid-request
+        t1 = time.perf_counter()
+        status, got = post(url, *cold_body)
+        cold_s = time.perf_counter() - t1
+        warm = client.finish()
+        if status != 200:
+            raise AssertionError(f"the cold clip: HTTP {status} {got}")
+        want_cold = want["cold", 0]
+        cold_worst = hold_answer(got, dict(want_cold, info=dict(
+            want_cold["info"], fname="cold_0")), "the cold clip")
+        captured = {k: n for k, n in _build.LAUNCHES.items() if n}
+        new = len(eng.cached_graphs) - n_graphs
+        warm_worst = check(warm_jobs, warm["results"], "under a capture,")
+        log(f"  capture under load: the T {SERVE_COLD_T} clip answered in "
+            f"{1e3 * cold_s:.1f} ms with {new} new graph(s), counters "
+            f"{captured}; against extract max abs err "
+            f"{cold_worst['err']:.3e}, min row cosine "
+            f"{cold_worst['cos']:.8f}; the {len(warm_jobs)} warm clips sent "
+            f"meanwhile: max abs err {warm_worst['err']:.3e}, min row "
+            f"cosine {warm_worst['cos']:.8f}")
+        if new != 1 or not captured.get("stem_band"):
+            raise AssertionError(f"the cold clip should capture one graph: "
+                                 f"{new} new, counters {captured}")
+        # that bucket is warm now: its clips replay the new graph
+        cold_jobs = [["cold", i] for i in range(1, SERVE_THREADS + 1)]
+        client.prepare("cold_bucket", cold_jobs)
+        _build.reset_launches()
+        after, ran = replayed(lambda: (client.go(), client.finish())[1])
+        counted = {k: n for k, n in _build.LAUNCHES.items() if n}
+        after_worst = check(cold_jobs, after["results"], "T 256 bucket")
+        log(f"  {len(cold_jobs)} more T {SERVE_COLD_T} clips: "
+            f"{after['requests_per_s']:.2f} requests/s, replayed "
+            f"{ {k: n for k, n in ran.items() if n} }, counters {counted}; "
+            f"max abs err {after_worst['err']:.3e}, min row cosine "
+            f"{after_worst['cos']:.8f}")
+        if counted or len(eng.cached_graphs) != n_graphs + 1:
+            raise AssertionError(f"the T 256 bucket captured again: "
+                                 f"counters {counted}, "
+                                 f"{len(eng.cached_graphs)} graphs")
+        out["capture_under_load"] = dict(
+            ms=1e3 * cold_s, new_graphs=new, counters=captured,
+            cold=cold_worst, warm=warm_worst, after=after_worst)
+        status, health = http(url)
+        log(f"  GET /healthz: {status} {health}")
+        if status != 200 or health["graphs"] != n_graphs + 1:
+            raise AssertionError(f"/healthz: {status} {health}")
+    finally:
+        client.close()
+        tmp.cleanup()
+        serving.decode_binary, serving._repack_raw = originals
+        server.shutdown()
+        server.server_close()
+    return out
+
+
+def run_serve(gp, jp, rp, engine) -> dict:
+    """Phase 11: (a) the CLI server in a child process, (b) load and (c) a
+    capture under load in-process. -> the `serve` line's dict."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = {"cli": run_serve_cli(Path(tmp), gp, jp, rp, engine)}
+    out.update(run_serve_load(gp, jp, rp, engine))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve: phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
 def smoke_text_ids():
     """The smoke text as the engine tokenizes it: (1, 32) ids padded to its
     S bucket, and the (1, 32) key mask."""
@@ -2999,9 +3766,9 @@ def main() -> int:
     global CHECK_KERNEL_COUNTS
     mode = sys.argv[1:]
     if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"],
-                    ["--cli"]):
+                    ["--cli"], ["--serve"]):
         print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler | "
-              f"--cli]", file=sys.stderr)
+              f"--cli | --serve]", file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -3052,12 +3819,16 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
-    if mode == ["--cli"]:        # phase 10 alone, on phase 4's engine
+    if mode in (["--cli"], ["--serve"]):   # phase 10 or 11 alone
         from jegal_torch.api import JegalEngine
 
         engine = JegalEngine(jp, gp, roberta_params=rp,
                              tokenizer=word_tokenizer())
-        log(json.dumps({"cli": run_cli(gp, jp, rp, engine)}))
+        if mode == ["--cli"]:
+            log(json.dumps({"cli": run_cli(gp, jp, rp, engine)}))
+        else:
+            log(json.dumps({"serve": run_serve(gp, jp, rp, engine)}))
+        log(smi.stdout.strip())
         return 0
     if mode == ["--encoders"]:   # phase 3's encoder kernels, reported
         CHECK_KERNEL_COUNTS = False
@@ -3093,6 +3864,7 @@ def main() -> int:
     checkpoints = run_checkpoints(gp, jp, rp, engine, sample, raw_res,
                                   train_batch)
     cli = run_cli(gp, jp, rp, engine)
+    serve = run_serve(gp, jp, rp, engine)
 
     rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
@@ -3172,6 +3944,8 @@ def main() -> int:
         row["launches_cli"] = {cmd: n[row["name"]]
                                for cmd, n in cli["launches"].items()
                                if n.get(row["name"])}
+        # phase 11b's served batches: the launches of the graphs replayed
+        row["launches_serve"] = serve["launches"].get(row["name"], 0)
     for name, cmds in (("stem_band", ("infer", "extract-feats")),
                        ("conv2", ("infer", "extract-feats")),
                        ("attn_sublayer", ("infer", "extract-embs")),
@@ -3184,6 +3958,7 @@ def main() -> int:
     log(json.dumps({"training": training}))
     log(json.dumps({"checkpoints": checkpoints}))
     log(json.dumps({"cli": cli}))
+    log(json.dumps({"serve": serve}))
     log(json.dumps({"kernels": kernels}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
 """The port's command-line drivers: `python -m jegal_torch <subcommand>`,
-the device subcommands of the JAX package's cli/main.py with its flags and
-names.
+every subcommand of the JAX package's cli/main.py with its flags and names.
 
   infer           <- inference_embs.py       (single sample, 7 modality combos)
   extract-feats   <- preprocess/extract_gestsync_feats.py  (CSV -> .npy bank)
@@ -9,22 +8,32 @@ names.
   eval-spotting   <- evaluation/evaluate_spotting.py
   eval-asd        <- evaluation/evaluate_asd.py
   heatmap         <- utils/plot_heatmap.py
+  preprocess      <- preprocess/inference_preprocess.py + dataset/
+                     preprocess_videos.py (single video or CSV batch)
+  download        <- dataset/download_videos.py            (yt-dlp, gated)
+  extract-kps     <- preprocess/extract_kps.py             (MediaPipe, gated)
   verify          one-command verification against goldens (verify.py)
   warmup          capture the engine's graphs ahead of traffic
+  serve           HTTP endpoint over the engine's captured graphs (serving.py)
   convert         torch .pth / HF -> .npz (both packages read the files)
+  transcribe      <- utils/extract_transcripts_whisperx.py (pluggable ASR)
   train           contrastive JEGAL training (training/loop.py)
 
-One flag the JAX CLI lacks: `--device` (default `cuda`) on every
-subcommand that computes on a device; `--device cpu` runs the port's plain
-CPU path (the JAX CLI takes that choice from JAX_PLATFORMS). Without a card
-a `cuda` run raises: nothing falls back to the CPU. `--bf16` and
+The host subcommands (preprocess, download, extract-kps, transcribe) run
+no model and read their CSVs with the stdlib, typed as pandas types them
+(data/datasets.read_csv). One flag the JAX CLI lacks: `--device` (default
+`cuda`) on every subcommand that computes on a device; `--device cpu` runs
+the port's plain CPU path (the JAX CLI takes that choice from
+JAX_PLATFORMS). Without a card a `cuda` run raises: nothing falls back to
+the CPU. `--bf16` and
 `--data_parallel` (and `train --model_parallel` above 1) exit with the
 ROADMAP item that will bring them.
 
 The JAX CLI's persistent XLA compilation cache (`setup_compilation_cache`)
 has no counterpart here: the port compiles its CUDA kernels once into
-build/jegal_torch_kernels/ and its decoder into build/jegal_torch_host/,
-each named by a digest of its source, and later processes load them.
+build/jegal_torch_kernels/ and its decoder and repack into
+build/jegal_torch_host/, each named by a digest of its source, and later
+processes load them.
 """
 
 from __future__ import annotations
@@ -152,6 +161,44 @@ def build_parser():
     p.add_argument("--path", required=True, help=".pkl embedding file")
     p.add_argument("--fname", default="heatmap")
 
+    p = sub.add_parser("preprocess",
+                       help="speaker detect/track/crop raw video(s)")
+    p.add_argument("--video_file", default=None,
+                   help="single video (reference inference_preprocess.py)")
+    p.add_argument("--file_path", default=None,
+                   help="CSV of videos (reference dataset/preprocess_videos.py)")
+    p.add_argument("--video_root", default=None,
+                   help="directory of downloaded videos (CSV mode)")
+    p.add_argument("--preprocessed_root", required=True)
+    p.add_argument("--merge_dir", default=None,
+                   help="also write merged <fname>_%%05d.mp4 (crop video + "
+                        "audio muxed, reference preprocess_videos.py "
+                        "filter_and_merge)")
+    p.add_argument("--final_dir", default=None,
+                   help="with --filter_csv: copy the CSV-selected crop "
+                        ".avi/.wav files from --preprocessed_root into this "
+                        "final tree (reference preprocess_videos.py "
+                        "filter_and_merge rsync stage)")
+    p.add_argument("--filter_csv", default=None,
+                   help="CSV with a 'filename' column of relative crop "
+                        "paths surviving filtering")
+    p.add_argument("--fps", type=float, default=25.0)
+    p.add_argument("--sample_rate", type=int, default=16000)
+    _add_shard(p)
+
+    p = sub.add_parser("download",
+                       help="download dataset clips from a CSV (yt-dlp)")
+    p.add_argument("--file", required=True, help="AVS csv")
+    p.add_argument("--video_root", required=True)
+    p.add_argument("--workers", type=int, default=8)
+
+    p = sub.add_parser("extract-kps",
+                       help="MediaPipe Holistic keypoints for a CSV of videos")
+    p.add_argument("--file_path", required=True)
+    p.add_argument("--video_dir", required=True)
+    p.add_argument("--res_dir", required=True)
+    _add_shard(p)
+
     p = sub.add_parser("verify",
                        help="one-command real-weight verification: extract "
                             "the demo samples under every combo, diff "
@@ -190,11 +237,54 @@ def build_parser():
     p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
     _add_device(p)
 
+    p = sub.add_parser("serve",
+                       help="HTTP serving endpoint over the engine "
+                            "(JSON + base64-npy tensors, or binary)")
+    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--roberta_path", default=None)
+    p.add_argument("--tokenizer_path", default=None)
+    p.add_argument("--checkpoint_path_gestsync", default=None)
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address; the endpoint has no auth — expose "
+                        "beyond loopback only behind a proxy/auth layer")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 binds a free port (printed on the first line)")
+    p.add_argument("--warmup_combos", default="",
+                   help="comma-separated combos whose graphs are captured "
+                        "before accepting traffic, e.g. vta,ta,a")
+    p.add_argument("--batch_window_ms", type=float, default=0.0,
+                   help=">0 batches concurrent requests into one engine "
+                        "call (adds up to this much latency)")
+    p.add_argument("--max_batch", type=int, default=16,
+                   help="batcher call size: every batched call is padded "
+                        "to it, the one batch size warmed")
+    p.add_argument("--warmup_frames", default=None,
+                   choices=["planar", "raw"],
+                   help="also capture the fused frames->embeddings graph "
+                        "for this input kind (the server repacks raw-frames "
+                        "requests on the host, so they run the planar graph)")
+    p.add_argument("--max_body_mb", type=int, default=512,
+                   help="reject request bodies larger than this (HTTP 413)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help=NOT_YET["data_parallel"])
+    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    _add_device(p)
+
     p = sub.add_parser("convert", help="convert checkpoints to .npz")
     p.add_argument("--model", required=True,
                    choices=["gestsync", "jegal", "roberta"])
     p.add_argument("--src", required=True)
     p.add_argument("--dst", required=True)
+
+    p = sub.add_parser("transcribe",
+                       help="word-boundary transcription (pluggable ASR)")
+    p.add_argument("--audio_path", default=None,
+                   help="single audio file (reference inference_embs.py)")
+    p.add_argument("--path", default=None,
+                   help="folder of audio files — batch mode with resume "
+                        "(reference utils/extract_transcripts_whisperx.py)")
+    p.add_argument("--res_dir", default="results")
+    p.add_argument("--batch_size", type=int, default=8)
 
     p = sub.add_parser("train", help="contrastive JEGAL training")
     p.add_argument("--file_path", required=True,
@@ -692,6 +782,83 @@ def cmd_heatmap(args):
     print(json.dumps({"saved": out}))
 
 
+def cmd_preprocess(args):
+    from jegal_torch.host.preprocess import filter_copy, process_video
+
+    if args.final_dir or args.filter_csv:
+        # standalone filter/copy stage (no decoding)
+        if not (args.final_dir and args.filter_csv):
+            raise SystemExit("--final_dir and --filter_csv go together")
+        stats = filter_copy(args.filter_csv, args.preprocessed_root,
+                            args.final_dir)
+        print(json.dumps(stats))
+        return
+    if bool(args.video_file) == bool(args.file_path):
+        raise SystemExit("specify exactly one of --video_file / --file_path")
+    if args.video_file:
+        result = process_video(args.video_file, args.preprocessed_root,
+                               fps=args.fps, sample_rate=args.sample_rate,
+                               merge_dir=args.merge_dir)
+        print(json.dumps(result))
+        return
+    # CSV batch mode (reference dataset/preprocess_videos.py); the row's
+    # values typed as pandas types them, so a float column formats as 1.0
+    from jegal_torch.data.datasets import read_csv
+
+    rank, nshard = _resolve_shard(args)
+    rows = read_csv(args.file_path)
+    if nshard > 1:
+        rows = rows[rank::nshard]
+    stats = {"done": 0, "failed": 0}
+    for row in rows:
+        vid = f"{row['video_id']}_{row['start_time']}_{row['end_time']}.mp4"
+        path = os.path.join(args.video_root or "", vid)
+        try:
+            process_video(path, args.preprocessed_root, fps=args.fps,
+                          sample_rate=args.sample_rate,
+                          merge_dir=args.merge_dir)
+            stats["done"] += 1
+        except Exception as e:
+            stats["failed"] += 1
+            print(json.dumps({"file": vid, "error": str(e)}), file=sys.stderr)
+    print(json.dumps(stats))
+
+
+def cmd_download(args):
+    from jegal_torch.data.download import download_dataset
+
+    print(json.dumps(download_dataset(args.file, args.video_root,
+                                      args.workers)))
+
+
+def cmd_extract_kps(args):
+    from jegal_torch.data.datasets import read_csv
+    from jegal_torch.host import keypoints, media
+
+    rank, nshard = _resolve_shard(args)
+    files = [r["filename"] for r in read_csv(args.file_path)]
+    if nshard > 1:
+        files = files[rank::nshard]
+    os.makedirs(args.res_dir, exist_ok=True)
+    stats = {"done": 0, "skipped": 0, "failed": 0}
+    for f in files:
+        out = os.path.join(args.res_dir, f + ".pkl")
+        if os.path.exists(out):  # idempotent resume (extract_kps.py:150-151)
+            stats["skipped"] += 1
+            continue
+        try:
+            frames, _ = media.decode_video(
+                os.path.join(args.video_dir, f + ".avi"))
+            kps = keypoints.extract_keypoints(frames)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            keypoints.save_keypoints(kps, frames.shape[1:], out)
+            stats["done"] += 1
+        except Exception as e:
+            stats["failed"] += 1
+            print(json.dumps({"file": f, "error": str(e)}), file=sys.stderr)
+    print(json.dumps(stats))
+
+
 def cmd_verify(args):
     from jegal_torch.verify import run_verification
 
@@ -722,6 +889,17 @@ def cmd_warmup(args):
                                                  for r in records), 3)}))
 
 
+def cmd_serve(args):
+    from jegal_torch.serving import serve
+
+    engine = _load_engine(args)
+    combos = [c for c in args.warmup_combos.split(",") if c]
+    serve(engine, host=args.host, port=args.port, warmup_combos=combos,
+          batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+          max_body_bytes=args.max_body_mb * 1024 * 1024,
+          warmup_frames=args.warmup_frames)
+
+
 def cmd_convert(args):
     from jegal_torch.convert import checkpoints as C
 
@@ -732,6 +910,19 @@ def cmd_convert(args):
         loader = {"gestsync": C.load_gestsync, "jegal": C.load_jegal}[args.model]
         C.save_npz(loader(args.src), args.dst)
     print(json.dumps({"saved": args.dst}))
+
+
+def cmd_transcribe(args):
+    if bool(args.audio_path) == bool(args.path):
+        raise SystemExit("specify exactly one of --audio_path / --path")
+    if args.path:
+        from jegal_torch.host.transcribe import transcribe_folder
+
+        print(json.dumps(transcribe_folder(args.path, args.res_dir,
+                                           batch_size=args.batch_size)))
+        return
+    out = _transcribe(args.audio_path, args.res_dir)
+    print(json.dumps({"saved": out}))
 
 
 def cmd_train(args):
@@ -780,9 +971,14 @@ COMMANDS = {
     "eval-spotting": cmd_eval_spotting,
     "eval-asd": cmd_eval_asd,
     "heatmap": cmd_heatmap,
+    "preprocess": cmd_preprocess,
+    "download": cmd_download,
+    "extract-kps": cmd_extract_kps,
     "verify": cmd_verify,
     "warmup": cmd_warmup,
+    "serve": cmd_serve,
     "convert": cmd_convert,
+    "transcribe": cmd_transcribe,
     "train": cmd_train,
 }
 

@@ -32,3 +32,15 @@ SPOT_FRAME_THRESHOLD = 9      # frames of slack around the true word span
 ASD_SPEAKERS = (2, 4, 6)      # candidate counts the accuracy is read at
 HEATMAP_THRESHOLD = 0.8       # attention below it is drawn faint
 HEATMAP_ALPHA = 0.6           # overlay weight of the thresholded heatmap
+
+# speaker preprocessing: the tracker and crop constants (reference
+# preprocess/inference_preprocess.py:18-27, the tracker's :70-123 and the
+# crop's :314-330)
+IOU_THRESHOLD = 0.5      # a detection joins a track above this IOU
+MIN_TRACK = 10           # a track keeps more than this many frames
+MIN_FRAME_SIZE = 64      # ... and a mean box side above this, in pixels
+NUM_FAILED_DET = 25      # frames a track may miss before it ends
+DETECTOR_CONF = 0.6      # person detections at or below it are dropped
+CROP_SCALE = 0.0
+TIGHT_SCALE = 0.9        # the smoothed box's scale
+MEDFILT_KERNEL = 13      # the median filter over a track's boxes

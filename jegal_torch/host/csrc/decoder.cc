@@ -1,6 +1,7 @@
 // The port's native media runtime: libav-based video/audio decode and
-// encode, and the host's space-to-depth repack (a copy of the JAX
-// package's host/csrc/decoder.cc, so that the port stands alone).
+// encode (a copy of the JAX package's host/csrc/decoder.cc, so that the
+// port stands alone; its space-to-depth repack lives in repack.cc, which
+// builds without libav).
 //
 // Replaces the reference's decord VideoReader (C++ wheel) and `ffmpeg`
 // subprocess shell-outs (reference inference_embs.py:10-11,136,450-451;
@@ -94,6 +95,17 @@ JegalVideo* jegal_decode_video(const char* path, int target_w, int target_h,
   if (out_w <= 0 || out_h <= 0) return nullptr;
   const size_t frame_bytes = static_cast<size_t>(out_w) * out_h * 3;
 
+  // swscale writes whole SIMD vectors, so it can overrun a packed RGB24
+  // row whose width is not a multiple of its step (past a frame's last row
+  // that is past the buffer: 107x92 corrupted the heap). It scales into a
+  // scratch image with 64-byte aligned, padded rows; each row is copied out.
+  uint8_t* scratch[4] = {nullptr, nullptr, nullptr, nullptr};
+  int scratch_linesize[4] = {0, 0, 0, 0};
+  if (av_image_alloc(scratch, scratch_linesize, out_w, out_h,
+                     AV_PIX_FMT_RGB24, 64) < 0)
+    return nullptr;
+  const size_t row_bytes = static_cast<size_t>(out_w) * 3;
+
   SwsContext* sws = nullptr;
   AVFrame* frame = av_frame_alloc();
   AVPacket* pkt = av_packet_alloc();
@@ -109,11 +121,14 @@ JegalVideo* jegal_decode_video(const char* path, int target_w, int target_h,
                                out_h, AV_PIX_FMT_RGB24, SWS_BILINEAR, nullptr,
                                nullptr, nullptr);
     if (!sws) return false;
+    sws_scale(sws, f->data, f->linesize, 0, f->height, scratch,
+              scratch_linesize);
     size_t off = frames.size();
     frames.resize(off + frame_bytes);
-    uint8_t* dst_data[4] = {frames.data() + off, nullptr, nullptr, nullptr};
-    int dst_linesize[4] = {out_w * 3, 0, 0, 0};
-    sws_scale(sws, f->data, f->linesize, 0, f->height, dst_data, dst_linesize);
+    for (int y = 0; y < out_h; ++y)
+      std::memcpy(frames.data() + off + y * row_bytes,
+                  scratch[0] + static_cast<size_t>(y) * scratch_linesize[0],
+                  row_bytes);
     int64_t pts = f->best_effort_timestamp;
     times.push_back(pts == AV_NOPTS_VALUE ? times.size() / native_fps
                                           : pts * tb);
@@ -140,6 +155,7 @@ JegalVideo* jegal_decode_video(const char* path, int target_w, int target_h,
   av_frame_free(&frame);
   av_packet_free(&pkt);
   if (sws) sws_freeContext(sws);
+  av_freep(&scratch[0]);
 
   const int64_t n_decoded = static_cast<int64_t>(times.size());
   if (!ok || n_decoded == 0) return nullptr;
@@ -493,57 +509,6 @@ int jegal_encode_av(const char* path, const uint8_t* rgb, int64_t nframes,
     avio_closep(&fmt->pb);
   avformat_free_context(fmt);
   return rc;
-}
-
-// Space-to-depth block-3 repack of packed RGB24 frames into the GestSync
-// stem kernel's channel layout, with the face mask folded in. This is the
-// host half of the port's planar input (ops/video.s2d_repack, which this
-// equals bit for bit): the decode threads emit this layout, so the device
-// graph starts at the stem kernel with no layout work.
-//
-//   out[t][h/3=h3][c=(dh*3+dw)*3+ch][w/3=w3] = rgb[t][3*h3+dh][3*w3+dw][ch]
-//   shape (nframes, height/3, 27, width/3), tight u8 (no padding).
-//
-// cut_rows (nullable): per-frame chin row; raw rows h < cut_rows[t] are
-// zeroed (reference masks rows 0..y2+15 inclusive before the tower,
-// inference_embs.py:262-286; same semantics as mask_s2d_core's `cut`).
-// height/width must be multiples of 3. Returns 0 on success.
-int jegal_s2d_repack(const uint8_t* rgb, int64_t nframes, int height,
-                     int width, const int32_t* cut_rows, uint8_t* out) {
-  if (height % 3 != 0 || width % 3 != 0 || nframes < 0) return -1;
-  const int h3n = height / 3, w3n = width / 3;
-  const size_t row_bytes = static_cast<size_t>(width) * 3;
-  const size_t plane = static_cast<size_t>(w3n);          // one (c) row
-  const size_t block = 27 * plane;                        // one h3 block
-  for (int64_t t = 0; t < nframes; ++t) {
-    const uint8_t* ft = rgb + t * height * row_bytes;
-    const int cut = cut_rows ? cut_rows[t] : 0;
-    uint8_t* ot = out + t * h3n * block;
-    for (int h3 = 0; h3 < h3n; ++h3) {
-      uint8_t* ob = ot + h3 * block;
-      for (int dh = 0; dh < 3; ++dh) {
-        const int h = 3 * h3 + dh;
-        uint8_t* oc = ob + (dh * 9) * plane;              // planes 9dh..9dh+8
-        if (h < cut) {
-          std::memset(oc, 0, 9 * plane);
-          continue;
-        }
-        const uint8_t* row = ft + h * row_bytes;
-        // 9 planes of this raw row: plane q = dw*3+ch takes lane 9*w3+q.
-        // One sequential read pass scattering to 9 write streams beats the
-        // 9-pass stride-9 gather ~10x (all streams stay in L1).
-        uint8_t* d[9];
-        for (int q = 0; q < 9; ++q) d[q] = oc + q * plane;
-        for (int w3 = 0; w3 < w3n; ++w3) {
-          const uint8_t* p = row + 9 * w3;
-          d[0][w3] = p[0]; d[1][w3] = p[1]; d[2][w3] = p[2];
-          d[3][w3] = p[3]; d[4][w3] = p[4]; d[5][w3] = p[5];
-          d[6][w3] = p[6]; d[7][w3] = p[7]; d[8][w3] = p[8];
-        }
-      }
-    }
-  }
-  return 0;
 }
 
 }  // extern "C"

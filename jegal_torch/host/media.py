@@ -1,17 +1,20 @@
-"""ctypes bindings to the port's libav media runtime (host/csrc/decoder.cc,
-the JAX package's host/media.py).
+"""ctypes bindings to the port's native host runtime: the libav media
+runtime (host/csrc/decoder.cc, the JAX package's host/media.py) and the
+space-to-depth repack (host/csrc/repack.cc).
 
 In-process C++ decode and encode in place of the reference's decord and
-ffmpeg subprocesses (inference_embs.py:123-151,433-473). The shared library
-is built with g++ at first use, never at import:
+ffmpeg subprocesses (inference_embs.py:123-151,433-473). Each shared
+library is built with g++ at first use, never at import:
 
     g++ -O2 -shared -fPIC decoder.cc -o decoder-<digest>.so
         -lavformat -lavcodec -lavutil -lswscale -lswresample
+    g++ -O2 -shared -fPIC repack.cc -o repack-<digest>.so
 
 into build/jegal_torch_host/ at the repository root, named by a digest of
 the source and the command, so an edited source is rebuilt and a stale
-library is never loaded. Every native call goes through ctypes, which
-releases the GIL, so decode threads run in parallel.
+library is never loaded. The repack needs no libav, so it builds (and the
+server repacks raw frames) where libav is absent. Every native call goes
+through ctypes, which releases the GIL, so decode threads run in parallel.
 """
 
 from __future__ import annotations
@@ -26,12 +29,14 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "csrc" / "decoder.cc"
+REPACK_SRC = SRC.with_name("repack.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jegal_torch_host"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
 LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale", "-lswresample")
 
 _lock = threading.Lock()
-_lib = None
+_lib = None             # the decoder
+_repack_lib = None
 
 
 class _JegalVideo(ctypes.Structure):
@@ -52,29 +57,50 @@ class _JegalAudio(ctypes.Structure):
     ]
 
 
-def library_path() -> Path:
-    """Where the library built from the present source lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"decoder-{h.hexdigest()[:16]}.so"
+def _library_path(src: Path, libs: tuple) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + libs).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_library() -> Path:
-    """Compile the decoder unless an up-to-date library exists -> its
-    path. A failed compile raises with g++'s output."""
-    lib = library_path()
+def _build(src: Path, libs: tuple, what: str) -> Path:
+    """Compile `src` unless an up-to-date library exists -> its path. A
+    failed compile raises with g++'s output."""
+    lib = _library_path(src, libs)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.parent / f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp), *LIBS]
+    cmd = ["g++", *CXX_FLAGS, str(src), "-o", str(tmp), *libs]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the libav decoder failed:\n"
+        raise RuntimeError(f"building the {what} failed:\n"
                            f"{' '.join(cmd)}\n{r.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def library_path() -> Path:
+    """Where the decoder built from the present source lives."""
+    return _library_path(SRC, LIBS)
+
+
+def build_library() -> Path:
+    """Compile the libav decoder unless an up-to-date library exists ->
+    its path."""
+    return _build(SRC, LIBS, "libav decoder")
+
+
+def repack_library_path() -> Path:
+    """Where the repack built from the present source lives."""
+    return _library_path(REPACK_SRC, ())
+
+
+def build_repack_library() -> Path:
+    """Compile the repack (no libav) unless an up-to-date library exists
+    -> its path."""
+    return _build(REPACK_SRC, (), "s2d repack")
 
 
 def _get_lib():
@@ -98,13 +124,24 @@ def _get_lib():
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.POINTER(ctypes.c_int16), ctypes.c_int64, ctypes.c_int]
+            _lib = lib
+    return _lib
+
+
+def get_repack_lib():
+    """The repack library, built and loaded at first use; a failed build
+    or load raises (OSError, RuntimeError)."""
+    global _repack_lib
+    with _lock:
+        if _repack_lib is None:
+            lib = ctypes.CDLL(str(build_repack_library()))
             lib.jegal_s2d_repack.restype = ctypes.c_int
             lib.jegal_s2d_repack.argtypes = [
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int,
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_uint8)]
-            _lib = lib
-    return _lib
+            _repack_lib = lib
+    return _repack_lib
 
 
 def _u8(a):
@@ -148,7 +185,7 @@ def s2d_repack(frames: np.ndarray, cut_rows: np.ndarray | None = None
     """The C++ twin of ops/video.s2d_repack, bit for bit: (T, H, W, 3)
     uint8 -> planar (T, H/3, 27, W/3) uint8 with c = (dh*3+dw)*3+ch, raw
     rows h < cut_rows[t] zeroed. Runs on the decode thread, the GIL
-    released."""
+    released. Needs no libav."""
     frames = np.ascontiguousarray(frames, dtype=np.uint8)
     t, h, w, c = frames.shape
     if c != 3 or h % 3 or w % 3:
@@ -160,7 +197,7 @@ def s2d_repack(frames: np.ndarray, cut_rows: np.ndarray | None = None
         cuts = np.ascontiguousarray(cut_rows, dtype=np.int32)
         if cuts.shape != (t,):
             raise ValueError(f"cut_rows must be ({t},), got {cuts.shape}")
-    lib = _get_lib()
+    lib = get_repack_lib()
     rc = lib.jegal_s2d_repack(
         _u8(frames), t, h, w,
         None if cuts is None

@@ -1,19 +1,21 @@
-"""Word-boundary transcription backend (pluggable ASR; the single-file half
-of the JAX package's host/transcribe.py, the part the CLI's infer reaches).
+"""Word-boundary transcription backend (pluggable ASR; the JAX package's
+host/transcribe.py).
 
 The reference shells into WhisperX large-v3 on CPU (utils/
 extract_transcripts_whisperx.py:17-81; inference_embs.py:379-430) to produce
 'Text:/Lang:' headers plus 'WORD, START, END, SCORE' rows — both a
-single-file path (inference) and a folder-batch driver (corpus); the
-folder driver waits for the `transcribe` subcommand. WhisperX is an
-external pretrained model: it is wrapped when installed, and otherwise a
-clear error tells the user to provide --text_path. The backend is
-injectable for tests.
+single-file path (inference) and a folder batch (corpus) with
+skip-if-exists resume. WhisperX is an external pretrained model: it is
+wrapped when installed, and otherwise a clear error tells the user to
+provide --text_path. The backend is injectable for tests.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
+import sys
 
 
 class WhisperXBackend:
@@ -83,3 +85,36 @@ def transcribe_to_file(audio_path: str, res_dir: str, batch_size: int = 8,
     out_path = os.path.join(res_dir, "word_boundaries.txt")
     write_transcript(backend(audio_path, batch_size=batch_size), out_path)
     return out_path
+
+
+def transcribe_folder(path: str, result_dir: str, batch_size: int = 8,
+                      backend=None, exts=(".wav", ".mp3", ".m4a", ".flac")
+                      ) -> dict:
+    """The folder batch (reference extract_transcripts_whisperx.py
+    get_predictions): every audio file under `path` -> `<result_dir>/
+    <relpath-under-path, .txt>` (the whole tree mirrored — the reference
+    keys only on the immediate parent's basename, :28, and collides on
+    deeper trees), skip-if-exists resume (:32-33), and a JSON error line a
+    failed file on stderr instead of the reference's silent loop.
+    -> {"done", "skipped", "failed"} counts."""
+    backend = backend or WhisperXBackend()
+    files = sorted(
+        f for f in glob.glob(os.path.join(path, "**", "*"), recursive=True)
+        if f.lower().endswith(exts))
+    stats = {"done": 0, "skipped": 0, "failed": 0}
+    for audio_file in files:
+        rel = os.path.relpath(audio_file, path)
+        out_path = os.path.join(result_dir,
+                                os.path.splitext(rel)[0] + ".txt")
+        if os.path.exists(out_path):
+            stats["skipped"] += 1
+            continue
+        try:
+            write_transcript(backend(audio_file, batch_size=batch_size),
+                             out_path)
+            stats["done"] += 1
+        except Exception as e:
+            stats["failed"] += 1
+            print(json.dumps({"file": audio_file, "error": str(e)}),
+                  file=sys.stderr)
+    return stats

@@ -12,7 +12,10 @@ JAX package's on seeded inputs and on the keypoint fixture
 (tests/fixtures/keypoints_sample.pkl, one MediaPipe Holistic run) exactly.
 
 The decoder tests skip where `pkg-config libavformat` fails (no libav
-headers)."""
+headers). The repack is a library of its own (host/csrc/repack.cc) that
+needs no libav; it is also held to the numpy repack where libav is absent.
+`test_native_runtime_sanitizers` (marked slow) runs both C++ sources under
+ASan and UBSan (host/csrc/media_sanity.cc)."""
 
 import os
 import pickle
@@ -123,6 +126,26 @@ def test_decode_video_matches_jax(media, jax_media, clips, kw, which):
     np.testing.assert_array_equal(got, want)
 
 
+def test_decode_odd_width_does_not_overrun(media, tmp_path):
+    """A width whose RGB24 row is no multiple of swscale's SIMD step
+    (107x92): the scale writes into a padded scratch image, so the decode
+    of its last row cannot overrun the heap (which aborted or crashed the
+    process with a packed destination); in a subprocess, so that a crash
+    fails the test rather than the run."""
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (10, 92, 107, 3), dtype=np.uint8)
+    path = str(tmp_path / "odd.avi")
+    media.encode_video(path, frames)
+    code = ("from jegal_torch.host import media\n"
+            f"v, fps = media.decode_video({path!r})\n"
+            "print(v.shape, fps)\n")
+    r = subprocess.run(["python", "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split(")")[0] == "(10, 92, 107, 3"
+
+
 @pytest.mark.parametrize("rate", [16000, 8000])
 @pytest.mark.parametrize("which", ["av", "wav"])
 def test_decode_audio_matches_jax(media, jax_media, clips, rate, which):
@@ -151,6 +174,58 @@ def test_s2d_repack_matches_jax_and_numpy(media, jax_media, cuts):
     np.testing.assert_array_equal(got, TV.s2d_repack(frames, cut))
 
 
+@pytest.mark.parametrize("cuts", ["none", "chin", "edges"])
+def test_repack_builds_without_libav(cuts):
+    """The repack is its own library (host/csrc/repack.cc), compiled with no
+    -l flag and linked against no libav library, so that it builds where
+    libav is absent; it stays bit-exact with the numpy repack."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++")
+    from jegal_torch.host import media as TMD
+
+    lib = TMD.build_repack_library()
+    assert lib == TMD.repack_library_path()
+    assert lib.name.startswith("repack-") and lib.exists()
+    assert lib.parent == TMD.BUILD_DIR
+    if shutil.which("ldd") is not None:
+        linked = subprocess.run(["ldd", str(lib)], capture_output=True,
+                                text=True).stdout
+        assert "libav" not in linked and "libsw" not in linked, linked
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, (5, 270, 480, 3), dtype=np.uint8)
+    cut = {"none": None,
+           "chin": rng.integers(90, 200, 5).astype(np.int32),
+           "edges": np.array([-5, 0, 269, 270, 400], np.int32)}[cuts]
+    np.testing.assert_array_equal(TMD.s2d_repack(frames, cut),
+                                  TV.s2d_repack(frames, cut))
+
+
+@pytest.mark.slow
+def test_native_runtime_sanitizers(tmp_path):
+    """The port's C++ host runtime (decoder.cc and repack.cc) under
+    ASan+UBSan: every C-ABI entry point incl. failure paths, zero
+    leaks/UB (host/csrc/media_sanity.cc)."""
+    if not _have_libav():
+        pytest.skip("no libav headers (pkg-config libavformat fails)")
+    from jegal_torch.host import media as TMD
+
+    csrc = TMD.SRC.parent
+    binary = str(tmp_path / "media_sanity")
+    build = subprocess.run(
+        ["g++", "-std=c++17", "-g", "-O1",
+         "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+         str(csrc / "decoder.cc"), str(csrc / "repack.cc"),
+         str(csrc / "media_sanity.cc"), "-o", binary, *TMD.LIBS],
+        capture_output=True, text=True)
+    if build.returncode != 0 and "asan" in build.stderr.lower():
+        pytest.skip("toolchain lacks libasan")
+    assert build.returncode == 0, build.stderr
+    run = subprocess.run([binary, str(tmp_path)], capture_output=True,
+                         text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "media_sanity OK" in run.stdout
+
+
 def test_s2d_repack_refuses_bad_shapes(media):
     with pytest.raises(ValueError):
         media.s2d_repack(np.zeros((2, 10, 9, 3), np.uint8))
@@ -162,7 +237,7 @@ def test_s2d_repack_refuses_bad_shapes(media):
 def test_media_import_builds_nothing():
     """Importing the bindings neither builds nor loads the library."""
     code = ("import jegal_torch.host.media as m\n"
-            "assert m._lib is None\n")
+            "assert m._lib is None and m._repack_lib is None\n")
     r = subprocess.run(["python", "-c", code], capture_output=True,
                        text=True, timeout=120,
                        cwd=os.path.dirname(os.path.dirname(__file__)))

@@ -15,8 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "jegal_tpu", "pandas", "optax", "orbax")
-# modules every walk of the package must reach (the training, planar and
-# CLI slices' too)
+# modules every walk of the package must reach (the training, planar, CLI
+# and serving slices' too)
 REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.ops.kernels.conv2", "jegal_torch.ops.video",
             "jegal_torch.training.trainer", "jegal_torch.training.data",
@@ -29,7 +29,9 @@ REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.host.media", "jegal_torch.host.masking",
             "jegal_torch.host.keypoints", "jegal_torch.host.transcribe",
             "jegal_torch.utils.profiling", "jegal_torch.data.datasets",
-            "jegal_torch.verify", "jegal_torch.cli.main")
+            "jegal_torch.verify", "jegal_torch.cli.main",
+            "jegal_torch.serving", "jegal_torch.host.preprocess",
+            "jegal_torch.data.download")
 # optional packages: imported lazily, by the functions that need them
 LAZY = ("pandas", "matplotlib", "safetensors")
 SOURCES = sorted((ROOT / "jegal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -113,3 +115,22 @@ def test_port_imports_with_optional_packages_blocked():
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == ("loading model.safetensors needs the "
                                 "safetensors package")
+
+
+def test_serving_and_host_imports_build_nothing():
+    """Importing the server, the preprocessing and the media bindings
+    neither builds nor loads a native library (the repack is built when a
+    server is created, the decoder at first decode), and pulls in no JAX,
+    JAX-package or pandas module."""
+    code = (
+        "import sys\n"
+        "import jegal_torch.serving, jegal_torch.host.preprocess\n"
+        "import jegal_torch.data.download, jegal_torch.host.transcribe\n"
+        "from jegal_torch.host import media\n"
+        "assert media._lib is None and media._repack_lib is None\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

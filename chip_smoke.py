@@ -10,6 +10,7 @@ eval, the CLI's device subcommands and the HTTP server on one card.
     python3 chip_smoke.py --profiler  # torch.profiler's window, probed
     python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
     python3 chip_smoke.py --serve     # phase 11 (serving) alone
+    python3 chip_smoke.py --bf16      # phase 12 (the bf16 engine) alone
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -22,7 +23,9 @@ eager, a few hundred times with and without `profiled()`'s idle settle,
 logs how often their device kernel counts differ, and prints no `ok`
 line. `--cli` runs phase 10 alone on phase 4's weights and engine, and
 prints its `cli` line and no `ok` line; `--serve` runs phase 11 alone the
-same way and prints its `serve` line.
+same way and prints its `serve` line; `--bf16` runs phase 12 alone after
+phase 4's raw clip and prints its `bf16` and `kernels` lines (the bf16
+rows only).
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -208,10 +211,35 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     are mid-request: it captures one graph and answers within the bars,
     and so do the others; 8 more such clips then replay it, capturing
     nothing;
-12. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
+12. the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`): (a) the bf16
+    variants of kernels 2 (both entries, at phase 3's T = 128 bucket), 7
+    (on that stem's bf16 output), 3 and 4 (phase 3's three shapes) and 5
+    (the clip's 32 XLM-R rows), each against its bf16 twin (2 bf16 ulps an
+    element, 4 for the 12-layer stack, min row cosine 0.9999:
+    tests/bf16_bars.py) and against its float32 kernel on the same bf16
+    values (min row cosine 0.9999), two launches bit-identical, registers
+    and spills, then timed (CUDA events, median of 20) beside the float32
+    kernel, the twin and one bf16 PyTorch call chain, with the bf16 bound
+    (bytes at 3.35 TB/s, or operations at 989 TFLOP/s dense bf16); (b) a
+    bf16 and a new float32 engine side by side: phase 4's raw clip (the
+    first call captures: launches band stem, block 2, attention 15, FFN
+    15 and stack 1, all bf16, and the MiB the capture adds; the replay
+    against an eager run bit for bit) and its planar frames, held to the
+    float32 engine (min row cosine 0.9995), warm ms/clip in turns (float32,
+    bf16, bf16, float32), a profile (device busy, idle share) and the
+    host's time by step; `extract_many` over phase 6c's eight planar clips
+    (launches, capture MiB, clips/s, a profile), each bf16 result held to
+    the float32 one; a served load (after `serving.warmup` as `serve`
+    runs it: 16 binary planar `vta` and 16 JSON `ta` requests from 4
+    threads; requests/s, device busy and idle share; no capture inside a
+    request; every bf16 answer float32 on the wire and held to the float32
+    engine's `extract`); and phase 5's small clip, the bf16 engine on the
+    card against the bf16 engine on the CPU (min row cosine 0.999);
+13. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
     (each subcommand's wall seconds and launches, whether the decoder was
-    real), a `serve` JSON line, one `kernels` JSON line, the card line,
-    and last the `ok` JSON line.
+    real), a `serve` JSON line, a `bf16` JSON line, one `kernels` JSON
+    line (the bf16 variants' rows after the float32 kernels'), the card
+    line, and last the `ok` JSON line.
 
 In the `kernels` line, the attention, FFN and stack rows are per clip:
 each shape's per-launch time times the launches a T=125 `vta` clip makes at
@@ -581,6 +609,19 @@ def max_err(got, want, what: str, atol: float) -> float:
 # Phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
 
+def stem_frames(dev):
+    """Phase 3's stem input: 128 random 270x480 frames (uint8) and their
+    chin rows, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 1)
+    u8 = torch.from_numpy(rng.integers(0, 256, (128, 270, 480, 3),
+                                       dtype=np.uint8)).to(dev)
+    chin = torch.from_numpy(rng.integers(90, 200, 128)).to(dev)
+    return u8, chin
+
+
 def check_stem(gp, dev):
     import numpy as np
     import torch
@@ -590,10 +631,7 @@ def check_stem(gp, dev):
     from jegal_torch.ops.kernels import stem as S
     from jegal_torch.ops.video import mask_frames_device
 
-    rng = np.random.default_rng(SEED + 1)
-    u8 = torch.from_numpy(rng.integers(0, 256, (128, 270, 480, 3),
-                                       dtype=np.uint8)).to(dev)
-    chin = torch.from_numpy(rng.integers(90, 200, 128)).to(dev)
+    u8, chin = stem_frames(dev)
     frames = mask_frames_device(u8, chin)                  # (152, 270, 480, 3)
     blk = gp["net_vid"][0]
     ops = S.stem_kernel_params(blk)
@@ -1002,10 +1040,17 @@ PROFILE_SETTLE_S = 0.01
 def profiled(settle: float = PROFILE_SETTLE_S):
     """torch.profiler over the body, CPU and CUDA activity, with the
     device idle for `settle` s at each end of the window; the body must
-    leave its work synchronized. Yields the profiler."""
+    leave its work synchronized. Yields the profiler. The garbage
+    collector runs first: a collection inside the window frees dead
+    graphs, events and pinned buffers there (a bf16 replay, profiled just
+    after a capture that ran with the collector off, twice lost its first
+    11-13 kernels; alone it never did)."""
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    gc.collect()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1195,7 +1240,10 @@ SIGNATURES = {"stem_band": ("stem_band_kernel",),
 def device_kernels(fn):
     """One call of `fn` under torch.profiler -> (its result, {device event
     name: count}). A memset's or memcpy's memory kinds are left out of its
-    name: in a graph the profiler sees them as "Unknown"."""
+    name: in a graph the profiler sees them as "Unknown". A graph may also
+    run a device-to-device memcpy node as a copy kernel (`memcpy32_post`,
+    seen in a bf16 replay where the eager run made a "Memcpy DtoD"): it
+    counts as that memcpy."""
     import torch
 
     with profiled() as prof:
@@ -1203,18 +1251,22 @@ def device_kernels(fn):
         torch.cuda.synchronize()
     counts: dict = {}
     for name, _ in device_events(prof):
+        if name.startswith("memcpy32_post"):
+            name = "Memcpy DtoD"
         if name.startswith(("Memset", "Memcpy")):
             name = name.split(" (")[0]
         counts[name] = counts.get(name, 0) + 1
     return result, counts
 
 
-def replay_check(engine, what: str, xlmr_layers: int = 12):
+def replay_check(engine, what: str, xlmr_layers: int = 12,
+                 bf16: bool = False):
     """The graph of the engine's last call, against an eager run of its
     forward on the same static inputs: the outputs bit for bit, and the
     device kernels of one profiled replay by name and count against the
     eager run's and against the launches recorded at its capture (each
-    counter's kernel as often as counted)."""
+    counter's kernel as often as counted; a bf16 engine's by the bf16
+    counters)."""
     import torch
 
     entry = engine._graphs[engine.cached_graphs[-1]]
@@ -1235,10 +1287,11 @@ def replay_check(engine, what: str, xlmr_layers: int = 12):
                 if replay.get(k, 0) != eager.get(k, 0)}
         raise AssertionError(f"{what}: replay vs eager device kernels "
                              f"differ (replay, eager): {diff}")
-    for k, parts in SIGNATURES.items():
+    sfx = "_bf16" if bf16 else ""
+    for k, parts in (SIGNATURES_BF16 if bf16 else SIGNATURES).items():
         want = entry.launches[k]
-        if k == "attn_sublayer":
-            want += xlmr_layers * entry.launches["encoder_stack"]
+        if k == "attn_sublayer" + sfx:
+            want += xlmr_layers * entry.launches["encoder_stack" + sfx]
         got = sum(n for name, n in replay.items()
                   if all(p in name for p in parts))
         if got != want:
@@ -3743,6 +3796,540 @@ def run_serve(gp, jp, rp, engine) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the bf16 engine
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# the bf16 engine's embeddings against the float32 engine's on the card,
+# and against the bf16 engine's on the CPU (the CPU runs the bf16 layer
+# loop, which rounds at other sites than the kernels' twins)
+BF16_F32_COS = 0.9995
+BF16_CPU_COS = 0.999
+# a bf16 kernel against the float32 kernel on the same (bf16) inputs
+BF16_KERNEL_F32_COS = 0.9999
+VTA_LAUNCHES_BF16 = dict(stem_band_bf16=1, conv2_bf16=1,
+                         attn_sublayer_bf16=15, ffn_sublayer_bf16=15,
+                         encoder_stack_bf16=1)
+SIGNATURES_BF16 = {"stem_band_bf16": ("stem_band_bf16_kernel",),
+                   "conv2_bf16": ("conv2_bf16_kernel",),
+                   "attn_sublayer_bf16": ("attention_core",)}
+
+
+def bf16_bars():
+    """tests/bf16_bars.py (numpy and torch only; in every checkout)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import bf16_bars
+
+    return bf16_bars
+
+
+def bound_bf16(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) of a bf16 kernel: its products at the dense bf16
+    tensor-core rate, or its bytes at the HBM rate."""
+    t_op, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
+
+
+def hold_bf16(got, twin, f32_out, what: str, stack: bool = False) -> dict:
+    """A bf16 kernel's output against its bf16 twin (2 bf16 ulps an element,
+    4 for a stack of layers, min row cosine 0.9999: tests/bf16_bars.py) and
+    against the float32 kernel on the same inputs (min row cosine
+    BF16_KERNEL_F32_COS)."""
+    import torch
+
+    bars = bf16_bars()
+    if got.dtype != torch.bfloat16 or not bool(torch.isfinite(
+            got.float()).all()):
+        raise AssertionError(f"{what}: not finite bf16 ({got.dtype})")
+    max_ulps = bars.STACK_MAX_ULPS if stack else bars.MAX_ULPS
+    worst, cos = bars.check_kernel_bar(got, twin, what, max_ulps)
+    cos32 = bars.min_row_cos(got, f32_out)
+    err = (got.float() - twin.float()).abs().max().item()
+    ok = cos32 >= BF16_KERNEL_F32_COS
+    log(f"  {what}: vs its bf16 twin {worst:.2f} bf16 ulps (bar "
+        f"{max_ulps}), min row cosine {cos:.7f} (bar {bars.KERNEL_COS}), "
+        f"max abs err {err:.3e}; vs the float32 kernel min row cosine "
+        f"{cos32:.7f} (bar {BF16_KERNEL_F32_COS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the bf16 kernel is too far from the "
+                             f"float32 kernel")
+    return dict(max_abs_err=err, worst_ulps=worst, min_row_cos=cos,
+                min_row_cos_f32=cos32)
+
+
+def bf16_row(what: str, fn, plain, f32_fn, library, flops: float,
+             nbytes: float, cold: bool, stack: bool = False,
+             **extra) -> dict:
+    """One bf16 kernel at one shape: held (hold_bf16), a second launch
+    bit-identical, then timed beside its float32 kernel on the same
+    inputs, its twin and its bf16 PyTorch chain (CUDA events, median of
+    20; the L2 flushed before each launch when `cold`)."""
+    row = dict(extra, **hold_bf16(fn(), plain(), f32_fn(), what, stack))
+    relaunch_identical(fn, what)
+    b_ms, b_by = bound_bf16(flops, nbytes)
+    row.update(ms=cuda_ms(fn, cold=cold), ms_f32=cuda_ms(f32_fn, cold=cold),
+               plain_ms=cuda_ms(plain, cold=cold),
+               library_ms=cuda_ms(library, cold=cold), bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"  {what} ms {row['ms']:.4f} (float32 kernel {row['ms_f32']:.4f}) "
+        f"plain {row['plain_ms']:.4f} library (bf16) "
+        f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}, bf16), "
+        f"{100 * b_ms / row['ms']:.1f} % of it")
+    return row
+
+
+def check_bf16_tower(gp, dev, stem_inputs):
+    """12a: the band stem's bf16 variant on both entries at the T = 128
+    bucket (152 padded frames of 270x480) and block 2's on its output."""
+    import torch
+    import torch.nn.functional as F
+
+    from jegal_torch.api import _cast_tree
+    from jegal_torch.ops.kernels import conv2 as C2
+    from jegal_torch.ops.kernels import stem as S
+    from jegal_torch.ops.video import edge_pad, mask_frames_device, s2d_repack
+
+    bf = torch.bfloat16
+    u8, chin = stem_inputs[0], stem_inputs[1]
+    gp16 = _cast_tree(gp, bf)
+    frames = mask_frames_device(u8, chin, bf)              # (152, 270, 480, 3)
+    planar = torch.from_numpy(s2d_repack(u8.cpu().numpy(),
+                                         chin.cpu().numpy())).to(dev)
+    planar = edge_pad(planar).contiguous()                 # (152, 90, 27, 160)
+    ops = S.stem_kernel_params(gp16["net_vid"][0])
+    ops32 = (ops[0].float(), ops[1], ops[2])
+    blk = gp16["net_vid"][0]
+    bn = {k: v.float() for k, v in blk["bn"].items()}
+    xc = frames.permute(3, 0, 1, 2)[None].contiguous()
+    wc = blk["conv"]["kernel"].permute(4, 3, 0, 1, 2).contiguous()
+
+    def library():
+        y = F.conv3d(xc, wc, blk["conv"]["bias"], stride=(1, 3, 3))
+        y = F.relu(F.batch_norm(y, bn["mean"].to(bf), bn["var"].to(bf),
+                                bn["scale"].to(bf), bn["bias"].to(bf), False,
+                                0.0, 1e-5))
+        return F.max_pool3d(y, (1, 3, 3), (1, 2, 2))
+
+    t_in, h, w = frames.shape[:3]
+    t_out, j, wp, c = S.pooled_shape(t_in, h, w)
+    flops = stem_flops(t_in, h, w)
+    out_b = 2.0 * t_out * j * wp * c
+    log(f"bf16 stem: frames {tuple(frames.shape)} bf16, planar "
+        f"{tuple(planar.shape)} uint8 -> {(t_out, j, wp, c)} bf16; "
+        f"float entry {stem_info_bf16(False)}, planar entry "
+        f"{stem_info_bf16(True)}")
+    stem_rows = [
+        bf16_row("stem_band_bf16 (float entry)",
+                 lambda: S.stem_pool(frames, *ops),
+                 lambda: S.stem_pool_plain(frames, *ops),
+                 lambda: S.stem_pool(frames.float(), *ops32),
+                 library, flops,
+                 2.0 * frames.numel() + 2.0 * ops[0].numel() + 8 * c + out_b,
+                 False, shape="float frames (152, 270, 480, 3)"),
+        bf16_row("stem_band_bf16 (planar entry)",
+                 lambda: S.stem_pool_planar(planar, *ops),
+                 lambda: S.stem_pool_planar_plain(planar, *ops),
+                 lambda: S.stem_pool_planar(planar, *ops32),
+                 library, flops,
+                 1.0 * planar.numel() + 2.0 * ops[0].numel() + 8 * c + out_b,
+                 False, shape="planar frames (152, 90, 27, 160)")]
+    x = S.stem_pool(frames, *ops)                          # (148, 43, 78, 64)
+    c2 = C2.conv2_kernel_params(gp16["net_vid"][1])
+    c2_32 = (c2[0].float(), c2[1], c2[2])
+    blk2 = gp16["net_vid"][1]
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    w2 = blk2["conv"]["kernel"][0].permute(3, 2, 0, 1).contiguous()
+    bn2 = {k: v.to(bf) for k, v in blk2["bn"].items()}
+
+    def library2():
+        y = F.conv2d(xn, w2, blk2["conv"].get("bias"), stride=2)
+        return F.relu(F.batch_norm(y, bn2["mean"], bn2["var"], bn2["scale"],
+                                   bn2["bias"], False, 0.0, 1e-5))
+
+    _, j2, w2_, _ = C2.out_shape(*x.shape[:3])
+    m = x.shape[0] * j2 * w2_
+    log(f"bf16 block 2: {tuple(x.shape)} bf16 -> {C2.out_shape(*x.shape[:3])}")
+    conv2_row = bf16_row(
+        "conv2_bf16", lambda: C2.conv2_bn_relu(x, *c2),
+        lambda: C2.conv2_bn_relu_plain(x, *c2),
+        lambda: C2.conv2_bn_relu(x.float(), *c2_32), library2,
+        2.0 * m * 128 * 1600,
+        2.0 * (x.numel() + c2[0].numel() + m * 128) + 8 * 128, False,
+        shape=f"{tuple(x.shape)}")
+    return stem_rows, [conv2_row]
+
+
+def stem_info_bf16(planar: bool) -> dict:
+    from jegal_torch.ops.kernels import stem as S
+
+    info = S.kernel_info(planar, impl="band", bf16=True)
+    if info["spill_bytes"]:
+        raise AssertionError(f"the bf16 band stem spills: {info}")
+    return info
+
+
+def check_bf16_encoders(gp, jp, rp, dev, text_mask, ids32, mask32):
+    """12a: the bf16 attention and FFN sublayers at phase 3's three shapes
+    and the bf16 XLM-R stack at the clip's 32 rows."""
+    import torch
+
+    from jegal_torch.api import _cast_tree
+    from jegal_torch.config import NUM_HEADS
+    from jegal_torch.models import roberta as R
+    from jegal_torch.ops.kernels import fused_layer as FL
+
+    bf = torch.bfloat16
+    for dk in FL.HEAD_DIMS:
+        for packed in (True, False):
+            info = FL.attention_info(dk, packed, bf16=True)
+            log(f"bf16 attention core, dk {dk}, "
+                f"{'packed' if packed else 'streamed'}: {info}")
+            if info["spill_bytes"]:
+                raise AssertionError(f"the bf16 attention core spills: "
+                                     f"{info}")
+    rows = {"attn_sublayer_bf16": [], "ffn_sublayer_bf16": []}
+    for label, w, x32, seg, pre, kind, km, per_clip_n, _ in _sublayer_cases(
+            _cast_tree(gp, bf), _cast_tree(jp, bf), dev, text_mask):
+        log(f"bf16 sublayers: {label}")
+        x = x32.to(bf)
+        w32 = {k: v.float() for k, v in w.items()}
+        lw = dict(w)
+        for name in ("wqkv", "wo", "w1", "w2"):
+            lw[name + "_t"] = w[name].t().contiguous()
+        r, d = x.shape
+        dff, heads = w["w1"].shape[1], NUM_HEADS
+        n, dk = r // seg, d // heads
+        kw = dict(prenorm=pre, ln_kind=kind)
+        attn_flops = 2.0 * r * d * 4 * d + 4.0 * n * heads * seg * seg * dk
+        attn_bytes = 2.0 * (2 * r * d + 4 * d * d) + 4.0 * (6 * d) + (
+            4.0 * r if km is not None else 0.0)
+        ffn_flops = 4.0 * r * d * dff
+        ffn_bytes = 2.0 * (2 * r * d + 2 * d * dff) + 4.0 * (dff + 3 * d)
+        rows["attn_sublayer_bf16"].append(bf16_row(
+            "attn_sublayer_bf16",
+            lambda: FL.attn_sublayer(x, w, seg, heads, kmask=km, **kw),
+            lambda: FL.attn_sublayer_plain(x, w, seg, heads, kmask=km, **kw),
+            lambda: FL.attn_sublayer(x.float(), w32, seg, heads, kmask=km,
+                                     **kw),
+            lambda: _library_attn(x, lw, seg, heads, pre, km), attn_flops,
+            attn_bytes, True, shape=label, launches_per_clip=per_clip_n))
+        rows["ffn_sublayer_bf16"].append(bf16_row(
+            "ffn_sublayer_bf16",
+            lambda: FL.ffn_sublayer(x, w, **kw),
+            lambda: FL.ffn_sublayer_plain(x, w, **kw),
+            lambda: FL.ffn_sublayer(x.float(), w32, **kw),
+            lambda: _library_ffn(x, lw, pre), ffn_flops, ffn_bytes, True,
+            shape=label, launches_per_clip=per_clip_n))
+
+    cfg = R.XLMR_BASE
+    d, heads, dff = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
+    rp16 = _cast_tree(rp, bf)
+    ops = R.stack_layers(rp16)["fused_ops"]
+    ops32 = {k: v.float() for k, v in ops.items()}
+    lt = [{k: ops[k][l].t().contiguous() for k in ("wqkv", "wo", "w1", "w2")}
+          for l in range(cfg.num_layers)]
+    b, seg = ids32.shape
+    r = b * seg
+    x = R.embeddings(rp16["embeddings"], ids32.to(dev), cfg).reshape(r, d)
+    km = mask32.to(dev).reshape(-1)
+    kw = dict(prenorm=False, ln_kind="std", activation="gelu", kmask=km)
+    n, dk = r // seg, d // heads
+    flops = cfg.num_layers * (2.0 * r * d * 4 * d + 4.0 * r * d * dff
+                              + 4.0 * n * heads * seg * seg * dk)
+    nbytes = sum(t.numel() * t.element_size() for t in ops.values()) \
+        + 2.0 * 2 * r * d + 4.0 * r
+    log("bf16 encoder stack: XLM-R R=32 seg=32 (the 12-word text) masked")
+    stack = [bf16_row(
+        "encoder_stack_bf16",
+        lambda: FL.encoder_stack(x, ops, seg, heads, **kw),
+        lambda: FL.encoder_stack_plain(x, ops, seg, heads, **kw),
+        lambda: FL.encoder_stack(x.float(), ops32, seg, heads, **kw),
+        lambda: _library_stack(x, ops, lt, seg, heads, km), flops, nbytes,
+        True, stack=True, shape="XLM-R R=32 seg=32 (the 12-word text) masked",
+        launches_per_clip=1)]
+    return rows, stack
+
+
+def hold_cos(a, b, bar: float, what: str) -> float:
+    """Min row cosine of two runs' unit-norm embeddings against `bar`."""
+    worst = 1.0
+    for key in ("gesture_emb", "content_emb"):
+        x, y = a.get(key), b.get(key)
+        if x is None and y is None:
+            continue
+        if x is None or y is None or x.shape != y.shape:
+            raise AssertionError(f"{what}, {key}: shapes differ")
+        cos = float((x * y).sum(-1).min())
+        log(f"  {what}, {key}: min row cosine {cos:.7f} (bar {bar}) "
+            f"{'ok' if cos >= bar else 'FAIL'}")
+        if cos < bar:
+            raise AssertionError(f"{what}, {key}: min row cosine {cos}")
+        worst = min(worst, cos)
+    return worst
+
+
+def bf16_launches(want: dict) -> dict:
+    """A float32 path's launch counts as the bf16 path's."""
+    return {k + "_bf16": n for k, n in want.items() if n}
+
+
+def graph_mib(eng, fn, want: dict, what: str):
+    """The first call of a graph key: its launches (drive_call) and the MiB
+    its capture added to the caching allocator's reserved memory."""
+    import torch
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # what is held, not what is cached
+        return torch.cuda.memory_reserved()
+
+    before = reserved()
+    res, ran = drive_call(fn, want, what)
+    mib = (reserved() - before) / 2 ** 20
+    log(f"  {what}: the capture added {mib:.1f} MiB")
+    return res, ran, mib
+
+
+def serve_load(eng, n_vta: int, n_ta: int, threads: int = 4) -> dict:
+    """A few requests in-process, from `threads` threads, against a server
+    on `eng` (batch window 5 ms, batch 8) warmed as `serve` warms it:
+    binary planar `vta` clips (T 100 and 125) and JSON `ta` requests at
+    the warmed buckets. -> answers, requests/s, and the profiled window's
+    device busy ms and idle share."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from jegal_torch import serving
+
+    base, content, clips = serve_samples()
+    serving.warmup(eng, ("vta", "ta"), SERVE_WINDOW_MS, SERVE_MAX_BATCH,
+                   "planar")
+    n_graphs = len(eng.cached_graphs)
+    server = serving.create_server(eng, host="127.0.0.1", port=0,
+                                   batch_window_ms=SERVE_WINDOW_MS,
+                                   max_batch=SERVE_MAX_BATCH)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    jobs = [("vta", i) for i in range(n_vta)] + [("ta", i)
+                                                 for i in range(n_ta)]
+
+    def one(job):
+        kind, i = job
+        meta, arrays, kw = request_of(kind, i, base, content, clips)
+        return job, serve_request(url, meta, arrays, kind != "ta"), (meta, kw)
+
+    try:
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(one, jobs[:threads]))           # connections warm
+            t0 = time.perf_counter()
+            answers = list(ex.map(one, jobs))
+            wall = time.perf_counter() - t0
+            with profiled() as prof:
+                t1 = time.perf_counter()
+                list(ex.map(one, jobs))
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t1
+    finally:
+        server.shutdown()
+        server.server_close()
+    if len(eng.cached_graphs) != n_graphs:
+        raise AssertionError("a served request captured a graph")
+    busy = union_ms(prof)
+    out = dict(requests=len(jobs), wall_s=wall,
+               requests_per_s=len(jobs) / wall,
+               device_busy_ms=busy, idle_share=1 - busy / (1e3 * pwall))
+    log(f"  served {len(jobs)} requests ({n_vta} binary planar vta, {n_ta} "
+        f"JSON ta) from {threads} threads in {wall:.3f} s: "
+        f"{out['requests_per_s']:.2f} requests/s; profiled window device "
+        f"busy {busy:.1f} ms, idle share {out['idle_share']:.3f}")
+    return answers, out
+
+
+def run_bf16(gp, jp, rp, engine, sample, raw_res):
+    """12b: the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`) on phase
+    4's raw and planar `vta` clip, `extract_many` over phase 6c's eight
+    planar clips and a served load, each beside the float32 engine's
+    figures of this run, and phase 5's small clip card against the bf16
+    engine on the CPU."""
+    import torch
+
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.ops.video import s2d_repack
+
+    bf = torch.bfloat16
+    planar = dict(sample, frames=s2d_repack(sample["frames"],
+                                            sample["chin_rows"]))
+    del planar["chin_rows"]
+    t_clip = sample["frames"].shape[0]
+    stats: dict = {}
+    engines = {}
+    for label, dt in (("float32", torch.float32), ("bf16", bf)):
+        eng = JegalEngine(jp, gp, roberta_params=rp, dtype=dt,
+                          tokenizer=word_tokenizer())
+        engines[label] = eng
+        want = VTA_LAUNCHES if dt == torch.float32 else VTA_LAUNCHES_BF16
+        log(f"{label} engine: the raw vta clip")
+        res, ran, mib = graph_mib(
+            eng, lambda: eng.extract(modalities="vta", **sample), want,
+            f"the {label} raw vta path")
+        check_embeddings(res, t_clip, 12)
+        s = dict(graph_mib=mib, launches=ran)
+        if dt == bf:
+            s["graph"] = replay_check(eng, "the bf16 raw vta clip", bf16=True)
+            s["vs_f32"] = hold_cos(res, raw_res, BF16_F32_COS,
+                                   "bf16 vs float32 engine, raw vta clip")
+            res_p, _ = drive(eng, planar, "vta", want,
+                             "the bf16 planar vta path")
+            check_embeddings(res_p, t_clip, 12)
+            s["planar_vs_f32"] = hold_cos(
+                res_p, raw_res, BF16_F32_COS,
+                "bf16 planar vs float32 raw, vta clip")
+            s["planar_vs_raw"] = hold_cos(
+                res_p, res, BF16_F32_COS, "bf16 planar vs bf16 raw, vta clip")
+        else:
+            compare(res, raw_res, "a new float32 engine vs phase 4")
+        stats[label] = s
+    # warm ms/clip in turns (float32, bf16, bf16, float32: the host's clock
+    # drifts within a run), then each engine's profile and host split
+    for label in ("float32", "bf16", "bf16", "float32"):
+        log(f"{label} engine: warm raw vta clips")
+        stats[label].setdefault("warm", []).append(
+            warm_ms(engines[label], sample, "vta"))
+    for label, eng in engines.items():
+        s = stats[label]
+        s["ms_per_clip"] = statistics.mean(w["ms_per_clip"]
+                                           for w in s["warm"])
+        s["clips_per_s"] = 1e3 / s["ms_per_clip"]
+        s.update(profile_clip(eng, sample, "vta"))
+        s["idle_share"] = 1 - s["device_busy_ms"] / s["wall_ms"]
+        s["host"] = host_split(lambda: eng.extract("vta", **sample),
+                               f"{label} raw vta clip")
+
+    samples = many_samples()
+    want32, n_chunks = many_launches(samples, 4, {})
+    many = {}
+    for label, eng in engines.items():
+        want = want32 if label == "float32" else bf16_launches(want32)
+        log(f"{label} engine: extract_many over 8 planar vta clips")
+        results, _, mib = graph_mib(
+            eng, lambda: eng.extract_many(samples, "vta", batch_size=4),
+            want, f"one {label} extract_many call ({n_chunks} chunks)")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.extract_many(samples, "vta", batch_size=4)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        prof = profile_run(lambda: eng.extract_many(samples, "vta",
+                                                    batch_size=4),
+                           f"{label} extract_many call")
+        many[label] = results
+        stats[label]["extract_many"] = dict(
+            graph_mib=mib, ms_per_call=1e3 * wall,
+            clips_per_s=len(samples) / wall, **prof,
+            idle_share=1 - prof["device_busy_ms"] / prof["wall_ms"])
+        log(f"  {label} extract_many: {len(samples) / wall:.3f} clips/s "
+            f"(median of 3)")
+    worst = 1.0
+    for s, a, b in zip(samples, many["bf16"], many["float32"]):
+        check_embeddings(a, s["frames"].shape[0], 12)
+        worst = min(worst, hold_cos(a, b, BF16_F32_COS,
+                                    f"bf16 vs float32 extract_many, "
+                                    f"{s['fname']}"))
+    stats["bf16"]["extract_many"]["vs_f32"] = worst
+
+    answers = {}
+    for label, eng in engines.items():
+        log(f"{label} engine: served load")
+        answers[label], stats[label]["serve"] = serve_load(eng, 16, 16)
+    worst = 1.0
+    for (job, (status, got), (meta, kw)) in answers["bf16"]:
+        if status != 200:
+            raise AssertionError(f"bf16 server: {job} answered {status}")
+        want = expected(engines["float32"], meta, kw)
+        for key in ("gesture_emb", "content_emb"):
+            if got.get(key) is not None and got[key].dtype.name != "float32":
+                raise AssertionError(f"{job}: {key} left as {got[key].dtype}")
+        worst = min(worst, hold_cos(got, want, BF16_F32_COS,
+                                    f"bf16 served {job} vs float32 extract"))
+    stats["bf16"]["serve"]["vs_f32"] = worst
+
+    small = dict(clip(16, 4, SEED + 4), text="the quick brown fox")
+    on_card = engines["bf16"].extract(modalities="vta", **small)
+    on_cpu = JegalEngine(jp, gp, device="cpu", roberta_params=rp, dtype=bf,
+                         tokenizer=word_tokenizer()).extract(
+                             modalities="vta", **small)
+    check_embeddings(on_card, 16, 4)
+    check_embeddings(on_cpu, 16, 4)
+    stats["bf16"]["card_vs_cpu"] = hold_cos(
+        on_card, on_cpu, BF16_CPU_COS,
+        "bf16 engine card vs CPU, 16-frame 4-word vta clip")
+    for eng in engines.values():
+        eng.close()
+    return stats["bf16"]["launches"], stats
+
+
+def bf16_kernel_rows(tower, encoders, launches) -> list:
+    """The `kernels` line's bf16 rows: launches from the bf16 engine's raw
+    `vta` clip; the stem's time at its float entry (the planar entry under
+    per_launch), the sublayers' and the stack's per clip."""
+    stem_rows, conv2_rows = tower
+    sub, stack = encoders
+    out = []
+    for name, source, replaces, rows, clip_sum in (
+            ("stem_band_bf16", "jegal_torch/csrc/stem_band.cu",
+             "jegal_tpu/ops/pallas/stem.py:219", stem_rows, False),
+            ("conv2_bf16", "jegal_torch/csrc/conv2.cu",
+             "jegal_tpu/ops/pallas/conv2.py:76", conv2_rows, False),
+            ("attn_sublayer_bf16", "jegal_torch/csrc/fused_layer.cu",
+             "jegal_tpu/ops/pallas/fused_layer.py:104",
+             sub["attn_sublayer_bf16"], True),
+            ("ffn_sublayer_bf16", "jegal_torch/csrc/fused_layer.cu",
+             "jegal_tpu/ops/pallas/fused_layer.py:173",
+             sub["ffn_sublayer_bf16"], True),
+            ("encoder_stack_bf16", "jegal_torch/csrc/encoder_stack.cu",
+             "jegal_tpu/ops/pallas/fused_layer.py:221", stack, True)):
+        if not launches.get(name):
+            raise AssertionError(f"{name}: no launch on the bf16 path")
+        if clip_sum:
+            want = sum(r["launches_per_clip"] for r in rows)
+            if launches[name] != want:
+                raise AssertionError(f"{name}: {launches[name]} launches, "
+                                     f"the timed shapes assume {want}")
+            agg = {k: sum(r[k] * r["launches_per_clip"] for r in rows)
+                   for k in ("ms", "ms_f32", "plain_ms", "library_ms",
+                             "bound_ms")}
+            agg["bound_by"] = max(rows, key=lambda r: r["bound_ms"]
+                                  * r["launches_per_clip"])["bound_by"]
+        else:
+            agg = {k: rows[0][k] for k in ("ms", "ms_f32", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "bound_by")}
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            worst_ulps=max(r["worst_ulps"] for r in rows),
+            min_row_cos=min(r["min_row_cos"] for r in rows),
+            min_row_cos_f32=min(r["min_row_cos_f32"] for r in rows),
+            dtype="bfloat16", per_launch=rows, **agg))
+    return out
+
+
+def run_phase12(gp, jp, rp, engine, sample, raw_res, stem_inputs, ids32,
+                mask32):
+    """Phase 12 (`--bf16`): 12a the bf16 kernels, 12b the bf16 engine."""
+    dev = engine.device
+    tower = check_bf16_tower(gp, dev, stem_inputs)
+    encoders = check_bf16_encoders(gp, jp, rp, dev, mask32[0], ids32, mask32)
+    launches, stats = run_bf16(gp, jp, rp, engine, sample, raw_res)
+    return bf16_kernel_rows(tower, encoders, launches), stats
+
+
 def smoke_text_ids():
     """The smoke text as the engine tokenizes it: (1, 32) ids padded to its
     S bucket, and the (1, 32) key mask."""
@@ -3766,9 +4353,9 @@ def main() -> int:
     global CHECK_KERNEL_COUNTS
     mode = sys.argv[1:]
     if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"],
-                    ["--cli"], ["--serve"]):
+                    ["--cli"], ["--serve"], ["--bf16"]):
         print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler | "
-              f"--cli | --serve]", file=sys.stderr)
+              f"--cli | --serve | --bf16]", file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -3830,6 +4417,19 @@ def main() -> int:
             log(json.dumps({"serve": run_serve(gp, jp, rp, engine)}))
         log(smi.stdout.strip())
         return 0
+    if mode == ["--bf16"]:   # phase 12 alone, on phase 4's clip
+        from jegal_torch.api import JegalEngine
+
+        engine = JegalEngine(jp, gp, roberta_params=rp,
+                             tokenizer=word_tokenizer())
+        sample = dict(clip(125, 12, SEED + 3), text=SMOKE_TEXT)
+        raw_res, _ = drive(engine, sample, "vta", VTA_LAUNCHES)
+        rows, stats = run_phase12(gp, jp, rp, engine, sample, raw_res,
+                                  stem_frames(dev), ids32, mask32)
+        log(json.dumps({"bf16": stats}))
+        log(json.dumps({"kernels": rows}))
+        log(smi.stdout.strip())
+        return 0
     if mode == ["--encoders"]:   # phase 3's encoder kernels, reported
         CHECK_KERNEL_COUNTS = False
         sub = check_sublayers(gp, jp, dev, mask32[0])
@@ -3865,6 +4465,8 @@ def main() -> int:
                                   train_batch)
     cli = run_cli(gp, jp, rp, engine)
     serve = run_serve(gp, jp, rp, engine)
+    bf16_rows, bf16 = run_phase12(gp, jp, rp, engine, sample, raw_res,
+                                  stem_inputs, ids32, mask32)
 
     rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),
@@ -3959,7 +4561,8 @@ def main() -> int:
     log(json.dumps({"checkpoints": checkpoints}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"serve": serve}))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"bf16": bf16}))
+    log(json.dumps({"kernels": kernels + bf16_rows}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,11 +39,23 @@ block-2 kernels (models/gestsync.py) for every tower call; on the H100 the
 block-2 kernel left less device time than cuDNN on the clips and batches
 measured (PERF.md); `fusion_strategy` ("concat" | the warned "avg") the
 content fusion (models/jegal.fuse_content).
+
+`dtype` (torch.float32, the default, or torch.bfloat16) is the compute
+dtype, as the JAX engine's `dtype` (its api.py:81-110): every floating
+parameter is cast to it once at construction, the host's float inputs
+(features, mel, pooling matrices) are staged in it, and every kernel on the
+path takes its variant of that dtype (ops/kernels/*: bf16 variants of the
+band stem, block 2, the attention and FFN sublayers and the XLM-R stack).
+Frames stay uint8, masks float32; the embeddings come back in the compute
+dtype and are L2-normalized in float32 on the host. A bf16 engine takes
+the band stem only, and on the card T buckets up to 512 (the window stem
+and the flash attention have no bf16 variant yet: ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import itertools
 import os
 import pickle
@@ -82,11 +94,72 @@ PLANAR_FRAME = (90, 27, 160)
 FRAME_SHAPES = {"raw": RAW_FRAME, "planar": PLANAR_FRAME}
 INT_INPUTS = {"frames": torch.uint8, "cut": torch.int64,
               "input_ids": torch.int64, "audio_valid": torch.int64}
+MASK_INPUTS = ("visual_mask", "text_mask")      # float32 in either dtype
+DTYPES = (torch.float32, torch.bfloat16)
 
 
-def input_dtype(name: str) -> torch.dtype:
-    """The dtype of a graph input: its integer type, else float32."""
-    return INT_INPUTS.get(name, torch.float32)
+def input_dtype(name: str, dtype: torch.dtype = torch.float32) -> torch.dtype:
+    """The dtype of a graph input: its integer type; float32 for a mask
+    (as the JAX engine keeps them); else the engine's compute dtype."""
+    if name in INT_INPUTS:
+        return INT_INPUTS[name]
+    return torch.float32 if name in MASK_INPUTS else dtype
+
+
+# numpy has no bf16: the host converts between float32 arrays and bf16 bit
+# patterns (uint16) itself, in numpy on the calling thread. A torch CPU
+# conversion runs in its thread pool, whose threads then spin on the
+# host's cores for a while, and they slowed the engine's numpy prep and
+# staging about twofold on the card machine (PERF.md §6).
+
+def _bf16_bits(a) -> np.ndarray:
+    """float32 values -> bf16 bit patterns, rounded to nearest even (as
+    torch's and numpy's casts round)."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + (0x7FFF + ((u >> 16) & 1))) >> 16).astype(np.uint16)
+
+
+def _numpy(t) -> np.ndarray:
+    """A host tensor as numpy; a bf16 one as float32 holding its values
+    exactly."""
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+class _Bf16Buffer:
+    """A bf16 staging buffer (a tensor, pinned on the card) whose `fill`
+    writes float32 host values into it as bf16: the JAX engine's host cast
+    before the upload."""
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+        self.bits = tensor.view(torch.int16).numpy().view(np.uint16)
+
+    def fill(self, value) -> None:
+        self.bits[...] = _bf16_bits(value)
+
+
+def _put(buf, value) -> None:
+    """Fill a staging buffer completely: a numpy view of pinned memory, or
+    a `_Bf16Buffer`."""
+    if isinstance(buf, _Bf16Buffer):
+        buf.fill(value)
+    else:
+        buf[...] = value
+
+
+def _cast_tree(tree, dtype):
+    """Every floating leaf of a parameter tree cast to `dtype` (once, at
+    construction, as the JAX engine does)."""
+    if tree is None or dtype == torch.float32:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 class ClientError(ValueError):
@@ -133,12 +206,19 @@ class _Graph:
     in flight, and `stage()` never hands out a buffer whose upload has not
     completed (it takes the other set, or waits for the older upload).
 
-    On the CPU the entry holds the eager forward alone, `stage()` returns
-    fresh arrays and `__call__` runs the forward on them."""
+    Inputs take `input_dtype` of the engine's dtype, in the static inputs
+    and in the staging buffers alike: a bf16 input's staging buffer is a
+    pinned bf16 tensor that `_put` fills through its bit patterns, the
+    others numpy views.
 
-    def __init__(self, fn, shapes: dict, device: torch.device, pool=None):
+    On the CPU the entry holds the eager forward alone, `stage()` returns
+    fresh buffers and `__call__` runs the forward on them."""
+
+    def __init__(self, fn, shapes: dict, device: torch.device, pool=None,
+                 dtype: torch.dtype = torch.float32):
         self.fn = fn
         self.shapes = shapes
+        self.dtypes = {k: input_dtype(k, dtype) for k in shapes}
         self.graph = None
         self.launches = dict.fromkeys(_build.LAUNCHES, 0)
         if device.type != "cuda":
@@ -146,7 +226,7 @@ class _Graph:
         self._staging: list = [{}, {}]
         self._uploaded: list = [None, None]     # each set's last upload
         self._slot = self._last = 0
-        self.inputs = {k: torch.zeros(s, dtype=input_dtype(k), device=device)
+        self.inputs = {k: torch.zeros(s, dtype=self.dtypes[k], device=device)
                        for k, s in shapes.items()}
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -155,17 +235,34 @@ class _Graph:
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.LAUNCHES)
-        with torch.cuda.graph(graph, pool=pool):
-            self.out = fn(**self.inputs)
+        # No garbage collection during the capture: a collection there may
+        # free a dead engine's graphs, events or pinned buffers, and a CUDA
+        # call that invalidates a capture in flight fails the capture at its
+        # next launch (the card tests' batched replay check failed so, at
+        # capture, in 3 of 3 runs of the whole file, and in 0 of 2 with this
+        # guard; the collection is the suspected cause, not a shown one)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                self.out = fn(**self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
         self.graph = graph
 
+    @staticmethod
+    def _view(t):
+        return _Bf16Buffer(t) if t.dtype == torch.bfloat16 else t.numpy()
+
     def stage(self, names) -> dict:
-        """Host buffers for the inputs `names`, to be filled completely and
-        passed to `__call__`: numpy views of pinned memory on the card."""
+        """Host buffers for the inputs `names`, to be filled completely
+        (`_put`) and passed to `__call__`: numpy views of pinned memory on
+        the card, or `_Bf16Buffer`s of pinned bf16 tensors."""
         if self.graph is None:
-            return {k: torch.empty(self.shapes[k],
-                                   dtype=input_dtype(k)).numpy()
+            return {k: self._view(torch.empty(self.shapes[k],
+                                              dtype=self.dtypes[k]))
                     for k in names}
         free = [i for i in (0, 1) if self._uploaded[i] is None
                 or self._uploaded[i].query()]
@@ -175,16 +272,17 @@ class _Graph:
         bufs = self._staging[self._slot]
         for k in names:
             if k not in bufs:
-                bufs[k] = torch.empty(self.shapes[k], dtype=input_dtype(k),
+                bufs[k] = torch.empty(self.shapes[k], dtype=self.dtypes[k],
                                       pin_memory=True)
-        return {k: bufs[k].numpy() for k in names}
+        return {k: self._view(bufs[k]) for k in names}
 
     def __call__(self, staged: dict, device_inputs=None) -> torch.Tensor:
         """Run the forward on the staged host inputs and the tensors of
         `device_inputs` (on the engine's device) -> packed embeddings."""
         device_inputs = device_inputs or {}
         if self.graph is None:
-            return self.fn(**{k: torch.from_numpy(v)
+            return self.fn(**{k: v.tensor if isinstance(v, _Bf16Buffer)
+                              else torch.from_numpy(v)
                               for k, v in staged.items()}, **device_inputs)
         bufs = self._staging[self._slot]
         for k in staged:
@@ -207,7 +305,16 @@ class JegalEngine:
                  roberta_cfg: R.RobertaConfig = R.XLMR_BASE,
                  stem_impl: str = "band", conv2_impl: str = "kernel",
                  fusion_strategy: str = "concat",
-                 max_cached_graphs: int = 64):
+                 max_cached_graphs: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
+                             f"got {dtype!r}")
+        if dtype == torch.bfloat16 and stem_impl != "band":
+            raise NotImplementedError(
+                f"stem_impl={stem_impl!r} has no bf16 kernel yet (ROADMAP "
+                f"queue 1: bf16 kernels 1 and 6); a bf16 engine takes "
+                f"stem_impl='band'")
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got "
                              f"{stem_impl!r}")
@@ -215,11 +322,15 @@ class JegalEngine:
             raise ValueError(f"conv2_impl must be one of {G.CONV2_IMPLS}, "
                              f"got {conv2_impl!r}")
         self.device = resolve_device(device)
-        self.jegal_params = tree_to_torch(jegal_params, self.device)
-        self.gestsync_params = (None if gestsync_params is None
-                                else tree_to_torch(gestsync_params, self.device))
-        self.roberta_params = (None if roberta_params is None
-                               else tree_to_torch(roberta_params, self.device))
+        self.dtype = dtype
+
+        def load(tree):
+            return (None if tree is None
+                    else _cast_tree(tree_to_torch(tree, self.device), dtype))
+
+        self.jegal_params = load(jegal_params)
+        self.gestsync_params = load(gestsync_params)
+        self.roberta_params = load(roberta_params)
         if self.roberta_params is not None \
                 and "fused_ops" not in self.roberta_params:
             # once at load: the stack kernel's operands are then ready and
@@ -260,7 +371,9 @@ class JegalEngine:
 
     @staticmethod
     def _features_out(feats, t: int, as_device: bool):
-        return feats[:t] if as_device else feats[:t].cpu().numpy()
+        """The first t rows: the device tensor (in the compute dtype), or
+        float32 numpy (a bf16 engine's values exactly)."""
+        return feats[:t] if as_device else _numpy(feats[:t].cpu())
 
     def gestsync_features_masked(self, masked_frames, as_device=False):
         """(T + 24, 270, 480, 3) float frames in [0, 1], face-masked and
@@ -303,7 +416,7 @@ class JegalEngine:
         with torch.inference_mode():
             masked = mask_frames_device(
                 self._to_device(frames_u8),
-                self._to_device(self._chin(chin_rows, t)))
+                self._to_device(self._chin(chin_rows, t)), self.dtype)
             feats = G.extract_features(gp, masked, **self.tower_kw)
         return self._features_out(feats, t, as_device)
 
@@ -428,7 +541,8 @@ class JegalEngine:
                                                 **self.tower_kw)
         if kind == "planar":
             return G.extract_features_planar(gp, frames, **self.tower_kw)[None]
-        return G.extract_features(gp, mask_frames_device(frames, cut),
+        return G.extract_features(gp, mask_frames_device(frames, cut,
+                                                         self.dtype),
                                   **self.tower_kw)[None]
 
     @staticmethod
@@ -617,11 +731,12 @@ class JegalEngine:
 
     def _to_device(self, v):
         """A host array or tensor -> a tensor on the engine's device,
-        floats as float32. On the card the copy is made from pinned memory
-        with non_blocking=True, so the host goes on while it runs."""
+        floats in the compute dtype. On the card the copy is made from
+        pinned memory with non_blocking=True, so the host goes on while it
+        runs."""
         t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
         if t.is_floating_point():
-            t = t.to(torch.float32)
+            t = t.to(self.dtype)
         if t.device == self.device:
             return t
         if self.device.type == "cuda" and not t.is_pinned():
@@ -648,7 +763,7 @@ class JegalEngine:
         host, done = fetch
         if done is not None:
             done.synchronize()
-        return host.numpy()
+        return _numpy(host)
 
     # ------------------------------------------------------------------
     # Graphs per (key, shape bucket)
@@ -683,6 +798,8 @@ class JegalEngine:
         captured at its first use (the ledger is updated first, so that an
         eviction frees memory before the capture)."""
         sig = (key, tuple(sorted((k, tuple(v)) for k, v in shapes.items())))
+        if self.dtype != torch.float32:   # a bf16 engine's end with its dtype
+            sig += (str(self.dtype).split(".")[-1],)
         self._account_graph(sig)
         entry = self._graphs.get(sig)
         if entry is None:
@@ -690,7 +807,7 @@ class JegalEngine:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             try:
                 entry = _Graph(self._key_fn(key), dict(sig[1]), self.device,
-                               self._graph_pool)
+                               self._graph_pool, self.dtype)
             except BaseException:
                 self._graph_ledger.pop(sig, None)
                 raise
@@ -715,8 +832,8 @@ class JegalEngine:
         if len(self._graph_ledger) <= self.max_cached_graphs:
             return
         by_key: dict = {}
-        for (key, _), seq in self._graph_ledger.items():
-            by_key[key] = max(by_key.get(key, 0), seq)
+        for s, seq in self._graph_ledger.items():
+            by_key[s[0]] = max(by_key.get(s[0], 0), seq)
         victim = min((k for k in by_key if k != sig[0]), key=by_key.get,
                      default=None)
         if victim is None:
@@ -743,7 +860,7 @@ class JegalEngine:
                                          for k, v in arrays.items()})
         staged = entry.stage([k for k in arrays if k not in on_device])
         for k, buf in staged.items():
-            buf[...] = arrays[k]
+            _put(buf, arrays[k])
         return entry(staged, on_device)
 
     def _fused(self, kind: str, use_t: bool, use_a: bool, t_bucket: int, b,
@@ -770,7 +887,7 @@ class JegalEngine:
         for bi, (frames, _) in enumerate(clips):
             staged["visual_mask"][bi, :frames.shape[0]] = 1.0
         for k, v in content.items():
-            staged[k][...] = v
+            _put(staged[k], v)
         return entry(staged)
 
     @staticmethod
@@ -871,8 +988,8 @@ class JegalEngine:
                 return None
             arrays, t_true, w_true = prep
             use_v, use_t, use_a = (c in modalities for c in "vta")
-            packed = self._forward((use_v, use_t, use_a),
-                                   arrays).cpu().numpy()
+            packed = _numpy(self._forward((use_v, use_t, use_a),
+                                          arrays).cpu())
             t_split = arrays["visual_feats"].shape[1] if use_v else None
             gesture, content = self._unpack_emb(packed, t_split, use_v,
                                                 use_t or use_a)
@@ -905,7 +1022,7 @@ class JegalEngine:
         t_bucket = next_bucket(t, T_BUCKETS)
         packed = self._fused(kind, use_t, use_a, t_bucket, None,
                              [(frames, chin_rows)], arrays)
-        gesture, content = self._unpack_emb(packed.cpu().numpy(), t_bucket,
+        gesture, content = self._unpack_emb(_numpy(packed.cpu()), t_bucket,
                                             True, use_t or use_a)
         return self._postprocess(gesture, content, 0, t, w_true, text,
                                  word_boundaries, fname)

@@ -25,9 +25,11 @@ no model and read their CSVs with the stdlib, typed as pandas types them
 `cuda`) on every subcommand that computes on a device; `--device cpu` runs
 the port's plain CPU path (the JAX CLI takes that choice from
 JAX_PLATFORMS). Without a card a `cuda` run raises: nothing falls back to
-the CPU. `--bf16` and
-`--data_parallel` (and `train --model_parallel` above 1) exit with the
-ROADMAP item that will bring them.
+the CPU. `--bf16` (infer, extract-feats, extract-embs, verify, warmup,
+serve) builds the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`), as the
+JAX CLI's `--bf16` does; the outputs stay float32 rows. `--data_parallel`
+(and `train --model_parallel` above 1) exit with the ROADMAP item that will
+bring them.
 
 The JAX CLI's persistent XLA compilation cache (`setup_compilation_cache`)
 has no counterpart here: the port compiles its CUDA kernels once into
@@ -45,9 +47,8 @@ import sys
 import threading
 
 COMBOS = ["vta", "vt", "va", "ta", "v", "t", "a"]
+BF16_HELP = "bfloat16 compute: the engine's bf16 kernels"
 NOT_YET = {
-    "bf16": "--bf16 needs the bf16 engine, ROADMAP queue 1 item 3 (bf16); "
-            "the port computes in float32",
     "data_parallel": "--data_parallel needs the multi-GPU port, ROADMAP "
                      "queue 1 item 4 (multi-GPU)",
 }
@@ -81,7 +82,7 @@ def _add_infer(sub):
     p.add_argument("--text_path", type=str, default=None)
     p.add_argument("--audio_path", type=str, default=None)
     p.add_argument("--res_dir", type=str, default="results")
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     p.add_argument("--fusion_strategy", default="concat",
                    choices=["concat", "avg"])
     p.add_argument("--profile_dir", default=None,
@@ -120,7 +121,7 @@ def build_parser():
                         "threads scale)")
     p.add_argument("--data_parallel", action="store_true",
                    help=NOT_YET["data_parallel"])
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
     p = sub.add_parser("extract-embs",
@@ -136,7 +137,7 @@ def build_parser():
     _add_shard(p)
     p.add_argument("--batch_size", type=int, default=1,
                    help=">1 groups samples into device batches")
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
     p = _add_common_eval(sub, "eval-retrieval", "AVS-Ret cross-modal retrieval")
@@ -217,7 +218,7 @@ def build_parser():
     p.add_argument("--res_dir", default="verify_out")
     p.add_argument("--tolerance", type=float, default=1e-3,
                    help="per-row cosine must exceed 1 - tolerance")
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
     p = sub.add_parser("warmup",
@@ -234,7 +235,7 @@ def build_parser():
     p.add_argument("--w_buckets", type=int, nargs="+", default=[16])
     p.add_argument("--mel_buckets", type=int, nargs="+", default=[512])
     p.add_argument("--batch_size", type=int, default=1)
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
     p = sub.add_parser("serve",
@@ -267,7 +268,7 @@ def build_parser():
                    help="reject request bodies larger than this (HTTP 413)")
     p.add_argument("--data_parallel", action="store_true",
                    help=NOT_YET["data_parallel"])
-    p.add_argument("--bf16", action="store_true", help=NOT_YET["bf16"])
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
     p = sub.add_parser("convert", help="convert checkpoints to .npz")
@@ -318,6 +319,13 @@ def build_parser():
     return ap
 
 
+def _dtype(args):
+    """The engine dtype of a subcommand: bf16 with --bf16, else float32."""
+    import torch
+
+    return torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+
+
 def _load_engine(args, need_gestsync=False):
     from jegal_torch.api import JegalEngine
     from jegal_torch.convert import checkpoints as C
@@ -339,7 +347,8 @@ def _load_engine(args, need_gestsync=False):
         from jegal_torch.text.tokenizer import WordTokenizer
 
         tokenizer = WordTokenizer.from_file(args.tokenizer_path)
-    kw = {"fusion_strategy": getattr(args, "fusion_strategy", "concat")}
+    kw = {"fusion_strategy": getattr(args, "fusion_strategy", "concat"),
+          "dtype": _dtype(args)}
     if roberta_cfg is not None:
         kw["roberta_cfg"] = roberta_cfg
     return JegalEngine(
@@ -554,6 +563,7 @@ def cmd_extract_feats(args):
         jegal_params=None,
         gestsync_params=C.load_gestsync(args.checkpoint_path),
         device=args.device,
+        dtype=_dtype(args),
     )
     on_card = engine.device.type == "cuda"
     os.makedirs(args.res_dir, exist_ok=True)

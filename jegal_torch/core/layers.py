@@ -33,6 +33,23 @@ def linear(params, x):
     return y
 
 
+def _in_f32(norm):
+    """A LayerNorm computed in float32 on a bf16 input (parameters upcast,
+    exact), the result rounded back to bf16 once, as the JAX package's
+    kernels do (`_ln_f32`); on float32 it is the plain function."""
+    def wrapped(params, x, eps=None):
+        kw = {} if eps is None else {"eps": eps}
+        if x.dtype == torch.float32:
+            return norm(params, x, **kw)
+        p32 = {k: v.to(torch.float32) for k, v in params.items()}
+        return norm(p32, x.to(torch.float32), **kw).to(x.dtype)
+
+    wrapped.__doc__ = norm.__doc__
+    wrapped.__name__ = norm.__name__
+    return wrapped
+
+
+@_in_f32
 def ref_layer_norm(params, x, eps: float = 1e-6):
     """(x - mean) / (std_bessel + eps) * scale + bias (reference
     models/modules.py:32-35)."""
@@ -42,6 +59,7 @@ def ref_layer_norm(params, x, eps: float = 1e-6):
     return params["scale"] * cen / (torch.sqrt(var) + eps) + params["bias"]
 
 
+@_in_f32
 def std_layer_norm(params, x, eps: float = 1e-5):
     """torch nn.LayerNorm: biased variance, rsqrt(var + eps)."""
     mean = x.mean(dim=-1, keepdim=True)
@@ -58,9 +76,18 @@ def batch_norm_inference(params, x, eps: float = 1e-5):
 
 def batch_norm_nchw(params, x, eps: float = 1e-5):
     """Inference BatchNorm over axis 1 (the tower's channels-first
-    layout)."""
-    inv = torch.rsqrt(params["var"] + eps) * params["scale"]
-    shift = params["bias"] - params["mean"] * inv
+    layout). On a bf16 input the scale and shift are folded in float32
+    and rounded to bf16, and applied as x * scale + shift in bf16, the
+    JAX package's `batch_norm_inference` in the engine dtype."""
+    if x.dtype != torch.float32:
+        p32 = {k: params[k].to(torch.float32)
+               for k in ("var", "scale", "bias", "mean")}
+        inv = torch.rsqrt(p32["var"] + eps) * p32["scale"]
+        shift = (p32["bias"] - p32["mean"] * inv).to(x.dtype)
+        inv = inv.to(x.dtype)
+    else:
+        inv = torch.rsqrt(params["var"] + eps) * params["scale"]
+        shift = params["bias"] - params["mean"] * inv
     shape = (-1,) + (1,) * (x.dim() - 2)
     return x * inv.reshape(shape) + shift.reshape(shape)
 

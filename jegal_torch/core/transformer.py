@@ -123,6 +123,11 @@ def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
     v = _split_heads(linear(params["v"], v_in), num_heads)
     b, _, t, d_k = q.shape
     if _on_card(q):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                "the flash attention kernel has no bf16 variant yet (ROADMAP "
+                "queue 1: bf16 kernels 1 and 6); a bf16 engine on the card "
+                "takes T buckets up to 512")
         if q_in is not k_in or t != k.shape[2] or not _flash_ok(t, d_k):
             raise ValueError(
                 f"the flash attention kernel takes self-attention with T % 8 "
@@ -131,11 +136,19 @@ def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
                 + ("" if q_in is k_in else ", cross-attention"))
         out = FA.flash_attention_diff(q, k, v, _key_mask(mask, b, t))
         return linear(params["o"], _merge_heads(out))
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_k)
     m = mask
     if m is not None:
         while m.dim() < 4:
             m = m.unsqueeze(1)
+    if q.dtype != torch.float32:
+        # bf16: the JAX package's einsums with float32 results, p and the
+        # output rounded to bf16 (transformer.py:150-167)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            / math.sqrt(d_k)
+        p = masked_attention_weights(scores, m).to(q.dtype)
+        out = torch.matmul(p.float(), v.float()).to(q.dtype)
+        return linear(params["o"], _merge_heads(out))
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_k)
     p = masked_attention_weights(scores, m).to(q.dtype)
     return linear(params["o"], _merge_heads(torch.matmul(p, v)))
 

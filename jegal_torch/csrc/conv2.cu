@@ -35,6 +35,15 @@
 //    as four coalesced 32-float runs; a tile that straddles two frames
 //    splits a run at the frame's edge. Stored straight from the fragments,
 //    neighbouring lanes would write 740 floats apart.
+//
+// conv2_bf16_kernel is its bf16 variant (the JAX engine's bf16 dtype; the
+// Pallas kernel in bf16, conv2.py:115-140): the stem's bf16 output and a
+// bf16 weight on the shared GEMM's bf16 mainloop (tc_product_bf16, one
+// mma.sync bf16 pass, float32 sums), the same im2col gather at 8 bf16
+// channels a 16-byte copy, BN and ReLU in float32 and the output rounded
+// to bf16. Its bound in bf16: 44.9 GFLOP at 989 TFLOP/s, 0.045 ms, against
+// 64 + 28 MB of bytes (0.027 ms). No atomics: a relaunch gives the same
+// bits.
 #include "gemm.cuh"
 
 namespace jt {
@@ -124,6 +133,84 @@ conv2_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+using C2TileB = TileB<C2_BM, C2_BN>;
+static_assert(C2_COUT * C2_TS * 4 <= tile_bf16_smem_bytes<C2_BM, C2_BN>(),
+              "the transposed tile fits in the bf16 ring");
+
+// conv2_kernel in bf16: x (T, J, Wp, 64) and w (1600, 128) bf16, out (T,
+// 128, J2, W2) bf16.
+__global__ void __launch_bounds__(C2TileB::NT)
+conv2_bf16_kernel(const uint16_t* __restrict__ x,
+                  const uint16_t* __restrict__ w,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias, uint16_t* __restrict__ out,
+                  int T, int J, int Wp, int J2, int W2) {
+  using TL = C2TileB;
+  extern __shared__ __align__(16) uint16_t smem_c2[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / TL::WN) * TL::MF * 16;
+  const int wn0 = (warp % TL::WN) * TL::NF * 8;
+  const int plane = J2 * W2;
+  const int M = T * plane;
+  const int m0 = blockIdx.x * C2_BM;
+
+  const uint16_t* rows[TL::A_COPIES];
+#pragma unroll
+  for (int i = 0; i < TL::A_COPIES; ++i) {
+    int r, kc;
+    a_copy_slot_bf16<C2_BM, C2_BN>(i, r, kc);
+    const int m = m0 + r;
+    rows[i] = nullptr;
+    if (m < M) {
+      const int f = m / plane, p = m - f * plane;
+      const int j2 = p / W2, w2 = p - j2 * W2;
+      rows[i] = x + (((size_t)f * J + C2_S * j2) * Wp + C2_S * w2) * C2_CIN;
+    }
+  }
+  auto load_a = [&](uint16_t* as, int i, int k0) {
+    int r, kc;
+    a_copy_slot_bf16<C2_BM, C2_BN>(i, r, kc);
+    const int tap = k0 / C2_CIN, c0 = k0 % C2_CIN;
+    const int off = ((tap / C2_K) * Wp + tap % C2_K) * C2_CIN + c0 + kc;
+    const bool ok = rows[i] != nullptr;
+    cp_async16b(as + r * TL::AS + kc, ok ? rows[i] + off : x, ok);
+  };
+  float sum[TL::MF][TL::NF][4];
+  tc_product_bf16<C2_BM, C2_BN>(smem_c2, load_a, w, C2_COUT, 0, 0, C2_KDIM,
+                                sum);
+  __syncthreads();   // every warp is done with the ring: it holds the tile
+
+  float* ts = reinterpret_cast<float*>(smem_c2);  // [channel][position]
+#pragma unroll
+  for (int i = 0; i < TL::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ts[(wn0 + j * 8 + 2 * t + (e & 1)) * C2_TS + wm0 + i * 16 + g +
+           8 * (e >> 1)] = sum[i][j][e];
+  __syncthreads();
+
+  size_t at[C2_BM / 32];
+  bool ok[C2_BM / 32];
+#pragma unroll
+  for (int u = 0; u < C2_BM / 32; ++u) {
+    const int m = m0 + lane + 32 * u;
+    const int f = m / plane;
+    ok[u] = m < M;
+    at[u] = (size_t)f * C2_COUT * plane + (m - f * plane);
+  }
+  for (int n = warp; n < C2_COUT; n += TL::NT / 32) {
+    const float sc = scale[n], bi = bias[n];
+#pragma unroll
+    for (int u = 0; u < C2_BM / 32; ++u)
+      if (ok[u])
+        out[at[u] + (size_t)n * plane] =
+            f2bf(fmaxf(fmaf(ts[n * C2_TS + lane + 32 * u], sc, bi), 0.f));
+  }
+}
+
 }  // namespace jt
 
 namespace {
@@ -157,6 +244,28 @@ extern "C" int jt_conv2(const float* x, const float* w, const float* scale,
   const int rc = conv2_launch(x, w, scale, bias, out, T, J, Wp, J2, W2,
                               (cudaStream_t)stream);
   if (rc != 0) return rc;
+  JT_CHECK_LAUNCH();
+  return 0;
+}
+
+// x (T, J, Wp, 64) bf16 -> out (T, 128, J2, W2) bf16, as jt_conv2; w
+// (5, 5, 64, 128) bf16, scale and bias float32.
+extern "C" int jt_conv2_bf16(const uint16_t* x, const uint16_t* w,
+                             const float* scale, const float* bias,
+                             uint16_t* out, int T, int J, int Wp,
+                             void* stream) {
+  using namespace jt;
+  if (T < 1 || J < C2_K || Wp < C2_K) return JT_ERR_SHAPE;
+  if (!aligned16(x) || !aligned16(w)) return JT_ERR_SHAPE;
+  constexpr int SMEM = tile_bf16_smem_bytes<C2_BM, C2_BN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv2_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int J2 = (J - C2_K) / C2_S + 1, W2 = (Wp - C2_K) / C2_S + 1;
+  const long long M = (long long)T * J2 * W2;
+  conv2_bf16_kernel<<<(unsigned)((M + C2_BM - 1) / C2_BM), C2TileB::NT, SMEM,
+                      (cudaStream_t)stream>>>(x, w, scale, bias, out, T, J,
+                                              Wp, J2, W2);
   JT_CHECK_LAUNCH();
   return 0;
 }

@@ -55,6 +55,22 @@
 //    thread at a time with every slice's load issued before the sums need
 //    it, summed in registers and stored to shared memory.
 //  * No atomics: two launches give identical bits.
+//
+// The bf16 core (BF16 = true; the JAX engine's bf16 dtype) rounds where
+// `_attn_kernel` rounds a bf16 block (fused_layer.py:133-145): the QKV
+// rows (float32, the bias added) are rounded as they are staged, q * scale,
+// k and v to bf16; the scores, the -1e9 fill and the softmax are float32;
+// each probability is rounded to bf16 before P V, and the output to bf16.
+// Its operands are bf16 values, which TF32 holds exactly (8 of its 11
+// significant bits), so one TF32 pass on the same fragments computes the
+// bf16 products exactly in float32: no lo parts, a third of the products
+// of 3xTF32. The staging keeps float32 rows (the rounding is applied
+// where the loads land), so the fragment and bank layout is the float32
+// core's. To round the normalized p as the TPU kernel does, the bf16 core
+// walks the keys twice: pass 0 is the online softmax without P V (each
+// key slice's max and sum, combined across the row group's slices through
+// a small exchange area), pass 1 recomputes the scores, rounds exp(s - M)
+// / L to bf16 and sums P V; the slices' outputs then add in key order.
 #pragma once
 
 #include <math.h>
@@ -108,6 +124,8 @@ struct Core {
   static constexpr int Q = QT * RS;
   static constexpr int STAGE = 2 * AC_KT * RS + AC_KT;   // K, V, mask
   static constexpr int BYTES = (Q + STAGES * STAGE) * (int)sizeof(float);
+  // the bf16 core's exchange of each row's (m, l) between its key slices
+  static constexpr int XCH_BYTES = WARPS * 32 * 4 * (int)sizeof(float);
   static_assert(KW * QW == WARPS, "warps split evenly");
   static_assert(DK % 32 == 0, "dk flushes in 32-column steps");
 };
@@ -115,11 +133,11 @@ struct Core {
 // grid: (tiles, heads). Packed: tile x is segments [x per_tile, (x + 1)
 // per_tile). Streamed: tile x is query rows [(x % q) 16, +16) of segment
 // x / q, q = ceil(seg / 16).
-template <int DK, bool PACKED>
+template <int DK, bool PACKED, bool BF16 = false>
 __global__ void __launch_bounds__(Core<DK, PACKED>::THREADS,
                                   Core<DK, PACKED>::MIN_BLOCKS)
 attention_core(QkvSource src, const float* __restrict__ kmask,
-               float* __restrict__ out, int R, int d, int seg, int per_tile,
+               void* __restrict__ out_, int R, int d, int seg, int per_tile,
                float scale) {
   using C = Core<DK, PACKED>;
   constexpr int RS = C::RS, NKT = C::NKT, NF = DK / 8, KS = DK / 8;
@@ -154,11 +172,12 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 
   // n rows from row0 (the first `live` of them real, the rest zeros) of
   // `parts` thirds of the QKV rows, from column col and then col + d, into
-  // n rows of dst (stride RS) a part, part_stride floats apart
+  // n rows of dst (stride RS) a part, part_stride floats apart; bf16: each
+  // value times `mul` (the scale for Q) and rounded to bf16
   auto load_rows = [&](float* dst, int part_stride, int row0, int n,
-                       int live, int col, int parts) {
+                       int live, int col, int parts, float mul) {
     const int items = parts * n * COPIES;
-    if (src.splits == 1) {
+    if (!BF16 && src.splits == 1) {
       for (int c = tid; c < items; c += C::THREADS) {
         const int part = c / (n * COPIES), rc = c % (n * COPIES);
         const int r = rc / COPIES, cc = (rc % COPIES) * 4;
@@ -199,23 +218,28 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 #pragma unroll
       for (int b = 0; b < C::BATCH; ++b) {
         if (at[b] == nullptr) continue;
-        if (p[b] != nullptr) {
+        if (p[b] != nullptr && (!BF16 || src.splits > 1)) {
           const int c = c0 + b * C::THREADS;
           const int part = c / (n * COPIES), cc = (c % COPIES) * 4;
           v[b] = add4(v[b], __ldg(reinterpret_cast<const float4*>(
                                 src.bias + col + part * d + cc)));
         }
+        if constexpr (BF16)
+          v[b] = make_float4(round_bf16(v[b].x * mul),
+                             round_bf16(v[b].y * mul),
+                             round_bf16(v[b].z * mul),
+                             round_bf16(v[b].w * mul));
         *reinterpret_cast<float4*>(at[b]) = v[b];
       }
     }
   };
-  load_rows(Qs, 0, q_row0, C::QT, q_n, head * DK, 1);
+  load_rows(Qs, 0, q_row0, C::QT, q_n, head * DK, 1, scale);
   auto load_tile = [&](int stage, int tile) {
     float* ks = ring + stage * C::STAGE;
     float* vs = ks + AC_KT * RS;
     const int k0 = tile * AC_KT;
     load_rows(ks, AC_KT * RS, k_row0 + k0, AC_KT, min(AC_KT, k_n - k0),
-              d + head * DK, 2);
+              d + head * DK, 2, 1.f);
     if (kmask != nullptr && tid < AC_KT) {
       const bool ok = k0 + tid < k_n;
       cp_async4(vs + AC_KT * RS + tid, ok ? kmask + k_row0 + k0 + tid : kmask,
@@ -237,7 +261,47 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
                           PACKED ? (qg * 16 + g + 8) / seg : 0};
   const float* qa = Qs + (qg * 16 + g) * RS + t;
   const int kl = kq * 8 * NKT;            // the warp's first key of a tile
+  // bf16: the rows' max and sum over all their keys, from pass 0
+  float M[2] = {0.f, 0.f}, L[2] = {1.f, 1.f};
 
+  // bf16 runs the keys twice: pass 0 finds each row's max and sum (the
+  // online softmax without P V), pass 1 rounds the normalized p =
+  // exp(s - M) / L to bf16, as the TPU kernel does, and sums P V
+  for (int pass = 0; pass < (BF16 ? 2 : 1); ++pass) {
+  if (pass == 1) {
+    // the row group's key slices hand (m, l) to each other through the
+    // exchange area, lane for lane, and combine them in key order
+    float* xch = smem + C::Q + C::STAGES * C::STAGE;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    float* mine = xch + (warp * 32 + lane) * 4;
+    mine[0] = m[0];
+    mine[1] = m[1];
+    mine[2] = l[0];
+    mine[3] = l[1];
+    cp_async_wait<0>();
+    __syncthreads();   // every slice's (m, l) written; the ring free
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < C::KW; ++w)
+        mx = fmaxf(mx, xch[((qg * C::KW + w) * 32 + lane) * 4 + h]);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < C::KW; ++w) {
+        const float* x = xch + ((qg * C::KW + w) * 32 + lane) * 4;
+        sum = fmaf(x[2 + h], expf(x[h] - mx), sum);
+      }
+      M[h] = mx;
+      L[h] = sum;
+    }
+    load_tile(0, 0);
+    cp_async_commit();
+  }
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_async_wait<0>();
     __syncthreads();   // the tile's copies visible; tile - 1's stage free
@@ -283,6 +347,21 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
         for (int kk = c0; kk < c0 + 4; ++kk) {
           uint32_t ahi[4], alo[4];
           const float* p = qa + kk * 8;
+          if constexpr (BF16) {   // staged as bf16(q * scale): exact in TF32
+            ahi[0] = __float_as_uint(p[0]);
+            ahi[1] = __float_as_uint(p[8 * RS]);
+            ahi[2] = __float_as_uint(p[4]);
+            ahi[3] = __float_as_uint(p[8 * RS + 4]);
+#pragma unroll
+            for (int j = 0; j < CH; ++j) {
+              if (j0 + j < jlo || j0 + j >= jhi) continue;
+              const float* b = ks + ((j0 + j) * 8 + g) * RS + kk * 8 + t;
+              const uint32_t bb[2] = {__float_as_uint(b[0]),
+                                      __float_as_uint(b[4])};
+              mma_tf32(part[j], ahi, bb);
+            }
+            continue;
+          }
           split_tf32(p[0] * scale, ahi[0], alo[0]);
           split_tf32(p[8 * RS] * scale, ahi[1], alo[1]);
           split_tf32(p[4] * scale, ahi[2], alo[2]);
@@ -325,24 +404,33 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
         s[j][e] = x;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
       }
-    float corr[2];
+    float corr[2] = {1.f, 1.f};
+    if (BF16 && pass == 1) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-      const float m_new = fmaxf(m[h], tmax[h]);   // finite: m starts finite
-      corr[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
+      for (int j = 0; j < NKT; ++j)
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
+        for (int e = 0; e < 4; ++e)   // -inf -> 0
+          s[j][e] = round_bf16(expf(s[j][e] - M[e >> 1]) / L[e >> 1]);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);   // -inf -> 0
-        s[j][e] = p;
-        l[e >> 1] += p;
+      for (int h = 0; h < 2; ++h) {
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+        const float m_new = fmaxf(m[h], tmax[h]);   // finite: m starts finite
+        corr[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= corr[h];
       }
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);   // -inf -> 0
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      if (BF16) continue;   // pass 0: the max and sum only
+    }
 
     // O = O * corr + P V, each 32 keys' products from zero: P's A fragment
     // for keys 8 kk.. is s[kk] itself, split a 32-key chunk at a time
@@ -351,6 +439,13 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
       uint32_t phi[CH][4], plo[CH][4];
 #pragma unroll
       for (int kk = 0; kk < CH; ++kk) {
+        if constexpr (BF16) {
+          phi[kk][0] = __float_as_uint(s[c0 + kk][0]);
+          phi[kk][1] = __float_as_uint(s[c0 + kk][2]);
+          phi[kk][2] = __float_as_uint(s[c0 + kk][1]);
+          phi[kk][3] = __float_as_uint(s[c0 + kk][3]);
+          continue;
+        }
         split_tf32(s[c0 + kk][0], phi[kk][0], plo[kk][0]);
         split_tf32(s[c0 + kk][2], phi[kk][1], plo[kk][1]);
         split_tf32(s[c0 + kk][1], phi[kk][2], plo[kk][2]);
@@ -366,6 +461,17 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 #pragma unroll
         for (int kk = 0; kk < CH; ++kk) {
           if (c0 + kk < jlo || c0 + kk >= jhi) continue;
+          if constexpr (BF16) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float* b =
+                  vs + ((c0 + kk) * 8 + 2 * t) * RS + (j0 + j) * 8 + g;
+              const uint32_t bb[2] = {__float_as_uint(b[0]),
+                                      __float_as_uint(b[RS])};
+              mma_tf32(pv[j], phi[kk], bb);
+            }
+            continue;
+          }
           uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -390,8 +496,18 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
       }
     }
   }
+  }   // pass
   cp_async_wait<0>();
   __syncthreads();   // every warp is done with the ring
+  if constexpr (BF16) {
+    // o holds normalized sums: the merge below adds the key slices' o in
+    // key order with weight 1 (every slice's m is M) and divides by 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = M[h];
+      l[h] = kq == 0 ? 0.25f : 0.f;   // the quad sums to 1 (and 0)
+    }
+  }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {   // the row's sum over the quad
@@ -453,7 +569,17 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
   for (int h = 0; h < 2; ++h) {
     const int qi = qg * 16 + g + 8 * h;
     if (qi >= q_n) continue;
-    float* dst = out + (size_t)(q_row0 + qi) * d + head * DK + 2 * t;
+    const size_t at = (size_t)(q_row0 + qi) * d + head * DK + 2 * t;
+    if constexpr (BF16) {
+      uint16_t* dst = static_cast<uint16_t*>(out_) + at;
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack_bf16(f2bf(o[j][2 * h] * inv[h]),
+                      f2bf(o[j][2 * h + 1] * inv[h]));
+      continue;
+    }
+    float* dst = static_cast<float*>(out_) + at;
 #pragma unroll
     for (int j = 0; j < NF; ++j)
       *reinterpret_cast<float2*>(dst + j * 8) =
@@ -465,45 +591,53 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 // limit (see gemm_launch in gemm.cuh).
 namespace {
 
-template <int DK, bool PACKED>
+template <int DK, bool PACKED, bool BF16 = false>
+constexpr int core_bytes() {
+  return Core<DK, PACKED>::BYTES + (BF16 ? Core<DK, PACKED>::XCH_BYTES : 0);
+}
+
+template <int DK, bool PACKED, bool BF16 = false>
 cudaError_t core_prepare() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_core<DK, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Core<DK, PACKED>::BYTES);
+      attention_core<DK, PACKED, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      core_bytes<DK, PACKED, BF16>());
   return attr;
 }
 
-template <int DK, bool PACKED>
-int core_launch(const QkvSource& src, const float* kmask, float* out, int R,
+template <int DK, bool PACKED, bool BF16 = false>
+int core_launch(const QkvSource& src, const float* kmask, void* out, int R,
                 int d, int heads, int seg, float scale, cudaStream_t s) {
   using C = Core<DK, PACKED>;
-  const cudaError_t e = core_prepare<DK, PACKED>();
+  const cudaError_t e = core_prepare<DK, PACKED, BF16>();
   if (e != cudaSuccess) return (int)e;
   const int n_seg = R / seg;
   const int per_tile = PACKED ? AC_KT / seg : 0;
   const int tiles = PACKED ? (n_seg + per_tile - 1) / per_tile
                            : n_seg * ((seg + C::QT - 1) / C::QT);
-  attention_core<DK, PACKED><<<dim3(tiles, heads), C::THREADS, C::BYTES, s>>>(
-      src, kmask, out, R, d, seg, per_tile, scale);
+  attention_core<DK, PACKED, BF16>
+      <<<dim3(tiles, heads), C::THREADS, core_bytes<DK, PACKED, BF16>(), s>>>(
+          src, kmask, out, R, d, seg, per_tile, scale);
   return 0;
 }
 
 // registers and spill bytes a thread, dynamic shared memory a block,
 // resident blocks an SM
-template <int DK, bool PACKED>
+template <int DK, bool PACKED, bool BF16 = false>
 int core_info(int* info) {
-  const void* fn = (const void*)attention_core<DK, PACKED>;
-  cudaError_t e = core_prepare<DK, PACKED>();
+  const void* fn = (const void*)attention_core<DK, PACKED, BF16>;
+  cudaError_t e = core_prepare<DK, PACKED, BF16>();
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, Core<DK, PACKED>::THREADS, Core<DK, PACKED>::BYTES);
+        &blocks, fn, Core<DK, PACKED>::THREADS,
+        core_bytes<DK, PACKED, BF16>());
   if (e != cudaSuccess) return (int)e;
   info[0] = a.numRegs;
   info[1] = (int)a.localSizeBytes;
-  info[2] = Core<DK, PACKED>::BYTES;
+  info[2] = core_bytes<DK, PACKED, BF16>();
   info[3] = blocks;
   return 0;
 }
@@ -514,8 +648,9 @@ int core_info(int* info) {
 // width d / heads (64 or 96) at columns h * dk of each third; kmask: (R,)
 // key validity (0 = masked) or null. The schedule follows seg: packed up
 // to 64, streamed past it.
-inline int attention(const QkvSource& src, const float* kmask, float* att,
-                     int R, int d, int heads, int seg, cudaStream_t s) {
+template <bool BF16>
+inline int attention_t(const QkvSource& src, const float* kmask, void* att,
+                       int R, int d, int heads, int seg, cudaStream_t s) {
   if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0)
     return JT_ERR_SHAPE;
   if (!aligned16(src.rows) || !aligned16(att) ||
@@ -526,23 +661,43 @@ inline int attention(const QkvSource& src, const float* kmask, float* att,
   const bool packed = seg <= AC_KT;
   int rc = JT_ERR_SHAPE;
   if (dk == 64)
-    rc = packed ? core_launch<64, true>(src, kmask, att, R, d, heads, seg,
-                                        scale, s)
-                : core_launch<64, false>(src, kmask, att, R, d, heads, seg,
-                                         scale, s);
+    rc = packed ? core_launch<64, true, BF16>(src, kmask, att, R, d, heads,
+                                              seg, scale, s)
+                : core_launch<64, false, BF16>(src, kmask, att, R, d, heads,
+                                               seg, scale, s);
   if (dk == 96)
-    rc = packed ? core_launch<96, true>(src, kmask, att, R, d, heads, seg,
-                                        scale, s)
-                : core_launch<96, false>(src, kmask, att, R, d, heads, seg,
-                                         scale, s);
+    rc = packed ? core_launch<96, true, BF16>(src, kmask, att, R, d, heads,
+                                              seg, scale, s)
+                : core_launch<96, false, BF16>(src, kmask, att, R, d, heads,
+                                               seg, scale, s);
   if (rc != 0) return rc;
   JT_CHECK_LAUNCH();
   return 0;
 }
 
+inline int attention(const QkvSource& src, const float* kmask, float* att,
+                     int R, int d, int heads, int seg, cudaStream_t s) {
+  return attention_t<false>(src, kmask, att, R, d, heads, seg, s);
+}
+
+// The bf16 core: att (R, d) bf16 from the float32 QKV source.
+inline int attention_bf16(const QkvSource& src, const float* kmask,
+                          uint16_t* att, int R, int d, int heads, int seg,
+                          cudaStream_t s) {
+  return attention_t<true>(src, kmask, att, R, d, heads, seg, s);
+}
+
 // What the compiler and the occupancy calculator say of one schedule of
 // the core: {registers, spill bytes, shared memory, blocks an SM}.
-inline int attention_info(int dk, bool packed, int* info) {
+inline int attention_info(int dk, bool packed, int* info,
+                          bool bf16 = false) {
+  if (bf16) {
+    if (dk == 64) return packed ? core_info<64, true, true>(info)
+                                : core_info<64, false, true>(info);
+    if (dk == 96) return packed ? core_info<96, true, true>(info)
+                                : core_info<96, false, true>(info);
+    return JT_ERR_SHAPE;
+  }
   if (dk == 64) return packed ? core_info<64, true>(info)
                               : core_info<64, false>(info);
   if (dk == 96) return packed ? core_info<96, true>(info)

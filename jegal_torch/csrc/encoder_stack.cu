@@ -42,6 +42,15 @@
 // is a persistent kernel that streams each layer's weights by TMA into
 // wgmma (weights stored K-major at load time) and keeps the (R, d)
 // activations on chip, so a layer is not 8 launches.
+//
+// jt_encoder_stack_bf16 is its bf16 variant (the JAX engine's bf16 dtype),
+// in `_stack_kernel`'s arithmetic: weights bf16, biases and norms float32;
+// the residual stream stays float32 from sublayer to sublayer and layer to
+// layer (the TPU kernel's f32 VMEM scratch: r32 and y32 here), each
+// product reads its bf16 rounding (the bf16 copies out and y, written by
+// the same row pass, or the bf16 pre-LN rows h), and only the stack's
+// output is the bf16 of the last row pass. The products and the attention
+// run on gemm.cuh's and encoder.cuh's bf16 code.
 #include "encoder.cuh"
 #include "gemm.cuh"
 
@@ -110,6 +119,83 @@ extern "C" int jt_encoder_stack(
     rc = jt::gemm(plans + 9, h1, w2 + (size_t)dff * d * l, b2 + (size_t)d * l,
                   y, out, ws, R, d, dff, jt::ACT_NONE,
                   prenorm ? nullptr : ln2_g, ln2_b, ln_kind, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// x (R, d) bf16 -> out (R, d) bf16 through L layers. Operands as
+// jt_encoder_stack, the weights (wqkv, wo, w1, w2) bf16 and the rest
+// float32. Scratch: h (R, d) bf16 when prenorm, qkv (R, 3d) float32, att
+// (R, d) bf16, y32 (R, d) float32 and y (R, d) bf16 (after each attention
+// sublayer), h1 (R, dff) bf16, r32 (R, d) float32 (the residual stream
+// into each layer), ws the split-K workspace, which also holds the output
+// and W2 products' float32 sums ((R, d) floats) for their row pass.
+extern "C" int jt_encoder_stack_bf16(
+    const uint16_t* x, const uint16_t* wqkv, const float* bqkv,
+    const uint16_t* wo, const float* bo, const uint16_t* w1, const float* b1,
+    const uint16_t* w2, const float* b2, const float* g1, const float* be1,
+    const float* g2, const float* be2, const float* kmask, uint16_t* h,
+    float* qkv, uint16_t* att, float* y32, uint16_t* y, uint16_t* h1,
+    float* r32, uint16_t* out, float* ws, const int* plans, int R, int d,
+    int dff, int heads, int seg, int L, int prenorm, int ln_kind, int act,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0 || L <= 0)
+    return JT_ERR_SHAPE;
+  if (d / heads != 64 && d / heads != 96) return JT_ERR_SHAPE;
+  const size_t dd = (size_t)d * d;
+  // the residual stream starts as the input, in float32
+  int rc = jt::layer_norm_bf16(jt::Rows{x, false}, nullptr, nullptr, r32,
+                               nullptr, R, d, 0, s);
+  if (rc != 0) return rc;
+  for (int l = 0; l < L; ++l) {
+    const uint16_t* cur = (l == 0) ? x : out;   // bf16 of r32
+    const float* ln1_g = g1 + (size_t)l * d;
+    const float* ln1_b = be1 + (size_t)l * d;
+    const float* ln2_g = g2 + (size_t)l * d;
+    const float* ln2_b = be2 + (size_t)l * d;
+    const jt::Rows res1{r32, true}, res2{y32, true};
+
+    // attention sublayer: r32 -> y32 (and y)
+    const uint16_t* src = cur;
+    if (prenorm) {
+      rc = jt::layer_norm_bf16(res1, ln1_g, ln1_b, nullptr, h, R, d, ln_kind,
+                               s);
+      if (rc != 0) return rc;
+      src = h;
+    }
+    const float* bq = bqkv + (size_t)3 * d * l;
+    rc = jt::gemm_bf16(plans, src, wqkv + 3 * dd * l, bq,
+                       jt::Rows{nullptr, false}, qkv, nullptr, ws, R, 3 * d,
+                       d, jt::ACT_NONE, nullptr, nullptr, 0, s,
+                       /*reduce=*/false);
+    if (rc != 0) return rc;
+    rc = jt::attention_bf16(jt::qkv_source(plans, qkv, ws, bq, R, d), kmask,
+                            att, R, d, heads, seg, s);
+    if (rc != 0) return rc;
+    rc = jt::gemm_bf16(plans + 3, att, wo + dd * l, bo + (size_t)d * l, res1,
+                       y32, y, ws, R, d, d, jt::ACT_NONE,
+                       prenorm ? nullptr : ln1_g, ln1_b, ln_kind, s);
+    if (rc != 0) return rc;
+
+    // FFN sublayer: y32 -> r32 (and out)
+    src = y;
+    if (prenorm) {
+      rc = jt::layer_norm_bf16(res2, ln2_g, ln2_b, nullptr, h, R, d, ln_kind,
+                               s);
+      if (rc != 0) return rc;
+      src = h;
+    }
+    rc = jt::gemm_bf16(plans + 6, src, w1 + (size_t)d * dff * l,
+                       b1 + (size_t)dff * l, jt::Rows{nullptr, false},
+                       nullptr, h1, ws, R, dff, d, act, nullptr, nullptr, 0,
+                       s);
+    if (rc != 0) return rc;
+    rc = jt::gemm_bf16(plans + 9, h1, w2 + (size_t)dff * d * l,
+                       b2 + (size_t)d * l, res2, r32, out, ws, R, d, dff,
+                       jt::ACT_NONE, prenorm ? nullptr : ln2_g, ln2_b,
+                       ln_kind, s);
     if (rc != 0) return rc;
   }
   return 0;

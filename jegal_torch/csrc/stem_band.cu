@@ -60,6 +60,26 @@
 // 16) take plain loads into the same ring. Shared memory: 195.5 KB (float),
 // 153.2 KB (planar); one block an SM. The launcher cuts the pooled rows into
 // runs so that the blocks fill whole waves of the card's SMs.
+//
+// stem_band_bf16_kernel is its bf16 variant (the JAX engine's bf16 dtype),
+// on bf16 float frames (the /255 rounded to bf16 by the mask) and on the
+// planar bytes with a bf16 weight (/255 folded in float32, then rounded):
+//   * the products run on wgmma m64n64k16 bf16, one pass (a bf16 product
+//     is exact in float32; uint8 pixels are exact in bf16), K padded to
+//     160, the float32 flush every 32 columns (two k16 steps);
+//   * B is a tap's bf16 weights, landed raw by cp.async and repacked
+//     between two taps into one K-major plane of 8 n x 8 k core matrices
+//     (LBO 1024, SBO 128 bytes: the TF32 planes' geometry at 2-byte
+//     elements); A pairs two k of the gathered ring values (koff as above);
+//   * the three taps of each row, BN and ReLU in float32; the pooled max
+//     rounded to bf16 once, which equals the max of the conv rows rounded
+//     to bf16 (`_stem_kernel_band` rounds each conv row, stem.py:305, and
+//     takes the max on bf16 values, :336): rounding is monotone.
+// The bf16 ring is half the float ring's bytes, the plane a quarter of the
+// two TF32 planes': 96.7 KB (float), 91.6 KB (planar) of shared memory.
+// The freed memory is not used: the launch bounds keep one block an SM,
+// as the float32 kernel's, so that both run the same band schedule.
+// Bound in bf16: 190 GFLOP at 989 TFLOP/s, 0.192 ms a 5 s clip.
 #include "gemm.cuh"
 #include "stem.cuh"
 
@@ -389,6 +409,256 @@ stem_band_kernel(Src src, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+// bf16 float frames: (T, H, W, 3) bf16 in [0, 1] (uint16_t bit patterns).
+struct Bf16Frames {
+  const uint16_t* p;
+  int H, W;
+};
+
+template <> struct BandRing<Bf16Frames> {
+  using Elem = uint16_t;
+  static constexpr int ROW = 168;          // 55 columns x 3, padded
+  static constexpr int PIECES = ROW / 8;   // 16-byte copies a row
+  static constexpr int FRAME = SB_RING * ROW;
+  static constexpr int WORDS = SB_FIN * FRAME / 2;
+  static constexpr int COL = ST_S * ST_CIN;
+  __device__ static int koff(int slot, int dx, int c) {
+    return slot * ROW + dx * ST_CIN + c;
+  }
+};
+
+constexpr int SBB_KP = 160;                 // 147 taps padded to k16 steps
+constexpr int SBB_KSTEPS = SBB_KP / 16;     // 10
+constexpr int SBB_FLUSH = 2;                // k16 steps a float32 flush
+constexpr int SBB_KG = SBB_KP / 8;          // core-matrix columns (20)
+constexpr int SBB_PLANE = SBB_KG * 8 * ST_C;   // halves of the bf16 plane
+// words of the plane's region, which also holds the pooling buffer
+constexpr int SBB_REGION = SB_SLOTS * SB_VLD > SBB_PLANE / 2
+                               ? SB_SLOTS * SB_VLD : SBB_PLANE / 2;
+constexpr int SBB_RAW = ST_WS / 2;          // words of a tap's raw weights
+
+template <class Src>
+constexpr int SBB_SMEM_WORDS =
+    SBB_REGION + SBB_RAW + SB_RING * SBB_KP + BandRing<Src>::WORDS;
+
+// Rows [y0, y0 + n) of bf16 float frames into their ring slots, as the
+// float32 issue_rows: a staged row is 168 bf16 from column x0.
+__device__ __forceinline__ void issue_rows(const Bf16Frames& s, int t0,
+                                           int t_in, int x0, int y0, int n,
+                                           uint16_t* ring, bool async) {
+  using R = BandRing<Bf16Frames>;
+  const int wq = s.W * ST_CIN;
+  for (int i = threadIdx.x; i < SB_FIN * n * R::PIECES; i += SB_THREADS) {
+    const int fr = i / R::PIECES, q = (i - fr * R::PIECES) * 8;
+    const int f = fr / n, y = y0 + fr % n;
+    const int t = t0 + f, xq = x0 * ST_CIN + q;
+    uint16_t* dst = ring + (f * SB_RING + y % SB_RING) * R::ROW + q;
+    const uint16_t* src = s.p + ((size_t)t * s.H + y) * wq + xq;
+    const bool row_ok = t < t_in && y < s.H;
+    if (async) {   // wq % 8 == 0: a piece is wholly inside or outside
+      const bool ok = row_ok && xq < wq;
+      cp_async16b(dst, ok ? src : s.p, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (row_ok && xq + e < wq) ? __ldg(src + e) : (uint16_t)0;
+    }
+  }
+}
+
+// cp.async copies of a tap's raw (147, 64) bf16 weights.
+__device__ __forceinline__ void issue_weights_raw_bf16(
+    const uint16_t* __restrict__ wt, uint16_t* raw) {
+  for (int i = threadIdx.x; i < ST_WS / 8; i += SB_THREADS)
+    cp_async16b(raw + 8 * i, wt + 8 * i, true);
+}
+
+// The landed raw weights into the K-major bf16 plane: element (n, k) at
+// half (k / 8) * 512 + (n / 8) * 64 + (n % 8) * 8 + k % 8; zero past the
+// 147 taps.
+__device__ __forceinline__ void repack_weights_bf16(const uint16_t* raw,
+                                                    uint16_t* plane) {
+  for (int i = threadIdx.x; i < SBB_KG * ST_C; i += SB_THREADS) {
+    const int kg = i / ST_C, n = i - kg * ST_C;
+    uint16_t h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 8 * kg + e;
+      h[e] = k < ST_TAPS ? raw[k * ST_C + n] : (uint16_t)0;
+    }
+    *reinterpret_cast<uint4*>(plane + kg * 8 * ST_C + (n >> 3) * 64 +
+                              (n & 7) * 8) =
+        make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]),
+                   pack_bf16(h[4], h[5]), pack_bf16(h[6], h[7]));
+  }
+}
+
+// A ring element as a bf16 A value: bf16 pixels as they are; bytes
+// converted (exact).
+__device__ __forceinline__ uint16_t bf_value(uint16_t v) { return v; }
+__device__ __forceinline__ uint16_t bf_value(uint8_t v) {
+  return f2bf((float)v);
+}
+
+// src: (t_in, H, W, 3) frames, bf16 or planar bytes; w: (5, 7, 7, 3, 64)
+// DHWIO bf16; out: (t_in - 4, J, Wp, 64) bf16. Grid as stem_band_kernel.
+template <class Src>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      uint16_t* __restrict__ out, int t_in, int J, int Wp,
+                      int run, bool async) {
+  using R = BandRing<Src>;
+  using Elem = typename R::Elem;
+  extern __shared__ __align__(16) float smem_sb[];
+  uint16_t* plane = reinterpret_cast<uint16_t*>(smem_sb);   // [20][8][8][8]
+  uint16_t* raw = reinterpret_cast<uint16_t*>(smem_sb + SBB_REGION);
+  int* koff = reinterpret_cast<int*>(smem_sb + SBB_REGION + SBB_RAW);
+  Elem* ring = reinterpret_cast<Elem*>(koff + SB_RING * SBB_KP);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int i0 = blockIdx.x * SB_PI;
+  const int t0 = blockIdx.y * SB_F;
+  const int j_a = blockIdx.z * run;
+  const int j_b = min(J, j_a + run);
+  const int t_out = t_in - (ST_KT - 1);
+  const int x_in0 = 2 * ST_S * i0;
+
+  issue_rows(src, t0, t_in, x_in0, 2 * ST_S * j_a, SB_RING, ring, async);
+  issue_weights_raw_bf16(w, raw);
+  cp_async_commit();
+  for (int i = tid; i < SB_RING * SBB_KP; i += SB_THREADS) {
+    const int rho = i / SBB_KP, k = i - rho * SBB_KP;
+    const int dy = k / (ST_KW * ST_CIN), r = k - dy * ST_KW * ST_CIN;
+    koff[i] = k < ST_TAPS
+                  ? R::koff((rho + dy) % SB_RING, r / ST_CIN, r % ST_CIN)
+                  : 0;
+  }
+
+  int slot[SB_MT], xoff[SB_MT];
+#pragma unroll
+  for (int i = 0; i < SB_MT; ++i) {
+    slot[i] = ((wg * SB_MT + i) * 4 + wq) * 8 + g;
+    const int q = min(slot[i], SB_NPOS - 1);
+    xoff[i] = (q / SB_CC) * R::FRAME + (q % SB_CC) * R::COL;
+  }
+
+  float acc[SB_MT][32];
+  float carry[SB_MT][2 * ST_NF];
+#pragma unroll
+  for (int i = 0; i < SB_MT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2 * ST_NF; ++e) carry[i][e] = 0.f;
+  }
+
+  for (int m = j_a; m <= j_b; ++m) {      // pair m: conv rows 2m, 2m + 1
+    const int* k0 = koff + (2 * ST_S * m) % SB_RING * SBB_KP;
+    const int* k1 = koff + (2 * ST_S * m + ST_S) % SB_RING * SBB_KP;
+    float sum[SB_MT][32];
+#pragma unroll
+    for (int i = 0; i < SB_MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum[i][e] = 0.f;
+
+    for (int dt = 0; dt < ST_KT; ++dt) {
+      cp_async_wait<0>();
+      __syncthreads();   // the tap's raw weights (and the rows) landed; the
+                         // last tap's products and the pooling are done
+      repack_weights_bf16(raw, plane);
+      fence_proxy_async();
+      __syncthreads();   // the plane ready for wgmma; the raw buffer free
+      if (m < j_b || dt + 1 < ST_KT)
+        issue_weights_raw_bf16(w + (size_t)((dt + 1) % ST_KT) * ST_WS, raw);
+      cp_async_commit();
+      const Elem* x = ring + dt * R::FRAME;
+
+#pragma unroll
+      for (int s0 = 0; s0 < SBB_KSTEPS; s0 += SBB_FLUSH) {
+#pragma unroll
+        for (int s = s0; s < s0 + SBB_FLUSH; ++s) {
+          const int k = 16 * s + 2 * t4;
+          uint32_t a[SB_MT][4];
+#pragma unroll
+          for (int i = 0; i < SB_MT; ++i) {
+            const Elem* xp = x + xoff[i];
+            // rows g: conv row 2m (k0); rows g + 8: conv row 2m + 1 (k1)
+            a[i][0] = pack_bf16(bf_value(xp[k0[k]]), bf_value(xp[k0[k + 1]]));
+            a[i][1] = pack_bf16(bf_value(xp[k1[k]]), bf_value(xp[k1[k + 1]]));
+            a[i][2] = pack_bf16(bf_value(xp[k0[k + 8]]),
+                                bf_value(xp[k0[k + 9]]));
+            a[i][3] = pack_bf16(bf_value(xp[k1[k + 8]]),
+                                bf_value(xp[k1[k + 9]]));
+          }
+          // k16 step s: core-matrix columns 2s, 2s + 1 of the plane
+          const uint64_t desc =
+              wgmma_desc(plane + s * 2 * 8 * ST_C, 8 * ST_C * 2, 128);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < SB_MT; ++i)
+            wgmma_bf16(acc[i], a[i], desc, s != s0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < SB_MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            wgmma_pin(acc[i][e]);
+            sum[i][e] += acc[i][e];
+          }
+      }
+    }
+
+    __syncthreads();   // every tap of the pair has read the ring and plane
+    if (m < j_b)
+      issue_rows(src, t0, t_in, x_in0, 2 * ST_S * m + SB_RING, SB_NEW, ring,
+                 async);
+    cp_async_commit();
+
+    float* V = smem_sb;   // the plane's region: the next tap repacks later
+#pragma unroll
+    for (int j = 0; j < ST_NF; ++j) {
+      const int c = j * 8 + 2 * t4;
+      const float s0 = __ldg(scale + c), s1 = __ldg(scale + c + 1);
+      const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+#pragma unroll
+      for (int i = 0; i < SB_MT; ++i) {
+        const float r0a = fmaxf(fmaf(sum[i][4 * j], s0, b0), 0.f);
+        const float r0b = fmaxf(fmaf(sum[i][4 * j + 1], s1, b1), 0.f);
+        const float r1a = fmaxf(fmaf(sum[i][4 * j + 2], s0, b0), 0.f);
+        const float r1b = fmaxf(fmaf(sum[i][4 * j + 3], s1, b1), 0.f);
+        if (m > j_a)
+          *reinterpret_cast<float2*>(V + slot[i] * SB_VLD + c) =
+              make_float2(fmaxf(carry[i][2 * j], r0a),
+                          fmaxf(carry[i][2 * j + 1], r0b));
+        carry[i][2 * j] = fmaxf(r0a, r1a);
+        carry[i][2 * j + 1] = fmaxf(r0b, r1b);
+      }
+    }
+    if (m == j_a) continue;
+    __syncthreads();
+    for (int q = tid; q < SB_F * SB_PI * ST_C; q += SB_THREADS) {
+      const int o = q % ST_C;
+      const int pos = q / ST_C;
+      const int f = pos / SB_PI, pi = pos % SB_PI;
+      const int t = t0 + f, i = i0 + pi;
+      if (t >= t_out || i >= Wp) continue;
+      const float* v = V + (f * SB_CC + 2 * pi) * SB_VLD + o;
+      out[(((size_t)t * J + (m - 1)) * Wp + i) * ST_C + o] =
+          f2bf(fmaxf(fmaxf(v[0], v[SB_VLD]), v[2 * SB_VLD]));
+    }
+  }
+}
+
 }  // namespace jt
 
 // Pooled rows a block walks: the run that fills whole waves of the card's
@@ -484,6 +754,101 @@ extern "C" int jt_stem_band_info(int planar, int* info) {
   const int smem = (int)sizeof(float) *
                    (planar ? SB_SMEM_WORDS<PlanarU8>
                            : SB_SMEM_WORDS<FloatFrames>);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, SB_THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = smem;
+  info[3] = blocks;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 entries
+// ---------------------------------------------------------------------------
+
+template <class Src>
+static BandSetup band_setup_bf16() {
+  using namespace jt;
+  constexpr int smem = (int)sizeof(float) * SBB_SMEM_WORDS<Src>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(stem_band_bf16_kernel<Src>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem)) != cudaSuccess ||
+      (e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, stem_band_bf16_kernel<Src>, SB_THREADS, smem)) !=
+          cudaSuccess)
+    return {e, 0};
+  return {cudaSuccess, sms * (per_sm > 0 ? per_sm : 1)};
+}
+
+template <class Src>
+static int launch_stem_band_bf16(Src src, const uint16_t* w,
+                                 const float* scale, const float* bias,
+                                 uint16_t* out, int t_in, bool async,
+                                 cudaStream_t stream) {
+  using namespace jt;
+  constexpr int smem = (int)sizeof(float) * SBB_SMEM_WORDS<Src>;
+  const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
+  if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
+  if ((uintptr_t)w % 16 != 0) return JT_ERR_SHAPE;
+  static const BandSetup setup = band_setup_bf16<Src>();
+  if (setup.err != cudaSuccess) return (int)setup.err;
+  const int t_out = t_in - (ST_KT - 1);
+  const int strips = (Wp + SB_PI - 1) / SB_PI;
+  const int groups = (t_out + SB_F - 1) / SB_F;
+  const int run = band_run(strips * groups, J, setup.slots);
+  dim3 grid(strips, groups, (J + run - 1) / run);
+  stem_band_bf16_kernel<Src><<<grid, SB_THREADS, smem, stream>>>(
+      src, w, scale, bias, out, t_in, J, Wp, run, async);
+  JT_CHECK_LAUNCH();
+  return 0;
+}
+
+// frames (t_in, H, W, 3) bf16 -> out (t_in - 4, J, Wp, 64) bf16; w bf16,
+// scale and bias float32.
+extern "C" int jt_stem_band_bf16(const uint16_t* frames, const uint16_t* w,
+                                 const float* scale, const float* bias,
+                                 uint16_t* out, int t_in, int H, int W,
+                                 void* stream) {
+  const bool async = (uintptr_t)frames % 16 == 0 && (W * 3) % 8 == 0;
+  return launch_stem_band_bf16(jt::Bf16Frames{frames, H, W}, w, scale, bias,
+                               out, t_in, async, (cudaStream_t)stream);
+}
+
+// planar (t_in, H3, 27, W3) uint8 -> out (t_in - 4, J, Wp, 64) bf16; w the
+// bf16 weight with /255 folded in.
+extern "C" int jt_stem_band_planar_bf16(const uint8_t* planar,
+                                        const uint16_t* w, const float* scale,
+                                        const float* bias, uint16_t* out,
+                                        int t_in, int H3, int W3,
+                                        void* stream) {
+  const bool async = (uintptr_t)planar % 16 == 0 && W3 % 16 == 0;
+  return launch_stem_band_bf16(jt::PlanarU8{planar, 3 * H3, 3 * W3}, w,
+                               scale, bias, out, t_in, async,
+                               (cudaStream_t)stream);
+}
+
+// jt_stem_band_info of the bf16 kernel's entries.
+extern "C" int jt_stem_band_bf16_info(int planar, int* info) {
+  using namespace jt;
+  const void* fn = planar ? (const void*)stem_band_bf16_kernel<PlanarU8>
+                          : (const void*)stem_band_bf16_kernel<Bf16Frames>;
+  const int smem = (int)sizeof(float) *
+                   (planar ? SBB_SMEM_WORDS<PlanarU8>
+                           : SBB_SMEM_WORDS<Bf16Frames>);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -72,6 +72,12 @@ D_OUT = 1024
 CONV2_IMPLS = ("dense", "kernel")       # block 2: cuDNN, or csrc/conv2.cu
 
 
+def param_dtype(params):
+    """The tower's compute dtype: its parameters' (the engine casts every
+    floating leaf once, as the JAX engine does)."""
+    return params["net_vid"][0]["conv"]["kernel"].dtype
+
+
 def tower_ops(params):
     """Block 1's and block 2's folded kernel operands, once per call of an
     entry point: (stem_kernel_params, conv2_kernel_params)."""
@@ -129,7 +135,7 @@ def _window_stack(tokens):
     """tokens (..., T + 20, 512) -> PE-added windows (..., T, 21, 512)."""
     wins = tokens.unfold(-2, TOKENS, 1).transpose(-1, -2)
     pe = sinusoidal_position_encoding(50, D_MODEL, tokens.device)[:TOKENS]
-    return wins + pe
+    return wins + pe.to(tokens.dtype)
 
 
 def _window_head_flat(params, wins):
@@ -204,8 +210,9 @@ def extract_features_batch_raw(params, frames_u8, cut, chunk: int = 160,
     -> (B, T, 1024). Each clip is masked and edge-padded on its own
     (mask_frames_device), so one clip's float frames are alive at a time."""
     ops = tower_ops(params)
+    dt = param_dtype(params)
     tokens = torch.stack([
-        conv_tokens(params, mask_frames_device(clip, c), chunk=chunk,
+        conv_tokens(params, mask_frames_device(clip, c, dt), chunk=chunk,
                     stem_impl=stem_impl, conv2_impl=conv2_impl, ops=ops)
         for clip, c in zip(frames_u8, cut)])
     return _batch_tokens_to_feats(params, tokens)
@@ -229,7 +236,8 @@ def forward_vid_windowed(params, clips):
     clips (B, 25, 270, 480, 3) -> (B, 1024, 21) like reference forward_vid
     (models/gestsync.py:148-162)."""
     x = vgg_tower(params, clips)[:, :, 0, 0, :]                # (B, 21, 512)
-    x = x + sinusoidal_position_encoding(50, D_MODEL, x.device)[:x.shape[1]]
+    x = x + sinusoidal_position_encoding(
+        50, D_MODEL, x.device)[:x.shape[1]].to(x.dtype)
     x = torch_encoder_stack(params["transformer"], x, None, NUM_HEADS)
     x = linear(params["ff2"], torch.relu(linear(params["ff1"], x)))
     return x.transpose(1, 2)

@@ -65,7 +65,7 @@ def forward_gestures(params, visual_feats, visual_mask, fused: bool = True):
     x = linear(params["proj_ip_rgb"][1], x)
     t = x.shape[1]
     pe = sinusoidal_position_encoding(max(PE_MAX_LEN, t), D_MODEL, x.device)
-    x = x + pe[None, :t]
+    x = x + pe[None, :t].to(x.dtype)
     mask = visual_mask[:, None, :] if visual_mask is not None else None
     x = encoder_stack(params["encoder_rgb"], x, mask, NUM_HEADS, fused=fused)
     return linear(params["proj_op_rgb"], x)

@@ -63,9 +63,23 @@ def create_position_ids(input_ids, pad_id: int = PAD_TOKEN_ID):
     return torch.cumsum(mask, dim=1) * mask + pad_id
 
 
+def _gather_rows(table, idx):
+    """table[idx] with the JAX gather's index semantics: a negative index
+    counts from the end once, and an index still out of range clamps to
+    the first or last row. A batch row padded with zeros (`<s>` ids, not
+    the pad id) counts every token as real and asks for positions past the
+    table; JAX clamps them, and so does this, so no input raises on the CPU
+    or asserts on the card, and the valid rows are those of the JAX
+    package bit for bit."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
 def embeddings(params, input_ids, cfg: RobertaConfig):
     ids = input_ids.to(torch.int64)
-    x = (params["word"][ids] + params["position"][create_position_ids(ids)]
+    x = (_gather_rows(params["word"], ids)
+         + _gather_rows(params["position"], create_position_ids(ids))
          + params["token_type"][0][None, None, :])
     return std_layer_norm(params["ln"], x, eps=cfg.layer_norm_eps)
 
@@ -79,6 +93,17 @@ def _attention(params, x, ext_mask, cfg: RobertaConfig):
         return linear(p, x).reshape(b, s, h, dk).transpose(1, 2)
 
     q, k, v = heads(params["q"]), heads(params["k"]), heads(params["v"])
+    if x.dtype != torch.float32:
+        # bf16: float32 scores, mask and softmax; p and the context
+        # rounded to bf16 (the JAX package's _attention)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            / math.sqrt(dk)
+        if ext_mask is not None:
+            scores = scores + ext_mask
+        p = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.matmul(p.float(), v.float()).to(x.dtype)
+        return linear(params["attn_out"],
+                      ctx.transpose(1, 2).reshape(b, s, d))
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
     if ext_mask is not None:
         scores = scores + ext_mask

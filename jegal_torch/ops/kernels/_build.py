@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"stem_pool": 0, "stem_pool_planar": 0, "stem_band": 0,
             "conv2": 0, "attn_sublayer": 0, "ffn_sublayer": 0,
-            "encoder_stack": 0, "flash_attention": 0}
+            "encoder_stack": 0, "flash_attention": 0,
+            "stem_band_bf16": 0, "conv2_bf16": 0, "attn_sublayer_bf16": 0,
+            "ffn_sublayer_bf16": 0, "encoder_stack_bf16": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -133,16 +135,19 @@ def refuse_grad(what: str, *operands) -> None:
             f"it under torch.no_grad(), or take the differentiable path")
 
 
-def check_operand(name: str, t, shape, device) -> None:
-    """Raise unless `t` is a contiguous float32 tensor of `shape` on
-    `device`: what every kernel of this package takes."""
+def check_operand(name: str, t, shape, device, dtype=None) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` (float32 unless
+    given) and `shape` on `device`: what every kernel of this package
+    takes."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the kernel's input on "
                          f"{device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} for the kernel, got "
+                        f"{t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
                          f"{tuple(shape)}")

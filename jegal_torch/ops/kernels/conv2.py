@@ -10,6 +10,10 @@ compaction of the m-grid has nothing to undo here. The tower selects it
 with conv2_impl="kernel" (models/gestsync.py); the default, "dense", runs
 block 2 as cuDNN's convolution, the counterpart of the JAX package's
 default `mgrid_conv2_dense`.
+
+bf16 rows (a bf16 stem output and a bf16 weight) take the kernel's bf16
+variant: bf16 products summed in float32, BN and ReLU in float32, the
+output rounded to bf16 (the JAX package's conv2.py:115-140 in bf16).
 """
 
 from __future__ import annotations
@@ -32,14 +36,15 @@ def conv2_kernel_params(blk2, eps: float = 1e-5):
     """Fold block 2's conv bias and BatchNorm into the kernel operands.
 
     blk2: {"conv": {"kernel" (1,5,5,64,128), "bias" (128,)?}, "bn": {...}}.
-    -> (weight (5,5,64,128) HWIO, scale (128,), bias (128,)), contiguous
-    f32: relu(conv(x, weight) * scale + bias) == relu(bn(conv(x) + bias))."""
-    bn = blk2["bn"]
+    -> (weight (5,5,64,128) HWIO, scale (128,), bias (128,)), contiguous:
+    relu(conv(x, weight) * scale + bias) == relu(bn(conv(x) + bias)). The
+    BatchNorm folds in float32; the weight keeps its dtype."""
+    bn = {k: v.to(torch.float32) for k, v in blk2["bn"].items()}
     scale = bn["scale"] * torch.rsqrt(bn["var"] + eps)
     bias = bn["bias"] - bn["mean"] * scale
     cb = blk2["conv"].get("bias")
     if cb is not None:
-        bias = bias + cb * scale
+        bias = bias + cb.to(torch.float32) * scale
     return (blk2["conv"]["kernel"][0].contiguous(), scale.contiguous(),
             bias.contiguous())
 
@@ -56,7 +61,12 @@ def out_shape(t: int, n_j: int, w_pool: int) -> tuple:
 
 def conv2_bn_relu_plain(x, weight, scale, bias):
     """F.conv2d + the folded scale and bias + ReLU in eager PyTorch:
-    x (T, J, Wp, 64) -> (T, J2, W2, 128)."""
+    x (T, J, Wp, 64) -> (T, J2, W2, 128). bf16 rows: x and the weight
+    upcast to float32 (exact), the output rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        return conv2_bn_relu_plain(x.to(torch.float32),
+                                   weight.to(torch.float32), scale,
+                                   bias).to(torch.bfloat16)
     with f32_convs():
         y = F.conv2d(x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1),
                      stride=STRIDE)
@@ -69,6 +79,8 @@ def _lib():
     lib.jt_conv2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     lib.jt_conv2.restype = ctypes.c_int
+    lib.jt_conv2_bf16.argtypes = lib.jt_conv2.argtypes
+    lib.jt_conv2_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -81,6 +93,9 @@ def conv2_bn_relu(x, weight, scale, bias):
     when an operand needs a gradient), the plain twin for a CPU one."""
     if not x.is_cuda:
         return conv2_bn_relu_plain(x, weight, scale, bias)
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block 2 takes float32 or bfloat16 rows, got {dt}")
     _build.refuse_grad("conv2 kernel", x, weight, scale, bias)
     if x.dim() != 4 or x.shape[-1] != C_IN:
         raise ValueError(f"x must be (T, J, Wp, {C_IN}), got "
@@ -89,21 +104,22 @@ def conv2_bn_relu(x, weight, scale, bias):
     if t < 1 or not conv2_ok(w_pool, n_j):
         raise ValueError(f"x {tuple(x.shape)} is too small for block 2's "
                          f"{K}x{K} window")
-    for name, v, shape in (("x", x, x.shape),
-                           ("weight", weight, (K, K, C_IN, C_OUT)),
-                           ("scale", scale, (C_OUT,)),
-                           ("bias", bias, (C_OUT,))):
-        _build.check_operand(name, v, shape, x.device)
+    for name, v, shape, vdt in (("x", x, x.shape, dt),
+                                ("weight", weight, (K, K, C_IN, C_OUT), dt),
+                                ("scale", scale, (C_OUT,), torch.float32),
+                                ("bias", bias, (C_OUT,), torch.float32)):
+        _build.check_operand(name, v, shape, x.device, vdt)
     if x.data_ptr() % 16 or weight.data_ptr() % 16:
         raise ValueError("x and weight must be 16-byte aligned (the kernel "
                          "reads them as float4)")
     _, j2, w2, _ = out_shape(t, n_j, w_pool)
-    out = torch.empty((t, C_OUT, j2, w2), device=x.device,
-                      dtype=torch.float32)
+    out = torch.empty((t, C_OUT, j2, w2), device=x.device, dtype=dt)
     lib = _lib()
     P = _build.ptr
-    rc = lib.jt_conv2(P(x), P(weight), P(scale), P(bias), P(out), t, n_j,
-                      w_pool, _build.stream_ptr(x.device))
+    bf16 = dt == torch.bfloat16
+    entry = lib.jt_conv2_bf16 if bf16 else lib.jt_conv2
+    rc = entry(P(x), P(weight), P(scale), P(bias), P(out), t, n_j, w_pool,
+               _build.stream_ptr(x.device))
     _build.check(lib, rc, "conv2 kernel")
-    _build.LAUNCHES["conv2"] += 1
+    _build.LAUNCHES["conv2_bf16" if bf16 else "conv2"] += 1
     return out.permute(0, 2, 3, 1)

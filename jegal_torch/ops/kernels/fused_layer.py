@@ -20,9 +20,17 @@ run on the shared 3xTF32 GEMM of csrc/gemm.cuh: the wrapper plans each
 product (gemm_plan.plan) and allocates the split-K workspace they share.
 Their attention runs on the attention core of csrc/encoder.cuh, on the
 same tensor cores, which also sums a split QKV product's partials.
-The kernels take float32 only and have no backward: on a CUDA tensor that
-needs a gradient they raise (training runs the layer loop,
-core/transformer.encoder_stack with fused=False).
+Each entry takes float32 rows or bf16 rows, the JAX engine's two compute
+dtypes, and dispatches on the rows' dtype to the kernel (or twin) of that
+dtype; any other dtype raises, nothing is cast quietly. The bf16 kernels
+and twins round where the JAX package's kernels round a bf16 block
+(`_attn_kernel`, `_ffn_kernel`, `_stack_kernel`): products of bf16
+operands summed in float32, LayerNorm, softmax and the residual in
+float32, and bf16 at the product inputs, q * scale, k, v, p, the attention
+output, the activated FFN hidden rows and the output. Weights are bf16,
+biases and norms float32 (bf16 values upcast). The kernels have no
+backward: on a CUDA tensor that needs a gradient they raise (training runs
+the layer loop, core/transformer.encoder_stack with fused=False).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,8 +51,20 @@ _SIGS = {
     "jt_attn_sublayer": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
     "jt_ffn_sublayer": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
     "jt_attention_info": [_INT, _INT, _PLANS],
+    "jt_attn_sublayer_bf16": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
+    "jt_ffn_sublayer_bf16": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
+    "jt_attention_info_bf16": [_INT, _INT, _PLANS],
 }
+DTYPES = (torch.float32, torch.bfloat16)   # row dtypes the kernels take
+# the launch counter of each kernel, by row dtype
+_COUNTER = {("attn", torch.float32): "attn_sublayer",
+            ("attn", torch.bfloat16): "attn_sublayer_bf16",
+            ("ffn", torch.float32): "ffn_sublayer",
+            ("ffn", torch.bfloat16): "ffn_sublayer_bf16",
+            ("stack", torch.float32): "encoder_stack",
+            ("stack", torch.bfloat16): "encoder_stack_bf16"}
 _STACK_SIG = [_VP] * 21 + [_PLANS] + [_INT] * 9 + [_VP]
+_STACK_BF16_SIG = [_VP] * 23 + [_PLANS] + [_INT] * 9 + [_VP]
 _ACT = {"relu": 1, "gelu": 2}
 _LN_KIND = {"std": 0, "ref": 1}
 HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
@@ -115,6 +136,111 @@ def stacked_weights(layers) -> dict:
 # Plain twins
 # ---------------------------------------------------------------------------
 
+def _row_dtype(x):
+    """The rows' dtype, which picks the kernel or twin; raise for a dtype
+    that none takes."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the encoder kernels take float32 or bfloat16 rows, "
+                        f"got {x.dtype}")
+    return x.dtype
+
+
+def _f32(t):
+    return None if t is None else t.to(torch.float32)
+
+
+def _bf(t):
+    """Round a float32 tensor to bf16 and keep it in float32 (exact)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _ln_f32(x, g, b, kind: str):
+    """LayerNorm in float32 in the order of the JAX package's `_ln_f32`
+    (fused_layer.py:88-101), on float32 operands."""
+    mean = x.mean(dim=-1, keepdim=True)
+    cen = x - mean
+    if kind == "ref":
+        var = (cen * cen).sum(dim=-1, keepdim=True) / (x.shape[-1] - 1)
+        y = cen / (torch.sqrt(var) + np.float32(1e-6))
+    else:
+        var = (cen * cen).mean(dim=-1, keepdim=True)
+        y = cen * torch.rsqrt(var + np.float32(1e-5))
+    return y * g + b
+
+
+def _attention_bf16(qkv, seg: int, heads: int, kmask):
+    """The bf16 attention of `_attn_kernel` over float32 QKV rows (bias
+    added): q * scale, k and v rounded to bf16, float32 scores, the -1e9
+    fill and the softmax in float32, p rounded to bf16, the output rounded
+    to bf16 -> (R, d) float32 holding bf16 values."""
+    r, d = qkv.shape[0], qkv.shape[1] // 3
+    n, dk = r // seg, d // heads
+    scale = np.float32(1.0 / math.sqrt(dk))
+
+    def split(t):  # (R, d) -> (n, heads, seg, dk)
+        return t.reshape(n, seg, heads, dk).transpose(1, 2)
+
+    q = split(_bf(qkv[:, :d] * scale))
+    k, v = split(_bf(qkv[:, d:2 * d])), split(_bf(qkv[:, 2 * d:]))
+    s = torch.matmul(q, k.transpose(-1, -2))
+    if kmask is not None:
+        s = s.masked_fill(kmask.reshape(n, 1, 1, seg) == 0, np.float32(-1e9))
+    a = torch.matmul(_bf(torch.softmax(s, dim=-1)), v)
+    return _bf(a.transpose(1, 2).reshape(r, d))
+
+
+def _attn_f32_rows(x32, w, seg, heads, prenorm, ln_kind, kmask):
+    """`_attn_kernel`'s bf16 arithmetic on the float32 residual stream x32
+    -> float32 rows (not yet rounded)."""
+    g, b = _f32(w["g1"]), _f32(w["be1"])
+    h = _ln_f32(x32, g, b, ln_kind) if prenorm else x32
+    qkv = torch.matmul(_bf(h), _f32(w["wqkv"])) + _f32(w["bqkv"])
+    a = _attention_bf16(qkv, seg, heads, kmask)
+    y = x32 + torch.matmul(a, _f32(w["wo"])) + _f32(w["bo"])
+    return y if prenorm else _ln_f32(y, g, b, ln_kind)
+
+
+def _ffn_f32_rows(x32, w, prenorm, ln_kind, activation):
+    """`_ffn_kernel`'s bf16 arithmetic on x32 -> float32 rows."""
+    g, b = _f32(w["g2"]), _f32(w["be2"])
+    h = _ln_f32(x32, g, b, ln_kind) if prenorm else x32
+    h1 = torch.matmul(_bf(h), _f32(w["w1"])) + _f32(w["b1"])
+    h1 = _bf(F.gelu(h1) if activation == "gelu" else torch.relu(h1))
+    y = x32 + torch.matmul(h1, _f32(w["w2"])) + _f32(w["b2"])
+    return y if prenorm else _ln_f32(y, g, b, ln_kind)
+
+
+def attn_sublayer_plain_bf16(x, w, seg: int, heads: int, *, prenorm: bool,
+                             ln_kind: str, kmask=None):
+    """The bf16 attention sublayer's twin: bf16 rows -> bf16 rows. Every
+    operand is upcast to float32 (exact) and every product runs in float32
+    (no bf16 matmul, whose reduction may be in reduced precision), with
+    bf16 rounding at `_attn_kernel`'s sites."""
+    return _attn_f32_rows(_f32(x), w, seg, heads, prenorm, ln_kind,
+                          kmask).to(torch.bfloat16)
+
+
+def ffn_sublayer_plain_bf16(x, w, *, prenorm: bool, ln_kind: str,
+                            activation: str = "relu"):
+    """The bf16 FFN sublayer's twin, as `attn_sublayer_plain_bf16`."""
+    return _ffn_f32_rows(_f32(x), w, prenorm, ln_kind,
+                         activation).to(torch.bfloat16)
+
+
+def encoder_stack_plain_bf16(x, w, seg: int, heads: int, *, prenorm: bool,
+                             ln_kind: str, activation: str = "relu",
+                             kmask=None):
+    """The bf16 stack's twin: as `_stack_kernel`, the residual stream stays
+    float32 from layer to layer (its VMEM scratch) and only the output is
+    rounded to bf16; each product's input is rounded to bf16."""
+    x32 = _f32(x)
+    for l in range(w["wqkv"].shape[0]):
+        wl = {k: w[k][l] for k in STACK_KEYS}
+        x32 = _attn_f32_rows(x32, wl, seg, heads, prenorm, ln_kind, kmask)
+        x32 = _ffn_f32_rows(x32, wl, prenorm, ln_kind, activation)
+    return x32.to(torch.bfloat16)
+
+
 def attention_plain(qkv, seg: int, heads: int, kmask=None):
     """Per-segment multi-head attention of (R, 3d) QKV rows -> (R, d), with
     the kernels' -1e9 fill of masked keys: the attention core's twin."""
@@ -134,6 +260,9 @@ def attention_plain(qkv, seg: int, heads: int, kmask=None):
 
 def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
                         ln_kind: str, kmask=None):
+    if _row_dtype(x) == torch.bfloat16:
+        return attn_sublayer_plain_bf16(x, w, seg, heads, prenorm=prenorm,
+                                        ln_kind=ln_kind, kmask=kmask)
     h = _ln(x, w["g1"], w["be1"], ln_kind) if prenorm else x
     qkv = torch.matmul(h, w["wqkv"]) + w["bqkv"]
     a = attention_plain(qkv, seg, heads, kmask)
@@ -143,6 +272,9 @@ def attn_sublayer_plain(x, w, seg: int, heads: int, *, prenorm: bool,
 
 def ffn_sublayer_plain(x, w, *, prenorm: bool, ln_kind: str,
                        activation: str = "relu"):
+    if _row_dtype(x) == torch.bfloat16:
+        return ffn_sublayer_plain_bf16(x, w, prenorm=prenorm,
+                                       ln_kind=ln_kind, activation=activation)
     h = _ln(x, w["g2"], w["be2"], ln_kind) if prenorm else x
     h1 = torch.matmul(h, w["w1"]) + w["b1"]
     h1 = F.gelu(h1) if activation == "gelu" else torch.relu(h1)
@@ -154,6 +286,10 @@ def encoder_stack_plain(x, w, seg: int, heads: int, *, prenorm: bool,
                         ln_kind: str, activation: str = "relu", kmask=None):
     """L x (attention sublayer, FFN sublayer) over the stacked operands,
     with the kernel's -1e9 fill of masked keys."""
+    if _row_dtype(x) == torch.bfloat16:
+        return encoder_stack_plain_bf16(x, w, seg, heads, prenorm=prenorm,
+                                        ln_kind=ln_kind,
+                                        activation=activation, kmask=kmask)
     for l in range(w["wqkv"].shape[0]):
         wl = {k: w[k][l] for k in STACK_KEYS}
         x = attn_sublayer_plain(x, wl, seg, heads, prenorm=prenorm,
@@ -170,7 +306,7 @@ def encoder_stack_plain(x, w, seg: int, heads: int, *, prenorm: bool,
 def _check_rows(x, seg: int | None = None, heads: int | None = None):
     if x.dim() != 2:
         raise ValueError(f"rows must be (R, d), got {tuple(x.shape)}")
-    _build.check_operand("x", x, x.shape, x.device)
+    _build.check_operand("x", x, x.shape, x.device, _row_dtype(x))
     r, d = x.shape
     if seg is not None and (seg <= 0 or r % seg):
         raise ValueError(f"{r} rows do not split into segments of {seg}")
@@ -197,16 +333,22 @@ def _stack_lib():
     lib = _build.library("encoder_stack")
     lib.jt_encoder_stack.argtypes = _STACK_SIG
     lib.jt_encoder_stack.restype = ctypes.c_int
+    lib.jt_encoder_stack_bf16.argtypes = _STACK_BF16_SIG
+    lib.jt_encoder_stack_bf16.restype = ctypes.c_int
     return lib
 
 
-def gemm_operands(products, sms: int, dev):
+def gemm_operands(products, sms: int, dev, row_pass=None):
     """Plans of the products (M, N, K), in the C entry's order, as the
     entry's int array ({BM, BN, splits} each), and the split-K workspace
-    they share in turn (None when no product splits)."""
+    they share in turn (None when no product splits). row_pass: per
+    product, whether its epilogue runs in the row kernel even unsplit (a
+    bf16 product followed by a LayerNorm, or writing both a float32 and a
+    bf16 copy: its float32 sum waits in the workspace)."""
     plans = [GP.plan(m, n, k, sms) for m, n, k in products]
-    n_ws = max(GP.workspace_floats(m, n, p[2])
-               for (m, n, _), p in zip(products, plans))
+    row_pass = row_pass or (False,) * len(products)
+    n_ws = max(GP.workspace_floats(m, n, p[2], rows)
+               for (m, n, _), p, rows in zip(products, plans, row_pass))
     ws = (torch.empty(n_ws, device=dev, dtype=torch.float32) if n_ws
           else None)
     flat = [v for p in plans for v in p]
@@ -223,57 +365,74 @@ def _kmask_operand(kmask, r: int, dev):
     return kmask
 
 
-def attention_info(dk: int, packed: bool) -> dict:
+def _operands(w, shapes: dict, dev, dt, lead=()):
+    """The weights of `shapes` checked for the kernel of row dtype `dt`:
+    float32 -> as they are; bf16 -> the product weights (`w*`) as bf16,
+    the biases and norms upcast to float32 (exact), as the JAX package
+    passes them to its kernels (`_row2(..., jnp.float32)`)."""
+    out = {}
+    for name, shape in shapes.items():
+        t = w[name]
+        if dt == torch.bfloat16 and not name.startswith("w"):
+            t = t.to(torch.float32).contiguous()
+        want = dt if name.startswith("w") else torch.float32
+        _build.check_operand(name, t, lead + shape, dev, want)
+        out[name] = t
+    return out
+
+
+def attention_info(dk: int, packed: bool, bf16: bool = False) -> dict:
     """What the compiler and the occupancy calculator say of the attention
-    core (csrc/encoder.cuh) for head width `dk` under one schedule, packed
-    (segments of up to 64 rows) or streamed: registers and spill bytes a
-    thread, dynamic shared memory a block and resident blocks an SM (on the
-    current card)."""
+    core (csrc/encoder.cuh; its bf16 variant with bf16=True) for head width
+    `dk` under one schedule, packed (segments of up to 64 rows) or
+    streamed: registers and spill bytes a thread, dynamic shared memory a
+    block and resident blocks an SM (on the current card)."""
     lib = _lib()
     info = (ctypes.c_int * 4)()
-    _build.check(lib, lib.jt_attention_info(dk, int(packed), info),
-                 "attention core info")
+    fn = lib.jt_attention_info_bf16 if bf16 else lib.jt_attention_info
+    _build.check(lib, fn(dk, int(packed), info), "attention core info")
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "blocks_per_sm"), info))
 
 
 def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
                   kmask=None):
-    """One attention sublayer over (R, d) rows of `seg`-row segments.
-    kmask: optional (R,) key validity, 0 = masked."""
+    """One attention sublayer over (R, d) rows of `seg`-row segments, float32
+    or bf16 (the kernel of that dtype). kmask: optional (R,) key validity,
+    0 = masked."""
     if not x.is_cuda:
         return attn_sublayer_plain(x, w, seg, heads, prenorm=prenorm,
                                    ln_kind=ln_kind, kmask=kmask)
     _build.refuse_grad("attention sublayer kernel", x, kmask, *w.values())
     _check_rows(x, seg, heads)
     r, d = x.shape
-    dev = x.device
-    for name, shape in (("wqkv", (d, 3 * d)), ("bqkv", (3 * d,)),
-                        ("wo", (d, d)), ("bo", (d,)), ("g1", (d,)),
-                        ("be1", (d,))):
-        _build.check_operand(name, w[name], shape, dev)
+    dev, dt = x.device, x.dtype
+    w = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d),
+                      "bo": (d,), "g1": (d,), "be1": (d,)}, dev, dt)
     kmask = _kmask_operand(kmask, r, dev)
     out = torch.empty_like(x)
     qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     att = torch.empty_like(x)
     h = torch.empty_like(x) if prenorm else None
+    bf16 = dt == torch.bfloat16
     plans, ws = gemm_operands(((r, 3 * d, d), (r, d, d)), GP.sm_count(dev),
-                              dev)
+                              dev, (False, bf16 and not prenorm))
     lib = _lib()
     P = _build.ptr
-    rc = lib.jt_attn_sublayer(
+    entry = lib.jt_attn_sublayer_bf16 if bf16 else lib.jt_attn_sublayer
+    rc = entry(
         P(x), P(w["wqkv"]), P(w["bqkv"]), P(w["wo"]), P(w["bo"]), P(w["g1"]),
         P(w["be1"]), P(kmask), P(h), P(qkv), P(att), P(out), P(ws), plans, r,
         d, heads, seg, int(prenorm), _LN_KIND[ln_kind],
         _build.stream_ptr(dev))
     _build.check(lib, rc, "attention sublayer kernel")
-    _build.LAUNCHES["attn_sublayer"] += 1
+    _build.LAUNCHES[_COUNTER["attn", dt]] += 1
     return out
 
 
 def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
                  activation: str = "relu"):
-    """One FFN sublayer over (R, d) rows."""
+    """One FFN sublayer over (R, d) rows, float32 or bf16."""
     if not x.is_cuda:
         return ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind=ln_kind,
                                   activation=activation)
@@ -281,32 +440,33 @@ def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
     _check_rows(x)
     r, d = x.shape
     dff = w["w1"].shape[1]
-    dev = x.device
-    for name, shape in (("w1", (d, dff)), ("b1", (dff,)), ("w2", (dff, d)),
-                        ("b2", (d,)), ("g2", (d,)), ("be2", (d,))):
-        _build.check_operand(name, w[name], shape, dev)
+    dev, dt = x.device, x.dtype
+    w = _operands(w, {"w1": (d, dff), "b1": (dff,), "w2": (dff, d),
+                      "b2": (d,), "g2": (d,), "be2": (d,)}, dev, dt)
     out = torch.empty_like(x)
-    h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
+    h1 = torch.empty((r, dff), device=dev, dtype=dt)
     h = torch.empty_like(x) if prenorm else None
+    bf16 = dt == torch.bfloat16
     plans, ws = gemm_operands(((r, dff, d), (r, d, dff)), GP.sm_count(dev),
-                              dev)
+                              dev, (False, bf16 and not prenorm))
     lib = _lib()
     P = _build.ptr
-    rc = lib.jt_ffn_sublayer(
+    entry = lib.jt_ffn_sublayer_bf16 if bf16 else lib.jt_ffn_sublayer
+    rc = entry(
         P(x), P(w["w1"]), P(w["b1"]), P(w["w2"]), P(w["b2"]), P(w["g2"]),
         P(w["be2"]), P(h), P(h1), P(out), P(ws), plans, r, d, dff,
         int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
         _build.stream_ptr(dev))
     _build.check(lib, rc, "FFN sublayer kernel")
-    _build.LAUNCHES["ffn_sublayer"] += 1
+    _build.LAUNCHES[_COUNTER["ffn", dt]] += 1
     return out
 
 
 def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
                   ln_kind: str, activation: str = "relu", kmask=None):
     """A whole L-layer stack over (R, d) rows of `seg`-row segments, in one
-    call. w: the `stacked_weights` dict. kmask: optional (R,) key
-    validity, 0 = masked."""
+    call, float32 or bf16. w: the `stacked_weights` dict. kmask: optional
+    (R,) key validity, 0 = masked."""
     if not x.is_cuda:
         return encoder_stack_plain(x, w, seg, heads, prenorm=prenorm,
                                    ln_kind=ln_kind, activation=activation,
@@ -315,31 +475,41 @@ def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
     _check_rows(x, seg, heads)
     r, d = x.shape
     n_l, dff = w["w1"].shape[0], w["w1"].shape[-1]
-    dev = x.device
-    for name, shape in (("wqkv", (d, 3 * d)), ("bqkv", (3 * d,)),
-                        ("wo", (d, d)), ("bo", (d,)), ("w1", (d, dff)),
-                        ("b1", (dff,)), ("w2", (dff, d)), ("b2", (d,)),
-                        ("g1", (d,)), ("be1", (d,)), ("g2", (d,)),
-                        ("be2", (d,))):
-        _build.check_operand(name, w[name], (n_l, *shape), dev)
+    dev, dt = x.device, x.dtype
+    w = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d),
+                      "bo": (d,), "w1": (d, dff), "b1": (dff,),
+                      "w2": (dff, d), "b2": (d,), "g1": (d,), "be1": (d,),
+                      "g2": (d,), "be2": (d,)}, dev, dt, (n_l,))
     kmask = _kmask_operand(kmask, r, dev)
     out = torch.empty_like(x)
     y = torch.empty_like(x)
     att = torch.empty_like(x)
     qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
-    h1 = torch.empty((r, dff), device=dev, dtype=torch.float32)
+    h1 = torch.empty((r, dff), device=dev, dtype=dt)
     h = torch.empty_like(x) if prenorm else None
+    bf16 = dt == torch.bfloat16
     plans, ws = gemm_operands(stack_products(r, d, dff), GP.sm_count(dev),
-                              dev)
+                              dev, (False, bf16, False, bf16))
     lib = _stack_lib()
     P = _build.ptr
-    rc = lib.jt_encoder_stack(
-        P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv), P(att),
-        P(y), P(h1), P(out), P(ws), plans, r, d, dff, heads, seg, n_l,
-        int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
-        _build.stream_ptr(dev))
+    if bf16:
+        # the float32 residual stream between the sublayers and layers
+        # (`_stack_kernel`'s scratch), beside its bf16 copies y and out
+        y32 = torch.empty((r, d), device=dev, dtype=torch.float32)
+        r32 = torch.empty((r, d), device=dev, dtype=torch.float32)
+        rc = lib.jt_encoder_stack_bf16(
+            P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv),
+            P(att), P(y32), P(y), P(h1), P(r32), P(out), P(ws), plans, r, d,
+            dff, heads, seg, n_l, int(prenorm), _LN_KIND[ln_kind],
+            _ACT[activation], _build.stream_ptr(dev))
+    else:
+        rc = lib.jt_encoder_stack(
+            P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv),
+            P(att), P(y), P(h1), P(out), P(ws), plans, r, d, dff, heads,
+            seg, n_l, int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
+            _build.stream_ptr(dev))
     _build.check(lib, rc, "encoder stack kernel")
-    _build.LAUNCHES["encoder_stack"] += 1
+    _build.LAUNCHES[_COUNTER["stack", dt]] += 1
     return out
 
 

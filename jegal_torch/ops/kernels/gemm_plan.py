@@ -54,9 +54,14 @@ def k_slices(K: int, splits: int) -> list[tuple[int, int]]:
     return [(s * per * BK, min(K, (s + 1) * per * BK)) for s in range(splits)]
 
 
-def workspace_floats(M: int, N: int, splits: int) -> int:
-    """Floats of the split partials (splits, M, N); 0 unsplit."""
-    return splits * M * N if splits > 1 else 0
+def workspace_floats(M: int, N: int, splits: int,
+                     row_pass: bool = False) -> int:
+    """Floats of the split partials (splits, M, N); unsplit, M * N when
+    the epilogue runs in the row kernel (`row_pass`: a bf16 product's
+    float32 sum waits there for its LayerNorm), else 0."""
+    if splits > 1:
+        return splits * M * N
+    return M * N if row_pass else 0
 
 
 def sm_count(device) -> int:

@@ -16,6 +16,16 @@ faster kernel on both entries, PERF.md §6) or "window" (the JAX package's
 STEM_IMPL default); both compute the same function, and a CPU tensor
 takes the same twin for either. `_rotate_lhs` has no counterpart: its
 phase rotation is a TPU K-band layout.
+
+bf16 (the JAX engine's bf16 dtype): float frames in bf16 (the /255 rounded
+to bf16 where the mask is applied, ops/video.mask_frames_device), or the
+same uint8 planar frames with a bf16 weight (/255 folded in float32, then
+rounded to bf16, stem.py:523), take the band kernel's bf16 variant: bf16
+products summed in float32, BN and ReLU in float32, the output rounded to
+bf16 (`_stem_kernel_band`'s conv rows, stem.py:305, whose pool max is taken
+on bf16 values: rounding is monotone, so rounding the pooled max is the
+same). The window kernel has no bf16 variant yet (ROADMAP queue 1 item 3);
+a bf16 input with impl="window" raises.
 """
 
 from __future__ import annotations
@@ -38,15 +48,17 @@ def stem_kernel_params(blk, eps: float = 1e-5):
     """Fold block 1's conv bias and BatchNorm into the kernel operands.
 
     blk: {"conv": {"kernel" (5,7,7,3,64), "bias" (64,)}, "bn": {...}}.
-    -> (weight (5,7,7,3,64), scale (64,), bias (64,)), all contiguous f32:
+    -> (weight (5,7,7,3,64), scale (64,), bias (64,)), all contiguous:
     relu(conv(x, weight) * scale + bias) == relu(bn(conv(x) + conv_bias)).
+    The BatchNorm is folded in float32 whatever the parameters' dtype (the
+    JAX package's stem_kernel_params); the weight keeps its dtype.
     """
-    bn = blk["bn"]
+    bn = {k: v.to(torch.float32) for k, v in blk["bn"].items()}
     scale = bn["scale"] * torch.rsqrt(bn["var"] + eps)
     bias = bn["bias"] - bn["mean"] * scale
     cb = blk["conv"].get("bias")
     if cb is not None:
-        bias = bias + cb * scale
+        bias = bias + cb.to(torch.float32) * scale
     return (blk["conv"]["kernel"].contiguous(), scale.contiguous(),
             bias.contiguous())
 
@@ -58,7 +70,13 @@ def pooled_shape(t_in: int, h: int, w: int) -> tuple:
 
 def stem_pool_plain(frames, weight, scale, bias):
     """conv3d + scale/bias + ReLU + maxpool in eager PyTorch.
-    frames (T4, H, W, 3) -> (T4 - 4, J, W_pool, 64)."""
+    frames (T4, H, W, 3) -> (T4 - 4, J, W_pool, 64). bf16 frames take the
+    bf16 variant's twin: frames and weight upcast to float32 (exact), the
+    products in float32, the output rounded to bf16."""
+    if frames.dtype == torch.bfloat16:
+        return stem_pool_plain(frames.to(torch.float32),
+                               weight.to(torch.float32), scale,
+                               bias).to(torch.bfloat16)
     x = frames.permute(3, 0, 1, 2)[None]                  # (1, 3, T4, H, W)
     with f32_convs():
         y = F.conv3d(x, weight.permute(4, 3, 0, 1, 2),
@@ -68,12 +86,23 @@ def stem_pool_plain(frames, weight, scale, bias):
     return y[0].permute(1, 2, 3, 0)
 
 
+def planar_weight(weight):
+    """The planar entry's weight: the raw pixels' /255 folded in; for a
+    bf16 weight folded in float32 and rounded to bf16 (stem.py:523)."""
+    if weight.dtype == torch.bfloat16:
+        return (weight.to(torch.float32) / 255.0).to(torch.bfloat16)
+    return weight / 255.0
+
+
 def stem_pool_planar_plain(planar, weight, scale, bias):
     """The planar entry's twin: un-repack the uint8 planar frames (T4, H3,
     27, W3) to raw 0..255 float frames and convolve with weight / 255, the
-    kernel's arithmetic. -> (T4 - 4, J, W_pool, 64)."""
-    return stem_pool_plain(s2d_unpack(planar).to(torch.float32),
-                           weight / 255.0, scale, bias)
+    kernel's arithmetic. -> (T4 - 4, J, W_pool, 64), bf16 for a bf16
+    weight."""
+    w = planar_weight(weight)
+    out = stem_pool_plain(s2d_unpack(planar).to(torch.float32),
+                          w.to(torch.float32), scale, bias)
+    return out.to(weight.dtype)
 
 
 # impl -> (library: csrc/<name>.cu, its entry for float frames)
@@ -82,26 +111,30 @@ KERNELS = {"window": ("stem", "jt_stem_pool"),
 IMPLS = tuple(KERNELS)
 
 
-def _entry(impl, planar: bool):
-    """The C entry of the `impl` kernel for the input form, with its
-    library (for error strings)."""
+def _entry(impl, planar: bool, bf16: bool = False):
+    """The C entry of the `impl` kernel for the input form (and its bf16
+    variant), with its library (for error strings)."""
     name, fn = KERNELS[impl]
     lib = _build.library(name)
-    f = getattr(lib, fn + "_planar" if planar else fn)
+    f = getattr(lib, fn + ("_planar" if planar else "")
+                + ("_bf16" if bf16 else ""))
     f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return lib, f
 
 
-def kernel_info(planar: bool, impl: str = "band") -> dict:
+def kernel_info(planar: bool, impl: str = "band", bf16: bool = False) -> dict:
     """What the compiler and the occupancy calculator say of the `impl`
-    stem's kernel for an entry: registers and spill bytes a thread, dynamic
-    shared memory a block and resident blocks an SM (on the current card)."""
+    stem's kernel for an entry (its bf16 variant with bf16=True):
+    registers and spill bytes a thread, dynamic shared memory a block and
+    resident blocks an SM (on the current card)."""
     _check_impl(impl)
+    if bf16:
+        _check_bf16_impl(impl)
     name, fn = KERNELS[impl]
     lib = _build.library(name)
-    fn = getattr(lib, fn + "_info")
+    fn = getattr(lib, fn + ("_bf16" if bf16 else "") + "_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 4)()
@@ -116,11 +149,19 @@ def _check_impl(impl):
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
-def _check_params(weight, scale, bias, device):
-    for name, t, shape in (("weight", weight, KERNEL + (3, C_OUT)),
-                           ("scale", scale, (C_OUT,)),
-                           ("bias", bias, (C_OUT,))):
-        _build.check_operand(name, t, shape, device)
+def _check_bf16_impl(impl):
+    if impl != "band":
+        raise NotImplementedError(
+            f"the {impl} stem has no bf16 variant (ROADMAP queue 1: the bf16 "
+            f"window stem, kernel 1); a bf16 engine takes stem_impl='band'")
+
+
+def _check_params(weight, scale, bias, device, dtype=torch.float32):
+    for name, t, shape, dt in (
+            ("weight", weight, KERNEL + (3, C_OUT), dtype),
+            ("scale", scale, (C_OUT,), torch.float32),
+            ("bias", bias, (C_OUT,), torch.float32)):
+        _build.check_operand(name, t, shape, device, dt)
     if weight.data_ptr() % 16:
         raise ValueError("weight must be 16-byte aligned (the kernels read "
                          "it in 16-byte pieces)")
@@ -132,32 +173,40 @@ def _launch(impl, planar, x, weight, scale, bias, t_in, h, w):
     shape = pooled_shape(t_in, h, w)
     if min(shape) < 1:
         raise ValueError(f"input {tuple(x.shape)} is too small for the stem")
-    out = torch.empty(shape, device=x.device, dtype=torch.float32)
-    lib, fn = _entry(impl, planar)
+    bf16 = weight.dtype == torch.bfloat16
+    out = torch.empty(shape, device=x.device, dtype=weight.dtype)
+    lib, fn = _entry(impl, planar, bf16)
     P = _build.ptr
     dims = (h // 3, w // 3) if planar else (h, w)
     rc = fn(P(x), P(weight), P(scale), P(bias), P(out), t_in, *dims,
             _build.stream_ptr(x.device))
     _build.check(lib, rc, f"{impl} stem kernel")
-    _build.LAUNCHES["stem_band" if impl == "band" else
+    _build.LAUNCHES["stem_band_bf16" if bf16 else
+                    "stem_band" if impl == "band" else
                     "stem_pool_planar" if planar else "stem_pool"] += 1
     return out
 
 
 def stem_pool(frames, weight, scale, bias, impl: str = "band"):
-    """Fused stem over float32 frames (T4, H, W, 3) in [0, 1] ->
-    (T4 - 4, J, W_pool, 64). On a CUDA tensor the `impl` kernel ("window"
-    or "band"; it has no backward, and raises when an operand needs a
+    """Fused stem over float frames (T4, H, W, 3) in [0, 1], float32 or
+    bf16 (with a weight of the same dtype) -> (T4 - 4, J, W_pool, 64) of
+    that dtype. On a CUDA tensor the `impl` kernel ("window" or "band"; bf16
+    only "band"; it has no backward, and raises when an operand needs a
     gradient), the plain twin for a CPU one."""
     _check_impl(impl)
+    dt = frames.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"frames must be float32 or bfloat16, got {dt}")
+    if dt == torch.bfloat16:
+        _check_bf16_impl(impl)
     if not frames.is_cuda:
         return stem_pool_plain(frames, weight, scale, bias)
     _build.refuse_grad("stem kernel", frames, weight, scale, bias)
     if frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be (T, H, W, 3), got "
                          f"{tuple(frames.shape)}")
-    _build.check_operand("frames", frames, frames.shape, frames.device)
-    _check_params(weight, scale, bias, frames.device)
+    _build.check_operand("frames", frames, frames.shape, frames.device, dt)
+    _check_params(weight, scale, bias, frames.device, dt)
     t_in, h, w, _ = frames.shape
     return _launch(impl, False, frames, weight, scale, bias, t_in, h, w)
 
@@ -167,8 +216,15 @@ def stem_pool_planar(planar, weight, scale, bias, impl: str = "band"):
     (ops/video.s2d_repack, edge-padded) -> (T4 - 4, J, W_pool, 64), the
     output of `stem_pool` on the raw frames / 255. `weight` is block 1's
     folded weight as `stem_kernel_params` returns it; the wrapper divides
-    it by 255. On a CUDA tensor the `impl` kernel, on a CPU one the twin."""
+    it by 255 (`planar_weight`). A bf16 weight takes the bf16 variant
+    (impl "band" only) and gives bf16. On a CUDA tensor the `impl` kernel,
+    on a CPU one the twin."""
     _check_impl(impl)
+    if weight.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weight must be float32 or bfloat16, got "
+                        f"{weight.dtype}")
+    if weight.dtype == torch.bfloat16:
+        _check_bf16_impl(impl)
     if not planar.is_cuda:
         return stem_pool_planar_plain(planar, weight, scale, bias)
     _build.refuse_grad("stem kernel", weight, scale, bias)
@@ -179,7 +235,7 @@ def stem_pool_planar(planar, weight, scale, bias, impl: str = "band"):
         raise TypeError(f"planar frames must be uint8, got {planar.dtype}")
     if not planar.is_contiguous():
         raise ValueError("planar frames must be contiguous")
-    _check_params(weight, scale, bias, planar.device)
+    _check_params(weight, scale, bias, planar.device, weight.dtype)
     t_in, h3, _, w3 = planar.shape
-    return _launch(impl, True, planar, (weight / 255.0).contiguous(), scale,
-                   bias, t_in, 3 * h3, 3 * w3)
+    return _launch(impl, True, planar, planar_weight(weight).contiguous(),
+                   scale, bias, t_in, 3 * h3, 3 * w3)

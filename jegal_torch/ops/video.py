@@ -79,9 +79,12 @@ def edge_pad(x, before: int = EDGE_PAD, after: int = EDGE_PAD):
                       x[-1:].expand(after, *x.shape[1:])], dim=0)
 
 
-def mask_frames_device(frames_u8, y2=None):
-    """frames_u8: (T, H, W, 3) uint8 tensor -> (T + 24, H, W, 3) float32 in
-    [0, 1], masked and edge-padded, on the frames' device.
+def mask_frames_device(frames_u8, y2=None, dtype=torch.float32):
+    """frames_u8: (T, H, W, 3) uint8 tensor -> (T + 24, H, W, 3) `dtype`
+    (float32, or bf16 for a bf16 engine) in [0, 1], masked and
+    edge-padded, on the frames' device. The /255 and the mask run in
+    float32 and the masked frames are rounded to `dtype` once, the JAX
+    package's rounding site (ops/video.py:75-81).
 
     y2: per-frame chin rows (T,) (clipped to [0, H]), or None for the
     111-row fallback mask."""
@@ -93,5 +96,5 @@ def mask_frames_device(frames_u8, y2=None):
     else:
         cut = torch.as_tensor(y2, device=x.device).to(torch.int64)
         cut = cut.clamp(0, h).reshape(t, 1, 1, 1)
-    return edge_pad(torch.where(rows < cut, torch.zeros((), device=x.device),
-                                x))
+    x = torch.where(rows < cut, torch.zeros((), device=x.device), x)
+    return edge_pad(x if dtype == torch.float32 else x.to(dtype))

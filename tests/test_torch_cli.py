@@ -158,7 +158,9 @@ def test_infer_missing_args(ckpts):
     ["extract-feats", "--data_parallel"], ["extract-embs", "--bf16"],
     ["verify", "--bf16"], ["warmup", "--bf16"], ["train", "--model_parallel", "2"],
 ], ids=lambda a: "_".join(a).replace("-", ""))
-def test_unported_options_exit(ckpts, argv):
+def test_unported_options_exit(ckpts, argv, monkeypatch):
+    """An option that waits for a ROADMAP item exits naming it. `--bf16`
+    no longer waits: it reaches its subcommand with the bf16 dtype."""
     required = {
         "infer": ["--checkpoint_path_jegal", ckpts["jegal"]],
         "extract-feats": ["--file_path", "x.csv", "--video_dir", "v",
@@ -171,6 +173,13 @@ def test_unported_options_exit(ckpts, argv):
         "train": ["--file_path", "x.csv", "--feature_dir", "f",
                   "--roberta_path", "r", "--tokenizer_path", "t"],
     }[argv[0]]
+    if argv[1] == "--bf16":
+        seen = []
+        monkeypatch.setitem(TCLI.COMMANDS, argv[0],
+                            lambda args: seen.append(TCLI._dtype(args)))
+        port(argv[:1] + required + argv[1:])
+        assert seen == [torch.bfloat16]
+        return
     with pytest.raises(SystemExit, match="ROADMAP queue 1 item [34]"):
         port(argv[:1] + required + argv[1:])
 

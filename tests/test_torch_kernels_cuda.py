@@ -766,3 +766,212 @@ def test_failed_capture_raises(dev, graph_weights, monkeypatch):
     assert not eng.cached_graphs and not eng._graphs
     monkeypatch.undo()
     assert eng.extract("va", **clip)["gesture_emb"].shape == (20, 512)
+
+
+# ---------------------------------------------------------------------------
+# bf16 variants (kernels 2, 3, 4, 5 and 7) against their bf16 twins, at the
+# bars of tests/bf16_bars.py: 2 bf16 ulps an element (an element smaller
+# than its row's RMS measured at the RMS; 4 for a stack of layers) and a
+# min row cosine of 0.9999; each relaunched with identical bits.
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _bars():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import bf16_bars
+
+    return bf16_bars
+
+
+def _bf16_weights(d, dff, dev, seed=0):
+    w = _weights(d, dff, dev, seed)
+    return {k: v.to(BF) if k.startswith("w") else v for k, v in w.items()}
+
+
+def _check_bf16(got, want, what="", stack=False):
+    assert got.dtype == BF and got.shape == want.shape
+    bars = _bars()
+    bars.check_kernel_bar(got, want, what, bars.STACK_MAX_ULPS if stack
+                          else bars.MAX_ULPS)
+
+
+@pytest.mark.parametrize("seg,n,heads,d,prenorm,kind,masked", [
+    (21, 7, 8, 512, False, "std", False),     # packed, a ragged last tile
+    (21, 128, 8, 512, False, "std", True),    # the window head, unsplit
+    (21, 1, 8, 512, False, "std", True),      # one window, QKV split
+    (128, 1, 8, 512, True, "ref", True),      # the gesture encoder, split
+    (300, 2, 8, 512, True, "ref", True),      # streamed
+    (32, 1, 8, 768, True, "ref", True),       # the text encoder, dk 96
+    (65, 2, 8, 768, False, "std", True),
+])
+def test_attn_sublayer_bf16(dev, seg, n, heads, d, prenorm, kind, masked):
+    w = _bf16_weights(d, 4 * d, dev)
+    x = torch.randn(n * seg, d, device=dev).to(BF)
+    km = None
+    if masked:
+        km = (torch.rand(n * seg, device=dev) > 0.4).float()
+        if n > 1:
+            km[:seg] = 0.0
+    _build.reset_launches()
+    got = FL.attn_sublayer(x, w, seg, heads, prenorm=prenorm, ln_kind=kind,
+                           kmask=km)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   attn_sublayer_bf16=1)
+    want = FL.attn_sublayer_plain(x, w, seg, heads, prenorm=prenorm,
+                                  ln_kind=kind, kmask=km)
+    _check_bf16(got, want, "attention sublayer")
+    assert torch.equal(got, FL.attn_sublayer(x, w, seg, heads,
+                                             prenorm=prenorm, ln_kind=kind,
+                                             kmask=km))
+
+
+@pytest.mark.parametrize("rows,d,dff,prenorm,kind,act", [
+    (2688, 512, 2048, False, "std", "relu"),   # the window head
+    (128, 512, 2048, True, "ref", "relu"),     # the gesture encoder
+    (32, 768, 2048, True, "ref", "relu"),      # the text encoder
+    (77, 768, 3072, False, "std", "gelu"),
+])
+def test_ffn_sublayer_bf16(dev, rows, d, dff, prenorm, kind, act):
+    w = _bf16_weights(d, dff, dev)
+    x = torch.randn(rows, d, device=dev).to(BF)
+    _build.reset_launches()
+    got = FL.ffn_sublayer(x, w, prenorm=prenorm, ln_kind=kind,
+                          activation=act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   ffn_sublayer_bf16=1)
+    _check_bf16(got, FL.ffn_sublayer_plain(x, w, prenorm=prenorm,
+                                           ln_kind=kind, activation=act),
+                "FFN sublayer")
+    assert torch.equal(got, FL.ffn_sublayer(x, w, prenorm=prenorm,
+                                            ln_kind=kind, activation=act))
+
+
+@pytest.mark.parametrize("n_layers,seg,n,heads,prenorm,kind,act", [
+    (12, 32, 1, 12, False, "std", "gelu"),     # XLM-R, one 32-token text
+    (12, 64, 8, 12, False, "std", "gelu"),     # XLM-R, a served batch
+    (2, 33, 2, 8, True, "ref", "relu"),        # head width 96, pre-norm
+])
+def test_encoder_stack_bf16(dev, n_layers, seg, n, heads, prenorm, kind,
+                            act):
+    d, dff = 768, 3072
+    w = {k: v.to(BF) if k.startswith("w") else v
+         for k, v in _stacked(n_layers, d, dff, dev).items()}
+    x = torch.randn(n * seg, d, device=dev).to(BF)
+    km = torch.ones(n * seg, device=dev)
+    km[seg - seg // 3:seg] = 0.0
+    _build.reset_launches()
+    got = FL.encoder_stack(x, w, seg, heads, prenorm=prenorm, ln_kind=kind,
+                           activation=act, kmask=km)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   encoder_stack_bf16=1)
+    _check_bf16(got, FL.encoder_stack_plain(x, w, seg, heads,
+                                            prenorm=prenorm, ln_kind=kind,
+                                            activation=act, kmask=km),
+                "encoder stack", stack=True)
+    assert torch.equal(got, FL.encoder_stack(x, w, seg, heads,
+                                             prenorm=prenorm, ln_kind=kind,
+                                             activation=act, kmask=km))
+
+
+@pytest.mark.parametrize("tile", sorted(GP.TILES))
+@pytest.mark.parametrize("splits", [1, 3])
+def test_every_tile_bf16(dev, monkeypatch, tile, splits):
+    """Each built tile pair of the bf16 GEMM, unsplit and split, under the
+    bf16 FFN kernel (ragged rows, a fused post-LN and a pre-LN)."""
+    monkeypatch.setattr(GP, "plan", lambda m, n, k, sms: (*tile, splits))
+    w = _bf16_weights(512, 2048, dev, seed=2)
+    for rows, prenorm in ((77, False), (200, True)):
+        x = torch.randn(rows, 512, device=dev).to(BF)
+        got = FL.ffn_sublayer(x, w, prenorm=prenorm, ln_kind="std",
+                              activation="gelu")
+        want = FL.ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind="std",
+                                     activation="gelu")
+        torch.cuda.synchronize()
+        _check_bf16(got, want, f"tile {tile} splits {splits}")
+
+
+@pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),
+                                          (148, 43, 78), (5, 13, 21)])
+def test_conv2_bf16(dev, t, n_j, w_pool):
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(t, n_j, w_pool, 64, generator=g).to(dev).to(BF)
+    weight = (torch.randn(5, 5, 64, 128, generator=g) * 0.03).to(dev).to(BF)
+    scale = (torch.rand(128, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(128, generator=g) * 0.1).to(dev)
+    _build.reset_launches()
+    got = C2.conv2_bn_relu(x, weight, scale, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   conv2_bf16=1)
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+    _check_bf16(got, C2.conv2_bn_relu_plain(x, weight, scale, bias), "conv2")
+    assert torch.equal(got, C2.conv2_bn_relu(x, weight, scale, bias))
+
+
+@pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
+                                    (12, 45, 96), (28, 270, 480)])
+@pytest.mark.parametrize("fill", [0, 255, None])
+def test_stem_band_bf16(dev, t4, h, w, fill):
+    """The band stem's bf16 variant on both entries (bf16 frames; planar
+    bytes with the folded bf16 weight), at t_in 5 and J 1, ragged strips,
+    plain-load planar widths and the real 270x480 frame, on all-0, all-255
+    and random bytes: against their twins, and relaunched bit-identical."""
+    if fill is None:
+        u8 = torch.randint(0, 256, (t4, h, w, 3),
+                           generator=torch.Generator().manual_seed(7),
+                           dtype=torch.uint8)
+    else:
+        u8 = torch.full((t4, h, w, 3), fill, dtype=torch.uint8)
+    planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
+    frames = (u8.to(dev).float() / 255.0).to(BF)
+    wt, scale, bias = _stem_weights(dev, seed=8)
+    ops = (wt.to(BF), scale, bias)
+    _build.reset_launches()
+    got_f = S.stem_pool(frames, *ops)
+    got_p = S.stem_pool_planar(planar, *ops)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   stem_band_bf16=2)
+    assert got_f.shape == S.pooled_shape(t4, h, w)
+    _check_bf16(got_f, S.stem_pool_plain(frames, *ops), "stem float")
+    _check_bf16(got_p, S.stem_pool_planar_plain(planar, *ops), "stem planar")
+    assert torch.equal(S.stem_pool(frames, *ops), got_f)
+    assert torch.equal(S.stem_pool_planar(planar, *ops), got_p)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_stem_band_bf16_fits_an_sm_without_spills(dev, planar):
+    info = S.kernel_info(planar, impl="band", bf16=True)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.parametrize("dk", FL.HEAD_DIMS)
+@pytest.mark.parametrize("packed", [True, False])
+def test_attention_core_bf16_fits_an_sm_without_spills(dev, dk, packed):
+    info = FL.attention_info(dk, packed, bf16=True)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
+
+
+def test_bf16_wrappers_refuse(dev):
+    """A bf16 weight beside float32 rows, and the window stem in bf16,
+    raise; nothing is cast quietly."""
+    w = _weights(512, 2048, dev)
+    x = torch.randn(21, 512, device=dev).to(BF)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FL.ffn_sublayer(x, w, prenorm=False, ln_kind="std")
+    ops = _stem_weights(dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).to(BF),
+                    ops[0].to(BF), *ops[1:], impl="window")
+    with pytest.raises(TypeError, match="bfloat16"):
+        S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).to(BF), *ops)

@@ -143,3 +143,54 @@ def test_cpu_stack_takes_the_twin_and_counts_nothing(rng):
     per_layer = TF.fused_encoder_stack(layers, x, 21, 2, prenorm=False,
                                        ln_kind="std", activation="gelu")
     torch.testing.assert_close(got, per_layer, **TOL)
+
+
+def test_embeddings_clamp_out_of_range_ids_as_jax(tiny):
+    """Word ids past the vocabulary or negative, and position ids past the
+    table, gather the rows the JAX package's gather gives (it wraps a
+    negative index once and clamps the rest). The second row is the zero
+    row a padded batch carries: 48 `<s>` ids of a 40-position table ask
+    for positions 2..49."""
+    jp, tp, cfg = tiny
+    rng = np.random.default_rng(3)
+    ids = np.zeros((3, 48), np.int64)
+    ids[0] = rng.integers(-130, 260, 48)
+    ids[2, :20] = rng.integers(0, 120, 20)
+    ids[2, 20:] = 1
+    want = np.asarray(JR.embeddings(jp["embeddings"],
+                                    jnp.asarray(ids, jnp.int32),
+                                    JR.RobertaConfig(**vars(cfg))))
+    got = TR.embeddings(tp["embeddings"], torch.from_numpy(ids), cfg).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_one_ta_sample_padded_to_two_equals_extract():
+    """extract_many([one `ta` sample], batch_size=2, ladder=False) pads the
+    batch with a zero row, whose 64 `<s>` ids ask for position 65 of the
+    64-row table of the engine tests' tiny XLM-R. It equals `extract` of
+    the sample; before positions clamped, it raised IndexError."""
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.convert import init_jegal_params, init_roberta_params
+    from jegal_torch.text.tokenizer import WordTokenizer
+    from tok_util import make_tiny_tokenizer
+
+    cfg = TR.RobertaConfig(vocab_size=64, hidden_size=768, num_layers=1,
+                           num_heads=8, intermediate_size=256,
+                           max_position_embeddings=64)
+    eng = JegalEngine(init_jegal_params(torch.Generator().manual_seed(31)),
+                      device="cpu", roberta_cfg=cfg,
+                      roberta_params=init_roberta_params(
+                          torch.Generator().manual_seed(33), cfg),
+                      tokenizer=WordTokenizer(make_tiny_tokenizer()))
+    words = "abcdef ghijk lmnop qrstu vwxyz hello world 012345 678 abc"
+    wbs = [[w, 10 * i, 10 * i + 8] for i, w in enumerate(words.split())]
+    wav = (np.random.default_rng(7).standard_normal(72000)
+           * 500).astype(np.float32)
+    sample = dict(text=words, word_boundaries=wbs, wav=wav, fname="ta0")
+    assert eng.prepare_text(words)[0]["input_ids"].shape == (1, 64)
+    (got,) = eng.extract_many([sample], modalities="ta", batch_size=2,
+                              ladder=False)
+    want = eng.extract(modalities="ta", **sample)
+    assert got["content_emb"].shape == (10, 512)
+    np.testing.assert_allclose(got["content_emb"], want["content_emb"],
+                               **TOL)

@@ -737,9 +737,20 @@ def test_cli_serve_prints_url_and_answers(ckpt_files, port_engine):
 
 @pytest.mark.parametrize("flag,item", [("--bf16", "item 3"),
                                        ("--data_parallel", "item 4")])
-def test_cli_serve_refuses_what_waits(flag, item):
+def test_cli_serve_refuses_what_waits(flag, item, monkeypatch):
+    """`--data_parallel` exits naming its ROADMAP item; `--bf16` (item 3,
+    done) reaches `serve` with the bf16 dtype."""
+    import torch
+
     from jegal_torch.cli import main as TCLI
 
+    argv = ["serve", "--checkpoint_path", "x.npz", flag, "--device", "cpu"]
+    if flag == "--bf16":
+        seen = []
+        monkeypatch.setitem(TCLI.COMMANDS, "serve",
+                            lambda args: seen.append(TCLI._dtype(args)))
+        TCLI.main(argv)
+        assert seen == [torch.bfloat16]
+        return
     with pytest.raises(SystemExit, match=item):
-        TCLI.main(["serve", "--checkpoint_path", "x.npz", flag,
-                   "--device", "cpu"])
+        TCLI.main(argv)

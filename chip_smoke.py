@@ -212,14 +212,17 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     and so do the others; 8 more such clips then replay it, capturing
     nothing;
 12. the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`): (a) the bf16
-    variants of kernels 2 (both entries, at phase 3's T = 128 bucket), 7
-    (on that stem's bf16 output), 3 and 4 (phase 3's three shapes) and 5
-    (the clip's 32 XLM-R rows), each against its bf16 twin (2 bf16 ulps an
+    variants of kernels 2 and 1 (both entries each, at phase 3's T = 128
+    bucket), 7 (on the band stem's bf16 output), 3 and 4 (phase 3's three
+    shapes), 5 (the clip's 32 XLM-R rows) and 6 (the bf16 long clip's (1,
+    8, 1024, 64) with 1000 valid keys, and a text shape at head width 96,
+    (8, 8, 128, 96)), each against its bf16 twin (2 bf16 ulps an
     element, 4 for the 12-layer stack, min row cosine 0.9999:
     tests/bf16_bars.py) and against its float32 kernel on the same bf16
     values (min row cosine 0.9999), two launches bit-identical, registers
     and spills, then timed (CUDA events, median of 20) beside the float32
-    kernel, the twin and one bf16 PyTorch call chain, with the bf16 bound
+    kernel, the twin and one bf16 PyTorch call chain (for kernel 6 bf16
+    SDPA with an additive -1e9 mask), with the bf16 bound
     (bytes at 3.35 TB/s, or operations at 989 TFLOP/s dense bf16); (b) a
     bf16 and a new float32 engine side by side: phase 4's raw clip (the
     first call captures: launches band stem, block 2, attention 15, FFN
@@ -233,8 +236,15 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     runs it: 16 binary planar `vta` and 16 JSON `ta` requests from 4
     threads; requests/s, device busy and idle share; no capture inside a
     request; every bf16 answer float32 on the wire and held to the float32
-    engine's `extract`); and phase 5's small clip, the bf16 engine on the
-    card against the bf16 engine on the CPU (min row cosine 0.999);
+    engine's `extract`); phase 5's small clip, the bf16 engine on the
+    card against the bf16 engine on the CPU (min row cosine 0.999); a
+    bf16 engine with stem_impl="window" on phase 4's raw and planar clip
+    (kernel 1b's entry launched once a clip in place of 2b, the raw
+    clip's replay against an eager run), held to the float32 engine and
+    to the bf16 band engine (0.9995); and phase 8's 1000-frame clip
+    through the bf16 engine (kernel 6b 6 launches, the replay against an
+    eager run, warm ms beside the float32 engine's in turns), held to the
+    float32 engine (0.9995) and to a bf16 engine on the CPU (0.999);
 13. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
     (each subcommand's wall seconds and launches, whether the decoder was
     real), a `serve` JSON line, a `bf16` JSON line, one `kernels` JSON
@@ -269,6 +279,12 @@ cores, state the 3xTF32 bound (`bound_ms`; a stem's planar entry in two
 passes, its integer pixels being exact in TF32) and the all-float32 one
 (`bound_f32_ms`) beside it; the attention, FFN and stack rows' per-shape
 rows carry each product's plan, the achieved rate and the bound share.
+The bf16 rows (`dtype` bfloat16) take their launches from phase 12b: the
+band stem, block 2, attention, FFN and stack from the bf16 engine's raw
+clip, the window stem's float and planar entries (`stem_pool_bf16`,
+`stem_pool_planar_bf16`) from the window engine's raw and planar clip,
+and the flash attention from the bf16 long clip, whose time it sums
+(`launches_per_clip` of each timed shape, 6 at the long clip's).
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -3813,8 +3829,18 @@ VTA_LAUNCHES_BF16 = dict(stem_band_bf16=1, conv2_bf16=1,
                          attn_sublayer_bf16=15, ffn_sublayer_bf16=15,
                          encoder_stack_bf16=1)
 SIGNATURES_BF16 = {"stem_band_bf16": ("stem_band_bf16_kernel",),
+                   "stem_pool_bf16": ("stem_pool_bf16_kernel", "Bf16Frames"),
+                   "stem_pool_planar_bf16": ("stem_pool_bf16_kernel",
+                                             "PlanarU8"),
                    "conv2_bf16": ("conv2_bf16_kernel",),
-                   "attn_sublayer_bf16": ("attention_core",)}
+                   "attn_sublayer_bf16": ("attention_core",),
+                   "flash_attention_bf16": ("flash_attention_fwd", "short")}
+# the bf16 engine with stem_impl="window" on phase 4's clip: kernel 1b's
+# entry in place of kernel 2b
+WINDOW_LAUNCHES_BF16 = dict(VTA_LAUNCHES_BF16, stem_band_bf16=0,
+                            stem_pool_bf16=1)
+WINDOW_PLANAR_LAUNCHES_BF16 = dict(VTA_LAUNCHES_BF16, stem_band_bf16=0,
+                                   stem_pool_planar_bf16=1)
 
 
 def bf16_bars():
@@ -3881,8 +3907,9 @@ def bf16_row(what: str, fn, plain, f32_fn, library, flops: float,
 
 
 def check_bf16_tower(gp, dev, stem_inputs):
-    """12a: the band stem's bf16 variant on both entries at the T = 128
-    bucket (152 padded frames of 270x480) and block 2's on its output."""
+    """12a: both stems' bf16 variants (kernel 2b, band, and 1b, window) on
+    both entries at the T = 128 bucket (152 padded frames of 270x480) and
+    block 2's on the band stem's output."""
     import torch
     import torch.nn.functional as F
 
@@ -3916,25 +3943,29 @@ def check_bf16_tower(gp, dev, stem_inputs):
     t_out, j, wp, c = S.pooled_shape(t_in, h, w)
     flops = stem_flops(t_in, h, w)
     out_b = 2.0 * t_out * j * wp * c
-    log(f"bf16 stem: frames {tuple(frames.shape)} bf16, planar "
-        f"{tuple(planar.shape)} uint8 -> {(t_out, j, wp, c)} bf16; "
-        f"float entry {stem_info_bf16(False)}, planar entry "
-        f"{stem_info_bf16(True)}")
-    stem_rows = [
-        bf16_row("stem_band_bf16 (float entry)",
-                 lambda: S.stem_pool(frames, *ops),
-                 lambda: S.stem_pool_plain(frames, *ops),
-                 lambda: S.stem_pool(frames.float(), *ops32),
-                 library, flops,
-                 2.0 * frames.numel() + 2.0 * ops[0].numel() + 8 * c + out_b,
-                 False, shape="float frames (152, 270, 480, 3)"),
-        bf16_row("stem_band_bf16 (planar entry)",
-                 lambda: S.stem_pool_planar(planar, *ops),
-                 lambda: S.stem_pool_planar_plain(planar, *ops),
-                 lambda: S.stem_pool_planar(planar, *ops32),
-                 library, flops,
-                 1.0 * planar.numel() + 2.0 * ops[0].numel() + 8 * c + out_b,
-                 False, shape="planar frames (152, 90, 27, 160)")]
+    rows = {}
+    for impl, name in (("band", "stem_band_bf16"),
+                       ("window", "stem_pool_bf16")):
+        log(f"bf16 {impl} stem: frames {tuple(frames.shape)} bf16, planar "
+            f"{tuple(planar.shape)} uint8 -> {(t_out, j, wp, c)} bf16; "
+            f"float entry {stem_info_bf16(False, impl)}, planar entry "
+            f"{stem_info_bf16(True, impl)}")
+        rows[impl] = [
+            bf16_row(f"{name} (float entry)",
+                     lambda: S.stem_pool(frames, *ops, impl=impl),
+                     lambda: S.stem_pool_plain(frames, *ops),
+                     lambda: S.stem_pool(frames.float(), *ops32, impl=impl),
+                     library, flops,
+                     2.0 * frames.numel() + 2.0 * ops[0].numel() + 8 * c
+                     + out_b, False, shape="float frames (152, 270, 480, 3)"),
+            bf16_row(f"{name} (planar entry)",
+                     lambda: S.stem_pool_planar(planar, *ops, impl=impl),
+                     lambda: S.stem_pool_planar_plain(planar, *ops),
+                     lambda: S.stem_pool_planar(planar, *ops32, impl=impl),
+                     library, flops,
+                     1.0 * planar.numel() + 2.0 * ops[0].numel() + 8 * c
+                     + out_b, False,
+                     shape="planar frames (152, 90, 27, 160)")]
     x = S.stem_pool(frames, *ops)                          # (148, 43, 78, 64)
     c2 = C2.conv2_kernel_params(gp16["net_vid"][1])
     c2_32 = (c2[0].float(), c2[1], c2[2])
@@ -3958,16 +3989,50 @@ def check_bf16_tower(gp, dev, stem_inputs):
         2.0 * m * 128 * 1600,
         2.0 * (x.numel() + c2[0].numel() + m * 128) + 8 * 128, False,
         shape=f"{tuple(x.shape)}")
-    return stem_rows, [conv2_row]
+    return rows["band"], [conv2_row], rows["window"]
 
 
-def stem_info_bf16(planar: bool) -> dict:
+def stem_info_bf16(planar: bool, impl: str) -> dict:
     from jegal_torch.ops.kernels import stem as S
 
-    info = S.kernel_info(planar, impl="band", bf16=True)
+    info = S.kernel_info(planar, impl=impl, bf16=True)
     if info["spill_bytes"]:
-        raise AssertionError(f"the bf16 band stem spills: {info}")
+        raise AssertionError(f"the bf16 {impl} stem spills: {info}")
     return info
+
+
+def check_bf16_flash(dev):
+    """12a: the flash kernel's bf16 variant (kernel 6b) at the bf16 long
+    clip's (1, 8, 1024, 64) with phase 8's key mask (1000 valid keys) and
+    at a text shape with head width 96, (8, 8, 128, 96), each batch row
+    with a pad tail; the bf16 SDPA with an additive -1e9 mask as its
+    library chain. `launches_per_clip` counts a bf16 long clip's."""
+    import torch
+
+    from jegal_torch.ops.kernels import flash_attention as FA
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 16)
+    rows = []
+    for label, (b, h, t, d), valid, per_clip_n in (
+            ("gesture encoder, long clip (1, 8, 1024, 64)", (1, 8, 1024, 64),
+             1000, 6),
+            ("text encoder (8, 8, 128, 96)", (8, 8, 128, 96), 100, 0)):
+        q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev).to(bf)
+                   for _ in range(3))
+        mask = torch.zeros(b, t)
+        mask[:, :valid] = 1.0
+        mask = mask.to(dev)
+        log(f"bf16 flash attention: {label}, {valid} valid keys")
+        rows.append(bf16_row(
+            "flash_attention_bf16",
+            lambda: FA.flash_attention(q, k, v, mask),
+            lambda: FA.flash_attention_plain(q, k, v, mask),
+            lambda: FA.flash_attention(q.float(), k.float(), v.float(), mask),
+            lambda: _library_flash(q, k, v, mask),
+            4.0 * b * h * t * t * d, 2.0 * 4 * b * h * t * d + 4.0 * b * t,
+            False, shape=label, launches_per_clip=per_clip_n))
+    return rows
 
 
 def check_bf16_encoders(gp, jp, rp, dev, text_mask, ids32, mask32):
@@ -4167,6 +4232,7 @@ def run_bf16(gp, jp, rp, engine, sample, raw_res):
     t_clip = sample["frames"].shape[0]
     stats: dict = {}
     engines = {}
+    band_res = {}
     for label, dt in (("float32", torch.float32), ("bf16", bf)):
         eng = JegalEngine(jp, gp, roberta_params=rp, dtype=dt,
                           tokenizer=word_tokenizer())
@@ -4190,6 +4256,7 @@ def run_bf16(gp, jp, rp, engine, sample, raw_res):
                 "bf16 planar vs float32 raw, vta clip")
             s["planar_vs_raw"] = hold_cos(
                 res_p, res, BF16_F32_COS, "bf16 planar vs bf16 raw, vta clip")
+            band_res = dict(raw=res, planar=res_p)
         else:
             compare(res, raw_res, "a new float32 engine vs phase 4")
         stats[label] = s
@@ -4268,37 +4335,148 @@ def run_bf16(gp, jp, rp, engine, sample, raw_res):
     stats["bf16"]["card_vs_cpu"] = hold_cos(
         on_card, on_cpu, BF16_CPU_COS,
         "bf16 engine card vs CPU, 16-frame 4-word vta clip")
+    launches = {"vta": stats["bf16"]["launches"]}
+    stats["bf16"]["window"], launches["window"] = run_bf16_window(
+        gp, jp, rp, sample, planar, raw_res, band_res)
+    stats["bf16"]["long_clip"], launches["long"] = run_bf16_long_clip(
+        jp, engines)
     for eng in engines.values():
         eng.close()
-    return stats["bf16"]["launches"], stats
+    return launches, stats
 
 
-def bf16_kernel_rows(tower, encoders, launches) -> list:
+def run_bf16_window(gp, jp, rp, sample, planar, raw_res, band_res):
+    """12b (i): a bf16 engine with stem_impl="window" on phase 4's raw and
+    planar `vta` clip: kernel 1b's entry launched once a clip in place of
+    2b, the raw clip's replay against an eager run, each held to the
+    float32 engine's raw rows and to the bf16 band engine's rows of the
+    same frames. -> (stats, {counter: launches} of the two runs)."""
+    import torch
+
+    from jegal_torch.api import JegalEngine
+
+    eng = JegalEngine(jp, gp, roberta_params=rp, dtype=torch.bfloat16,
+                      stem_impl="window", tokenizer=word_tokenizer())
+    t_clip = sample["frames"].shape[0]
+    log("bf16 engine, stem_impl='window': the raw vta clip")
+    res, ran = drive(eng, sample, "vta", WINDOW_LAUNCHES_BF16,
+                     "the bf16 raw vta path, window stem")
+    check_embeddings(res, t_clip, 12)
+    out = dict(graph=replay_check(eng, "the bf16 raw vta clip, window stem",
+                                  bf16=True),
+               vs_f32=hold_cos(res, raw_res, BF16_F32_COS,
+                               "bf16 window vs float32 engine, raw vta clip"),
+               vs_band=hold_cos(res, band_res["raw"], BF16_F32_COS,
+                                "bf16 window vs bf16 band, raw vta clip"))
+    res_p, ran_p = drive(eng, planar, "vta", WINDOW_PLANAR_LAUNCHES_BF16,
+                         "the bf16 planar vta path, window stem")
+    check_embeddings(res_p, t_clip, 12)
+    out.update(
+        planar_vs_f32=hold_cos(res_p, raw_res, BF16_F32_COS,
+                               "bf16 window planar vs float32 raw, vta clip"),
+        planar_vs_band=hold_cos(res_p, band_res["planar"], BF16_F32_COS,
+                                "bf16 window vs bf16 band, planar vta clip"))
+    eng.close()
+    launches = {k: ran[k] + ran_p[k] for k in ran}
+    out["launches"] = dict(raw=ran, planar=ran_p)
+    return out, launches
+
+
+def run_bf16_long_clip(jp, engines):
+    """12b (ii): phase 8's 1000-frame clip (T bucket 1024, past the fused
+    gate) through the bf16 engine: the gesture encoder's layer loop on
+    kernel 6b, 6 launches; the replay against an eager run; warm ms
+    (medians of two turns of 5) beside the float32 engine's, each
+    engine's device time by kernel (one profiled call); held to the
+    float32 engine's rows and to a bf16 engine's on the CPU. -> (stats,
+    the bf16 run's launches)."""
+    import numpy as np
+    import torch
+
+    from jegal_torch.api import JegalEngine
+
+    feats = np.random.default_rng(SEED + 8).standard_normal(
+        (1000, 1024), dtype=np.float32)
+    sample = dict(visual_feats=feats)
+    log("long clip in bf16: v on (1000, 1024) visual features, T bucket "
+        "1024")
+    res = {}
+    res["float32"], _ = drive(engines["float32"], sample, "v",
+                              dict(flash_attention=6),
+                              "the float32 long clip")
+    res["bf16"], ran = drive(engines["bf16"], sample, "v",
+                             dict(flash_attention_bf16=6),
+                             "the bf16 long clip")
+    out = dict(graph=replay_check(engines["bf16"], "the bf16 long clip",
+                                  bf16=True))
+    walls: dict = {"float32": [], "bf16": []}
+    for label in ("float32", "bf16", "bf16", "float32"):
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engines[label].extract(modalities="v", **sample)
+            walls[label].append(1e3 * (time.perf_counter() - t0))
+    for label, eng in engines.items():
+        out[f"profile_{label}"] = profile_run(
+            lambda: eng.extract(modalities="v", **sample),
+            f"{label} long clip")
+    on_cpu = JegalEngine(jp, device="cpu", dtype=torch.bfloat16).extract(
+        modalities="v", **sample)
+    for r in (res["float32"], res["bf16"], on_cpu):
+        e = r["gesture_emb"]
+        if e.shape != (1000, 512) or not np.isfinite(e).all():
+            raise AssertionError(f"long clip gesture_emb {e.shape}")
+    out.update(
+        ms_per_clip=statistics.median(walls["bf16"]),
+        ms_per_clip_f32=statistics.median(walls["float32"]),
+        vs_f32=hold_cos(res["bf16"], res["float32"], BF16_F32_COS,
+                        "bf16 vs float32 engine, long clip"),
+        card_vs_cpu=hold_cos(res["bf16"], on_cpu, BF16_CPU_COS,
+                             "bf16 engine card vs CPU, long clip"))
+    log(f"  warm long clip: bf16 {out['ms_per_clip']:.3f} ms, float32 "
+        f"{out['ms_per_clip_f32']:.3f} ms (medians of 10 in turns)")
+    return out, ran
+
+
+def bf16_kernel_rows(tower, encoders, flash, launches) -> list:
     """The `kernels` line's bf16 rows: launches from the bf16 engine's raw
-    `vta` clip; the stem's time at its float entry (the planar entry under
-    per_launch), the sublayers' and the stack's per clip."""
-    stem_rows, conv2_rows = tower
+    `vta` clip (the window stem's from the window engine's raw clip for
+    the float entry and planar clip for the planar entry, the flash
+    attention's from the bf16 long clip); the band stem's time at its
+    float entry (the planar entry under per_launch), the window stem's at
+    the entry of its row, the sublayers' and the stack's per clip, the
+    flash attention's per long clip."""
+    stem_rows, conv2_rows, window_rows = tower
     sub, stack = encoders
     out = []
-    for name, source, replaces, rows, clip_sum in (
+    for name, source, replaces, rows, clip_sum, path in (
             ("stem_band_bf16", "jegal_torch/csrc/stem_band.cu",
-             "jegal_tpu/ops/pallas/stem.py:219", stem_rows, False),
+             "jegal_tpu/ops/pallas/stem.py:219", stem_rows, False, "vta"),
+            ("stem_pool_bf16", "jegal_torch/csrc/stem.cu",
+             "jegal_tpu/ops/pallas/stem.py:80", window_rows[:1], False,
+             "window"),
+            ("stem_pool_planar_bf16", "jegal_torch/csrc/stem.cu",
+             "jegal_tpu/ops/pallas/stem.py:80", window_rows[1:], False,
+             "window"),
             ("conv2_bf16", "jegal_torch/csrc/conv2.cu",
-             "jegal_tpu/ops/pallas/conv2.py:76", conv2_rows, False),
+             "jegal_tpu/ops/pallas/conv2.py:76", conv2_rows, False, "vta"),
             ("attn_sublayer_bf16", "jegal_torch/csrc/fused_layer.cu",
              "jegal_tpu/ops/pallas/fused_layer.py:104",
-             sub["attn_sublayer_bf16"], True),
+             sub["attn_sublayer_bf16"], True, "vta"),
             ("ffn_sublayer_bf16", "jegal_torch/csrc/fused_layer.cu",
              "jegal_tpu/ops/pallas/fused_layer.py:173",
-             sub["ffn_sublayer_bf16"], True),
+             sub["ffn_sublayer_bf16"], True, "vta"),
             ("encoder_stack_bf16", "jegal_torch/csrc/encoder_stack.cu",
-             "jegal_tpu/ops/pallas/fused_layer.py:221", stack, True)):
-        if not launches.get(name):
+             "jegal_tpu/ops/pallas/fused_layer.py:221", stack, True, "vta"),
+            ("flash_attention_bf16", "jegal_torch/csrc/flash_attention.cu",
+             "jegal_tpu/ops/pallas/flash_attention.py:30", flash, True,
+             "long")):
+        ran = launches[path]
+        if not ran.get(name):
             raise AssertionError(f"{name}: no launch on the bf16 path")
         if clip_sum:
             want = sum(r["launches_per_clip"] for r in rows)
-            if launches[name] != want:
-                raise AssertionError(f"{name}: {launches[name]} launches, "
+            if ran[name] != want:
+                raise AssertionError(f"{name}: {ran[name]} launches, "
                                      f"the timed shapes assume {want}")
             agg = {k: sum(r[k] * r["launches_per_clip"] for r in rows)
                    for k in ("ms", "ms_f32", "plain_ms", "library_ms",
@@ -4311,7 +4489,7 @@ def bf16_kernel_rows(tower, encoders, launches) -> list:
                                            "bound_by")}
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=ran[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             worst_ulps=max(r["worst_ulps"] for r in rows),
             min_row_cos=min(r["min_row_cos"] for r in rows),
@@ -4326,8 +4504,9 @@ def run_phase12(gp, jp, rp, engine, sample, raw_res, stem_inputs, ids32,
     dev = engine.device
     tower = check_bf16_tower(gp, dev, stem_inputs)
     encoders = check_bf16_encoders(gp, jp, rp, dev, mask32[0], ids32, mask32)
+    flash = check_bf16_flash(dev)
     launches, stats = run_bf16(gp, jp, rp, engine, sample, raw_res)
-    return bf16_kernel_rows(tower, encoders, launches), stats
+    return bf16_kernel_rows(tower, encoders, flash, launches), stats
 
 
 def smoke_text_ids():

@@ -44,12 +44,12 @@ content fusion (models/jegal.fuse_content).
 dtype, as the JAX engine's `dtype` (its api.py:81-110): every floating
 parameter is cast to it once at construction, the host's float inputs
 (features, mel, pooling matrices) are staged in it, and every kernel on the
-path takes its variant of that dtype (ops/kernels/*: bf16 variants of the
-band stem, block 2, the attention and FFN sublayers and the XLM-R stack).
-Frames stay uint8, masks float32; the embeddings come back in the compute
-dtype and are L2-normalized in float32 on the host. A bf16 engine takes
-the band stem only, and on the card T buckets up to 512 (the window stem
-and the flash attention have no bf16 variant yet: ROADMAP queue 1).
+path takes its variant of that dtype (ops/kernels/*: bf16 variants of
+both stems, block 2, the attention and FFN sublayers, the XLM-R stack and
+the flash attention of clips past 512 frames). Frames stay uint8, masks
+float32; the embeddings come back in the compute dtype and are
+L2-normalized in float32 on the host. A bf16 engine runs wherever a
+float32 one does: either `stem_impl`, and every T bucket on the card.
 """
 
 from __future__ import annotations
@@ -240,7 +240,9 @@ class _Graph:
         # call that invalidates a capture in flight fails the capture at its
         # next launch (the card tests' batched replay check failed so, at
         # capture, in 3 of 3 runs of the whole file, and in 0 of 2 with this
-        # guard; the collection is the suspected cause, not a shown one)
+        # guard; the collection is the suspected cause, not a shown one:
+        # two later runs without the guard passed, and saw no collection
+        # during a capture)
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -310,11 +312,6 @@ class JegalEngine:
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
                              f"got {dtype!r}")
-        if dtype == torch.bfloat16 and stem_impl != "band":
-            raise NotImplementedError(
-                f"stem_impl={stem_impl!r} has no bf16 kernel yet (ROADMAP "
-                f"queue 1: bf16 kernels 1 and 6); a bf16 engine takes "
-                f"stem_impl='band'")
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got "
                              f"{stem_impl!r}")

@@ -116,18 +116,14 @@ def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
     broadcastable to (B, 1, Tq, Tk) after a head-axis unsqueeze — pass
     (B, 1, Tk) or (B, Tq, Tk). On a CUDA tensor this is
     `flash_attention_diff` (transformer.py:169-188), which takes
-    self-attention with a key mask at a shape `_flash_ok` admits; anything
-    else raises there. On a CPU tensor it is the dense reference."""
+    self-attention with a key mask at a shape `_flash_ok` admits, in
+    float32 or bf16; anything else raises there. On a CPU tensor it is the
+    dense reference."""
     q = _split_heads(linear(params["q"], q_in), num_heads)
     k = _split_heads(linear(params["k"], k_in), num_heads)
     v = _split_heads(linear(params["v"], v_in), num_heads)
     b, _, t, d_k = q.shape
     if _on_card(q):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                "the flash attention kernel has no bf16 variant yet (ROADMAP "
-                "queue 1: bf16 kernels 1 and 6); a bf16 engine on the card "
-                "takes T buckets up to 512")
         if q_in is not k_in or t != k.shape[2] or not _flash_ok(t, d_k):
             raise ValueError(
                 f"the flash attention kernel takes self-attention with T % 8 "

@@ -54,13 +54,32 @@
 //    tensor cores truncate as they accumulate (gemm.cuh).
 //  * The end: the halves merge through shared memory, O is divided by l,
 //    and each quad writes 32 contiguous bytes of a row (float2 stores).
+//
+// jt_flash_attention_bf16 is the bf16 variant (kernel 6b, the JAX engine's
+// bf16 dtype): q, k, v and out bf16, the mask float32. It computes what
+// `_make_kernel` computes on a bf16 block (flash_attention.py:45-72): q, k
+// and v upcast to float32 (exact), q * scale in float32, the scores, the
+// online softmax and p in float32 (p is never rounded), and the output
+// rounded to bf16 once. The same schedule, template on the element type:
+//  * Q, K and V are staged as bf16, rows padded to D + 8 halves (16 bytes:
+//    the fragment loads of both products still hit distinct banks, two
+//    lanes sharing each 32-bit word), so the ring is half the float one.
+//  * A bf16 k or v is exact in TF32 (8 mantissa bits of 10): its hi part
+//    is its own bits and its lo part zero. Only the float32 operands, q *
+//    scale (1/sqrt(96) is no power of two, so q * scale is no bf16 value)
+//    and p, are split, and each product takes two TF32 passes, lo*hi and
+//    hi*hi, where 3xTF32 takes three.
+//  * Each quad writes a row's 2 outputs of an n8 tile as one 32-bit pair.
+// Bound at (1, 8, 1024, 64): 2.15 GFLOP of products, 0.0022 ms at the
+// dense bf16 rate (989 TFLOP/s) and 0.0087 ms as two TF32 passes (495
+// TFLOP/s); the bytes, 8 B H T D (4.2 MB), 0.0013 ms.
 #include <math.h>
 
 #include "gemm.cuh"
 
 namespace {
 
-using jt::cp_async16;
+using jt::cp_async16b;
 using jt::cp_async4;
 using jt::mma_tf32;
 using jt::split_tf32;
@@ -73,27 +92,57 @@ constexpr int FA_THREADS = FA_WARPS * 32;
 constexpr int FA_STAGES = 2;
 constexpr float NEG_FILL = -1e9f;         // flash_attention.py:27
 
-template <int D>
+// Q, K and V rows as float32 or bf16 (uint16_t bit patterns): the value
+// as a float, and its TF32 (hi, lo) split; a bf16 value is its own hi.
+__device__ __forceinline__ float fa_value(float x) { return x; }
+__device__ __forceinline__ float fa_value(uint16_t x) { return jt::bf2f(x); }
+
+__device__ __forceinline__ void fa_split(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  split_tf32(x, hi, lo);
+}
+__device__ __forceinline__ void fa_split(uint16_t x, uint32_t& hi,
+                                         uint32_t&) {
+  hi = (uint32_t)x << 16;
+}
+
+// an output pair (row, columns c, c + 1), after the division by l
+__device__ __forceinline__ void fa_store(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void fa_store(uint16_t* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = jt::pack_bf16(jt::f2bf(a), jt::f2bf(b));
+}
+
+// Shared memory of one block, in Elem units for the rows: Q, then the
+// ring's stages of K rows, V rows and the tile's float32 mask.
+template <int D, class Elem>
 struct FaSmem {
-  static constexpr int RS = D + 4;                  // row stride (floats)
+  static constexpr int PAD = 16 / (int)sizeof(Elem);   // 16 bytes a row
+  static constexpr int RS = D + PAD;                  // row stride
   static constexpr int Q = FA_QT * RS;
-  static constexpr int STAGE = 2 * FA_KT * RS + FA_KT;   // K, V, mask
-  static constexpr int BYTES = (Q + FA_STAGES * STAGE) * (int)sizeof(float);
+  static constexpr int KV = 2 * FA_KT * RS;            // K, V of a stage
+  static constexpr int STAGE_BYTES = KV * (int)sizeof(Elem) + FA_KT * 4;
+  static constexpr int BYTES = Q * (int)sizeof(Elem) + FA_STAGES * STAGE_BYTES;
+  static_assert(STAGE_BYTES % 16 == 0 && (Q * sizeof(Elem)) % 16 == 0,
+                "stages stay 16-byte aligned");
 };
 
 // grid: (B * H, ceil(T / 32)).
-template <int D>
+template <int D, class Elem>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ mask, float* __restrict__ out,
+flash_attention_fwd(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                    const Elem* __restrict__ v,
+                    const float* __restrict__ mask, Elem* __restrict__ out,
                     int H, int T, float scale) {
-  using SM = FaSmem<D>;
+  using SM = FaSmem<D, Elem>;
+  constexpr bool exact = sizeof(Elem) == 2;          // bf16 k, v: one piece
   constexpr int RS = SM::RS, NF = D / 8, KS = D / 8;
-  constexpr int ROW_COPIES = D / 4;                  // 16-byte copies a row
+  constexpr int EPC = 16 / (int)sizeof(Elem);        // elements a copy
+  constexpr int ROW_COPIES = D / EPC;                // 16-byte copies a row
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* ring = smem + SM::Q;
+  Elem* Qs = reinterpret_cast<Elem*>(smem);
+  char* ring = reinterpret_cast<char*>(Qs + SM::Q);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -105,25 +154,26 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int ntiles = (T + FA_KT - 1) / FA_KT;
 
   for (int c = tid; c < FA_QT * ROW_COPIES; c += FA_THREADS) {
-    const int r = c / ROW_COPIES, cc = (c % ROW_COPIES) * 4;
+    const int r = c / ROW_COPIES, cc = (c % ROW_COPIES) * EPC;
     const bool ok = q0 + r < T;
-    cp_async16(Qs + r * RS + cc, ok ? q + base + (size_t)(q0 + r) * D + cc : q,
-               ok);
+    cp_async16b(Qs + r * RS + cc,
+                ok ? q + base + (size_t)(q0 + r) * D + cc : q, ok);
   }
   auto load_tile = [&](int stage, int tile) {
-    float* ks = ring + stage * SM::STAGE;
-    float* vs = ks + FA_KT * RS;
+    Elem* ks = reinterpret_cast<Elem*>(ring + stage * SM::STAGE_BYTES);
+    Elem* vs = ks + FA_KT * RS;
     const int k0 = tile * FA_KT;
     for (int c = tid; c < FA_KT * ROW_COPIES; c += FA_THREADS) {
-      const int r = c / ROW_COPIES, cc = (c % ROW_COPIES) * 4;
+      const int r = c / ROW_COPIES, cc = (c % ROW_COPIES) * EPC;
       const bool ok = k0 + r < T;
       const size_t at = base + (size_t)(k0 + r) * D + cc;
-      cp_async16(ks + r * RS + cc, ok ? k + at : k, ok);
-      cp_async16(vs + r * RS + cc, ok ? v + at : v, ok);
+      cp_async16b(ks + r * RS + cc, ok ? k + at : k, ok);
+      cp_async16b(vs + r * RS + cc, ok ? v + at : v, ok);
     }
     if (mrow != nullptr && tid < FA_KT) {
       const bool ok = k0 + tid < T;
-      cp_async4(vs + FA_KT * RS + tid, ok ? mrow + k0 + tid : mrow, ok);
+      cp_async4(reinterpret_cast<float*>(ks + SM::KV) + tid,
+                ok ? mrow + k0 + tid : mrow, ok);
     }
   };
 #pragma unroll
@@ -140,7 +190,7 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < NF; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  const float* qa = Qs + (qg * 16 + g) * RS + t;
+  const Elem* qa = Qs + (qg * 16 + g) * RS + t;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     jt::cp_async_wait<FA_STAGES - 2>();
@@ -149,10 +199,12 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
     if (next < ntiles) load_tile(next % FA_STAGES, next);
     jt::cp_async_commit();
 
-    const float* stage = ring + (tile % FA_STAGES) * SM::STAGE;
-    const float* ks = stage + half * FA_KH * RS;     // the warp's 16 keys
-    const float* vs = ks + FA_KT * RS;
-    const float* ms = stage + 2 * FA_KT * RS + half * FA_KH;
+    const Elem* stage = reinterpret_cast<const Elem*>(
+        ring + (tile % FA_STAGES) * SM::STAGE_BYTES);
+    const Elem* ks = stage + half * FA_KH * RS;      // the warp's 16 keys
+    const Elem* vs = ks + FA_KT * RS;
+    const float* ms =
+        reinterpret_cast<const float*>(stage + SM::KV) + half * FA_KH;
     const int kbase = tile * FA_KT + half * FA_KH;
 
     // S = (q * scale) K^T over the warp's 16 keys (two n8 tiles)
@@ -170,21 +222,23 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int kk = c0; kk < c0 + 4 && kk < KS; ++kk) {
         uint32_t ahi[4], alo[4], bhi[2][2], blo[2][2];
-        const float* p = qa + kk * 8;
-        split_tf32(p[0] * scale, ahi[0], alo[0]);
-        split_tf32(p[8 * RS] * scale, ahi[1], alo[1]);
-        split_tf32(p[4] * scale, ahi[2], alo[2]);
-        split_tf32(p[8 * RS + 4] * scale, ahi[3], alo[3]);
+        const Elem* p = qa + kk * 8;
+        split_tf32(fa_value(p[0]) * scale, ahi[0], alo[0]);
+        split_tf32(fa_value(p[8 * RS]) * scale, ahi[1], alo[1]);
+        split_tf32(fa_value(p[4]) * scale, ahi[2], alo[2]);
+        split_tf32(fa_value(p[8 * RS + 4]) * scale, ahi[3], alo[3]);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const float* b = ks + (j * 8 + g) * RS + kk * 8 + t;
-          split_tf32(b[0], bhi[j][0], blo[j][0]);
-          split_tf32(b[4], bhi[j][1], blo[j][1]);
+          const Elem* b = ks + (j * 8 + g) * RS + kk * 8 + t;
+          fa_split(b[0], bhi[j][0], blo[j][0]);
+          fa_split(b[4], bhi[j][1], blo[j][1]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j) mma_tf32(part[j], alo, bhi[j]);
+        if constexpr (!exact) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) mma_tf32(part[j], ahi, blo[j]);
+          for (int j = 0; j < 2; ++j) mma_tf32(part[j], ahi, blo[j]);
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) mma_tf32(part[j], ahi, bhi[j]);
       }
@@ -251,14 +305,16 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
         uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float* b = vs + (kk * 8 + 2 * t) * RS + (j0 + j) * 8 + g;
-          split_tf32(b[0], bhi[j][0], blo[j][0]);
-          split_tf32(b[RS], bhi[j][1], blo[j][1]);
+          const Elem* b = vs + (kk * 8 + 2 * t) * RS + (j0 + j) * 8 + g;
+          fa_split(b[0], bhi[j][0], blo[j][0]);
+          fa_split(b[RS], bhi[j][1], blo[j][1]);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_tf32(pv[j], plo[kk], bhi[j]);
+        if constexpr (!exact) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(pv[j], phi[kk], blo[j]);
+          for (int j = 0; j < 4; ++j) mma_tf32(pv[j], phi[kk], blo[j]);
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_tf32(pv[j], phi[kk], bhi[j]);
       }
@@ -280,7 +336,9 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   // merge the key halves: warps 2-3 hand (m, l, o) to warps 0-1 in
   // fragment order, lane for lane (an odd stride: no bank conflicts)
   constexpr int XS = 4 * NF + 5;
-  float* x = ring + (qg * 32 + lane) * XS;
+  static_assert(64 * XS * 4 <= FA_STAGES * SM::STAGE_BYTES,
+                "the exchange fits in the ring");
+  float* x = reinterpret_cast<float*>(ring) + (qg * 32 + lane) * XS;
   if (half == 1) {
 #pragma unroll
     for (int j = 0; j < NF; ++j)
@@ -305,31 +363,46 @@ flash_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + qg * 16 + g + 8 * h;
     if (row >= T) continue;
-    float* dst = out + base + (size_t)row * D + 2 * t;
+    Elem* dst = out + base + (size_t)row * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
       const float a = fmaf(o[j][2 * h], c_own[h],
                            x[4 * j + 2 * h] * c_other[h]);
       const float b = fmaf(o[j][2 * h + 1], c_own[h],
                            x[4 * j + 2 * h + 1] * c_other[h]);
-      *reinterpret_cast<float2*>(dst + j * 8) =
-          make_float2(a * inv[h], b * inv[h]);
+      fa_store(dst + j * 8, a * inv[h], b * inv[h]);
     }
   }
 }
 
-template <int D>
-int fa_launch(const float* q, const float* k, const float* v,
-              const float* mask, float* out, int B, int H, int T,
-              float scale, cudaStream_t s) {
-  constexpr int SMEM = FaSmem<D>::BYTES;
+template <int D, class Elem>
+int fa_launch(const Elem* q, const Elem* k, const Elem* v, const float* mask,
+              Elem* out, int B, int H, int T, float scale, cudaStream_t s) {
+  constexpr int SMEM = FaSmem<D, Elem>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      flash_attention_fwd<D, Elem>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B * H, (T + FA_QT - 1) / FA_QT);
-  flash_attention_fwd<D><<<grid, FA_THREADS, SMEM, s>>>(q, k, v, mask, out,
-                                                        H, T, scale);
+  flash_attention_fwd<D, Elem><<<grid, FA_THREADS, SMEM, s>>>(
+      q, k, v, mask, out, H, T, scale);
+  return 0;
+}
+
+template <class Elem>
+int fa_entry(const Elem* q, const Elem* k, const Elem* v, const float* mask,
+             Elem* out, int B, int H, int T, int D, float scale,
+             void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || H <= 0 || T <= 0) return JT_ERR_SHAPE;
+  if (!jt::aligned16(q) || !jt::aligned16(k) || !jt::aligned16(v) ||
+      !jt::aligned16(out))
+    return JT_ERR_SHAPE;
+  int rc = JT_ERR_SHAPE;
+  if (D == 64) rc = fa_launch<64>(q, k, v, mask, out, B, H, T, scale, s);
+  if (D == 96) rc = fa_launch<96>(q, k, v, mask, out, B, H, T, scale, s);
+  if (rc != 0) return rc;
+  JT_CHECK_LAUNCH();
   return 0;
 }
 
@@ -342,15 +415,14 @@ extern "C" int jt_flash_attention(const float* q, const float* k,
                                   const float* v, const float* mask,
                                   float* out, int B, int H, int T, int D,
                                   float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || H <= 0 || T <= 0) return JT_ERR_SHAPE;
-  if (!jt::aligned16(q) || !jt::aligned16(k) || !jt::aligned16(v) ||
-      !jt::aligned16(out))
-    return JT_ERR_SHAPE;
-  int rc = JT_ERR_SHAPE;
-  if (D == 64) rc = fa_launch<64>(q, k, v, mask, out, B, H, T, scale, s);
-  if (D == 96) rc = fa_launch<96>(q, k, v, mask, out, B, H, T, scale, s);
-  if (rc != 0) return rc;
-  JT_CHECK_LAUNCH();
-  return 0;
+  return fa_entry(q, k, v, mask, out, B, H, T, D, scale, stream);
+}
+
+// The same over bf16 q, k, v and out (uint16_t bit patterns); the mask
+// float32; scale as above.
+extern "C" int jt_flash_attention_bf16(const uint16_t* q, const uint16_t* k,
+                                       const uint16_t* v, const float* mask,
+                                       uint16_t* out, int B, int H, int T,
+                                       int D, float scale, void* stream) {
+  return fa_entry(q, k, v, mask, out, B, H, T, D, scale, stream);
 }

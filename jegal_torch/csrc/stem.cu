@@ -75,6 +75,30 @@
 //     with one block an SM. Two blocks an SM (4 warps of 32 x 64 each, a
 //     4x6 pooled tile) and 16 warps of 32 x 32 both ran slower, as did
 //     positions ordered so that the A loads hit 32 banks.
+//
+// jt_stem_pool_bf16 and jt_stem_pool_planar_bf16 are the bf16 variant
+// (kernel 1b, the JAX engine's bf16 dtype): bf16 frames in [0, 1], or the
+// planar bytes with a bf16 weight (/255 folded in float32, then rounded);
+// bf16 out. It computes what `_stem_kernel` computes on bf16 blocks
+// (stem.py:80-213): bf16 x bf16 products summed in float32, BN and ReLU in
+// float32, the conv rows kept in float32 (its `rows_ref`, stem.py:465 and
+// :552), the max pool in float32, and the pooled value rounded to bf16
+// once (:213). The same tile, warps, taps and epilogue as the float32
+// kernel, with:
+//   * one pass of mma.sync.m16n8k16 bf16 (a product of two bf16 values is
+//     exact in float32; a byte is exact in bf16), K padded to 160 (10 k16
+//     steps), a float32 flush every 2 steps (32 columns, as above);
+//   * one bf16 patch plane (the planar bytes converted as they land, bf16
+//     frames copied), where the float frames take two TF32 planes; an A
+//     register pairs taps k and k + 1, two 16-bit loads through koff;
+//   * the weights landed raw by cp.async in bf16, each row's 8-half
+//     groups swizzled by (k / 2) % 4, so that a B register (taps k, k + 1
+//     of one channel, two 16-bit loads) of every lane of a warp hits 16
+//     words in distinct banks;
+//   * 74.5 KB of shared memory (72.2 KB planar) against 177 KB.
+// Bound: 190.2 GFLOP at 989 TFLOP/s dense bf16, 0.192 ms a 5 s clip.
+#include <type_traits>
+
 #include "gemm.cuh"
 #include "stem.cuh"
 
@@ -206,6 +230,74 @@ __device__ __forceinline__ void issue_weights(const float* __restrict__ wt,
   }
 }
 
+// A pooled value into the output: float32, or bf16 rounded once.
+__device__ __forceinline__ void store_pooled(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_pooled(uint16_t* p, float v) {
+  *p = f2bf(v);
+}
+
+// The end of a block, after its last tap (no copy in flight): BN + ReLU of
+// its float32 sums into the conv tile over the staging buffers, then the
+// 3x3 stride-2 max pool of the tile, in float32, into out.
+template <class Out>
+__device__ __forceinline__ void stem_epilogue(
+    const float (&sum)[ST_MF][ST_NF][4], float* smem,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    Out* __restrict__ out, int t, int j0, int i0, int J, int Wp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  __syncthreads();
+  float* Cs = smem;  // [255][65]
+#pragma unroll
+  for (int j = 0; j < ST_NF; ++j) {
+    const int c = j * 8 + 2 * t4;
+    const float s0 = scale[c], s1 = scale[c + 1];
+    const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+    for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (warp * ST_MF + i) * 16 + g + 8 * h;
+        if (p < ST_NPOS) {
+          Cs[p * ST_CS_LD + c] = fmaxf(fmaf(sum[i][j][2 * h], s0, b0), 0.f);
+          Cs[p * ST_CS_LD + c + 1] =
+              fmaxf(fmaf(sum[i][j][2 * h + 1], s1, b1), 0.f);
+        }
+      }
+  }
+  __syncthreads();
+
+  // one (pooled position, channel) per step
+  for (int q = tid; q < ST_PJ * ST_PI * ST_C; q += ST_THREADS) {
+    const int o = q % ST_C;
+    const int pos = q / ST_C;
+    const int pj = pos / ST_PI, pi = pos % ST_PI;
+    const int j = j0 + pj, i = i0 + pi;
+    if (j >= J || i >= Wp) continue;
+    float v = -INFINITY;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        v = fmaxf(v, Cs[((2 * pj + a) * ST_CC + 2 * pi + b) * ST_CS_LD + o]);
+    store_pooled(out + (((size_t)t * J + j) * Wp + i) * ST_C + o, v);
+  }
+}
+
+// The patch offset of the position of each A row a thread holds (rows g
+// and g + 8 of its warp's two m16 tiles).
+__device__ __forceinline__ void position_offsets(int (&xoff)[ST_MF][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = min((warp * ST_MF + i) * 16 + (lane >> 2) + 8 * h,
+                        ST_NPOS - 1);
+      xoff[i][h] = ST_S * (p / ST_CC) * ST_ROW + ST_S * ST_CIN * (p % ST_CC);
+    }
+}
+
 // src: (T4, H, W, 3) frames in either input form (stem.cuh); w: (5, 7, 7,
 // 3, 64) DHWIO; out: (T4-4, J, Wp, 64). grid: (ceil(Wp / 8), ceil(J / 7),
 // T4 - 4). async: the input rows are 16-byte aligned (issue_patch).
@@ -224,7 +316,7 @@ stem_pool_kernel(Src src, const float* __restrict__ w,
   float* Wb = smem + planes * ST_XS + ST_RAW_WORDS<Src>;   // [2][152][64]
   int* koff = reinterpret_cast<int*>(Wb + 2 * ST_WBUF);      // [152]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int i0 = blockIdx.x * ST_PI;   // pooled col origin
   const int j0 = blockIdx.y * ST_PJ;   // pooled row origin
@@ -244,15 +336,8 @@ stem_pool_kernel(Src src, const float* __restrict__ w,
     Wb[b * ST_WBUF + ST_TAPS * ST_C + i % ((ST_KP - ST_TAPS) * ST_C)] = 0.f;
   }
 
-  // patch offset of the position of each A row this thread holds
   int xoff[ST_MF][2];
-#pragma unroll
-  for (int i = 0; i < ST_MF; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = min((warp * ST_MF + i) * 16 + g + 8 * h, ST_NPOS - 1);
-      xoff[i][h] = ST_S * (p / ST_CC) * ST_ROW + ST_S * ST_CIN * (p % ST_CC);
-    }
+  position_offsets(xoff);
 
   float sum[ST_MF][ST_NF][4];
 #pragma unroll
@@ -335,44 +420,198 @@ stem_pool_kernel(Src src, const float* __restrict__ w,
     }
   }
 
-  // BN + ReLU into the conv tile, over the staging buffers (no copy is in
-  // flight: the last tap issued none)
-  __syncthreads();
-  float* Cs = smem;  // [255][65]
-#pragma unroll
-  for (int j = 0; j < ST_NF; ++j) {
-    const int c = j * 8 + 2 * t4;
-    const float s0 = scale[c], s1 = scale[c + 1];
-    const float b0 = bias[c], b1 = bias[c + 1];
-#pragma unroll
-    for (int i = 0; i < ST_MF; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (warp * ST_MF + i) * 16 + g + 8 * h;
-        if (p < ST_NPOS) {
-          Cs[p * ST_CS_LD + c] = fmaxf(fmaf(sum[i][j][2 * h], s0, b0), 0.f);
-          Cs[p * ST_CS_LD + c + 1] =
-              fmaxf(fmaf(sum[i][j][2 * h + 1], s1, b1), 0.f);
-        }
-      }
-  }
-  __syncthreads();
+  stem_epilogue(sum, smem, scale, bias, out, t, j0, i0, J, Wp);
+}
 
-  // 3x3 stride-2 max pool, one (pooled position, channel) per step
-  for (int q = tid; q < ST_PJ * ST_PI * ST_C; q += ST_THREADS) {
-    const int o = q % ST_C;
-    const int pos = q / ST_C;
-    const int pj = pos / ST_PI, pi = pos % ST_PI;
-    const int j = j0 + pj, i = i0 + pi;
-    if (j >= J || i >= Wp) continue;
-    float v = -INFINITY;
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+constexpr int SW_KP = 160;               // 147 taps padded to k16 steps
+constexpr int SW_KSTEPS = SW_KP / 16;    // 10
+constexpr int SW_FLUSH = 2;              // k16 steps a float32 flush
+constexpr int SW_WBUF = SW_KP * ST_C;    // halves of a tap's weights
+
+// Bytes of the raw staging buffer: bf16 frames stage the patch rows as they
+// are (168 halves a row); planar frames the 9 (dw, c) runs of each row.
+template <class Src>
+constexpr int SW_RAW_BYTES = std::is_same<Src, PlanarU8>::value
+                                 ? ST_IR * 9 * ST_RUN : ST_XS * 2;
+// Shared memory (bytes): the bf16 plane, the raw patch, two taps' weights,
+// the koff table.
+template <class Src>
+constexpr int SW_SMEM_BYTES =
+    2 * ST_XS + SW_RAW_BYTES<Src> + 2 * 2 * SW_WBUF + 4 * SW_KP;
+static_assert(4 * ST_NPOS * ST_CS_LD <=
+                  2 * ST_XS + ST_IR * 9 * ST_RUN + 2 * 2 * SW_WBUF,
+              "the conv tile fits over the bf16 staging buffers");
+
+// bf16 frames: patch row rr is 168 halves of frame row y0 + rr from
+// column x0 (the last 3 unused), in 16-byte pieces.
+__device__ __forceinline__ void issue_patch(const Bf16Frames& s, int t,
+                                            int y0, int x0, uint32_t* raw,
+                                            bool async) {
+  constexpr int CH = ST_ROW / 8;         // 16-byte pieces a row
+  const int wq = s.W * ST_CIN;
+  for (int i = threadIdx.x; i < ST_IR * CH; i += ST_THREADS) {
+    const int rr = i / CH, q = (i - rr * CH) * 8;
+    const int y = y0 + rr, xq = x0 * ST_CIN + q;
+    uint16_t* dst = reinterpret_cast<uint16_t*>(raw) + rr * ST_ROW + q;
+    const uint16_t* src = s.p + ((size_t)t * s.H + y) * wq + xq;
+    if (async) {   // wq % 8 == 0: a piece is wholly inside or outside
+      const bool ok = y < s.H && xq < wq;
+      cp_async16b(dst, ok ? src : s.p, ok);
+    } else {
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        v = fmaxf(v, Cs[((2 * pj + a) * ST_CC + 2 * pi + b) * ST_CS_LD + o]);
-    out[(((size_t)t * J + j) * Wp + i) * ST_C + o] = v;
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (y < s.H && xq + e < wq) ? __ldg(src + e) : (uint16_t)0;
+    }
   }
+}
+
+// The landed raw patch into the bf16 plane: bf16 frames copied, planar
+// bytes converted (exact).
+__device__ __forceinline__ void convert_patch_bf16(const Bf16Frames&,
+                                                   const uint32_t* raw,
+                                                   uint16_t* plane) {
+  for (int i = threadIdx.x; i < ST_XS / 8; i += ST_THREADS)
+    reinterpret_cast<uint4*>(plane)[i] = reinterpret_cast<const uint4*>(raw)[i];
+}
+
+__device__ __forceinline__ void convert_patch_bf16(const PlanarU8&,
+                                                   const uint32_t* raw,
+                                                   uint16_t* plane) {
+  constexpr int ROW = ST_IC * ST_CIN;    // 165
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(raw);
+  for (int i = threadIdx.x; i < ST_IR * ROW; i += ST_THREADS) {
+    const int rr = i / ROW, q = i - rr * ROW;
+    const int xl = q / 3, c = q - 3 * xl;
+    const int w3i = xl / 3, dw = xl - 3 * w3i;
+    plane[rr * ST_ROW + q] =
+        f2bf((float)b[(rr * 9 + dw * 3 + c) * ST_RUN + w3i]);
+  }
+}
+
+// A tap's (147, 64) bf16 weights into a buffer of (160, 64) halves, row
+// k's 8-half groups swizzled by (k / 2) % 4 (group n / 8 ^ (k / 2) % 4):
+// the B registers of a warp (taps 2t + {0, 1} or 2t + {8, 9} of a k16
+// step, channel g of an n8 tile) then read 16 words in distinct banks.
+__device__ __forceinline__ void issue_weights_bf16(
+    const uint16_t* __restrict__ wt, uint16_t* wb) {
+  for (int i = threadIdx.x; i < ST_TAPS * ST_C / 8; i += ST_THREADS) {
+    const int k = i / (ST_C / 8), gi = i % (ST_C / 8);
+    cp_async16b(wb + k * ST_C + ((gi ^ ((k >> 1) & 3)) << 3),
+                wt + k * ST_C + 8 * gi, true);
+  }
+}
+
+// stem_pool_kernel in bf16. src: bf16 frames or planar bytes; w: (5, 7, 7,
+// 3, 64) DHWIO bf16; out: (T4-4, J, Wp, 64) bf16. Grid as above.
+template <class Src>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+stem_pool_bf16_kernel(Src src, const uint16_t* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      uint16_t* __restrict__ out, int J, int Wp, bool async) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  uint16_t* X = reinterpret_cast<uint16_t*>(base);            // [49][168]
+  uint32_t* raw = reinterpret_cast<uint32_t*>(base + 2 * ST_XS);
+  uint16_t* Wb = reinterpret_cast<uint16_t*>(
+      base + 2 * ST_XS + SW_RAW_BYTES<Src>);                  // [2][160][64]
+  int* koff = reinterpret_cast<int*>(Wb + 2 * SW_WBUF);       // [160]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int i0 = blockIdx.x * ST_PI;
+  const int j0 = blockIdx.y * ST_PJ;
+  const int t = blockIdx.z;
+  const int y_in0 = 2 * ST_S * j0;
+  const int x_in0 = 2 * ST_S * i0;
+
+  issue_patch(src, t, y_in0, x_in0, raw, async);
+  issue_weights_bf16(w, Wb);
+  cp_async_commit();
+  for (int k = tid; k < SW_KP; k += ST_THREADS) {
+    const int dy = k / (ST_KW * ST_CIN);
+    koff[k] = k < ST_TAPS ? dy * ST_ROW + (k - dy * ST_KW * ST_CIN) : 0;
+  }
+  constexpr int PAD = (SW_KP - ST_TAPS) * ST_C;   // zero rows 147..159
+  for (int i = tid; i < 2 * PAD; i += ST_THREADS)
+    Wb[(i / PAD) * SW_WBUF + ST_TAPS * ST_C + i % PAD] = 0;
+
+  int xoff[ST_MF][2];
+  position_offsets(xoff);
+
+  float sum[ST_MF][ST_NF][4];
+#pragma unroll
+  for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+    for (int j = 0; j < ST_NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
+
+  for (int dt = 0; dt < ST_KT; ++dt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tap dt's patch and weights landed; tap dt-1 done
+    convert_patch_bf16(src, raw, X);
+    __syncthreads();  // the plane ready, the raw buffer free
+    if (dt + 1 < ST_KT) {
+      issue_patch(src, t + dt + 1, y_in0, x_in0, raw, async);
+      issue_weights_bf16(w + (size_t)(dt + 1) * ST_WS,
+                         Wb + ((dt + 1) & 1) * SW_WBUF);
+    }
+    cp_async_commit();
+    const uint16_t* wb = Wb + (dt & 1) * SW_WBUF;
+
+#pragma unroll
+    for (int s0 = 0; s0 < SW_KSTEPS; s0 += SW_FLUSH) {
+      float acc[ST_MF][ST_NF][4];
+#pragma unroll
+      for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+        for (int j = 0; j < ST_NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+      for (int s = s0; s < s0 + SW_FLUSH; ++s) {
+        // taps k, k + 1 (a0, a1, b0) and k + 8, k + 9 (a2, a3, b1)
+        const int k = 16 * s + 2 * t4;
+        const int ka = koff[k], kb = koff[k + 1];
+        const int kc = koff[k + 8], kd = koff[k + 9];
+        uint32_t a[ST_MF][4];
+#pragma unroll
+        for (int i = 0; i < ST_MF; ++i) {
+          const uint16_t* x0 = X + xoff[i][0];
+          const uint16_t* x1 = X + xoff[i][1];
+          a[i][0] = pack_bf16(x0[ka], x0[kb]);
+          a[i][1] = pack_bf16(x1[ka], x1[kb]);
+          a[i][2] = pack_bf16(x0[kc], x0[kd]);
+          a[i][3] = pack_bf16(x1[kc], x1[kd]);
+        }
+        uint32_t b[ST_NF][2];
+#pragma unroll
+        for (int j = 0; j < ST_NF; ++j) {
+          // (k / 2) % 4 == t4 for all four taps: the swizzled column
+          const uint16_t* wc = wb + (((j ^ t4) << 3) + g);
+          b[j][0] = pack_bf16(wc[k * ST_C], wc[(k + 1) * ST_C]);
+          b[j][1] = pack_bf16(wc[(k + 8) * ST_C], wc[(k + 9) * ST_C]);
+        }
+#pragma unroll
+        for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+          for (int j = 0; j < ST_NF; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < ST_MF; ++i)
+#pragma unroll
+        for (int j = 0; j < ST_NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
+    }
+  }
+
+  stem_epilogue(sum, smem, scale, bias, out, t, j0, i0, J, Wp);
 }
 
 }  // namespace jt
@@ -419,16 +658,56 @@ extern "C" int jt_stem_pool_planar(const uint8_t* planar, const float* w,
                           bias, out, t_in, async, (cudaStream_t)stream);
 }
 
-// What the compiler and the occupancy calculator say of one entry's
-// kernel (planar: 0 float frames, 1 planar): info = {registers a thread,
-// local (spill) bytes a thread, dynamic shared bytes a block, blocks an SM}.
-extern "C" int jt_stem_pool_info(int planar, int* info) {
+template <class Src>
+static int launch_stem_pool_bf16(Src src, const uint16_t* w,
+                                 const float* scale, const float* bias,
+                                 uint16_t* out, int t_in, bool async,
+                                 cudaStream_t stream) {
   using namespace jt;
-  const void* fn = planar ? (const void*)stem_pool_kernel<PlanarU8>
-                          : (const void*)stem_pool_kernel<FloatFrames>;
-  const int smem = (int)sizeof(float) *
-                   (planar ? ST_SMEM_WORDS<PlanarU8>
-                           : ST_SMEM_WORDS<FloatFrames>);
+  constexpr int smem = SW_SMEM_BYTES<Src>;
+  const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
+  if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
+  if ((uintptr_t)w % 16 != 0) return JT_ERR_SHAPE;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      stem_pool_bf16_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Wp + ST_PI - 1) / ST_PI, (J + ST_PJ - 1) / ST_PJ, t_in - 4);
+  stem_pool_bf16_kernel<Src><<<grid, ST_THREADS, smem, stream>>>(
+      src, w, scale, bias, out, J, Wp, async);
+  JT_CHECK_LAUNCH();
+  return 0;
+}
+
+// frames (t_in, H, W, 3) bf16 -> out (t_in - 4, J, Wp, 64) bf16; w bf16,
+// scale and bias float32.
+extern "C" int jt_stem_pool_bf16(const uint16_t* frames, const uint16_t* w,
+                                 const float* scale, const float* bias,
+                                 uint16_t* out, int t_in, int H, int W,
+                                 void* stream) {
+  const bool async = (uintptr_t)frames % 16 == 0 && (W * 3) % 8 == 0;
+  return launch_stem_pool_bf16(jt::Bf16Frames{frames, H, W}, w, scale, bias,
+                               out, t_in, async, (cudaStream_t)stream);
+}
+
+// planar (t_in, H3, 27, W3) uint8 -> out (t_in - 4, J, Wp, 64) bf16; w the
+// bf16 weight with /255 folded in.
+extern "C" int jt_stem_pool_planar_bf16(const uint8_t* planar,
+                                        const uint16_t* w, const float* scale,
+                                        const float* bias, uint16_t* out,
+                                        int t_in, int H3, int W3,
+                                        void* stream) {
+  const bool async = (uintptr_t)planar % 16 == 0 && W3 % 16 == 0;
+  return launch_stem_pool_bf16(jt::PlanarU8{planar, 3 * H3, 3 * W3}, w,
+                               scale, bias, out, t_in, async,
+                               (cudaStream_t)stream);
+}
+
+// What the compiler and the occupancy calculator say of a kernel with
+// `smem` bytes of dynamic shared memory a block: info = {registers a
+// thread, local (spill) bytes a thread, dynamic shared bytes a block,
+// blocks an SM}.
+static int kernel_info(const void* fn, int smem, int* info) {
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -436,12 +715,30 @@ extern "C" int jt_stem_pool_info(int planar, int* info) {
   e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, ST_THREADS,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                    jt::ST_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   info[0] = a.numRegs;
   info[1] = (int)a.localSizeBytes;
   info[2] = smem;
   info[3] = blocks;
   return 0;
+}
+
+// The info of one entry's kernel (planar: 0 float frames, 1 planar).
+extern "C" int jt_stem_pool_info(int planar, int* info) {
+  using namespace jt;
+  return planar ? kernel_info((const void*)stem_pool_kernel<PlanarU8>,
+                              4 * ST_SMEM_WORDS<PlanarU8>, info)
+                : kernel_info((const void*)stem_pool_kernel<FloatFrames>,
+                              4 * ST_SMEM_WORDS<FloatFrames>, info);
+}
+
+// The same of the bf16 variant's entries.
+extern "C" int jt_stem_pool_bf16_info(int planar, int* info) {
+  using namespace jt;
+  return planar ? kernel_info((const void*)stem_pool_bf16_kernel<PlanarU8>,
+                              SW_SMEM_BYTES<PlanarU8>, info)
+                : kernel_info((const void*)stem_pool_bf16_kernel<Bf16Frames>,
+                              SW_SMEM_BYTES<Bf16Frames>, info);
 }

@@ -3,6 +3,8 @@
 // raw (t, y, x, c) pixels from.
 //
 //   FloatFrames: (T, H, W, 3) float32 frames in [0, 1], masked;
+//   Bf16Frames:  the same in bf16 (uint16_t bit patterns), for the bf16
+//                variants;
 //   PlanarU8:    (T, H/3, 27, W/3) uint8 host-repacked frames (the JAX
 //                package's host.media.s2d_repack; jegal_torch.ops.video
 //                .s2d_repack), raw 0..255 bytes, the /255 folded into the
@@ -46,6 +48,11 @@ __host__ __device__ inline int stem_pooled(int n) {
 struct FloatFrames {
   static constexpr bool exact = false;
   const float* p;
+  int H, W;
+};
+
+struct Bf16Frames {
+  const uint16_t* p;
   int H, W;
 };
 

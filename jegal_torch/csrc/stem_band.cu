@@ -413,12 +413,6 @@ stem_band_kernel(Src src, const float* __restrict__ w,
 // bf16
 // ---------------------------------------------------------------------------
 
-// bf16 float frames: (T, H, W, 3) bf16 in [0, 1] (uint16_t bit patterns).
-struct Bf16Frames {
-  const uint16_t* p;
-  int H, W;
-};
-
 template <> struct BandRing<Bf16Frames> {
   using Elem = uint16_t;
   static constexpr int ROW = 168;          // 55 columns x 3, padded

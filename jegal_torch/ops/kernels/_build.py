@@ -36,7 +36,9 @@ LAUNCHES = {"stem_pool": 0, "stem_pool_planar": 0, "stem_band": 0,
             "conv2": 0, "attn_sublayer": 0, "ffn_sublayer": 0,
             "encoder_stack": 0, "flash_attention": 0,
             "stem_band_bf16": 0, "conv2_bf16": 0, "attn_sublayer_bf16": 0,
-            "ffn_sublayer_bf16": 0, "encoder_stack_bf16": 0}
+            "ffn_sublayer_bf16": 0, "encoder_stack_bf16": 0,
+            "stem_pool_bf16": 0, "stem_pool_planar_bf16": 0,
+            "flash_attention_bf16": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

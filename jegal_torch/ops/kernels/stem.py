@@ -20,12 +20,14 @@ phase rotation is a TPU K-band layout.
 bf16 (the JAX engine's bf16 dtype): float frames in bf16 (the /255 rounded
 to bf16 where the mask is applied, ops/video.mask_frames_device), or the
 same uint8 planar frames with a bf16 weight (/255 folded in float32, then
-rounded to bf16, stem.py:523), take the band kernel's bf16 variant: bf16
-products summed in float32, BN and ReLU in float32, the output rounded to
-bf16 (`_stem_kernel_band`'s conv rows, stem.py:305, whose pool max is taken
-on bf16 values: rounding is monotone, so rounding the pooled max is the
-same). The window kernel has no bf16 variant yet (ROADMAP queue 1 item 3);
-a bf16 input with impl="window" raises.
+rounded to bf16, stem.py:523), take the `impl` kernel's bf16 variant. Both
+variants compute one function, and one pair of twins serves both: bf16
+products summed in float32, BN and ReLU in float32, the max pool over
+float32 conv rows, and the pooled value rounded to bf16 once. That is
+`_stem_kernel`'s arithmetic (its conv rows stay float32, stem.py:465 and
+:552, and the pooled max is rounded at :213), and `_stem_kernel_band`'s
+(it rounds each conv row, stem.py:305, and takes the max on bf16 values:
+rounding is monotone, so rounding the pooled max is the same).
 """
 
 from __future__ import annotations
@@ -71,8 +73,9 @@ def pooled_shape(t_in: int, h: int, w: int) -> tuple:
 def stem_pool_plain(frames, weight, scale, bias):
     """conv3d + scale/bias + ReLU + maxpool in eager PyTorch.
     frames (T4, H, W, 3) -> (T4 - 4, J, W_pool, 64). bf16 frames take the
-    bf16 variant's twin: frames and weight upcast to float32 (exact), the
-    products in float32, the output rounded to bf16."""
+    bf16 variants' twin: frames and weight upcast to float32 (exact), the
+    products, BN, ReLU and the pool in float32, the output rounded to
+    bf16."""
     if frames.dtype == torch.bfloat16:
         return stem_pool_plain(frames.to(torch.float32),
                                weight.to(torch.float32), scale,
@@ -130,8 +133,6 @@ def kernel_info(planar: bool, impl: str = "band", bf16: bool = False) -> dict:
     registers and spill bytes a thread, dynamic shared memory a block and
     resident blocks an SM (on the current card)."""
     _check_impl(impl)
-    if bf16:
-        _check_bf16_impl(impl)
     name, fn = KERNELS[impl]
     lib = _build.library(name)
     fn = getattr(lib, fn + ("_bf16" if bf16 else "") + "_info")
@@ -147,13 +148,6 @@ def kernel_info(planar: bool, impl: str = "band", bf16: bool = False) -> dict:
 def _check_impl(impl):
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-
-
-def _check_bf16_impl(impl):
-    if impl != "band":
-        raise NotImplementedError(
-            f"the {impl} stem has no bf16 variant (ROADMAP queue 1: the bf16 "
-            f"window stem, kernel 1); a bf16 engine takes stem_impl='band'")
 
 
 def _check_params(weight, scale, bias, device, dtype=torch.float32):
@@ -181,24 +175,25 @@ def _launch(impl, planar, x, weight, scale, bias, t_in, h, w):
     rc = fn(P(x), P(weight), P(scale), P(bias), P(out), t_in, *dims,
             _build.stream_ptr(x.device))
     _build.check(lib, rc, f"{impl} stem kernel")
-    _build.LAUNCHES["stem_band_bf16" if bf16 else
-                    "stem_band" if impl == "band" else
-                    "stem_pool_planar" if planar else "stem_pool"] += 1
+    counter = "stem_band" if impl == "band" else \
+        "stem_pool_planar" if planar else "stem_pool"
+    _build.LAUNCHES[counter + ("_bf16" if bf16 else "")] += 1
     return out
 
 
 def stem_pool(frames, weight, scale, bias, impl: str = "band"):
     """Fused stem over float frames (T4, H, W, 3) in [0, 1], float32 or
     bf16 (with a weight of the same dtype) -> (T4 - 4, J, W_pool, 64) of
-    that dtype. On a CUDA tensor the `impl` kernel ("window" or "band"; bf16
-    only "band"; it has no backward, and raises when an operand needs a
+    that dtype. On a CUDA tensor the `impl` kernel ("window" or "band") of
+    that dtype (it has no backward, and raises when an operand needs a
     gradient), the plain twin for a CPU one."""
     _check_impl(impl)
     dt = frames.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"frames must be float32 or bfloat16, got {dt}")
-    if dt == torch.bfloat16:
-        _check_bf16_impl(impl)
+    if weight.dtype != dt:
+        raise TypeError(f"weight must be {dt} like the frames, got "
+                        f"{weight.dtype}")
     if not frames.is_cuda:
         return stem_pool_plain(frames, weight, scale, bias)
     _build.refuse_grad("stem kernel", frames, weight, scale, bias)
@@ -216,15 +211,13 @@ def stem_pool_planar(planar, weight, scale, bias, impl: str = "band"):
     (ops/video.s2d_repack, edge-padded) -> (T4 - 4, J, W_pool, 64), the
     output of `stem_pool` on the raw frames / 255. `weight` is block 1's
     folded weight as `stem_kernel_params` returns it; the wrapper divides
-    it by 255 (`planar_weight`). A bf16 weight takes the bf16 variant
-    (impl "band" only) and gives bf16. On a CUDA tensor the `impl` kernel,
-    on a CPU one the twin."""
+    it by 255 (`planar_weight`). A bf16 weight takes the `impl` kernel's
+    bf16 variant and gives bf16. On a CUDA tensor the `impl` kernel, on a
+    CPU one the twin."""
     _check_impl(impl)
     if weight.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weight must be float32 or bfloat16, got "
                         f"{weight.dtype}")
-    if weight.dtype == torch.bfloat16:
-        _check_bf16_impl(impl)
     if not planar.is_cuda:
         return stem_pool_planar_plain(planar, weight, scale, bias)
     _build.refuse_grad("stem kernel", weight, scale, bias)

@@ -1,7 +1,7 @@
 """The port's bf16 engine on the CPU against the JAX package's bf16 path.
 
-1. Each bf16 plain twin (kernels 2 float and planar, 3, 4, 5 and 7) against
-   the JAX Pallas kernel run in interpret mode on bf16 inputs, as the JAX
+1. Each bf16 plain twin (kernels 1 and 2 float and planar, 3, 4, 5 and 7)
+   against the JAX Pallas kernel run in interpret mode on bf16 inputs, as the JAX
    package's own tests run them (tests/test_stem_pallas.py,
    tests/test_conv2_pallas.py:89-95, tests/test_fused_layer.py). The bar
    (tests/bf16_bars.py): every element within 2 bf16 ulps of the Pallas
@@ -15,10 +15,12 @@
    XLA rounds its bf16 layer loop at other sites than the port's kernels'
    twins) and against the port's own float32 engine (0.9995); rows unit
    norm in float32; a bf16 engine's `gestsync_features` accepted by its own
-   `extract`.
-3. `--bf16` on `infer` and `serve` in-process on the CPU, and the
-   refusals: stem_impl="window", a T bucket past 512 on the card, a dtype
-   no kernel takes.
+   `extract`; the same engine with stem_impl="window" (the JAX engine's
+   stem), raw and planar.
+3. `--bf16` on `infer` and `serve` in-process on the CPU; a bf16 stack past
+   512 frames through the card's routing (the flash attention) against the
+   JAX stack on its flash kernel; and the refusals: a dtype no kernel
+   takes, mixed dtypes.
 
 Inputs come from numpy seeds; weights from the port's init_* (randomized
 BatchNorm statistics and LayerNorm parameters), cast to bf16 on each side
@@ -52,6 +54,7 @@ from jegal_torch.core import transformer as TT
 from jegal_torch.models.roberta import RobertaConfig
 from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels import conv2 as TC2
+from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as TF
 from jegal_torch.ops.kernels import stem as TS
 from jegal_torch.ops.video import s2d_repack
@@ -107,8 +110,11 @@ def _mgrid_dense(m, w_pool):
 # 1. Twins against the Pallas kernels, interpreted, in bf16
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("impl", TS.IMPLS)
 @pytest.mark.parametrize("shape", [(24, 33, 24), (13, 45, 48)])
-def test_band_stem_bf16_twin_float_entry(gs_np, shape):
+def test_band_stem_bf16_twin_float_entry(gs_np, shape, impl):
+    """The bf16 stems' twin (kernels 1b and 2b share it) against the JAX
+    window and band kernels interpreted in bf16, float entry."""
     t4, h, w = shape
     frames = np.random.default_rng(7).random((t4, h, w, 3)) \
         .astype(np.float32)
@@ -116,14 +122,15 @@ def test_band_stem_bf16_twin_float_entry(gs_np, shape):
     lhs, scale, bias = JS.stem_kernel_params(_jax_bf16(blk))
     m = JS.stem_mgrid_x(JS.s2d_lanes(jnp.asarray(frames, jnp.bfloat16)),
                         lhs, scale, bias, w_valid=w // 3, interpret=True,
-                        impl="band")
+                        impl=impl)
     ops = TS.stem_kernel_params(_torch_bf16(blk))
     assert ops[0].dtype == BF and ops[1].dtype == torch.float32
-    got = TS.stem_pool(torch.from_numpy(frames).to(BF), *ops, impl="band")
+    got = TS.stem_pool(torch.from_numpy(frames).to(BF), *ops, impl=impl)
     assert_kernel_bar(got, _mgrid_dense(m, got.shape[2]))
 
 
-def test_band_stem_bf16_twin_planar_entry(gs_np):
+@pytest.mark.parametrize("impl", TS.IMPLS)
+def test_band_stem_bf16_twin_planar_entry(gs_np, impl):
     rng = np.random.default_rng(6)
     frames = rng.integers(0, 256, (12, 27, 48, 3), dtype=np.uint8)
     cut = rng.integers(0, 12, 12).astype(np.int32)
@@ -131,10 +138,11 @@ def test_band_stem_bf16_twin_planar_entry(gs_np):
     lhs, scale, bias = JS.stem_kernel_params(_jax_bf16(blk))
     m = JS.stem_mgrid_planar(jnp.asarray(media.s2d_repack(frames, cut)), lhs,
                              scale, bias, dtype=jnp.bfloat16, interpret=True,
-                             impl="band")
+                             impl=impl)
     ops = TS.stem_kernel_params(_torch_bf16(blk))
     _build.reset_launches()
-    got = TS.stem_pool_planar(torch.from_numpy(s2d_repack(frames, cut)), *ops)
+    got = TS.stem_pool_planar(torch.from_numpy(s2d_repack(frames, cut)), *ops,
+                              impl=impl)
     assert not any(_build.LAUNCHES.values())
     assert_kernel_bar(got, _mgrid_dense(m, got.shape[2]))
 
@@ -288,14 +296,14 @@ def sample():
         text="hello world abc", fname="clip")
 
 
-def _port_engine(weights, dtype):
+def _port_engine(weights, dtype, **kw):
     jp, gp, rp = weights
     return TAPI.JegalEngine(jegal_params_from_jax(jp),
                             gestsync_params_from_jax(gp), device="cpu",
                             roberta_params=roberta_params_from_jax(rp),
                             roberta_cfg=RobertaConfig(**TINY_XLMR),
                             tokenizer=WordTokenizer(make_tiny_tokenizer()),
-                            dtype=dtype)
+                            dtype=dtype, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -377,6 +385,28 @@ def test_bf16_extract_many_and_two_stage(results, sample, port_bf16):
     np.testing.assert_array_equal(again["gesture_emb"], two["gesture_emb"])
 
 
+@pytest.mark.parametrize("frames", ["raw", "planar"])
+def test_bf16_window_stem_engine(weights, sample, results, frames):
+    """A bf16 engine with stem_impl="window" (the JAX engine's default
+    stem) against the JAX bf16 engine and the float32 engine at the bars
+    above. On the CPU both stems take one twin, so its rows equal the
+    bf16 band engine's bit for bit."""
+    eng = _port_engine(weights, BF, stem_impl="window")
+    if frames == "raw":
+        got = eng.extract(modalities="vta", **sample)
+        want = results["bf16"]
+    else:
+        no_chin = {k: v for k, v in sample.items()
+                   if k not in ("frames", "chin_rows")}
+        got = eng.extract(modalities="vta", frames=s2d_repack(
+            sample["frames"], sample["chin_rows"]), **no_chin)
+        want = results["planar"]
+    _check_embs(got, results["jax"], JAX_COS)
+    _check_embs(got, results["f32"], F32_COS)
+    for k in ("gesture_emb", "content_emb"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
 def test_bf16_graph_signatures_carry_the_dtype(port_bf16):
     assert port_bf16.cached_graphs
     assert all(sig[-1] == "bfloat16" for sig in port_bf16.cached_graphs)
@@ -387,31 +417,106 @@ def test_bf16_graph_signatures_carry_the_dtype(port_bf16):
 # ---------------------------------------------------------------------------
 
 def test_refusals(weights):
+    """A dtype no kernel takes raises; a bf16 engine and the bf16 stem
+    wrapper take stem_impl="window"."""
     jp, gp, _ = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAPI.JegalEngine(jegal_params_from_jax(jp), device="cpu", dtype=BF,
-                         stem_impl="window")
+    eng = TAPI.JegalEngine(jegal_params_from_jax(jp), device="cpu", dtype=BF,
+                           stem_impl="window")
+    assert eng.dtype == BF
     with pytest.raises(ValueError, match="dtype"):
         TAPI.JegalEngine(jegal_params_from_jax(jp), device="cpu",
                          dtype=torch.float16)
     ops = TS.stem_kernel_params(_torch_bf16(gp["net_vid"][0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.stem_pool(torch.zeros(5, 27, 24, 3, dtype=BF), *ops,
-                     impl="window")
+    got = TS.stem_pool(torch.zeros(5, 27, 24, 3, dtype=BF), *ops,
+                       impl="window")
+    assert got.dtype == BF and tuple(got.shape) == TS.pooled_shape(5, 27, 24)
+
+
+def _dtype_case(case):
+    rng = np.random.default_rng(68)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 16, 64))
+                         .astype(np.float32))
+    ops = TS.stem_kernel_params(_torch_bf16(_as_numpy(
+        init_gestsync_params(torch.Generator().manual_seed(69)))
+        ["net_vid"][0]))
+    frames = torch.rand(5, 27, 24, 3, generator=torch.Generator()
+                        .manual_seed(70))
+    if case == "flash float16":
+        return FA.flash_attention(*(q.half() for _ in range(3)))
+    if case == "flash mixed":
+        return FA.flash_attention(q.to(BF), q, q.to(BF))
+    if case == "stem float16":
+        return TS.stem_pool(frames.half(), ops[0].half(), *ops[1:],
+                            impl="window")
+    return TS.stem_pool(frames.to(BF), ops[0].float(), *ops[1:],
+                        impl="window")
+
+
+@pytest.mark.parametrize("case", ["flash float16", "flash mixed",
+                                  "stem float16", "stem mixed"])
+def test_wrappers_refuse_other_dtypes(case):
+    """The flash attention and stem wrappers take float32 or bf16 operands
+    of one dtype; anything else raises, on the CPU as on the card."""
+    with pytest.raises(TypeError, match="float32 or bfloat16|must be|share"):
+        _dtype_case(case)
 
 
 def test_bf16_on_the_card_refuses_a_t_bucket_past_512(monkeypatch):
-    """On the card a bf16 gesture encoder past 512 frames would need the
-    flash attention kernel, which has no bf16 variant: it raises (the
-    routing is driven on the CPU through `_on_card`)."""
-    monkeypatch.setattr(TT, "_on_card", lambda t: True)
-    d, heads = 128, 2
-    stack = {"layers": _torch_bf16(_layers(67, 1, d, 256)),
-             "norm": {"scale": torch.ones(d, dtype=BF),
-                      "bias": torch.zeros(d, dtype=BF)}}
-    x = torch.zeros(1, 1024, d, dtype=BF)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.encoder_stack(stack, x, None, heads)
+    """A bf16 pre-norm stack at T 1024 (past the fused gate's 512) through
+    the card's routing (driven on the CPU through `_on_card`) no longer
+    refuses: each layer's attention goes through `flash_attention_diff` in
+    bf16. Held against the JAX package's `encoder_stack` in bf16 on its
+    flash kernel (interpreted): a layer's attention within MAX_ULPS, the
+    stack at KERNEL_COS. The stack is not held in ulps: the port's bf16
+    LayerNorm rounds once, as the Pallas kernels' `_ln_f32`, where XLA's
+    bf16 LayerNorm rounds at its own sites (3 ulps apart on one LayerNorm
+    here), and two stacks that differ at one rounding site drift 7-8 ulps
+    apart over 1024 keys and two layers (the JAX stack on its flash kernel
+    against the same stack dense does too)."""
+    from jegal_tpu.core import layers as JL
+    from jegal_tpu.core import transformer as JT
+
+    d, heads, t = 128, 2, 1024
+    layers = _layers(67, 2, d, 256)
+    rng = np.random.default_rng(71)
+    norm = {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+    x = rng.standard_normal((1, t, d)).astype(np.float32)
+    mask = np.ones((1, 1, t), np.float32)
+    mask[..., 1000:] = 0.0
+    jstack = _jax_bf16({"layers": layers, "norm": norm})
+    jx = jnp.asarray(x, jnp.bfloat16)
+    h = JL.ref_layer_norm(jstack["layers"][0]["norm1"], jx)
+    JT.set_attention_impl("flash")
+    try:
+        want = JT.encoder_stack(jstack, jx, jnp.asarray(mask), heads)
+        want_attn = JT.multi_head_attention(jstack["layers"][0]["attn"], h,
+                                            h, h, jnp.asarray(mask), heads)
+    finally:
+        JT.set_attention_impl("auto")
+    seen = []
+    real = FA.flash_attention_diff
+
+    def count_flash(q, k, v, m=None):
+        seen.append((tuple(q.shape), q.dtype))
+        return real(q, k, v, m)
+
+    monkeypatch.setattr(TT, "_on_card", lambda t_: True)
+    monkeypatch.setattr(FA, "flash_attention_diff", count_flash)
+    tstack = _torch_bf16({"layers": layers, "norm": norm})
+    th = torch.from_numpy(np.array(_f32(h))).to(BF)
+    with torch.no_grad():
+        got = TT.encoder_stack(tstack, torch.from_numpy(x).to(BF),
+                               torch.from_numpy(mask), heads)
+        assert seen == [((1, heads, t, d // heads), BF)] * 2
+        got_attn = TT.multi_head_attention(tstack["layers"][0]["attn"], th,
+                                           th, th, torch.from_numpy(mask),
+                                           heads)
+    assert len(seen) == 3
+    assert got.dtype == got_attn.dtype == BF
+    bars.check_kernel_bar(_f32(got_attn), _f32(want_attn),
+                          "bf16 attention at T 1024")
+    assert min_row_cos(got, want) >= KERNEL_COS
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,13 @@
 """The port's blockwise attention (ops/kernels/flash_attention.py) and the
 encoder routing around it (core/transformer.py) against the JAX package on
-the CPU: the plain twin against the Pallas kernel in interpret mode, the
-autograd backward against jax.vjp of flash_attention_diff, the dispatch
-gates, and which encoders take the layer loop and its flash attention.
+the CPU: the plain twin against the Pallas kernel in interpret mode, in
+float32 and in bf16, the autograd backward against jax.vjp of
+flash_attention_diff (bf16 inputs too), the dispatch gates, and which
+encoders take the layer loop and its flash attention.
 
 Inputs are drawn with numpy from fixed seeds. Tolerance rtol = atol = 2e-5
-(the port's float32 parity bar)."""
+(the port's float32 parity bar); in bf16 the kernel bar of
+tests/bf16_bars.py (2 bf16 ulps an element, min row cosine 0.9999)."""
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from jegal_torch.models import jegal as TJ
 from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
+import bf16_bars as bars
 from torch_threads import few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -55,6 +58,48 @@ def test_plain_twin_matches_pallas_kernel(t, d):
                                                v[1].shape), **TOL)
 
 
+def _bf16(a):
+    """A float32 array rounded to bf16 once, as JAX and as torch (the same
+    values)."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("masking", ["none", "half the keys",
+                                     "a fully masked row"])
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("d", [64, 96])
+def test_plain_twin_matches_pallas_kernel_bf16(masking, t, d):
+    """The bf16 twin (kernel 6b's function) against the Pallas kernel
+    interpreted on bf16 q, k, v: T 256 spans two 128-key blocks of its
+    online softmax; a fully masked batch row averages V uniformly."""
+    rng = np.random.default_rng(3 * t + d)
+    q, k, v = (rng.standard_normal((2, 2, t, d)).astype(np.float32)
+               for _ in range(3))
+    mask = None
+    if masking != "none":
+        mask = np.ones((2, t), np.float32)
+        mask[0, t // 2:] = 0.0
+        if masking == "a fully masked row":
+            mask[1] = 0.0
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(a) for a in (q, k, v))
+    want = JFA.flash_attention(jq, jk, jv, None if mask is None
+                               else jnp.asarray(mask), 128, 128, True)
+    got = FA.flash_attention(tq, tk, tv, None if mask is None
+                             else torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    bars.check_kernel_bar(bars.as_f32(got),
+                          np.asarray(want.astype(jnp.float32)),
+                          f"bf16 flash, T {t}, D {d}, {masking}")
+    if masking == "a fully masked row":
+        bars.check_kernel_bar(
+            bars.as_f32(got[1]),
+            np.broadcast_to(bars.as_f32(tv[1]).mean(1, keepdims=True),
+                            tv[1].shape).astype(np.float32),
+            "the fully masked row")
+
+
 @pytest.mark.parametrize("t,d", [(16, 96), (128, 64)])
 def test_backward_matches_jax_vjp(t, d):
     q, k, v, mask = _qkvm(7 * t + d, 2, 2, t, d)
@@ -71,6 +116,33 @@ def test_backward_matches_jax_vjp(t, d):
     for name, gt, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(w), **TOL,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("t,d", [(16, 96), (128, 64)])
+def test_backward_matches_jax_vjp_bf16(t, d):
+    """bf16 q, k, v: the VJP upcasts to float32 and casts dq, dk and dv
+    back to bf16, as `_flash_bwd`; each within the kernel bar of JAX's,
+    the fully masked batch row's gradient kept (not zeroed)."""
+    q, k, v, mask = _qkvm(11 * t + d, 2, 2, t, d)
+    g = np.random.default_rng(t + 1).standard_normal(q.shape) \
+        .astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_bf16(a) for a in (q, k, v, g))
+    out, vjp = jax.vjp(
+        lambda q, k, v: JFA.flash_attention_diff(q, k, v, jnp.asarray(mask),
+                                                 128, 128, True), jq, jk, jv)
+    want = vjp(jg)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    got = FA.flash_attention_diff(*leaves, torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16
+    bars.check_kernel_bar(bars.as_f32(got), np.asarray(
+        out.astype(jnp.float32)), "bf16 forward")
+    got.backward(tg)
+    for name, x, w in zip("qkv", leaves, want):
+        assert x.grad.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        bars.check_kernel_bar(bars.as_f32(x.grad),
+                              np.asarray(w.astype(jnp.float32)), f"d{name}")
+    # the fully masked batch row passes a gradient, as `_flash_bwd` does
+    assert np.abs(bars.as_f32(leaves[0].grad[1])).max() > 0
 
 
 @pytest.mark.parametrize("t,d_k", [(8, 64), (16, 96), (21, 64), (100, 64),

@@ -19,7 +19,10 @@ entries relaunched with identical bits and on all-0 and all-255 pixels,
 and its block without spills; the band stem's two entries at t_in = 5 and
 J = 1, over ragged strips and frame groups, on planar widths that take
 plain loads, on all-0 and all-255 pixels, relaunched with identical bits,
-and its block without spills; the wrappers' refusals, a
+and its block without spills; the bf16 variants of every kernel, the
+window stem's (1b) and the flash attention's (6b, with a misaligned
+operand refused) among them, against their twins at the bars of
+tests/bf16_bars.py; the wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
 takes; and the engine's CUDA graphs: a replay against an eager run of
@@ -963,15 +966,108 @@ def test_attention_core_bf16_fits_an_sm_without_spills(dev, dk, packed):
 
 
 def test_bf16_wrappers_refuse(dev):
-    """A bf16 weight beside float32 rows, and the window stem in bf16,
-    raise; nothing is cast quietly."""
+    """A bf16 weight beside float32 rows, float32 weights beside bf16
+    frames (either stem), float16 frames and mixed q, k, v dtypes raise;
+    nothing is cast quietly."""
     w = _weights(512, 2048, dev)
     x = torch.randn(21, 512, device=dev).to(BF)
     with pytest.raises(TypeError, match="bfloat16"):
         FL.ffn_sublayer(x, w, prenorm=False, ln_kind="std")
     ops = _stem_weights(dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).to(BF),
-                    ops[0].to(BF), *ops[1:], impl="window")
-    with pytest.raises(TypeError, match="bfloat16"):
-        S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).to(BF), *ops)
+    for impl in S.IMPLS:
+        with pytest.raises(TypeError, match="bfloat16"):
+            S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).to(BF), *ops,
+                        impl=impl)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).half(),
+                        ops[0].half(), *ops[1:], impl=impl)
+    q, k, v, _ = _qkvm(1, 2, 64, 64, dev)
+    with pytest.raises(TypeError, match="share"):
+        FA.flash_attention(q.to(BF), k, v.to(BF))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
+                                    (12, 45, 96), (28, 270, 480)])
+@pytest.mark.parametrize("fill", [0, 255, None])
+def test_stem_window_bf16(dev, t4, h, w, fill):
+    """The window stem's bf16 variant (kernel 1b) on both entries (bf16
+    frames; planar bytes with the folded bf16 weight), at t_in 5 and J 1,
+    ragged pooled edges, plain-load widths (a frame row of 3 W halves not
+    a multiple of 8, planar W/3 not a multiple of 16) and the real 270x480
+    frame, on all-0, all-255 and random bytes: against the twins (which
+    the band stem's bf16 variant shares), one launch counted per entry,
+    and relaunched bit-identical."""
+    if fill is None:
+        u8 = torch.randint(0, 256, (t4, h, w, 3),
+                           generator=torch.Generator().manual_seed(9),
+                           dtype=torch.uint8)
+    else:
+        u8 = torch.full((t4, h, w, 3), fill, dtype=torch.uint8)
+    planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
+    frames = (u8.to(dev).float() / 255.0).to(BF)
+    wt, scale, bias = _stem_weights(dev, seed=10)
+    ops = (wt.to(BF), scale, bias)
+    _build.reset_launches()
+    got_f = S.stem_pool(frames, *ops, impl="window")
+    got_p = S.stem_pool_planar(planar, *ops, impl="window")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict({k: 0 for k in _build.LAUNCHES},
+                                   stem_pool_bf16=1, stem_pool_planar_bf16=1)
+    assert got_f.shape == got_p.shape == S.pooled_shape(t4, h, w)
+    _check_bf16(got_f, S.stem_pool_plain(frames, *ops), "window float")
+    _check_bf16(got_p, S.stem_pool_planar_plain(planar, *ops),
+                "window planar")
+    assert torch.equal(S.stem_pool(frames, *ops, impl="window"), got_f)
+    assert torch.equal(S.stem_pool_planar(planar, *ops, impl="window"),
+                       got_p)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_stem_window_bf16_fits_an_sm_without_spills(dev, planar):
+    info = S.kernel_info(planar, impl="window", bf16=True)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 128, 64), (2, 2, 256, 64),
+                                   (2, 2, 128, 96), (2, 2, 256, 96),
+                                   (1, 8, 1024, 64), (8, 8, 128, 96),
+                                   (2, 3, 100, 96), (2, 3, 5, 64),
+                                   (2, 3, 1000, 64)])
+def test_flash_attention_bf16(dev, shape):
+    """The flash kernel's bf16 variant (kernel 6b) at the CPU test's
+    shapes, the long clip's, a text shape at D 96 and ragged T, with a pad
+    tail in every row and, where B > 1, a fully masked batch row (which
+    averages V uniformly), and without a mask: against its twin at the
+    bars, one launch counted, a relaunch on the transposed head views
+    bit-identical."""
+    q, k, v, mask = (x.to(BF) if x.dim() == 4 else x
+                     for x in _qkvm(*shape, dev, seed=1))
+    _build.reset_launches()
+    got = FA.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(
+        {k_: 0 for k_ in _build.LAUNCHES}, flash_attention_bf16=1)
+    _check_bf16(got, FA.flash_attention_plain(q, k, v, mask), "flash bf16")
+    if shape[0] > 1:
+        _check_bf16(got[-1], v[-1].float().mean(1, keepdim=True)
+                    .expand_as(v[-1]).to(BF), "the fully masked row")
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(FA.flash_attention(qt, k, v, mask), got)
+    _check_bf16(FA.flash_attention(q, k, v),
+                FA.flash_attention_plain(q, k, v), "flash bf16, no mask")
+
+
+def test_flash_attention_bf16_refuses_misaligned(dev):
+    """A bf16 q, k or v that does not start on 16 bytes is refused, never
+    run another way."""
+    buf = torch.randn(8 + 2 * 8 * 64 * 64, device=dev).to(BF)
+    bad = buf[1:1 + 2 * 8 * 64 * 64].view(2, 8, 64, 64)
+    good = buf[8:].view(2, 8, 64, 64)
+    _build.reset_launches()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            FA.flash_attention(*args)
+    assert not any(_build.LAUNCHES.values())

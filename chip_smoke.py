@@ -284,7 +284,11 @@ band stem, block 2, attention, FFN and stack from the bf16 engine's raw
 clip, the window stem's float and planar entries (`stem_pool_bf16`,
 `stem_pool_planar_bf16`) from the window engine's raw and planar clip,
 and the flash attention from the bf16 long clip, whose time it sums
-(`launches_per_clip` of each timed shape, 6 at the long clip's).
+(`launches_per_clip` of each timed shape, 6 at the long clip's). The bf16
+attention and FFN rows' per-shape rows also carry each launch's split
+(12a, torch.profiler after an L2 flush): its device operations, each
+product's plan (gemm_plan.plan_bf16), device ms and bound share, the
+bf16 attention core's and the row passes' device ms.
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -1048,8 +1052,11 @@ def profile_clip(engine, sample, modalities):
 # starts within microseconds of the window's opening can be mapped before
 # it and dropped (a replay against an eager run once counted the eager
 # run's first 14 kernels, its BatchNorm folds, as missing; `--profiler`
-# measures how often)
-PROFILE_SETTLE_S = 0.01
+# measures how often). 10 ms held in a short run; in the whole script's
+# process, past phases 7-11, a 10 ms window lost a replay's first 13
+# kernels and, in two runs, all of a sublayer launch's, so the window is
+# held 50 ms
+PROFILE_SETTLE_S = 0.05
 
 
 @contextlib.contextmanager
@@ -4035,17 +4042,71 @@ def check_bf16_flash(dev):
     return rows
 
 
+def sublayer_kernels_bf16(plans, prenorm: bool, attn: bool) -> int:
+    """Device operations of one bf16 sublayer under the plans of its two
+    products (gemm_plan.plan_bf16): the memset of the tile counters when a
+    product splits, the pre-LN, the two products (each reducing its own
+    split), the attention core, and the post-LN's row pass."""
+    return (int(any(p[2] > 1 for p in plans)) + int(prenorm) + 2
+            + int(attn) + int(not prenorm))
+
+
+def bf16_split(fn, what: str, products, plans, prenorm: bool, attn: bool,
+               core_flops: float, core_bytes: float) -> dict:
+    """12a's per-launch split of a bf16 sublayer: its device operations
+    (torch.profiler, one warm launch after an L2 flush), each product's
+    device ms beside its own bf16 bound (2 M N K at the dense bf16 rate,
+    or A, B and the bf16 output read and written once) and its plan, the
+    attention core's ms beside its bound, and the row passes' ms."""
+    want = sublayer_kernels_bf16(plans, prenorm, attn)
+    kernels = kernel_breakdown(lambda: (flush_l2(), fn())[1], what, None)
+    kernels = [(n, ms) for n, ms in kernels if "elementwise" not in n
+               and "fill" not in n.lower()]
+    if CHECK_KERNEL_COUNTS and len(kernels) != want:
+        raise AssertionError(f"{what}: {len(kernels)} device operations, "
+                             f"the design runs {want}: {kernels}")
+    gemms = [ms for n, ms in kernels if "gemm_wg_kernel" in n]
+    prods = []
+    for (m, n, k), plan, ms in zip(products, plans, gemms):
+        b_ms, b_by = bound_bf16(2.0 * m * n * k, 2.0 * (m * k + k * n + m * n))
+        prods.append(dict(mnk=[m, n, k], plan=list(plan), ms=ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms))
+        log(f"    product {(m, n, k)} plan {tuple(plan)}: {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ({b_by}), {100 * b_ms / ms:.1f} % of it")
+    out = dict(device_ops=len(kernels), products=prods,
+               row_pass_ms=sum(ms for n, ms in kernels if "row_norm" in n),
+               other_ms=sum(ms for n, ms in kernels if "Memset" in n
+                            or "emset" in n))
+    if attn:
+        core = sum(ms for n, ms in kernels if "attention_core_bf16" in n)
+        b_ms, b_by = bound_bf16(core_flops, core_bytes)
+        out["attention_core"] = dict(ms=core, bound_ms=b_ms, bound_by=b_by,
+                                     bound_share=b_ms / core)
+        log(f"    attention core: {core:.4f} ms, bound {b_ms:.4f} ({b_by}), "
+            f"{100 * b_ms / core:.1f} % of it")
+    log(f"    row passes {out['row_pass_ms']:.4f} ms; {len(kernels)} device "
+        f"operations a launch")
+    return out
+
+
 def check_bf16_encoders(gp, jp, rp, dev, text_mask, ids32, mask32):
-    """12a: the bf16 attention and FFN sublayers at phase 3's three shapes
-    and the bf16 XLM-R stack at the clip's 32 rows."""
+    """12a: the bf16 attention and FFN sublayers at phase 3's three shapes,
+    each launch split into its products, core and row passes, and the bf16
+    XLM-R stack at the clip's 32 rows."""
     import torch
 
     from jegal_torch.api import _cast_tree
     from jegal_torch.config import NUM_HEADS
     from jegal_torch.models import roberta as R
     from jegal_torch.ops.kernels import fused_layer as FL
+    from jegal_torch.ops.kernels import gemm_plan as GP
 
     bf = torch.bfloat16
+    for tile in sorted(GP.TILES_BF16):
+        info = FL.gemm_info_bf16(tile)
+        log(f"bf16 wgmma product, tile {tile}: {info}")
+        if info["spill_bytes"]:
+            raise AssertionError(f"the bf16 product spills: {info}")
     for dk in FL.HEAD_DIMS:
         for packed in (True, False):
             info = FL.attention_info(dk, packed, bf16=True)
@@ -4072,21 +4133,37 @@ def check_bf16_encoders(gp, jp, rp, dev, text_mask, ids32, mask32):
             4.0 * r if km is not None else 0.0)
         ffn_flops = 4.0 * r * d * dff
         ffn_bytes = 2.0 * (2 * r * d + 2 * d * dff) + 4.0 * (dff + 3 * d)
-        rows["attn_sublayer_bf16"].append(bf16_row(
-            "attn_sublayer_bf16",
-            lambda: FL.attn_sublayer(x, w, seg, heads, kmask=km, **kw),
+        sms = GP.sm_count(dev)
+        products = FL.stack_products(r, d, dff)
+        plans = [GP.plan_bf16(*p, sms) for p in products]
+
+        def attn():
+            return FL.attn_sublayer(x, w, seg, heads, kmask=km, **kw)
+
+        def ffn():
+            return FL.ffn_sublayer(x, w, **kw)
+
+        row = bf16_row(
+            "attn_sublayer_bf16", attn,
             lambda: FL.attn_sublayer_plain(x, w, seg, heads, kmask=km, **kw),
             lambda: FL.attn_sublayer(x.float(), w32, seg, heads, kmask=km,
                                      **kw),
             lambda: _library_attn(x, lw, seg, heads, pre, km), attn_flops,
-            attn_bytes, True, shape=label, launches_per_clip=per_clip_n))
-        rows["ffn_sublayer_bf16"].append(bf16_row(
-            "ffn_sublayer_bf16",
-            lambda: FL.ffn_sublayer(x, w, **kw),
+            attn_bytes, True, shape=label, launches_per_clip=per_clip_n)
+        row.update(bf16_split(
+            attn, "bf16 attn_sublayer launch", products[:2], plans[:2], pre,
+            True, 4.0 * n * heads * seg * seg * dk,
+            2.0 * 4 * r * d + (4.0 * r if km is not None else 0.0)))
+        rows["attn_sublayer_bf16"].append(row)
+        row = bf16_row(
+            "ffn_sublayer_bf16", ffn,
             lambda: FL.ffn_sublayer_plain(x, w, **kw),
             lambda: FL.ffn_sublayer(x.float(), w32, **kw),
             lambda: _library_ffn(x, lw, pre), ffn_flops, ffn_bytes, True,
-            shape=label, launches_per_clip=per_clip_n))
+            shape=label, launches_per_clip=per_clip_n)
+        row.update(bf16_split(ffn, "bf16 ffn_sublayer launch", products[2:],
+                              plans[2:], pre, False, 0.0, 0.0))
+        rows["ffn_sublayer_bf16"].append(row)
 
     cfg = R.XLMR_BASE
     d, heads, dff = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
@@ -4499,11 +4576,14 @@ def bf16_kernel_rows(tower, encoders, flash, launches) -> list:
 
 
 def run_phase12(gp, jp, rp, engine, sample, raw_res, stem_inputs, ids32,
-                mask32):
-    """Phase 12 (`--bf16`): 12a the bf16 kernels, 12b the bf16 engine."""
+                mask32, encoders=None):
+    """Phase 12 (`--bf16`): 12a the bf16 kernels, 12b the bf16 engine.
+    encoders: 12a's encoder rows when they ran already."""
     dev = engine.device
     tower = check_bf16_tower(gp, dev, stem_inputs)
-    encoders = check_bf16_encoders(gp, jp, rp, dev, mask32[0], ids32, mask32)
+    if encoders is None:
+        encoders = check_bf16_encoders(gp, jp, rp, dev, mask32[0], ids32,
+                                       mask32)
     flash = check_bf16_flash(dev)
     launches, stats = run_bf16(gp, jp, rp, engine, sample, raw_res)
     return bf16_kernel_rows(tower, encoders, flash, launches), stats
@@ -4628,6 +4708,10 @@ def main() -> int:
     sub = check_sublayers(gp, jp, dev, mask32[0])
     stack = check_stack(rp, dev, ids32, mask32, train_batch)
     flash = check_flash(dev)
+    # 12a's encoder rows run here, beside phase 3's kernel breakdowns,
+    # early in the process, where the profiler keeps every device event
+    bf16_encoders = check_bf16_encoders(gp, jp, rp, dev, mask32[0], ids32,
+                                        mask32)
     launches, slice_stats, engine, sample, raw_res = run_slice(gp, jp, rp)
     log("slice: " + json.dumps(slice_stats))
     planar_rows = check_planar_kernels(gp, dev, *stem_inputs)
@@ -4645,7 +4729,7 @@ def main() -> int:
     cli = run_cli(gp, jp, rp, engine)
     serve = run_serve(gp, jp, rp, engine)
     bf16_rows, bf16 = run_phase12(gp, jp, rp, engine, sample, raw_res,
-                                  stem_inputs, ids32, mask32)
+                                  stem_inputs, ids32, mask32, bf16_encoders)
 
     rows = {"attn_sublayer": per_clip(sub["attn_sublayer"]),
             "ffn_sublayer": per_clip(sub["ffn_sublayer"]),

@@ -56,21 +56,35 @@
 //    it, summed in registers and stored to shared memory.
 //  * No atomics: two launches give identical bits.
 //
-// The bf16 core (BF16 = true; the JAX engine's bf16 dtype) rounds where
-// `_attn_kernel` rounds a bf16 block (fused_layer.py:133-145): the QKV
-// rows (float32, the bias added) are rounded as they are staged, q * scale,
-// k and v to bf16; the scores, the -1e9 fill and the softmax are float32;
-// each probability is rounded to bf16 before P V, and the output to bf16.
-// Its operands are bf16 values, which TF32 holds exactly (8 of its 11
-// significant bits), so one TF32 pass on the same fragments computes the
-// bf16 products exactly in float32: no lo parts, a third of the products
-// of 3xTF32. The staging keeps float32 rows (the rounding is applied
-// where the loads land), so the fragment and bank layout is the float32
-// core's. To round the normalized p as the TPU kernel does, the bf16 core
-// walks the keys twice: pass 0 is the online softmax without P V (each
-// key slice's max and sum, combined across the row group's slices through
-// a small exchange area), pass 1 recomputes the scores, rounds exp(s - M)
-// / L to bf16 and sums P V; the slices' outputs then add in key order.
+// The bf16 core (attention_core_bf16; the JAX engine's bf16 dtype) is a
+// schedule of its own. It rounds where `_attn_kernel` rounds a bf16 block
+// (fused_layer.py:133-145): the QKV product's epilogue writes bf16 rows,
+// q * scale, k and v each rounded once (gemm.cuh's `scale_cols`), so the
+// core reads half the float32 core's bytes and sums no partials (the bf16
+// product reduces its split in its own kernel); the scores, the -1e9 fill
+// and the softmax are float32; each probability exp(s - M) / L (M, L the
+// row's exact max and sum over all its keys) is rounded to bf16 before
+// P V, and the output to bf16. One walk of the keys:
+//
+//  * Each block stages its keys once, as bf16 rows padded to dk + 8
+//    halves (every 32-bit fragment load and ldmatrix row of a warp on 32
+//    banks): packed (seg <= 64), the 64-row tile of whole segments, as the
+//    float32 core; streamed (64 < seg <= 512, the gesture encoder), the
+//    whole segment beside 16 query rows (2 x 512 x 104 x 2 bytes at most,
+//    dk 96), its keys cut into 4 warps' slices of a multiple of 16.
+//  * Both products on mma.sync m16n8k16 bf16 with float32 accumulators,
+//    exact products of bf16 values in one pass; V's fragments through
+//    ldmatrix.trans.
+//  * The scores stay in registers (at most 16 n8 tiles, 64 floats a
+//    thread): the row's max over the warps that share its keys, then its
+//    sum of exp(s - M), each exchanged through shared memory and combined
+//    in warp order, then p rounded and P V, then the warps' partial
+//    outputs added in key order. No atomics: two launches give identical
+//    bits. A segment whose keys are all masked averages its own keys.
+//  * Bound: its bytes, 2 (3 seg dk + seg dk) a segment and head plus the
+//    mask, and the latency of one block's load, two exchanges and two
+//    products; the gesture encoder's 8 heads x 8 query tiles are 64
+//    blocks.
 #pragma once
 
 #include <math.h>
@@ -124,8 +138,6 @@ struct Core {
   static constexpr int Q = QT * RS;
   static constexpr int STAGE = 2 * AC_KT * RS + AC_KT;   // K, V, mask
   static constexpr int BYTES = (Q + STAGES * STAGE) * (int)sizeof(float);
-  // the bf16 core's exchange of each row's (m, l) between its key slices
-  static constexpr int XCH_BYTES = WARPS * 32 * 4 * (int)sizeof(float);
   static_assert(KW * QW == WARPS, "warps split evenly");
   static_assert(DK % 32 == 0, "dk flushes in 32-column steps");
 };
@@ -133,11 +145,11 @@ struct Core {
 // grid: (tiles, heads). Packed: tile x is segments [x per_tile, (x + 1)
 // per_tile). Streamed: tile x is query rows [(x % q) 16, +16) of segment
 // x / q, q = ceil(seg / 16).
-template <int DK, bool PACKED, bool BF16 = false>
+template <int DK, bool PACKED>
 __global__ void __launch_bounds__(Core<DK, PACKED>::THREADS,
                                   Core<DK, PACKED>::MIN_BLOCKS)
 attention_core(QkvSource src, const float* __restrict__ kmask,
-               void* __restrict__ out_, int R, int d, int seg, int per_tile,
+               float* __restrict__ out, int R, int d, int seg, int per_tile,
                float scale) {
   using C = Core<DK, PACKED>;
   constexpr int RS = C::RS, NKT = C::NKT, NF = DK / 8, KS = DK / 8;
@@ -172,12 +184,11 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 
   // n rows from row0 (the first `live` of them real, the rest zeros) of
   // `parts` thirds of the QKV rows, from column col and then col + d, into
-  // n rows of dst (stride RS) a part, part_stride floats apart; bf16: each
-  // value times `mul` (the scale for Q) and rounded to bf16
+  // n rows of dst (stride RS) a part, part_stride floats apart
   auto load_rows = [&](float* dst, int part_stride, int row0, int n,
-                       int live, int col, int parts, float mul) {
+                       int live, int col, int parts) {
     const int items = parts * n * COPIES;
-    if (!BF16 && src.splits == 1) {
+    if (src.splits == 1) {
       for (int c = tid; c < items; c += C::THREADS) {
         const int part = c / (n * COPIES), rc = c % (n * COPIES);
         const int r = rc / COPIES, cc = (rc % COPIES) * 4;
@@ -218,28 +229,23 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 #pragma unroll
       for (int b = 0; b < C::BATCH; ++b) {
         if (at[b] == nullptr) continue;
-        if (p[b] != nullptr && (!BF16 || src.splits > 1)) {
+        if (p[b] != nullptr) {
           const int c = c0 + b * C::THREADS;
           const int part = c / (n * COPIES), cc = (c % COPIES) * 4;
           v[b] = add4(v[b], __ldg(reinterpret_cast<const float4*>(
                                 src.bias + col + part * d + cc)));
         }
-        if constexpr (BF16)
-          v[b] = make_float4(round_bf16(v[b].x * mul),
-                             round_bf16(v[b].y * mul),
-                             round_bf16(v[b].z * mul),
-                             round_bf16(v[b].w * mul));
         *reinterpret_cast<float4*>(at[b]) = v[b];
       }
     }
   };
-  load_rows(Qs, 0, q_row0, C::QT, q_n, head * DK, 1, scale);
+  load_rows(Qs, 0, q_row0, C::QT, q_n, head * DK, 1);
   auto load_tile = [&](int stage, int tile) {
     float* ks = ring + stage * C::STAGE;
     float* vs = ks + AC_KT * RS;
     const int k0 = tile * AC_KT;
     load_rows(ks, AC_KT * RS, k_row0 + k0, AC_KT, min(AC_KT, k_n - k0),
-              d + head * DK, 2, 1.f);
+              d + head * DK, 2);
     if (kmask != nullptr && tid < AC_KT) {
       const bool ok = k0 + tid < k_n;
       cp_async4(vs + AC_KT * RS + tid, ok ? kmask + k_row0 + k0 + tid : kmask,
@@ -261,47 +267,7 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
                           PACKED ? (qg * 16 + g + 8) / seg : 0};
   const float* qa = Qs + (qg * 16 + g) * RS + t;
   const int kl = kq * 8 * NKT;            // the warp's first key of a tile
-  // bf16: the rows' max and sum over all their keys, from pass 0
-  float M[2] = {0.f, 0.f}, L[2] = {1.f, 1.f};
 
-  // bf16 runs the keys twice: pass 0 finds each row's max and sum (the
-  // online softmax without P V), pass 1 rounds the normalized p =
-  // exp(s - M) / L to bf16, as the TPU kernel does, and sums P V
-  for (int pass = 0; pass < (BF16 ? 2 : 1); ++pass) {
-  if (pass == 1) {
-    // the row group's key slices hand (m, l) to each other through the
-    // exchange area, lane for lane, and combine them in key order
-    float* xch = smem + C::Q + C::STAGES * C::STAGE;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    }
-    float* mine = xch + (warp * 32 + lane) * 4;
-    mine[0] = m[0];
-    mine[1] = m[1];
-    mine[2] = l[0];
-    mine[3] = l[1];
-    cp_async_wait<0>();
-    __syncthreads();   // every slice's (m, l) written; the ring free
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < C::KW; ++w)
-        mx = fmaxf(mx, xch[((qg * C::KW + w) * 32 + lane) * 4 + h]);
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < C::KW; ++w) {
-        const float* x = xch + ((qg * C::KW + w) * 32 + lane) * 4;
-        sum = fmaf(x[2 + h], expf(x[h] - mx), sum);
-      }
-      M[h] = mx;
-      L[h] = sum;
-    }
-    load_tile(0, 0);
-    cp_async_commit();
-  }
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_async_wait<0>();
     __syncthreads();   // the tile's copies visible; tile - 1's stage free
@@ -347,21 +313,6 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
         for (int kk = c0; kk < c0 + 4; ++kk) {
           uint32_t ahi[4], alo[4];
           const float* p = qa + kk * 8;
-          if constexpr (BF16) {   // staged as bf16(q * scale): exact in TF32
-            ahi[0] = __float_as_uint(p[0]);
-            ahi[1] = __float_as_uint(p[8 * RS]);
-            ahi[2] = __float_as_uint(p[4]);
-            ahi[3] = __float_as_uint(p[8 * RS + 4]);
-#pragma unroll
-            for (int j = 0; j < CH; ++j) {
-              if (j0 + j < jlo || j0 + j >= jhi) continue;
-              const float* b = ks + ((j0 + j) * 8 + g) * RS + kk * 8 + t;
-              const uint32_t bb[2] = {__float_as_uint(b[0]),
-                                      __float_as_uint(b[4])};
-              mma_tf32(part[j], ahi, bb);
-            }
-            continue;
-          }
           split_tf32(p[0] * scale, ahi[0], alo[0]);
           split_tf32(p[8 * RS] * scale, ahi[1], alo[1]);
           split_tf32(p[4] * scale, ahi[2], alo[2]);
@@ -404,33 +355,24 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
         s[j][e] = x;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
       }
-    float corr[2] = {1.f, 1.f};
-    if (BF16 && pass == 1) {
+    float corr[2];
 #pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)   // -inf -> 0
-          s[j][e] = round_bf16(expf(s[j][e] - M[e >> 1]) / L[e >> 1]);
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-        const float m_new = fmaxf(m[h], tmax[h]);   // finite: m starts finite
-        corr[h] = expf(m[h] - m_new);
-        m[h] = m_new;
-        l[h] *= corr[h];
-      }
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[j][e] - m[e >> 1]);   // -inf -> 0
-          s[j][e] = p;
-          l[e >> 1] += p;
-        }
-      if (BF16) continue;   // pass 0: the max and sum only
+    for (int h = 0; h < 2; ++h) {
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+      const float m_new = fmaxf(m[h], tmax[h]);   // finite: m starts finite
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
     }
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);   // -inf -> 0
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
 
     // O = O * corr + P V, each 32 keys' products from zero: P's A fragment
     // for keys 8 kk.. is s[kk] itself, split a 32-key chunk at a time
@@ -439,13 +381,6 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
       uint32_t phi[CH][4], plo[CH][4];
 #pragma unroll
       for (int kk = 0; kk < CH; ++kk) {
-        if constexpr (BF16) {
-          phi[kk][0] = __float_as_uint(s[c0 + kk][0]);
-          phi[kk][1] = __float_as_uint(s[c0 + kk][2]);
-          phi[kk][2] = __float_as_uint(s[c0 + kk][1]);
-          phi[kk][3] = __float_as_uint(s[c0 + kk][3]);
-          continue;
-        }
         split_tf32(s[c0 + kk][0], phi[kk][0], plo[kk][0]);
         split_tf32(s[c0 + kk][2], phi[kk][1], plo[kk][1]);
         split_tf32(s[c0 + kk][1], phi[kk][2], plo[kk][2]);
@@ -461,17 +396,6 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 #pragma unroll
         for (int kk = 0; kk < CH; ++kk) {
           if (c0 + kk < jlo || c0 + kk >= jhi) continue;
-          if constexpr (BF16) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float* b =
-                  vs + ((c0 + kk) * 8 + 2 * t) * RS + (j0 + j) * 8 + g;
-              const uint32_t bb[2] = {__float_as_uint(b[0]),
-                                      __float_as_uint(b[RS])};
-              mma_tf32(pv[j], phi[kk], bb);
-            }
-            continue;
-          }
           uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -496,18 +420,8 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
       }
     }
   }
-  }   // pass
   cp_async_wait<0>();
   __syncthreads();   // every warp is done with the ring
-  if constexpr (BF16) {
-    // o holds normalized sums: the merge below adds the key slices' o in
-    // key order with weight 1 (every slice's m is M) and divides by 1
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m[h] = M[h];
-      l[h] = kq == 0 ? 0.25f : 0.f;   // the quad sums to 1 (and 0)
-    }
-  }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {   // the row's sum over the quad
@@ -569,17 +483,7 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
   for (int h = 0; h < 2; ++h) {
     const int qi = qg * 16 + g + 8 * h;
     if (qi >= q_n) continue;
-    const size_t at = (size_t)(q_row0 + qi) * d + head * DK + 2 * t;
-    if constexpr (BF16) {
-      uint16_t* dst = static_cast<uint16_t*>(out_) + at;
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        *reinterpret_cast<uint32_t*>(dst + j * 8) =
-            pack_bf16(f2bf(o[j][2 * h] * inv[h]),
-                      f2bf(o[j][2 * h + 1] * inv[h]));
-      continue;
-    }
-    float* dst = static_cast<float*>(out_) + at;
+    float* dst = out + (size_t)(q_row0 + qi) * d + head * DK + 2 * t;
 #pragma unroll
     for (int j = 0; j < NF; ++j)
       *reinterpret_cast<float2*>(dst + j * 8) =
@@ -591,53 +495,45 @@ attention_core(QkvSource src, const float* __restrict__ kmask,
 // limit (see gemm_launch in gemm.cuh).
 namespace {
 
-template <int DK, bool PACKED, bool BF16 = false>
-constexpr int core_bytes() {
-  return Core<DK, PACKED>::BYTES + (BF16 ? Core<DK, PACKED>::XCH_BYTES : 0);
-}
-
-template <int DK, bool PACKED, bool BF16 = false>
+template <int DK, bool PACKED>
 cudaError_t core_prepare() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_core<DK, PACKED, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      core_bytes<DK, PACKED, BF16>());
+      attention_core<DK, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Core<DK, PACKED>::BYTES);
   return attr;
 }
 
-template <int DK, bool PACKED, bool BF16 = false>
-int core_launch(const QkvSource& src, const float* kmask, void* out, int R,
+template <int DK, bool PACKED>
+int core_launch(const QkvSource& src, const float* kmask, float* out, int R,
                 int d, int heads, int seg, float scale, cudaStream_t s) {
   using C = Core<DK, PACKED>;
-  const cudaError_t e = core_prepare<DK, PACKED, BF16>();
+  const cudaError_t e = core_prepare<DK, PACKED>();
   if (e != cudaSuccess) return (int)e;
   const int n_seg = R / seg;
   const int per_tile = PACKED ? AC_KT / seg : 0;
   const int tiles = PACKED ? (n_seg + per_tile - 1) / per_tile
                            : n_seg * ((seg + C::QT - 1) / C::QT);
-  attention_core<DK, PACKED, BF16>
-      <<<dim3(tiles, heads), C::THREADS, core_bytes<DK, PACKED, BF16>(), s>>>(
-          src, kmask, out, R, d, seg, per_tile, scale);
+  attention_core<DK, PACKED><<<dim3(tiles, heads), C::THREADS, C::BYTES, s>>>(
+      src, kmask, out, R, d, seg, per_tile, scale);
   return 0;
 }
 
 // registers and spill bytes a thread, dynamic shared memory a block,
 // resident blocks an SM
-template <int DK, bool PACKED, bool BF16 = false>
+template <int DK, bool PACKED>
 int core_info(int* info) {
-  const void* fn = (const void*)attention_core<DK, PACKED, BF16>;
-  cudaError_t e = core_prepare<DK, PACKED, BF16>();
+  const void* fn = (const void*)attention_core<DK, PACKED>;
+  cudaError_t e = core_prepare<DK, PACKED>();
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, Core<DK, PACKED>::THREADS,
-        core_bytes<DK, PACKED, BF16>());
+        &blocks, fn, Core<DK, PACKED>::THREADS, Core<DK, PACKED>::BYTES);
   if (e != cudaSuccess) return (int)e;
   info[0] = a.numRegs;
   info[1] = (int)a.localSizeBytes;
-  info[2] = core_bytes<DK, PACKED, BF16>();
+  info[2] = Core<DK, PACKED>::BYTES;
   info[3] = blocks;
   return 0;
 }
@@ -648,9 +544,8 @@ int core_info(int* info) {
 // width d / heads (64 or 96) at columns h * dk of each third; kmask: (R,)
 // key validity (0 = masked) or null. The schedule follows seg: packed up
 // to 64, streamed past it.
-template <bool BF16>
-inline int attention_t(const QkvSource& src, const float* kmask, void* att,
-                       int R, int d, int heads, int seg, cudaStream_t s) {
+inline int attention(const QkvSource& src, const float* kmask, float* att,
+                     int R, int d, int heads, int seg, cudaStream_t s) {
   if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0)
     return JT_ERR_SHAPE;
   if (!aligned16(src.rows) || !aligned16(att) ||
@@ -661,47 +556,382 @@ inline int attention_t(const QkvSource& src, const float* kmask, void* att,
   const bool packed = seg <= AC_KT;
   int rc = JT_ERR_SHAPE;
   if (dk == 64)
-    rc = packed ? core_launch<64, true, BF16>(src, kmask, att, R, d, heads,
-                                              seg, scale, s)
-                : core_launch<64, false, BF16>(src, kmask, att, R, d, heads,
-                                               seg, scale, s);
+    rc = packed ? core_launch<64, true>(src, kmask, att, R, d, heads, seg,
+                                        scale, s)
+                : core_launch<64, false>(src, kmask, att, R, d, heads, seg,
+                                         scale, s);
   if (dk == 96)
-    rc = packed ? core_launch<96, true, BF16>(src, kmask, att, R, d, heads,
-                                              seg, scale, s)
-                : core_launch<96, false, BF16>(src, kmask, att, R, d, heads,
-                                               seg, scale, s);
+    rc = packed ? core_launch<96, true>(src, kmask, att, R, d, heads, seg,
+                                        scale, s)
+                : core_launch<96, false>(src, kmask, att, R, d, heads, seg,
+                                         scale, s);
   if (rc != 0) return rc;
   JT_CHECK_LAUNCH();
   return 0;
 }
 
-inline int attention(const QkvSource& src, const float* kmask, float* att,
-                     int R, int d, int heads, int seg, cudaStream_t s) {
-  return attention_t<false>(src, kmask, att, R, d, heads, seg, s);
-}
-
-// The bf16 core: att (R, d) bf16 from the float32 QKV source.
-inline int attention_bf16(const QkvSource& src, const float* kmask,
-                          uint16_t* att, int R, int d, int heads, int seg,
-                          cudaStream_t s) {
-  return attention_t<true>(src, kmask, att, R, d, heads, seg, s);
-}
-
 // What the compiler and the occupancy calculator say of one schedule of
 // the core: {registers, spill bytes, shared memory, blocks an SM}.
-inline int attention_info(int dk, bool packed, int* info,
-                          bool bf16 = false) {
-  if (bf16) {
-    if (dk == 64) return packed ? core_info<64, true, true>(info)
-                                : core_info<64, false, true>(info);
-    if (dk == 96) return packed ? core_info<96, true, true>(info)
-                                : core_info<96, false, true>(info);
-    return JT_ERR_SHAPE;
-  }
+inline int attention_info(int dk, bool packed, int* info) {
   if (dk == 64) return packed ? core_info<64, true>(info)
                               : core_info<64, false>(info);
   if (dk == 96) return packed ? core_info<96, true>(info)
                               : core_info<96, false>(info);
+  return JT_ERR_SHAPE;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 core (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int AB_MAX_SEG = 512;   // a streamed segment staged whole
+
+// One schedule of the bf16 core: 8 warps, 4 groups of 16 query rows each
+// with 2 key halves of 32 (packed), or 4 warps over the keys of 16 query
+// rows (streamed). NKT: the n8 key tiles a warp's scores hold at most.
+template <int DK, bool PACKED>
+struct CoreB {
+  static constexpr int WARPS = PACKED ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int KW = PACKED ? 2 : 4;       // warps over the keys
+  static constexpr int QT = 16 * (WARPS / KW);    // query rows a block
+  static constexpr int NKT = PACKED ? AC_KT / KW / 8 : AB_MAX_SEG / KW / 8;
+  static constexpr int RS = DK + 8;               // row stride (halves)
+  static constexpr int NF = DK / 8;
+  static constexpr int XS = 4 * NF + 1;           // a lane's partial output
+  static_assert(DK % 16 == 0, "dk in k16 steps");
+
+  // the keys a block stages: the packed tile, or 4 slices of kq keys
+  __host__ __device__ static int keys(int kq) {
+    return PACKED ? AC_KT : KW * kq;
+  }
+  // Q, K, V rows, the mask and the max / sum exchange, in bytes
+  __host__ __device__ static int bytes(int kq) {
+    return (QT + 2 * keys(kq)) * RS * 2 + keys(kq) * 4 + 2 * KW * QT * 4;
+  }
+  // the key slice of a streamed warp: a quarter of seg in whole k16 steps
+  __host__ __device__ static int slice(int seg) {
+    return PACKED ? AC_KT / KW : ((seg + KW - 1) / KW + 15) / 16 * 16;
+  }
+};
+
+__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The four 8x8 b16 matrices at the rows lanes 8i..8i+7 point to, each
+// transposed: lane (g, t) receives rows 2t, 2t + 1 of column g of matrix i
+// in r[i] (an mma_bf16 B fragment of a row-major (k, n) operand).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const uint16_t* row) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// grid (tiles, heads), tiles as attention_core's. qkv: (R, 3d) bf16 rows,
+// q already times the scale; kq: a streamed warp's key slice
+// (CoreB::slice(seg)).
+template <int DK, bool PACKED>
+__global__ void __launch_bounds__(CoreB<DK, PACKED>::THREADS, 1)
+attention_core_bf16(const uint16_t* __restrict__ qkv,
+                    const float* __restrict__ kmask,
+                    uint16_t* __restrict__ out, int d, int R, int seg,
+                    int per_tile, int kq_keys) {
+  using C = CoreB<DK, PACKED>;
+  constexpr int RS = C::RS, NF = C::NF, NKT = C::NKT, KW = C::KW;
+  constexpr int QT = C::QT, CH = DK / 8;   // 16-byte pieces of a head's row
+  extern __shared__ __align__(16) uint8_t acb_smem[];
+  const int nkeys = C::keys(kq_keys);
+  uint16_t* Qs = reinterpret_cast<uint16_t*>(acb_smem);
+  uint16_t* Ks = Qs + QT * RS;
+  uint16_t* Vs = Ks + nkeys * RS;
+  float* ms = reinterpret_cast<float*>(Vs + nkeys * RS);
+  float* xmax = ms + nkeys;           // [KW][QT]
+  float* xsum = xmax + KW * QT;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qg = warp / KW, kq = warp % KW;
+  const int head = blockIdx.y;
+  const size_t ld = 3 * (size_t)d;
+
+  int q_row0, q_n, k_row0, k_n;
+  if (PACKED) {
+    q_row0 = blockIdx.x * per_tile * seg;
+    q_n = min(per_tile * seg, R - q_row0);
+    k_row0 = q_row0;
+    k_n = q_n;
+  } else {
+    const int q_tiles = (seg + QT - 1) / QT;
+    const int q0 = (blockIdx.x % q_tiles) * QT;
+    k_row0 = (blockIdx.x / q_tiles) * seg;
+    k_n = seg;
+    q_row0 = k_row0 + q0;
+    q_n = min(QT, seg - q0);
+  }
+
+  // stage Q, K, V (rows past the live ones zero) and the mask, once
+  for (int c = tid; c < QT * CH; c += C::THREADS) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    const bool ok = r < q_n;
+    cp_async16b(Qs + r * RS + cc,
+                ok ? qkv + (q_row0 + r) * ld + head * DK + cc : qkv, ok);
+  }
+  for (int c = tid; c < nkeys * CH; c += C::THREADS) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    const bool ok = r < k_n;
+    const uint16_t* src = qkv + (k_row0 + r) * ld + d + head * DK + cc;
+    cp_async16b(Ks + r * RS + cc, ok ? src : qkv, ok);
+    cp_async16b(Vs + r * RS + cc, ok ? src + d : qkv, ok);
+  }
+  cp_async_commit();
+  for (int c = tid; c < nkeys; c += C::THREADS)
+    ms[c] = kmask != nullptr && c < k_n ? __ldg(kmask + k_row0 + c) : 1.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's keys [kl, kl + kq_keys) and, of its n8 tiles, those [jlo,
+  // jhi) that hold a key its rows attend to: packed, keys of its rows'
+  // segments; streamed, those before the segment's end. The others' scores
+  // are -inf and their p zero, so their products are skipped.
+  const int kw = PACKED ? AC_KT / KW : kq_keys;
+  const int kl = kq * kw;
+  int klo = 0, khi = k_n;
+  if (PACKED) {
+    const int r0 = qg * 16, r1 = min(r0 + 16, q_n) - 1;
+    klo = r1 < r0 ? 0 : (r0 / seg) * seg;
+    khi = r1 < r0 ? 0 : min((r1 / seg + 1) * seg, k_n);
+  }
+  const int nkt = kw / 8;
+  const int jlo = min(nkt, max(0, klo - kl) / 8);
+  const int jhi = min(nkt, max(0, khi - kl + 7) / 8);
+
+  // S = (q * scale) K^T over the warp's keys
+  float s[NKT][4];
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const uint16_t* qa = Qs + (qg * 16 + g) * RS + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t a[4] = {lds32(qa + 16 * kk), lds32(qa + 8 * RS + 16 * kk),
+                           lds32(qa + 16 * kk + 8),
+                           lds32(qa + 8 * RS + 16 * kk + 8)};
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      if (j < jlo || j >= jhi) continue;
+      const uint16_t* kb = Ks + (kl + 8 * j + g) * RS + 16 * kk + 2 * t;
+      const uint32_t b[2] = {lds32(kb), lds32(kb + 8)};
+      mma_bf16(s[j], a, b);
+    }
+  }
+
+  // -inf off the rows' keys, the fill, then the row's max over the warps
+  // that share its keys: element e of n-tile j is row g + 8 (e >> 1), key
+  // kl + 8 j + 2 t + (e & 1)
+  const int row[2] = {qg * 16 + g, qg * 16 + g + 8};
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kl + 8 * j + 2 * t + (e & 1);
+      const bool live = j >= jlo && j < jhi && key < k_n &&
+                        (!PACKED || key / seg == row[e >> 1] / seg);
+      float x = -INFINITY;
+      if (live) x = ms[key] == 0.f ? AC_FILL : s[j][e];
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    if (t == 0) xmax[kq * QT + row[h]] = mx[h];
+  }
+  __syncthreads();
+  float M[2], l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    M[h] = xmax[row[h]];
+#pragma unroll
+    for (int w = 1; w < KW; ++w) M[h] = fmaxf(M[h], xmax[w * QT + row[h]]);
+    if (M[h] == -INFINITY) M[h] = 0.f;   // a row past the tile: no keys
+  }
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[j][e] - M[e >> 1]);   // -inf -> 0
+      s[j][e] = p;
+      l[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (t == 0) xsum[kq * QT + row[h]] = l[h];
+  }
+  __syncthreads();
+  float L[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    L[h] = xsum[row[h]];
+#pragma unroll
+    for (int w = 1; w < KW; ++w) L[h] += xsum[w * QT + row[h]];
+    if (!(L[h] > 0.f)) L[h] = 1.f;
+  }
+
+  // O = P V over the warp's keys, p = bf16(exp(s - M) / L); a k16 step
+  // takes the score tiles 2i, 2i + 1 as its A fragment
+  float o[NF][4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  const int vr = ((lane >> 3) & 1) * 8 + (lane & 7), vc = (lane >> 4) * 8;
+#pragma unroll
+  for (int i = 0; i < NKT / 2; ++i) {
+    if (2 * i + 1 < jlo || 2 * i >= jhi) continue;
+    uint32_t a[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)   // tile 2i + q / 2, row g + 8 (q % 2)
+      a[q] = pack_bf16(f2bf(s[2 * i + (q >> 1)][2 * (q & 1)] / L[q & 1]),
+                       f2bf(s[2 * i + (q >> 1)][2 * (q & 1) + 1] / L[q & 1]));
+    const uint16_t* vb = Vs + (kl + 16 * i + vr) * RS + vc;
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vb + 8 * j);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_bf16(o[j], a, b0);
+      mma_bf16(o[j + 1], a, b1);
+    }
+  }
+
+  // the row group's key slices add their outputs in key order: the others
+  // hand theirs to the first through the K / V region, lane for lane
+  __syncthreads();   // every warp is done with K and V
+  float* xo = reinterpret_cast<float*>(Ks);
+  if (kq > 0) {
+    float* x = xo + ((qg * (KW - 1) + kq - 1) * 32 + lane) * C::XS;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[4 * j + e] = o[j][e];
+  }
+  __syncthreads();
+  if (kq > 0) return;
+#pragma unroll
+  for (int w = 0; w < KW - 1; ++w) {
+    const float* x = xo + ((qg * (KW - 1) + w) * 32 + lane) * C::XS;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] += x[4 * j + e];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row[h];
+    if (qi >= q_n) continue;
+    uint16_t* dst = out + (size_t)(q_row0 + qi) * d + head * DK + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      *reinterpret_cast<uint32_t*>(dst + j * 8) =
+          pack_bf16(f2bf(o[j][2 * h]), f2bf(o[j][2 * h + 1]));
+  }
+}
+
+namespace {
+
+template <int DK, bool PACKED>
+cudaError_t core_bf16_prepare() {
+  using C = CoreB<DK, PACKED>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_core_bf16<DK, PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes(C::slice(AB_MAX_SEG)));
+  return attr;
+}
+
+template <int DK, bool PACKED>
+int core_bf16_launch(const uint16_t* qkv, const float* kmask, uint16_t* out,
+                     int R, int d, int heads, int seg, cudaStream_t s) {
+  using C = CoreB<DK, PACKED>;
+  const cudaError_t e = core_bf16_prepare<DK, PACKED>();
+  if (e != cudaSuccess) return (int)e;
+  const int n_seg = R / seg;
+  const int per_tile = PACKED ? AC_KT / seg : 0;
+  const int tiles = PACKED ? (n_seg + per_tile - 1) / per_tile
+                           : n_seg * ((seg + C::QT - 1) / C::QT);
+  const int kq = C::slice(seg);
+  attention_core_bf16<DK, PACKED>
+      <<<dim3(tiles, heads), C::THREADS, C::bytes(kq), s>>>(
+          qkv, kmask, out, d, R, seg, per_tile, kq);
+  return 0;
+}
+
+// as core_info, at the largest segment the schedule stages
+template <int DK, bool PACKED>
+int core_bf16_info(int* info) {
+  using C = CoreB<DK, PACKED>;
+  const void* fn = (const void*)attention_core_bf16<DK, PACKED>;
+  const int bytes = C::bytes(C::slice(PACKED ? AC_KT : AB_MAX_SEG));
+  cudaError_t e = core_bf16_prepare<DK, PACKED>();
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, C::THREADS,
+                                                      bytes);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = bytes;
+  info[3] = blocks;
+  return 0;
+}
+
+}  // namespace
+
+// att (R, d) bf16 = per-segment attention of the bf16 QKV rows (R, 3d), q
+// already times 1 / sqrt(dk), heads of width 64 or 96, segments of up to
+// AB_MAX_SEG rows (a longer sequence takes the flash kernel's layer loop).
+inline int attention_bf16(const uint16_t* qkv, const float* kmask,
+                          uint16_t* att, int R, int d, int heads, int seg,
+                          cudaStream_t s) {
+  if (seg <= 0 || seg > AB_MAX_SEG || R % seg != 0 || heads <= 0 ||
+      d % heads != 0)
+    return JT_ERR_SHAPE;
+  if (!aligned16(qkv) || !aligned16(att)) return JT_ERR_SHAPE;
+  const int dk = d / heads;
+  const bool packed = seg <= AC_KT;
+  int rc = JT_ERR_SHAPE;
+  if (dk == 64)
+    rc = packed ? core_bf16_launch<64, true>(qkv, kmask, att, R, d, heads,
+                                             seg, s)
+                : core_bf16_launch<64, false>(qkv, kmask, att, R, d, heads,
+                                              seg, s);
+  if (dk == 96)
+    rc = packed ? core_bf16_launch<96, true>(qkv, kmask, att, R, d, heads,
+                                             seg, s)
+                : core_bf16_launch<96, false>(qkv, kmask, att, R, d, heads,
+                                              seg, s);
+  if (rc != 0) return rc;
+  JT_CHECK_LAUNCH();
+  return 0;
+}
+
+inline int attention_info_bf16(int dk, bool packed, int* info) {
+  if (dk == 64) return packed ? core_bf16_info<64, true>(info)
+                              : core_bf16_info<64, false>(info);
+  if (dk == 96) return packed ? core_bf16_info<96, true>(info)
+                              : core_bf16_info<96, false>(info);
   return JT_ERR_SHAPE;
 }
 

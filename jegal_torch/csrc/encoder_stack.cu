@@ -47,10 +47,12 @@
 // in `_stack_kernel`'s arithmetic: weights bf16, biases and norms float32;
 // the residual stream stays float32 from sublayer to sublayer and layer to
 // layer (the TPU kernel's f32 VMEM scratch: r32 and y32 here), each
-// product reads its bf16 rounding (the bf16 copies out and y, written by
-// the same row pass, or the bf16 pre-LN rows h), and only the stack's
-// output is the bf16 of the last row pass. The products and the attention
-// run on gemm.cuh's and encoder.cuh's bf16 code.
+// product reads its bf16 rounding (the bf16 copies out and y, written with
+// r32 and y32 by the same epilogue or row pass, or the bf16 pre-LN rows
+// h), and only the stack's output is the bf16 of the last. The products
+// run on gemm.cuh's wgmma bf16 product (each split reduced in its own
+// kernel, the tile counters zeroed once a call) and the attention on
+// encoder.cuh's bf16 core, which reads the QKV product's bf16 rows.
 #include "encoder.cuh"
 #include "gemm.cuh"
 
@@ -125,36 +127,44 @@ extern "C" int jt_encoder_stack(
 }
 
 // x (R, d) bf16 -> out (R, d) bf16 through L layers. Operands as
-// jt_encoder_stack, the weights (wqkv, wo, w1, w2) bf16 and the rest
-// float32. Scratch: h (R, d) bf16 when prenorm, qkv (R, 3d) float32, att
-// (R, d) bf16, y32 (R, d) float32 and y (R, d) bf16 (after each attention
-// sublayer), h1 (R, dff) bf16, r32 (R, d) float32 (the residual stream
-// into each layer), ws the split-K workspace, which also holds the output
-// and W2 products' float32 sums ((R, d) floats) for their row pass.
+// jt_encoder_stack, the weights (wqkv, wo, w1, w2) bf16, the biases and
+// norms float32 (vec_f32 1) or bf16 (0), read as float32 in the kernels.
+// Scratch: h (R, d) bf16 when prenorm, qkv (R, 3d) bf16, att (R, d) bf16,
+// y32 (R, d) float32 and y (R, d) bf16 (after each attention sublayer), h1
+// (R, dff) bf16, r32 (R, d) float32 (the residual stream into each layer),
+// ws the split-K partials, which also holds the output and W2 products'
+// float32 rows ((R, d) floats) for a post-LN's row pass, cnt the products'
+// n_cnt tile counters. plans: gemm_plan.plan_bf16's.
 extern "C" int jt_encoder_stack_bf16(
-    const uint16_t* x, const uint16_t* wqkv, const float* bqkv,
-    const uint16_t* wo, const float* bo, const uint16_t* w1, const float* b1,
-    const uint16_t* w2, const float* b2, const float* g1, const float* be1,
-    const float* g2, const float* be2, const float* kmask, uint16_t* h,
-    float* qkv, uint16_t* att, float* y32, uint16_t* y, uint16_t* h1,
-    float* r32, uint16_t* out, float* ws, const int* plans, int R, int d,
-    int dff, int heads, int seg, int L, int prenorm, int ln_kind, int act,
-    void* stream) {
+    const uint16_t* x, const uint16_t* wqkv, const void* bqkv,
+    const uint16_t* wo, const void* bo, const uint16_t* w1, const void* b1,
+    const uint16_t* w2, const void* b2, const void* g1, const void* be1,
+    const void* g2, const void* be2, const float* kmask, uint16_t* h,
+    uint16_t* qkv, uint16_t* att, float* y32, uint16_t* y, uint16_t* h1,
+    float* r32, uint16_t* out, float* ws, int* cnt, const int* plans, int R,
+    int d, int dff, int heads, int seg, int L, int prenorm, int ln_kind,
+    int act, int vec_f32, int n_cnt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0 || L <= 0)
     return JT_ERR_SHAPE;
   if (d / heads != 64 && d / heads != 96) return JT_ERR_SHAPE;
   const size_t dd = (size_t)d * d;
+  const float scale = (float)(1.0 / sqrt((double)(d / heads)));
+  const bool f = vec_f32 != 0;
+  const jt::Rows none{nullptr, false}, vbqkv{bqkv, f}, vbo{bo, f},
+      vb1{b1, f}, vb2{b2, f}, vg1{g1, f}, vbe1{be1, f}, vg2{g2, f},
+      vbe2{be2, f};
+  int rc = jt::zero_counters(cnt, n_cnt, s);
+  if (rc != 0) return rc;
   // the residual stream starts as the input, in float32
-  int rc = jt::layer_norm_bf16(jt::Rows{x, false}, nullptr, nullptr, r32,
-                               nullptr, R, d, 0, s);
+  rc = jt::layer_norm_bf16(jt::Rows{x, false}, none, none, r32, nullptr, R,
+                           d, 0, s);
   if (rc != 0) return rc;
   for (int l = 0; l < L; ++l) {
     const uint16_t* cur = (l == 0) ? x : out;   // bf16 of r32
-    const float* ln1_g = g1 + (size_t)l * d;
-    const float* ln1_b = be1 + (size_t)l * d;
-    const float* ln2_g = g2 + (size_t)l * d;
-    const float* ln2_b = be2 + (size_t)l * d;
+    const size_t ld = (size_t)l * d;
+    const jt::Rows ln1_g = vg1.at(ld), ln1_b = vbe1.at(ld),
+                   ln2_g = vg2.at(ld), ln2_b = vbe2.at(ld);
     const jt::Rows res1{r32, true}, res2{y32, true};
 
     // attention sublayer: r32 -> y32 (and y)
@@ -165,18 +175,17 @@ extern "C" int jt_encoder_stack_bf16(
       if (rc != 0) return rc;
       src = h;
     }
-    const float* bq = bqkv + (size_t)3 * d * l;
-    rc = jt::gemm_bf16(plans, src, wqkv + 3 * dd * l, bq,
-                       jt::Rows{nullptr, false}, qkv, nullptr, ws, R, 3 * d,
-                       d, jt::ACT_NONE, nullptr, nullptr, 0, s,
-                       /*reduce=*/false);
+    rc = jt::gemm_bf16(plans, src, wqkv + 3 * dd * l,
+                       jt::Epi{vbqkv.at(3 * ld), jt::ACT_NONE, none, scale, d,
+                               nullptr, qkv},
+                       ws, cnt, R, 3 * d, d, s);
     if (rc != 0) return rc;
-    rc = jt::attention_bf16(jt::qkv_source(plans, qkv, ws, bq, R, d), kmask,
-                            att, R, d, heads, seg, s);
+    rc = jt::attention_bf16(qkv, kmask, att, R, d, heads, seg, s);
     if (rc != 0) return rc;
-    rc = jt::gemm_bf16(plans + 3, att, wo + dd * l, bo + (size_t)d * l, res1,
-                       y32, y, ws, R, d, d, jt::ACT_NONE,
-                       prenorm ? nullptr : ln1_g, ln1_b, ln_kind, s);
+    rc = jt::gemm_ln_bf16(
+        plans + 3, att, wo + dd * l,
+        jt::Epi{vbo.at(ld), jt::ACT_NONE, res1, 1.f, 0, y32, y},
+        prenorm ? none : ln1_g, ln1_b, ln_kind, ws, cnt, R, d, d, s);
     if (rc != 0) return rc;
 
     // FFN sublayer: y32 -> r32 (and out)
@@ -188,14 +197,14 @@ extern "C" int jt_encoder_stack_bf16(
       src = h;
     }
     rc = jt::gemm_bf16(plans + 6, src, w1 + (size_t)d * dff * l,
-                       b1 + (size_t)dff * l, jt::Rows{nullptr, false},
-                       nullptr, h1, ws, R, dff, d, act, nullptr, nullptr, 0,
-                       s);
+                       jt::Epi{vb1.at((size_t)dff * l), act, none, 1.f, 0,
+                               nullptr, h1},
+                       ws, cnt, R, dff, d, s);
     if (rc != 0) return rc;
-    rc = jt::gemm_bf16(plans + 9, h1, w2 + (size_t)dff * d * l,
-                       b2 + (size_t)d * l, res2, r32, out, ws, R, d, dff,
-                       jt::ACT_NONE, prenorm ? nullptr : ln2_g, ln2_b,
-                       ln_kind, s);
+    rc = jt::gemm_ln_bf16(
+        plans + 9, h1, w2 + (size_t)dff * d * l,
+        jt::Epi{vb2.at(ld), jt::ACT_NONE, res2, 1.f, 0, r32, out},
+        prenorm ? none : ln2_g, ln2_b, ln_kind, ws, cnt, R, d, dff, s);
     if (rc != 0) return rc;
   }
   return 0;

@@ -26,14 +26,18 @@
 // (encoder.cuh).
 //
 // The `_bf16` entries are the bf16 variants (the JAX engine's bf16 dtype):
-// bf16 rows, weights and outputs, float32 biases and norms, the products
-// on gemm.cuh's bf16 mainloop and the attention on encoder.cuh's bf16
-// core, rounding where `_attn_kernel` and `_ffn_kernel` round a bf16 block:
+// bf16 rows, weights and outputs, float32 or bf16 biases and norms (read as
+// float32), the products on gemm.cuh's wgmma bf16 product and the
+// attention on encoder.cuh's bf16 core, rounding where `_attn_kernel` and
+// `_ffn_kernel` round a bf16 block:
 // the pre-LN (float32) rounded to bf16 before the first product, the QKV
-// rows float32 plus bias, the attention output bf16, the residual and the
+// product's float32 sums plus bias rounded to bf16 as it writes them (q
+// times the scale first), the attention output bf16, the residual and the
 // post-LN in float32 and the output rounded once; the FFN's hidden rows
-// rounded to bf16 after the float32 activation, its W2 partials summed in
-// float32.
+// rounded to bf16 after the float32 activation. A split product reduces
+// its slices in its own kernel, so a sublayer runs [the pre-LN], its two
+// products (and for attention the core between them) and [the post-LN's
+// row pass], plus one memset of the tile counters where a product splits.
 #include "encoder.cuh"
 #include "gemm.cuh"
 
@@ -101,65 +105,84 @@ extern "C" int jt_ffn_sublayer(const float* x, const float* w1,
                   prenorm ? nullptr : ln_g, ln_b, ln_kind, s);
 }
 
-// The bf16 attention sublayer: x, wqkv, wo, h, att, out bf16 (uint16_t bit
-// patterns); bqkv, bo, ln_g, ln_b, kmask, qkv and ws float32. Scratch and
-// plans as jt_attn_sublayer; ws also holds the output product's float32
-// sum when a post-LN follows it unsplit ((R, d) floats).
+// The bf16 attention sublayer: x, wqkv, wo, h, qkv, att, out bf16
+// (uint16_t bit patterns); bqkv, bo, ln_g and ln_b float32 (vec_f32 1) or
+// bf16 (0), read as float32 in the kernels; kmask and ws float32; cnt the
+// products' n_cnt tile counters. Scratch as jt_attn_sublayer, qkv (R, 3d)
+// bf16; ws holds a split product's partials and the output product's
+// float32 rows when a post-LN follows it. plans: gemm_plan.plan_bf16's.
 extern "C" int jt_attn_sublayer_bf16(
-    const uint16_t* x, const uint16_t* wqkv, const float* bqkv,
-    const uint16_t* wo, const float* bo, const float* ln_g, const float* ln_b,
-    const float* kmask, uint16_t* h, float* qkv, uint16_t* att, uint16_t* out,
-    float* ws, const int* plans, int R, int d, int heads, int seg,
-    int prenorm, int ln_kind, void* stream) {
+    const uint16_t* x, const uint16_t* wqkv, const void* bqkv,
+    const uint16_t* wo, const void* bo, const void* ln_g, const void* ln_b,
+    const float* kmask, uint16_t* h, uint16_t* qkv, uint16_t* att,
+    uint16_t* out, float* ws, int* cnt, const int* plans, int R, int d,
+    int heads, int seg, int prenorm, int ln_kind, int vec_f32, int n_cnt,
+    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (seg <= 0 || R % seg != 0 || d % heads != 0) return JT_ERR_SHAPE;
-  const jt::Rows xr{x, false};
+  if (seg <= 0 || R % seg != 0 || heads <= 0 || d % heads != 0)
+    return JT_ERR_SHAPE;
+  int rc = jt::zero_counters(cnt, n_cnt, s);
+  if (rc != 0) return rc;
+  const bool f = vec_f32 != 0;
+  const jt::Rows xr{x, false}, none{nullptr, false}, g{ln_g, f}, b{ln_b, f};
   const uint16_t* src = x;
   if (prenorm) {
-    const int rc = jt::layer_norm_bf16(xr, ln_g, ln_b, nullptr, h, R, d,
-                                       ln_kind, s);
+    rc = jt::layer_norm_bf16(xr, g, b, nullptr, h, R, d, ln_kind, s);
     if (rc != 0) return rc;
     src = h;
   }
-  int rc = jt::gemm_bf16(plans, src, wqkv, bqkv, jt::Rows{nullptr, false},
-                         qkv, nullptr, ws, R, 3 * d, d, jt::ACT_NONE, nullptr,
-                         nullptr, 0, s, /*reduce=*/false);
+  const float scale = (float)(1.0 / sqrt((double)(d / heads)));
+  rc = jt::gemm_bf16(
+      plans, src, wqkv,
+      jt::Epi{jt::Rows{bqkv, f}, jt::ACT_NONE, none, scale, d, nullptr, qkv},
+      ws, cnt, R, 3 * d, d, s);
   if (rc != 0) return rc;
-  rc = jt::attention_bf16(jt::qkv_source(plans, qkv, ws, bqkv, R, d), kmask,
-                          att, R, d, heads, seg, s);
+  rc = jt::attention_bf16(qkv, kmask, att, R, d, heads, seg, s);
   if (rc != 0) return rc;
-  return jt::gemm_bf16(plans + 3, att, wo, bo, xr, nullptr, out, ws, R, d, d,
-                       jt::ACT_NONE, prenorm ? nullptr : ln_g, ln_b, ln_kind,
-                       s);
+  return jt::gemm_ln_bf16(
+      plans + 3, att, wo,
+      jt::Epi{jt::Rows{bo, f}, jt::ACT_NONE, xr, 1.f, 0, nullptr, out},
+      prenorm ? none : g, b, ln_kind, ws, cnt, R, d, d, s);
 }
 
 // {registers, spill bytes, shared memory, blocks an SM} of the bf16
-// attention core's schedule.
+// attention core's schedule (streamed: staging the longest segment).
 extern "C" int jt_attention_info_bf16(int dk, int packed, int* info) {
-  return jt::attention_info(dk, packed != 0, info, /*bf16=*/true);
+  return jt::attention_info_bf16(dk, packed != 0, info);
 }
 
-// The bf16 FFN sublayer: x, w1, w2, h, h1, out bf16; b1, b2, ln_g, ln_b,
-// ws float32. Scratch and plans as jt_ffn_sublayer.
+// The same of the bf16 product's (bm, bn) tile.
+extern "C" int jt_gemm_info_bf16(int bm, int bn, int* info) {
+  return jt::gemm_info_bf16(bm, bn, info);
+}
+
+// The bf16 FFN sublayer: x, w1, w2, h, h1, out bf16; b1, b2, ln_g, ln_b
+// float32 (vec_f32 1) or bf16 (0); ws float32; cnt the products' tile
+// counters. Scratch and plans as jt_ffn_sublayer's (plans from
+// gemm_plan.plan_bf16).
 extern "C" int jt_ffn_sublayer_bf16(
-    const uint16_t* x, const uint16_t* w1, const float* b1,
-    const uint16_t* w2, const float* b2, const float* ln_g, const float* ln_b,
-    uint16_t* h, uint16_t* h1, uint16_t* out, float* ws, const int* plans,
-    int R, int d, int dff, int prenorm, int ln_kind, int act, void* stream) {
+    const uint16_t* x, const uint16_t* w1, const void* b1,
+    const uint16_t* w2, const void* b2, const void* ln_g, const void* ln_b,
+    uint16_t* h, uint16_t* h1, uint16_t* out, float* ws, int* cnt,
+    const int* plans, int R, int d, int dff, int prenorm, int ln_kind,
+    int act, int vec_f32, int n_cnt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const jt::Rows xr{x, false};
+  int rc = jt::zero_counters(cnt, n_cnt, s);
+  if (rc != 0) return rc;
+  const bool f = vec_f32 != 0;
+  const jt::Rows xr{x, false}, none{nullptr, false}, g{ln_g, f}, b{ln_b, f};
   const uint16_t* src = x;
   if (prenorm) {
-    const int rc = jt::layer_norm_bf16(xr, ln_g, ln_b, nullptr, h, R, d,
-                                       ln_kind, s);
+    rc = jt::layer_norm_bf16(xr, g, b, nullptr, h, R, d, ln_kind, s);
     if (rc != 0) return rc;
     src = h;
   }
-  const int rc = jt::gemm_bf16(plans, src, w1, b1, jt::Rows{nullptr, false},
-                               nullptr, h1, ws, R, dff, d, act, nullptr,
-                               nullptr, 0, s);
+  rc = jt::gemm_bf16(plans, src, w1,
+                     jt::Epi{jt::Rows{b1, f}, act, none, 1.f, 0, nullptr, h1},
+                     ws, cnt, R, dff, d, s);
   if (rc != 0) return rc;
-  return jt::gemm_bf16(plans + 3, h1, w2, b2, xr, nullptr, out, ws, R, d, dff,
-                       jt::ACT_NONE, prenorm ? nullptr : ln_g, ln_b, ln_kind,
-                       s);
+  return jt::gemm_ln_bf16(
+      plans + 3, h1, w2,
+      jt::Epi{jt::Rows{b2, f}, jt::ACT_NONE, xr, 1.f, 0, nullptr, out},
+      prenorm ? none : g, b, ln_kind, ws, cnt, R, d, dff, s);
 }

@@ -16,19 +16,22 @@ or one T- or S-token sequence); attention never crosses a segment.
 
 `attn_sublayer`, `ffn_sublayer` and `encoder_stack` launch their kernel
 for a CUDA tensor and run the plain twin for a CPU tensor. Their products
-run on the shared 3xTF32 GEMM of csrc/gemm.cuh: the wrapper plans each
-product (gemm_plan.plan) and allocates the split-K workspace they share.
-Their attention runs on the attention core of csrc/encoder.cuh, on the
-same tensor cores, which also sums a split QKV product's partials.
+run on the shared 3xTF32 GEMM of csrc/gemm.cuh (bf16: its wgmma product):
+the wrapper plans each product (gemm_plan.plan, or plan_bf16) and
+allocates the split-K workspace they share (bf16: and the tiles'
+counters). Their attention runs on the attention core of csrc/encoder.cuh,
+on the same tensor cores, which also sums a split float32 QKV product's
+partials (bf16: its own core over the QKV product's bf16 rows).
 Each entry takes float32 rows or bf16 rows, the JAX engine's two compute
 dtypes, and dispatches on the rows' dtype to the kernel (or twin) of that
-dtype; any other dtype raises, nothing is cast quietly. The bf16 kernels
+dtype; any other dtype raises, nothing is cast quietly (but for the
+exact upcast of mixed bf16 and float32 biases and norms). The bf16 kernels
 and twins round where the JAX package's kernels round a bf16 block
 (`_attn_kernel`, `_ffn_kernel`, `_stack_kernel`): products of bf16
 operands summed in float32, LayerNorm, softmax and the residual in
 float32, and bf16 at the product inputs, q * scale, k, v, p, the attention
 output, the activated FFN hidden rows and the output. Weights are bf16,
-biases and norms float32 (bf16 values upcast). The kernels have no
+biases and norms bf16 or float32, read as float32. The kernels have no
 backward: on a CUDA tensor that needs a gradient they raise (training runs
 the layer loop, core/transformer.encoder_stack with fused=False).
 """
@@ -51,9 +54,10 @@ _SIGS = {
     "jt_attn_sublayer": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
     "jt_ffn_sublayer": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
     "jt_attention_info": [_INT, _INT, _PLANS],
-    "jt_attn_sublayer_bf16": [_VP] * 13 + [_PLANS] + [_INT] * 6 + [_VP],
-    "jt_ffn_sublayer_bf16": [_VP] * 11 + [_PLANS] + [_INT] * 6 + [_VP],
+    "jt_attn_sublayer_bf16": [_VP] * 14 + [_PLANS] + [_INT] * 8 + [_VP],
+    "jt_ffn_sublayer_bf16": [_VP] * 12 + [_PLANS] + [_INT] * 8 + [_VP],
     "jt_attention_info_bf16": [_INT, _INT, _PLANS],
+    "jt_gemm_info_bf16": [_INT, _INT, _PLANS],
 }
 DTYPES = (torch.float32, torch.bfloat16)   # row dtypes the kernels take
 # the launch counter of each kernel, by row dtype
@@ -64,10 +68,14 @@ _COUNTER = {("attn", torch.float32): "attn_sublayer",
             ("stack", torch.float32): "encoder_stack",
             ("stack", torch.bfloat16): "encoder_stack_bf16"}
 _STACK_SIG = [_VP] * 21 + [_PLANS] + [_INT] * 9 + [_VP]
-_STACK_BF16_SIG = [_VP] * 23 + [_PLANS] + [_INT] * 9 + [_VP]
+_STACK_BF16_SIG = [_VP] * 24 + [_PLANS] + [_INT] * 11 + [_VP]
 _ACT = {"relu": 1, "gelu": 2}
 _LN_KIND = {"std": 0, "ref": 1}
 HEAD_DIMS = (64, 96)   # head widths the attention kernel is built for
+# the longest segment the bf16 attention core stages whole
+# (csrc/encoder.cuh: AB_MAX_SEG); the engines route longer sequences to the
+# layer loop, as the fused gate's _MAX_SEG
+MAX_SEG_BF16 = 512
 # per-layer operands of the stack kernel, in jt_encoder_stack's order
 STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2", "g1", "be1",
               "g2", "be2")
@@ -310,6 +318,9 @@ def _check_rows(x, seg: int | None = None, heads: int | None = None):
     r, d = x.shape
     if seg is not None and (seg <= 0 or r % seg):
         raise ValueError(f"{r} rows do not split into segments of {seg}")
+    if seg is not None and x.dtype == torch.bfloat16 and seg > MAX_SEG_BF16:
+        raise ValueError(f"segments of {seg} rows: the bf16 attention core "
+                         f"takes up to {MAX_SEG_BF16}")
     if heads is not None and (d % heads or d // heads not in HEAD_DIMS):
         raise ValueError(f"d={d} over {heads} heads: the attention kernel "
                          f"takes head widths {HEAD_DIMS}")
@@ -338,21 +349,43 @@ def _stack_lib():
     return lib
 
 
-def gemm_operands(products, sms: int, dev, row_pass=None):
+def _int_array(plans):
+    flat = [v for p in plans for v in p]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def gemm_operands(products, sms: int, dev):
     """Plans of the products (M, N, K), in the C entry's order, as the
     entry's int array ({BM, BN, splits} each), and the split-K workspace
-    they share in turn (None when no product splits). row_pass: per
-    product, whether its epilogue runs in the row kernel even unsplit (a
-    bf16 product followed by a LayerNorm, or writing both a float32 and a
-    bf16 copy: its float32 sum waits in the workspace)."""
+    they share in turn (None when no product splits)."""
     plans = [GP.plan(m, n, k, sms) for m, n, k in products]
-    row_pass = row_pass or (False,) * len(products)
-    n_ws = max(GP.workspace_floats(m, n, p[2], rows)
-               for (m, n, _), p, rows in zip(products, plans, row_pass))
+    n_ws = max(GP.workspace_floats(m, n, p[2])
+               for (m, n, _), p in zip(products, plans))
     ws = (torch.empty(n_ws, device=dev, dtype=torch.float32) if n_ws
           else None)
-    flat = [v for p in plans for v in p]
-    return (ctypes.c_int * len(flat))(*flat), ws
+    return _int_array(plans), ws
+
+
+def gemm_operands_bf16(products, sms: int, dev, ln):
+    """`gemm_operands` of the bf16 products (gemm_plan.plan_bf16): the
+    plans, the float32 workspace they share in turn (split partials, and
+    the rows of a product a LayerNorm follows: `ln`, per product), None
+    when none needs it, and the tiles' int32 counters (None when no
+    product splits; the C entry zeroes them)."""
+    plans = [GP.plan_bf16(m, n, k, sms) for m, n, k in products]
+    need = [GP.workspace_bf16(m, n, p, rows)
+            for (m, n, _), p, rows in zip(products, plans, ln)]
+    n_ws = max(f for f, _ in need)
+    n_cnt = max(c for _, c in need)
+    ws = (torch.empty(n_ws, device=dev, dtype=torch.float32) if n_ws
+          else None)
+    cnt = (torch.empty(n_cnt, device=dev, dtype=torch.int32) if n_cnt
+           else None)
+    return _int_array(plans), ws, cnt
+
+
+def _numel(t) -> int:
+    return 0 if t is None else t.numel()
 
 
 def _kmask_operand(kmask, r: int, dev):
@@ -366,33 +399,51 @@ def _kmask_operand(kmask, r: int, dev):
 
 
 def _operands(w, shapes: dict, dev, dt, lead=()):
-    """The weights of `shapes` checked for the kernel of row dtype `dt`:
-    float32 -> as they are; bf16 -> the product weights (`w*`) as bf16,
-    the biases and norms upcast to float32 (exact), as the JAX package
-    passes them to its kernels (`_row2(..., jnp.float32)`)."""
+    """The weights of `shapes` checked for the kernel of row dtype `dt`, and
+    the dtype the kernel reads the biases and norms in. float32 rows: all as
+    they are, float32. bf16 rows: the product weights (`w*`) bf16; the
+    biases and norms bf16 when all of them are (the kernels read them as
+    float32 in registers, exact), else all upcast to float32 (exact), as
+    the JAX package passes them to its kernels (`_row2(..., jnp.float32)`)."""
+    vec = [n for n in shapes if not n.startswith("w")]
+    vdt = torch.float32
+    if dt == torch.bfloat16 and all(w[n].dtype == dt for n in vec):
+        vdt = dt
     out = {}
     for name, shape in shapes.items():
         t = w[name]
-        if dt == torch.bfloat16 and not name.startswith("w"):
-            t = t.to(torch.float32).contiguous()
-        want = dt if name.startswith("w") else torch.float32
+        if dt == torch.bfloat16 and name in vec and t.dtype != vdt:
+            t = t.to(vdt).contiguous()
+        want = dt if name.startswith("w") else vdt
         _build.check_operand(name, t, lead + shape, dev, want)
         out[name] = t
-    return out
+    return out, vdt
+
+
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
 
 
 def attention_info(dk: int, packed: bool, bf16: bool = False) -> dict:
     """What the compiler and the occupancy calculator say of the attention
-    core (csrc/encoder.cuh; its bf16 variant with bf16=True) for head width
-    `dk` under one schedule, packed (segments of up to 64 rows) or
-    streamed: registers and spill bytes a thread, dynamic shared memory a
-    block and resident blocks an SM (on the current card)."""
+    core (csrc/encoder.cuh; its bf16 core with bf16=True, streamed at its
+    longest segment) for head width `dk` under one schedule, packed
+    (segments of up to 64 rows) or streamed: registers and spill bytes a
+    thread, dynamic shared memory a block and resident blocks an SM (on
+    the current card)."""
     lib = _lib()
     info = (ctypes.c_int * 4)()
     fn = lib.jt_attention_info_bf16 if bf16 else lib.jt_attention_info
     _build.check(lib, fn(dk, int(packed), info), "attention core info")
-    return dict(zip(("registers", "spill_bytes", "smem_bytes",
-                     "blocks_per_sm"), info))
+    return dict(zip(_INFO_KEYS, info))
+
+
+def gemm_info_bf16(tile) -> dict:
+    """`attention_info`'s keys for the bf16 product's (BM, BN) tile
+    (gemm_plan.TILES_BF16)."""
+    lib = _lib()
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, lib.jt_gemm_info_bf16(*tile, info), "bf16 GEMM info")
+    return dict(zip(_INFO_KEYS, info))
 
 
 def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
@@ -407,24 +458,32 @@ def attn_sublayer(x, w, seg: int, heads: int, *, prenorm: bool, ln_kind: str,
     _check_rows(x, seg, heads)
     r, d = x.shape
     dev, dt = x.device, x.dtype
-    w = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d),
-                      "bo": (d,), "g1": (d,), "be1": (d,)}, dev, dt)
+    w, vdt = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,),
+                           "wo": (d, d), "bo": (d,), "g1": (d,), "be1": (d,)},
+                       dev, dt)
     kmask = _kmask_operand(kmask, r, dev)
     out = torch.empty_like(x)
-    qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     att = torch.empty_like(x)
     h = torch.empty_like(x) if prenorm else None
-    bf16 = dt == torch.bfloat16
-    plans, ws = gemm_operands(((r, 3 * d, d), (r, d, d)), GP.sm_count(dev),
-                              dev, (False, bf16 and not prenorm))
     lib = _lib()
     P = _build.ptr
-    entry = lib.jt_attn_sublayer_bf16 if bf16 else lib.jt_attn_sublayer
-    rc = entry(
-        P(x), P(w["wqkv"]), P(w["bqkv"]), P(w["wo"]), P(w["bo"]), P(w["g1"]),
-        P(w["be1"]), P(kmask), P(h), P(qkv), P(att), P(out), P(ws), plans, r,
-        d, heads, seg, int(prenorm), _LN_KIND[ln_kind],
-        _build.stream_ptr(dev))
+    products = ((r, 3 * d, d), (r, d, d))
+    ops = (P(x), P(w["wqkv"]), P(w["bqkv"]), P(w["wo"]), P(w["bo"]),
+           P(w["g1"]), P(w["be1"]), P(kmask), P(h))
+    if dt == torch.bfloat16:
+        qkv = torch.empty((r, 3 * d), device=dev, dtype=dt)
+        plans, ws, cnt = gemm_operands_bf16(products, GP.sm_count(dev), dev,
+                                            (False, not prenorm))
+        rc = lib.jt_attn_sublayer_bf16(
+            *ops, P(qkv), P(att), P(out), P(ws), P(cnt), plans, r, d, heads,
+            seg, int(prenorm), _LN_KIND[ln_kind], int(vdt == torch.float32),
+            _numel(cnt), _build.stream_ptr(dev))
+    else:
+        qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
+        plans, ws = gemm_operands(products, GP.sm_count(dev), dev)
+        rc = lib.jt_attn_sublayer(
+            *ops, P(qkv), P(att), P(out), P(ws), plans, r, d, heads, seg,
+            int(prenorm), _LN_KIND[ln_kind], _build.stream_ptr(dev))
     _build.check(lib, rc, "attention sublayer kernel")
     _build.LAUNCHES[_COUNTER["attn", dt]] += 1
     return out
@@ -441,22 +500,28 @@ def ffn_sublayer(x, w, *, prenorm: bool, ln_kind: str,
     r, d = x.shape
     dff = w["w1"].shape[1]
     dev, dt = x.device, x.dtype
-    w = _operands(w, {"w1": (d, dff), "b1": (dff,), "w2": (dff, d),
-                      "b2": (d,), "g2": (d,), "be2": (d,)}, dev, dt)
+    w, vdt = _operands(w, {"w1": (d, dff), "b1": (dff,), "w2": (dff, d),
+                           "b2": (d,), "g2": (d,), "be2": (d,)}, dev, dt)
     out = torch.empty_like(x)
     h1 = torch.empty((r, dff), device=dev, dtype=dt)
     h = torch.empty_like(x) if prenorm else None
-    bf16 = dt == torch.bfloat16
-    plans, ws = gemm_operands(((r, dff, d), (r, d, dff)), GP.sm_count(dev),
-                              dev, (False, bf16 and not prenorm))
     lib = _lib()
     P = _build.ptr
-    entry = lib.jt_ffn_sublayer_bf16 if bf16 else lib.jt_ffn_sublayer
-    rc = entry(
-        P(x), P(w["w1"]), P(w["b1"]), P(w["w2"]), P(w["b2"]), P(w["g2"]),
-        P(w["be2"]), P(h), P(h1), P(out), P(ws), plans, r, d, dff,
-        int(prenorm), _LN_KIND[ln_kind], _ACT[activation],
-        _build.stream_ptr(dev))
+    products = ((r, dff, d), (r, d, dff))
+    ops = (P(x), P(w["w1"]), P(w["b1"]), P(w["w2"]), P(w["b2"]), P(w["g2"]),
+           P(w["be2"]), P(h), P(h1), P(out))
+    if dt == torch.bfloat16:
+        plans, ws, cnt = gemm_operands_bf16(products, GP.sm_count(dev), dev,
+                                            (False, not prenorm))
+        rc = lib.jt_ffn_sublayer_bf16(
+            *ops, P(ws), P(cnt), plans, r, d, dff, int(prenorm),
+            _LN_KIND[ln_kind], _ACT[activation], int(vdt == torch.float32),
+            _numel(cnt), _build.stream_ptr(dev))
+    else:
+        plans, ws = gemm_operands(products, GP.sm_count(dev), dev)
+        rc = lib.jt_ffn_sublayer(
+            *ops, P(ws), plans, r, d, dff, int(prenorm), _LN_KIND[ln_kind],
+            _ACT[activation], _build.stream_ptr(dev))
     _build.check(lib, rc, "FFN sublayer kernel")
     _build.LAUNCHES[_COUNTER["ffn", dt]] += 1
     return out
@@ -476,33 +541,38 @@ def encoder_stack(x, w, seg: int, heads: int, *, prenorm: bool,
     r, d = x.shape
     n_l, dff = w["w1"].shape[0], w["w1"].shape[-1]
     dev, dt = x.device, x.dtype
-    w = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d),
-                      "bo": (d,), "w1": (d, dff), "b1": (dff,),
-                      "w2": (dff, d), "b2": (d,), "g1": (d,), "be1": (d,),
-                      "g2": (d,), "be2": (d,)}, dev, dt, (n_l,))
+    w, vdt = _operands(w, {"wqkv": (d, 3 * d), "bqkv": (3 * d,),
+                           "wo": (d, d), "bo": (d,), "w1": (d, dff),
+                           "b1": (dff,), "w2": (dff, d), "b2": (d,),
+                           "g1": (d,), "be1": (d,), "g2": (d,), "be2": (d,)},
+                       dev, dt, (n_l,))
     kmask = _kmask_operand(kmask, r, dev)
     out = torch.empty_like(x)
     y = torch.empty_like(x)
     att = torch.empty_like(x)
-    qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
     h1 = torch.empty((r, dff), device=dev, dtype=dt)
     h = torch.empty_like(x) if prenorm else None
-    bf16 = dt == torch.bfloat16
-    plans, ws = gemm_operands(stack_products(r, d, dff), GP.sm_count(dev),
-                              dev, (False, bf16, False, bf16))
     lib = _stack_lib()
     P = _build.ptr
-    if bf16:
+    if dt == torch.bfloat16:
+        qkv = torch.empty((r, 3 * d), device=dev, dtype=dt)
+        plans, ws, cnt = gemm_operands_bf16(
+            stack_products(r, d, dff), GP.sm_count(dev), dev,
+            (False, not prenorm, False, not prenorm))
         # the float32 residual stream between the sublayers and layers
         # (`_stack_kernel`'s scratch), beside its bf16 copies y and out
         y32 = torch.empty((r, d), device=dev, dtype=torch.float32)
         r32 = torch.empty((r, d), device=dev, dtype=torch.float32)
         rc = lib.jt_encoder_stack_bf16(
             P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv),
-            P(att), P(y32), P(y), P(h1), P(r32), P(out), P(ws), plans, r, d,
-            dff, heads, seg, n_l, int(prenorm), _LN_KIND[ln_kind],
-            _ACT[activation], _build.stream_ptr(dev))
+            P(att), P(y32), P(y), P(h1), P(r32), P(out), P(ws), P(cnt),
+            plans, r, d, dff, heads, seg, n_l, int(prenorm),
+            _LN_KIND[ln_kind], _ACT[activation], int(vdt == torch.float32),
+            _numel(cnt), _build.stream_ptr(dev))
     else:
+        qkv = torch.empty((r, 3 * d), device=dev, dtype=torch.float32)
+        plans, ws = gemm_operands(stack_products(r, d, dff),
+                                  GP.sm_count(dev), dev)
         rc = lib.jt_encoder_stack(
             P(x), *(P(w[k]) for k in STACK_KEYS), P(kmask), P(h), P(qkv),
             P(att), P(y), P(h1), P(out), P(ws), plans, r, d, dff, heads,

@@ -1,7 +1,8 @@
 """The shared tensor-core GEMM of the encoder kernels (csrc/gemm.cuh) on the
-CPU: its tile planner (ops/kernels/gemm_plan.py) at every product shape the
-main paths run and at ragged shapes, the plans and workspace the kernel
-wrappers pass to the C entries, and a torch emulation of its 3xTF32
+CPU: its tile planners (ops/kernels/gemm_plan.py: the float32 product's and
+the bf16 wgmma product's) at every product shape the main paths run and at
+ragged shapes, the plans and workspace the kernel wrappers pass to the C
+entries, and a torch emulation of its 3xTF32
 arithmetic, which records why one TF32 pass is not enough. The kernel
 itself runs only on the card (tests/test_torch_kernels_cuda.py).
 
@@ -75,6 +76,72 @@ def test_plan_values(m, k, n, want):
 def test_plan_refuses_empty_products():
     with pytest.raises(ValueError, match="no plan"):
         GP.plan(0, 768, 768, SMS)
+    with pytest.raises(ValueError, match="no plan"):
+        GP.plan_bf16(0, 768, 768, SMS)
+
+
+@pytest.mark.parametrize("m,k,n", TABLE + MORE + [(128, 512, 1536)])
+def test_plan_bf16_invariants(m, k, n):
+    """The bf16 wgmma product's plan (gemm_plan.plan_bf16): a built tile;
+    tiles that cover M and N; K slices of whole 64-deep steps that cover
+    K; a persistent grid of one block an SM (two of a BM 64 tile) that the
+    units fill, or, when the tiles alone do not, slices of at most
+    STEPS_BF16 steps where the units stay within one round of the blocks;
+    and the workspace the wrappers allocate for it."""
+    bm, bn, splits = GP.plan_bf16(m, n, k, SMS)
+    assert (bm, bn) in GP.TILES_BF16
+    assert bm == (128 if math.ceil(m / 128) * math.ceil(n / 64) >= SMS
+                  else 64)
+    rows, cols = math.ceil(m / bm), math.ceil(n / bn)
+    assert (rows - 1) * bm < m <= rows * bm
+    assert (cols - 1) * bn < n <= cols * bn
+    slices = GP.k_slices(k, splits, GP.BK_BF16)
+    assert len(slices) == splits
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (a0, a1), (b0, _) in zip(slices, slices[1:]):
+        assert a1 == b0 and (a1 - a0) % GP.BK_BF16 == 0
+    assert all(k1 > k0 for k0, k1 in slices)
+    tiles, steps = rows * cols, math.ceil(k / GP.BK_BF16)
+    slots = SMS * GP.blocks_per_sm_bf16(bm)
+    assert GP.blocks_per_sm_bf16(bm) == (2 if bm == 64 else 1)
+    if tiles >= slots:
+        assert splits == 1                 # the grid: `slots` blocks, each
+    else:                                  # walking its tiles in turn
+        want = max(1, min(math.ceil(steps / GP.STEPS_BF16), slots // tiles))
+        assert tiles * splits <= slots
+        assert math.ceil(steps / splits) == math.ceil(steps / want)
+        assert splits == 1 or math.ceil(steps / splits) <= GP.STEPS_BF16 \
+            or splits == slots // tiles
+    for ln in (False, True):
+        floats, counters = GP.workspace_bf16(m, n, (bm, bn, splits), ln)
+        want_f = splits * m * n if splits > 1 else 0
+        assert floats == (max(want_f, m * n) if ln else want_f)
+        assert counters == (tiles * bm // 64 if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("r,d,dff,prenorm", [(32, 768, 3072, False),
+                                             (32, 768, 2048, True),
+                                             (128, 512, 2048, True),
+                                             (2688, 512, 2048, False)])
+def test_gemm_operands_bf16(r, d, dff, prenorm):
+    """The bf16 entries' C arguments: plan_bf16's {BM, BN, splits} per
+    product in the entry's order, one float32 workspace the size of the
+    largest split or post-LN's rows, and one int32 counter array the size
+    of the largest split's tiles (None where nothing needs them)."""
+    products = FL.stack_products(r, d, dff)
+    ln = (False, not prenorm, False, not prenorm)
+    plans, ws, cnt = FL.gemm_operands_bf16(products, SMS,
+                                           torch.device("cpu"), ln)
+    want = [GP.plan_bf16(m, n, k, SMS) for m, n, k in products]
+    assert list(plans) == [v for p in want for v in p]
+    need = [GP.workspace_bf16(m, n, p, x)
+            for (m, n, _), p, x in zip(products, want, ln)]
+    n_ws, n_cnt = max(f for f, _ in need), max(c for _, c in need)
+    assert (ws is None) == (n_ws == 0) and (cnt is None) == (n_cnt == 0)
+    if ws is not None:
+        assert ws.dtype == torch.float32 and ws.numel() == n_ws
+    if cnt is not None:
+        assert cnt.dtype == torch.int32 and cnt.numel() == n_cnt
 
 
 @pytest.mark.parametrize("r,d,dff", [(32, 768, 3072), (256, 768, 3072),

@@ -884,21 +884,89 @@ def test_encoder_stack_bf16(dev, n_layers, seg, n, heads, prenorm, kind,
                                              activation=act, kmask=km))
 
 
-@pytest.mark.parametrize("tile", sorted(GP.TILES))
+@pytest.mark.parametrize("tile", sorted(GP.TILES_BF16))
 @pytest.mark.parametrize("splits", [1, 3])
 def test_every_tile_bf16(dev, monkeypatch, tile, splits):
-    """Each built tile pair of the bf16 GEMM, unsplit and split, under the
-    bf16 FFN kernel (ragged rows, a fused post-LN and a pre-LN)."""
-    monkeypatch.setattr(GP, "plan", lambda m, n, k, sms: (*tile, splits))
-    w = _bf16_weights(512, 2048, dev, seed=2)
-    for rows, prenorm in ((77, False), (200, True)):
-        x = torch.randn(rows, 512, device=dev).to(BF)
+    """Each built tile of the bf16 wgmma product, unsplit and with its K
+    slices summed in the kernel, under the bf16 FFN kernel (both
+    products): ragged rows (1, 21, 77, 200, 2688), K not a multiple of 64
+    (520) and N 512, 520, 768, 1536, 2048 and 3072, a fused post-LN and a
+    pre-LN; a second launch bit-identical."""
+    monkeypatch.setattr(GP, "plan_bf16",
+                        lambda m, n, k, sms: (*tile, splits))
+    for rows, d, dff, prenorm in ((1, 512, 1536, False),
+                                  (21, 520, 2048, False),
+                                  (77, 768, 3072, True),
+                                  (200, 512, 2048, True),
+                                  (2688, 512, 1536, False)):
+        w = _bf16_weights(d, dff, dev, seed=2)
+        x = torch.randn(rows, d, device=dev).to(BF)
         got = FL.ffn_sublayer(x, w, prenorm=prenorm, ln_kind="std",
                               activation="gelu")
         want = FL.ffn_sublayer_plain(x, w, prenorm=prenorm, ln_kind="std",
                                      activation="gelu")
         torch.cuda.synchronize()
-        _check_bf16(got, want, f"tile {tile} splits {splits}")
+        _check_bf16(got, want, f"tile {tile} splits {splits} rows {rows}")
+        assert torch.equal(got, FL.ffn_sublayer(
+            x, w, prenorm=prenorm, ln_kind="std", activation="gelu"))
+
+
+def test_split_k_is_deterministic_bf16(dev):
+    """Two launches of the bf16 sublayer and stack kernels at the text
+    encoder's 32 rows, where the FFN's W2 product (K 3072) is split and
+    summed in the product kernel by the last slice to finish, give
+    identical bits."""
+    x = torch.randn(32, 768, device=dev).to(BF)
+    w = _bf16_weights(768, 3072, dev, seed=1)
+    stacked = {k: v.to(BF) if k.startswith("w") else v
+               for k, v in _stacked(2, 768, 3072, dev).items()}
+    km = torch.ones(32, device=dev)
+    km[21:] = 0.0
+    assert GP.plan_bf16(32, 768, 3072, GP.sm_count(dev))[2] > 1
+    for run in (
+            lambda: FL.ffn_sublayer(x, w, prenorm=False, ln_kind="std",
+                                    activation="gelu"),
+            lambda: FL.attn_sublayer(x, w, 32, 8, prenorm=True,
+                                     ln_kind="ref", kmask=km),
+            lambda: FL.encoder_stack(x, stacked, 32, 12, prenorm=False,
+                                     ln_kind="std", activation="gelu",
+                                     kmask=km)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seg", [21, 32, 64, 65, 128, 256, 512])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_core_bf16(dev, seg, masked):
+    """The one-walk bf16 attention core through the bf16 attention
+    sublayer: packed (seg <= 64) and streamed (a whole segment staged, up
+    to 512), two segments, masked with the first segment fully masked (it
+    averages its own keys) or unmasked; against the twin at the bf16
+    bars, relaunched bit-identical."""
+    w = _bf16_weights(512, 2048, dev, seed=5)
+    x = torch.randn(2 * seg, 512, device=dev).to(BF)
+    km = None
+    if masked:
+        km = (torch.rand(2 * seg, device=dev) > 0.3).float()
+        km[:seg] = 0.0
+    got = FL.attn_sublayer(x, w, seg, 8, prenorm=True, ln_kind="ref",
+                           kmask=km)
+    torch.cuda.synchronize()
+    _check_bf16(got, FL.attn_sublayer_plain(x, w, seg, 8, prenorm=True,
+                                            ln_kind="ref", kmask=km),
+                f"attention seg {seg}")
+    assert torch.equal(got, FL.attn_sublayer(x, w, seg, 8, prenorm=True,
+                                             ln_kind="ref", kmask=km))
+
+
+@pytest.mark.parametrize("tile", sorted(GP.TILES_BF16))
+def test_gemm_bf16_fits_an_sm_without_spills(dev, tile):
+    """Each tile of the bf16 wgmma product fits an SM without spilling
+    registers."""
+    info = FL.gemm_info_bf16(tile)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),
@@ -967,8 +1035,9 @@ def test_attention_core_bf16_fits_an_sm_without_spills(dev, dk, packed):
 
 def test_bf16_wrappers_refuse(dev):
     """A bf16 weight beside float32 rows, float32 weights beside bf16
-    frames (either stem), float16 frames and mixed q, k, v dtypes raise;
-    nothing is cast quietly."""
+    frames (either stem), bf16 segments longer than the bf16 attention
+    core stages, float16 frames and mixed q, k, v dtypes raise; nothing is
+    cast quietly."""
     w = _weights(512, 2048, dev)
     x = torch.randn(21, 512, device=dev).to(BF)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -981,6 +1050,10 @@ def test_bf16_wrappers_refuse(dev):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             S.stem_pool(torch.rand(5, 15, 60, 3, device=dev).half(),
                         ops[0].half(), *ops[1:], impl=impl)
+    xs = torch.randn(2 * 513, 512, device=dev).to(BF)
+    with pytest.raises(ValueError, match="bf16 attention core"):
+        FL.attn_sublayer(xs, _bf16_weights(512, 2048, dev), 513, 8,
+                         prenorm=True, ln_kind="ref")
     q, k, v, _ = _qkvm(1, 2, 64, 64, dev)
     with pytest.raises(TypeError, match="share"):
         FA.flash_attention(q.to(BF), k, v.to(BF))

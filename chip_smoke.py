@@ -11,6 +11,8 @@ eval, the CLI's device subcommands and the HTTP server on one card.
     python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
     python3 chip_smoke.py --serve     # phase 11 (serving) alone
     python3 chip_smoke.py --bf16      # phase 12 (the bf16 engine) alone
+    python3 chip_smoke.py [--bf16] --against DIR   # 12a also times kernels
+                                      # 6b and 7b as checkout DIR builds them
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -25,7 +27,13 @@ line. `--cli` runs phase 10 alone on phase 4's weights and engine, and
 prints its `cli` line and no `ok` line; `--serve` runs phase 11 alone the
 same way and prints its `serve` line; `--bf16` runs phase 12 alone after
 phase 4's raw clip and prints its `bf16` and `kernels` lines (the bf16
-rows only).
+rows only). `--against DIR` (with no mode or `--bf16`) builds DIR's
+jegal_torch/csrc/flash_attention.cu and conv2.cu (another checkout, say
+the commit before a redesign, unpacked with `git archive` into a
+directory that .gitignore lists) and has 12a time their bf16 entries in
+turns with this tree's kernels 6b and 7b on the same inputs (replaced,
+new, new, replaced; `replaced_ms` in their rows), failing if a new kernel
+is not the faster in both pairs.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -220,7 +228,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     element, 4 for the 12-layer stack, min row cosine 0.9999:
     tests/bf16_bars.py) and against its float32 kernel on the same bf16
     values (min row cosine 0.9999), two launches bit-identical, registers
-    and spills, then timed (CUDA events, median of 20) beside the float32
+    and spills (6b and 7b: none, and a block an SM), then timed (CUDA
+    events, median of 20) beside the float32
     kernel, the twin and one bf16 PyTorch call chain (for kernel 6 bf16
     SDPA with an additive -1e9 mask), with the bf16 bound
     (bytes at 3.35 TB/s, or operations at 989 TFLOP/s dense bf16); (b) a
@@ -288,7 +297,9 @@ and the flash attention from the bf16 long clip, whose time it sums
 attention and FFN rows' per-shape rows also carry each launch's split
 (12a, torch.profiler after an L2 flush): its device operations, each
 product's plan (gemm_plan.plan_bf16), device ms and bound share, the
-bf16 attention core's and the row passes' device ms.
+bf16 attention core's and the row passes' device ms. A bf16 row whose
+design is its own, not the float32 kernel's on bf16 rows, says so
+(`design`).
 
 Weights are random, drawn from a seeded torch.Generator with randomized
 BatchNorm statistics and LayerNorm parameters; nothing is downloaded. The
@@ -300,7 +311,9 @@ backend with the duck-typed interface of jegal_torch.text.WordTokenizer.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3841,7 +3854,7 @@ SIGNATURES_BF16 = {"stem_band_bf16": ("stem_band_bf16_kernel",),
                                              "PlanarU8"),
                    "conv2_bf16": ("conv2_bf16_kernel",),
                    "attn_sublayer_bf16": ("attention_core",),
-                   "flash_attention_bf16": ("flash_attention_fwd", "short")}
+                   "flash_attention_bf16": ("flash_attention_bf16",)}
 # the bf16 engine with stem_impl="window" on phase 4's clip: kernel 1b's
 # entry in place of kernel 2b
 WINDOW_LAUNCHES_BF16 = dict(VTA_LAUNCHES_BF16, stem_band_bf16=0,
@@ -3892,9 +3905,58 @@ def hold_bf16(got, twin, f32_out, what: str, stack: bool = False) -> dict:
                 min_row_cos_f32=cos32)
 
 
+# --against DIR: kernels 6b and 7b as another checkout (DIR) builds them,
+# each timed in turns with this tree's in 12a: {source stem: ctypes library}
+REPLACED: dict = {}
+REPLACED_SOURCES = ("flash_attention", "conv2")
+
+
+def build_replaced(tree: Path) -> dict:
+    """Compile `tree`'s csrc/flash_attention.cu and conv2.cu (both at once,
+    this tree's nvcc flags) under build/jegal_torch_kernels/ and load
+    them."""
+    import ctypes
+
+    from jegal_torch.ops.kernels import _build
+
+    csrc = tree / "jegal_torch" / "csrc"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem in REPLACED_SOURCES:
+        lib = _build.BUILD_DIR / f"replaced-{stem}.so"
+        procs[stem] = (lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(lib), str(csrc / f"{stem}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for stem, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {tree}'s {stem}.cu:\n{out}")
+        libs[stem] = ctypes.CDLL(str(lib))
+    void, i32 = ctypes.c_void_p, ctypes.c_int
+    libs["flash_attention"].jt_flash_attention_bf16.argtypes = \
+        [void] * 5 + [i32] * 4 + [ctypes.c_float, void]
+    libs["conv2"].jt_conv2_bf16.argtypes = [void] * 5 + [i32] * 3 + [void]
+    log(f"the replaced kernels built from {tree}")
+    return libs
+
+
+def replaced_turns(fn, old, what: str, cold: bool) -> dict:
+    """The kernel and the one it replaces (`old`, the --against tree's) on
+    the same inputs, timed in turns (old, new, new, old; CUDA events,
+    median of 20 each); the new one must be the faster in both pairs."""
+    ms = [cuda_ms(f, cold=cold) for f in (old, fn, fn, old)]
+    log(f"  {what} in turns with the replaced kernel: replaced {ms[0]:.4f} "
+        f"/ {ms[3]:.4f} ms, this kernel {ms[1]:.4f} / {ms[2]:.4f} ms")
+    if not (ms[1] < ms[0] and ms[2] < ms[3]):
+        raise AssertionError(f"{what}: slower than the kernel it replaces")
+    return dict(replaced_ms=[ms[0], ms[3]], ms_in_turns=[ms[1], ms[2]])
+
+
 def bf16_row(what: str, fn, plain, f32_fn, library, flops: float,
              nbytes: float, cold: bool, stack: bool = False,
-             **extra) -> dict:
+             replaced=None, **extra) -> dict:
     """One bf16 kernel at one shape: held (hold_bf16), a second launch
     bit-identical, then timed beside its float32 kernel on the same
     inputs, its twin and its bf16 PyTorch chain (CUDA events, median of
@@ -3910,6 +3972,8 @@ def bf16_row(what: str, fn, plain, f32_fn, library, flops: float,
         f"plain {row['plain_ms']:.4f} library (bf16) "
         f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}, bf16), "
         f"{100 * b_ms / row['ms']:.1f} % of it")
+    if replaced is not None:
+        row.update(replaced_turns(fn, replaced, what, cold))
     return row
 
 
@@ -3988,15 +4052,44 @@ def check_bf16_tower(gp, dev, stem_inputs):
 
     _, j2, w2_, _ = C2.out_shape(*x.shape[:3])
     m = x.shape[0] * j2 * w2_
-    log(f"bf16 block 2: {tuple(x.shape)} bf16 -> {C2.out_shape(*x.shape[:3])}")
+    log(f"bf16 block 2: {tuple(x.shape)} bf16 -> "
+        f"{C2.out_shape(*x.shape[:3])}; kernel "
+        f"{kernel_info_bf16(C2.kernel_info_bf16(), 'kernel 7b')}")
+    replaced = None
+    if REPLACED:
+        old_out = torch.empty(x.shape[0], 128, j2, w2_, device=dev, dtype=bf)
+        replaced = lambda: launch_replaced(   # noqa: E731
+            REPLACED["conv2"].jt_conv2_bf16, x, c2[0], c2[1], c2[2], old_out,
+            *x.shape[:3])
     conv2_row = bf16_row(
         "conv2_bf16", lambda: C2.conv2_bn_relu(x, *c2),
         lambda: C2.conv2_bn_relu_plain(x, *c2),
         lambda: C2.conv2_bn_relu(x.float(), *c2_32), library2,
         2.0 * m * 128 * 1600,
         2.0 * (x.numel() + c2[0].numel() + m * 128) + 8 * 128, False,
-        shape=f"{tuple(x.shape)}")
+        replaced=replaced, shape=f"{tuple(x.shape)}")
     return rows["band"], [conv2_row], rows["window"]
+
+
+def kernel_info_bf16(info: dict, what: str) -> dict:
+    """A kernel's registers, spills, shared memory and blocks an SM: no
+    spill, and at least one block an SM."""
+    if info["spill_bytes"] or info["blocks_per_sm"] < 1:
+        raise AssertionError(f"{what}: spills or does not fit an SM: {info}")
+    return info
+
+
+def launch_replaced(entry, *args):
+    """One launch of a replaced kernel's C entry on tensors (as pointers)
+    and numbers, on the current stream."""
+    import torch
+
+    from jegal_torch.ops.kernels import _build
+
+    rc = entry(*(_build.ptr(a) if isinstance(a, torch.Tensor) else a
+                 for a in args), _build.stream_ptr(args[0].device))
+    if rc != 0:
+        raise RuntimeError(f"the replaced kernel failed: error {rc}")
 
 
 def stem_info_bf16(planar: bool, impl: str) -> dict:
@@ -4030,7 +4123,15 @@ def check_bf16_flash(dev):
         mask = torch.zeros(b, t)
         mask[:, :valid] = 1.0
         mask = mask.to(dev)
-        log(f"bf16 flash attention: {label}, {valid} valid keys")
+        log(f"bf16 flash attention: {label}, {valid} valid keys; kernel "
+            f"{kernel_info_bf16(FA.kernel_info_bf16(d), 'kernel 6b')}")
+        replaced = None
+        if REPLACED:
+            old_out = torch.empty_like(q)
+            replaced = functools.partial(
+                launch_replaced,
+                REPLACED["flash_attention"].jt_flash_attention_bf16, q, k, v,
+                mask, old_out, b, h, t, d, 1.0 / math.sqrt(d))
         rows.append(bf16_row(
             "flash_attention_bf16",
             lambda: FA.flash_attention(q, k, v, mask),
@@ -4038,7 +4139,8 @@ def check_bf16_flash(dev):
             lambda: FA.flash_attention(q.float(), k.float(), v.float(), mask),
             lambda: _library_flash(q, k, v, mask),
             4.0 * b * h * t * t * d, 2.0 * 4 * b * h * t * d + 4.0 * b * t,
-            False, shape=label, launches_per_clip=per_clip_n))
+            False, replaced=replaced, shape=label,
+            launches_per_clip=per_clip_n))
     return rows
 
 
@@ -4514,6 +4616,19 @@ def run_bf16_long_clip(jp, engines):
     return out, ran
 
 
+# the bf16 kernels whose design is their own, not the float32 kernel's
+REDESIGNED = {
+    "flash_attention_bf16": "q * scale and p as two bf16 pieces held in "
+                            "registers; wgmma m64n64k16 at head width 64, "
+                            "mma.sync m16n8k16 bf16 at 96",
+    "conv2_bf16": "persistent wgmma m64n128k16 implicit GEMM, one stage a "
+                  "(kh, kw) tap in the 128-byte swizzle",
+    "attn_sublayer_bf16": "the wgmma bf16 product and the one-walk bf16 "
+                          "attention core",
+    "ffn_sublayer_bf16": "the wgmma bf16 product",
+}
+
+
 def bf16_kernel_rows(tower, encoders, flash, launches) -> list:
     """The `kernels` line's bf16 rows: launches from the bf16 engine's raw
     `vta` clip (the window stem's from the window engine's raw clip for
@@ -4564,9 +4679,14 @@ def bf16_kernel_rows(tower, encoders, flash, launches) -> list:
             agg = {k: rows[0][k] for k in ("ms", "ms_f32", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "bound_by")}
+        if all("replaced_ms" in r for r in rows):   # --against
+            agg["replaced_ms"] = rows[0]["replaced_ms"] if not clip_sum else [
+                sum(r["replaced_ms"][i] * r["launches_per_clip"]
+                    for r in rows) for i in (0, 1)]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=ran[name],
+            launches=ran[name], **({"design": REDESIGNED[name]}
+                                   if name in REDESIGNED else {}),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             worst_ulps=max(r["worst_ulps"] for r in rows),
             min_row_cos=min(r["min_row_cos"] for r in rows),
@@ -4611,10 +4731,17 @@ def smoke_text_ids():
 def main() -> int:
     global CHECK_KERNEL_COUNTS
     mode = sys.argv[1:]
+    against = None
+    if "--against" in mode[:-1]:
+        at = mode.index("--against")
+        against = Path(mode[at + 1]).resolve()
+        mode = mode[:at] + mode[at + 2:]
     if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"],
-                    ["--cli"], ["--serve"], ["--bf16"]):
+                    ["--cli"], ["--serve"], ["--bf16"]) or (
+            against is not None and mode not in ([], ["--bf16"])):
         print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler | "
-              f"--cli | --serve | --bf16]", file=sys.stderr)
+              f"--cli | --serve | --bf16] [--against DIR] (--against with "
+              f"no mode or --bf16)", file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -4649,6 +4776,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    if against is not None:
+        REPLACED.update(build_replaced(against))
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED)

@@ -619,19 +619,6 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// The four 8x8 b16 matrices at the rows lanes 8i..8i+7 point to, each
-// transposed: lane (g, t) receives rows 2t, 2t + 1 of column g of matrix i
-// in r[i] (an mma_bf16 B fragment of a row-major (k, n) operand).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const uint16_t* row) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // grid (tiles, heads), tiles as attention_core's. qkv: (R, 3d) bf16 rows,
 // q already times the scale; kq: a streamed warp's key slice
 // (CoreB::slice(seg)).

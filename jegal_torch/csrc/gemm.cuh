@@ -101,9 +101,9 @@
 // the text and gesture rows (32, 128) the weights' bytes, read once, and
 // the latency of a launch and its units. On the H100 (NVIDIA H100 80GB
 // HBM3, 700 W; PERF.md §6) the window head's products ran at 15-30 %
-// of their bound, the small ones at 3-20 %. tc_product_bf16 (mma.sync
-// m16n8k16, float32 stage sums) stays for block 2 (conv2.cu), which
-// gathers its A rows through it.
+// of their bound, the small ones at 3-20 %. Block 2's bf16 kernel
+// (conv2.cu) runs the same wgmma, descriptors, mbarriers and
+// bf16_tensor_map with its own gathering producer.
 #pragma once
 
 #include <cuda.h>           // CUtensorMap (the bf16 product's TMA)
@@ -705,6 +705,31 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The four 8x8 b16 matrices at the rows lanes 8i..8i+7 point to: lane (g,
+// t) receives row g, columns 2t, 2t + 1 of matrix i in r[i] (an mma_bf16 B
+// fragment of an (n, k) row-major operand, or an A fragment).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint16_t* row) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The same, each matrix transposed: lane (g, t) receives rows 2t, 2t + 1
+// of column g of matrix i in r[i] (an mma_bf16 B fragment of a row-major
+// (k, n) operand).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const uint16_t* row) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 // 16 bytes global -> shared of any element type, zero-filled when !valid.
 __device__ __forceinline__ void cp_async16b(void* smem, const void* gmem,
                                             bool valid) {
@@ -712,135 +737,6 @@ __device__ __forceinline__ void cp_async16b(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(valid ? 16 : 0)
                : "memory");
-}
-
-constexpr int TB_APAD = 8;   // bf16 A rows: BK + 8 halves (80 bytes)
-constexpr int TB_BPAD = 8;   // bf16 B rows: BN + 8 halves
-
-// The bf16 stage of a (BM, BN) tile, in halves; copies of 8 halves.
-template <int BM, int BN>
-struct TileB {
-  static constexpr int WN = TileWarps<BM, BN>::WN;
-  static constexpr int NT = Tile<BM, BN>::NT, MF = Tile<BM, BN>::MF,
-                       NF = Tile<BM, BN>::NF;
-  static constexpr int AS = TC_BK + TB_APAD, BS = BN + TB_BPAD;
-  static constexpr int A_STAGE = BM * AS, B_STAGE = TC_BK * BS;
-  static constexpr int A_COPIES = BM * TC_BK / 8 / NT;
-  static constexpr int B_COPIES = TC_BK * BN / 8 / NT;
-  static_assert(A_COPIES * NT * 8 == BM * TC_BK, "A stage split evenly");
-  static_assert(B_COPIES * NT * 8 == TC_BK * BN, "B stage split evenly");
-};
-
-template <int BM, int BN>
-constexpr int tile_bf16_smem_bytes() {
-  return TC_STAGES * (BM * (TC_BK + TB_APAD) + TC_BK * (BN + TB_BPAD)) * 2;
-}
-
-// A thread's bf16 A copy i of a stage: tile row r and the 8 columns from kc.
-template <int BM, int BN>
-__device__ __forceinline__ void a_copy_slot_bf16(int i, int& r, int& kc) {
-  const int c = threadIdx.x + i * TileB<BM, BN>::NT;
-  r = c / (TC_BK / 8);
-  kc = (c % (TC_BK / 8)) * 8;
-}
-
-// tc_product in bf16: the block's (BM, BN) tile of A[:, k_begin:k_end] @
-// B[k_begin:k_end, n0:n0+BN] into sum, through the ring in `smem`
-// (tile_bf16_smem_bytes). load_a(as, i, k0) issues the thread's A copy i
-// (a_copy_slot_bf16) of the stage at column k0 into `as`. K slices are
-// multiples of 8. Each stage's two k16 products start from zero and are
-// added to the float32 sum.
-template <int BM, int BN, class LoadA>
-__device__ __forceinline__ void tc_product_bf16(
-    uint16_t* smem, const LoadA& load_a, const uint16_t* __restrict__ B,
-    int N, int n0, int k_begin, int k_end,
-    float (&sum)[TileB<BM, BN>::MF][TileB<BM, BN>::NF][4]) {
-  using TL = TileB<BM, BN>;
-  constexpr int WN = TL::WN, NT = TL::NT, MF = TL::MF, NF = TL::NF;
-  constexpr int AS = TL::AS, BS = TL::BS;
-  constexpr int A_STAGE = TL::A_STAGE, B_STAGE = TL::B_STAGE;
-  uint16_t* As = smem;
-  uint16_t* Bs = smem + TC_STAGES * A_STAGE;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp / WN) * MF * 16, wn0 = (warp % WN) * NF * 8;
-  const int nsteps = (k_end - k_begin + TC_BK - 1) / TC_BK;
-
-  auto load_stage = [&](int stage, int step) {
-    const int k0 = k_begin + step * TC_BK;
-    uint16_t* as = As + stage * A_STAGE;
-    uint16_t* bs = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < TL::A_COPIES; ++i) load_a(as, i, k0);
-#pragma unroll
-    for (int i = 0; i < TL::B_COPIES; ++i) {
-      const int c = tid + i * NT;
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const bool ok = k0 + r < k_end && n0 + nc < N;
-      cp_async16b(bs + r * BS + nc,
-                  ok ? B + (size_t)(k0 + r) * N + n0 + nc : B, ok);
-    }
-  };
-
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<TC_STAGES - 2>();
-    __syncthreads();
-    const int next = step + TC_STAGES - 1;
-    if (next < nsteps) load_stage(next % TC_STAGES, next);
-    cp_async_commit();
-
-    const uint16_t* as = As + (step % TC_STAGES) * A_STAGE;
-    const uint16_t* bs = Bs + (step % TC_STAGES) * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      uint32_t a[MF][4], b[NF][2];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        const uint16_t* p = as + (wm0 + i * 16 + g) * AS + kk + 2 * t;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * AS);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * AS + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const uint16_t* q = bs + (kk + 2 * t) * BS + wn0 + j * 8 + g;
-        b[j][0] = pack_bf16(q[0], q[BS]);
-        b[j][1] = pack_bf16(q[8 * BS], q[9 * BS]);
-      }
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
-  }
-  cp_async_wait<0>();
 }
 
 // Float32 or bf16 values (a bf16 epilogue's residual rows, its bias, a
@@ -1051,6 +947,36 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[64], uint64_t a_desc,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a_desc), "l"(b_desc), "r"((int)accumulate));
+}
+
+// d (a warpgroup's 64 x 64 float32 tile) = A @ B (+ d when accumulate):
+// bf16 m64n64k16 with A from registers (a warp's 16 rows as mma_bf16's A
+// fragment) and B from shared memory in the 128-byte swizzle, K-major (TB
+// 0) or MN-major (TB 1). d as wgmma_ss_bf16's.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b_desc,
+                                              bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "n"(TB),
+        "r"((int)accumulate));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -12,8 +12,10 @@ block 2 as cuDNN's convolution, the counterpart of the JAX package's
 default `mgrid_conv2_dense`.
 
 bf16 rows (a bf16 stem output and a bf16 weight) take the kernel's bf16
-variant: bf16 products summed in float32, BN and ReLU in float32, the
-output rounded to bf16 (the JAX package's conv2.py:115-140 in bf16).
+variant (kernel 7b): bf16 products summed in float32, BN and ReLU in
+float32, the output rounded to bf16 (the JAX package's conv2.py:115-140 in
+bf16); on the card a persistent wgmma implicit GEMM, one stage a tap
+(csrc/conv2.cu).
 """
 
 from __future__ import annotations
@@ -82,6 +84,21 @@ def _lib():
     lib.jt_conv2_bf16.argtypes = lib.jt_conv2.argtypes
     lib.jt_conv2_bf16.restype = ctypes.c_int
     return lib
+
+
+def kernel_info_bf16() -> dict:
+    """What the compiler and the occupancy calculator say of kernel 7b:
+    registers and spill bytes a thread, dynamic shared memory a block and
+    resident blocks an SM (on the current card)."""
+    lib = _lib()
+    lib.jt_conv2_bf16_info.argtypes = [ctypes.c_void_p]
+    lib.jt_conv2_bf16_info.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, lib.jt_conv2_bf16_info(ctypes.cast(info,
+                                                         ctypes.c_void_p)),
+                 "conv2 kernel info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
 
 
 def conv2_bn_relu(x, weight, scale, bias):

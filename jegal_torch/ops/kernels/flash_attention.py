@@ -8,10 +8,12 @@ a (B, T) key validity (0 = masked) or None. Scores are (q / sqrt(D)) k^T
 with masked keys FILLED with -1e9 before a float32 softmax (reference
 models/modules.py:61-75).
 
-bf16 rows take the kernel's bf16 variant, which computes what
+bf16 rows take the kernel's bf16 variant (kernel 6b), which computes what
 `_make_kernel` computes on a bf16 block (flash_attention.py:45-72): q, k
 and v upcast to float32 (exact), q scaled in float32, float32 scores,
-softmax and p (p is never rounded), and the output rounded to bf16 once.
+softmax and p, and the output rounded to bf16 once. On the card it runs
+its products as bf16 tensor-core passes over q * scale and p split into
+two bf16 pieces each (csrc/flash_attention.cu).
 
 `flash_attention` launches the kernel of the rows' dtype for a CUDA tensor
 and runs the twin for a CPU one. `flash_attention_diff` is the
@@ -91,6 +93,23 @@ def _lib():
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_info_bf16(d: int) -> dict:
+    """What the compiler and the occupancy calculator say of kernel 6b at
+    head width `d`: registers and spill bytes a thread, dynamic shared
+    memory a block and resident blocks an SM (on the current card)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d}: the kernel takes {HEAD_DIMS}")
+    lib = _lib()
+    fn = lib.jt_flash_attention_bf16_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, fn(d, ctypes.cast(info, ctypes.c_void_p)),
+                 "flash attention kernel info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
 
 
 def flash_attention(q, k, v, mask=None):

@@ -22,7 +22,10 @@ plain loads, on all-0 and all-255 pixels, relaunched with identical bits,
 and its block without spills; the bf16 variants of every kernel, the
 window stem's (1b) and the flash attention's (6b, with a misaligned
 operand refused) among them, against their twins at the bars of
-tests/bf16_bars.py; the wrappers' refusals, a
+tests/bf16_bars.py, 6b and 7b also within KERNEL_COS of the float32
+kernel, 6b at the long clip relaunched with identical bits, 7b over more
+tiles than SMs with a ragged last tile, and both without spills; the
+wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
 takes; and the engine's CUDA graphs: a replay against an eager run of
@@ -970,8 +973,14 @@ def test_gemm_bf16_fits_an_sm_without_spills(dev, tile):
 
 
 @pytest.mark.parametrize("t,n_j,w_pool", [(3, 5, 5), (10, 11, 14),
-                                          (148, 43, 78), (5, 13, 21)])
+                                          (148, 43, 78), (5, 13, 21),
+                                          (100, 23, 41)])
 def test_conv2_bf16(dev, t, n_j, w_pool):
+    """Kernel 7b against its twin at the bars and within KERNEL_COS of the
+    float32 kernel on the same values; one launch counted, a relaunch
+    bit-identical. (100, 23, 41) is 19,000 positions: more 128-position
+    tiles than SMs, so blocks of the persistent grid take a second tile,
+    and the last is ragged."""
     g = torch.Generator().manual_seed(4)
     x = torch.rand(t, n_j, w_pool, 64, generator=g).to(dev).to(BF)
     weight = (torch.randn(5, 5, 64, 128, generator=g) * 0.03).to(dev).to(BF)
@@ -985,6 +994,15 @@ def test_conv2_bf16(dev, t, n_j, w_pool):
     assert got.permute(0, 3, 1, 2).is_contiguous()
     _check_bf16(got, C2.conv2_bn_relu_plain(x, weight, scale, bias), "conv2")
     assert torch.equal(got, C2.conv2_bn_relu(x, weight, scale, bias))
+    f32 = C2.conv2_bn_relu(x.float(), weight.float(), scale, bias)
+    assert _bars().min_row_cos(got, f32) >= _bars().KERNEL_COS
+
+
+def test_conv2_bf16_fits_an_sm_without_spills(dev):
+    """Kernel 7b's block fits an SM without spilling registers."""
+    info = C2.kernel_info_bf16()
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
@@ -1131,6 +1149,29 @@ def test_flash_attention_bf16(dev, shape):
     assert torch.equal(FA.flash_attention(qt, k, v, mask), got)
     _check_bf16(FA.flash_attention(q, k, v),
                 FA.flash_attention_plain(q, k, v), "flash bf16, no mask")
+    f32 = FA.flash_attention(q.float(), k.float(), v.float(), mask)
+    assert _bars().min_row_cos(got, f32) >= _bars().KERNEL_COS
+
+
+def test_flash_attention_bf16_long_clip_relaunch(dev):
+    """Kernel 6b at the bf16 long clip's (1, 8, 1024, 64) with its last 24
+    keys masked (a 1000-frame clip in the T 1024 bucket): at the bars of
+    its twin, and a relaunch bit-identical."""
+    q, k, v, _ = (x.to(BF) if x.dim() == 4 else x
+                  for x in _qkvm(1, 8, 1024, 64, dev, seed=5))
+    mask = torch.ones(1, 1024, device=dev)
+    mask[:, 1000:] = 0.0
+    got = FA.flash_attention(q, k, v, mask)
+    _check_bf16(got, FA.flash_attention_plain(q, k, v, mask), "long clip")
+    assert torch.equal(FA.flash_attention(q, k, v, mask), got)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_attention_bf16_fits_an_sm_without_spills(dev, d):
+    """Kernel 6b's block fits an SM without spilling registers."""
+    info = FA.kernel_info_bf16(d)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 def test_flash_attention_bf16_refuses_misaligned(dev):

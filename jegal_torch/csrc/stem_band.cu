@@ -61,25 +61,10 @@
 // 153.2 KB (planar); one block an SM. The launcher cuts the pooled rows into
 // runs so that the blocks fill whole waves of the card's SMs.
 //
-// stem_band_bf16_kernel is its bf16 variant (the JAX engine's bf16 dtype),
-// on bf16 float frames (the /255 rounded to bf16 by the mask) and on the
-// planar bytes with a bf16 weight (/255 folded in float32, then rounded):
-//   * the products run on wgmma m64n64k16 bf16, one pass (a bf16 product
-//     is exact in float32; uint8 pixels are exact in bf16), K padded to
-//     160, the float32 flush every 32 columns (two k16 steps);
-//   * B is a tap's bf16 weights, landed raw by cp.async and repacked
-//     between two taps into one K-major plane of 8 n x 8 k core matrices
-//     (LBO 1024, SBO 128 bytes: the TF32 planes' geometry at 2-byte
-//     elements); A pairs two k of the gathered ring values (koff as above);
-//   * the three taps of each row, BN and ReLU in float32; the pooled max
-//     rounded to bf16 once, which equals the max of the conv rows rounded
-//     to bf16 (`_stem_kernel_band` rounds each conv row, stem.py:305, and
-//     takes the max on bf16 values, :336): rounding is monotone.
-// The bf16 ring is half the float ring's bytes, the plane a quarter of the
-// two TF32 planes': 96.7 KB (float), 91.6 KB (planar) of shared memory.
-// The freed memory is not used: the launch bounds keep one block an SM,
-// as the float32 kernel's, so that both run the same band schedule.
-// Bound in bf16: 190 GFLOP at 989 TFLOP/s, 0.192 ms a 5 s clip.
+// stem_band_bf16_kernel is its bf16 variant (kernel 2b); see the note
+// above it below.
+#include <type_traits>
+
 #include "gemm.cuh"
 #include "stem.cuh"
 
@@ -410,47 +395,134 @@ stem_band_kernel(Src src, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16
+// Kernel 2b: the bf16 band stem
 // ---------------------------------------------------------------------------
+//
+// The bf16 variant (the JAX engine's bf16 dtype) on bf16 float frames (the
+// /255 rounded to bf16 by the mask) and on the planar bytes with a bf16
+// weight (/255 folded in float32, then rounded). Arithmetic: products of
+// bf16 values (exact in float32; uint8 pixels are exact in bf16) on wgmma
+// m64n64k16 bf16, added to a float32 sum every 32 columns of K (two k16
+// steps), tap by tap; the three taps of each row, BN and ReLU in float32;
+// the pooled max rounded to bf16 once, which equals the max of the conv
+// rows rounded to bf16 (`_stem_kernel_band` rounds each conv row,
+// stem.py:305, and takes the max on bf16 values, :336): rounding is
+// monotone.
+//
+// Bound: operations, 190 GFLOP at 989 TFLOP/s, 0.192 ms a 5 s clip. The
+// first bf16 design (the float32 kernel's schedule in bf16) ran at 7.8x
+// that: every pair of conv rows repacked each tap's raw weights into the
+// wgmma plane behind two block barriers (10 barriers a pair, the weight
+// repacked ~16 times a block), and its 8 warps gathered each A register
+// pair through a koff[rotation][k] table with two 2-byte loads, waiting for
+// their products at every flush. This design:
+//  * K order: each tap's 147 columns in (dy, dx, c) order, each dy's 21
+//    padded to 24 (zero weights), 168 padded to 176 = 11 k16 steps. Then
+//    every A register (two neighbouring k of one row) is two neighbouring
+//    pixels' values of one input row, and its k8 group q lies in row dy =
+//    q / 3 at 8 (q % 3) + 2t of the position's 24-element window: every
+//    offset but the ring slot of dy is known when the kernel is compiled.
+//  * A ring of 10 input rows a frame (row y in slot y % 10, the band
+//    schedule of the float32 kernel), in bf16 for both entries, twice: as
+//    staged (copy 0) and shifted by one element (copy 1), so that a
+//    position's window (9 elements a conv column on) starts on a 4-byte
+//    boundary in one of them and each A register is one 32-bit load (4 a
+//    k16 step, no table, no pack). Float frames land in copy 0 by
+//    cp.async and a warp a row builds copy 1; planar bytes land as they
+//    are (over copy 1's slots of the same rows) and a warp a row converts
+//    them into both copies once, as they land.
+//  * The weights packed once a block, at its start, into five resident
+//    K-major planes of 8 n x 8 k core matrices (LBO 1024, SBO 128 bytes,
+//    110 KB): no repack and no barrier between taps.
+//  * 4 consumer warpgroups of one m64 tile each (16 warps: twice the
+//    warps, half the registers a thread of the first design): a warp's 16
+//    rows are 8 (frame, column) positions, rows g their conv row 2m and g
+//    + 8 their row 2m + 1, so a thread holds both rows of its position and
+//    forms the pair's row max in registers; 128 positions, 119 used. The
+//    carry (the row max of the pair before) waits in shared memory as
+//    bf16, which gives the same pooled value (rounding is monotone) and
+//    keeps the 128 registers a thread of 512 from spilling. Each flush
+//    group's A registers are loaded while the group before runs on the
+//    tensor cores.
+//  * Persistent: a block an SM walks the (strip, frame group, run of
+//    pooled rows) units; a pair costs 4 block barriers (rows landed,
+//    copies built, products done, pooling buffer written) and the next
+//    pair's rows arrive while this pair's epilogue runs. The pooling
+//    buffer holds the bf16 of max(carry, conv row 2m); the folded scale
+//    and bias wait in shared memory.
+// A warp-specialized shape (a producer warpgroup writing
+// each (pair, tap) im2col tile into the swizzle for wgmma with A from
+// shared memory) does not fit: 256 GEMM rows x 160 K is 80 KB a stage.
+// Shared memory: 5 planes 110 KB, the two ring copies 72.2 KB, the pooling
+// buffer 18 KB, the carry 16 KB, scale and bias 0.5 KB: 216.7 KB, one
+// block an SM.
 
-template <> struct BandRing<Bf16Frames> {
-  using Elem = uint16_t;
-  static constexpr int ROW = 168;          // 55 columns x 3, padded
-  static constexpr int PIECES = ROW / 8;   // 16-byte copies a row
-  static constexpr int FRAME = SB_RING * ROW;
-  static constexpr int WORDS = SB_FIN * FRAME / 2;
-  static constexpr int COL = ST_S * ST_CIN;
-  __device__ static int koff(int slot, int dx, int c) {
-    return slot * ROW + dx * ST_CIN + c;
-  }
-};
-
-constexpr int SBB_KP = 160;                 // 147 taps padded to k16 steps
-constexpr int SBB_KSTEPS = SBB_KP / 16;     // 10
+constexpr int SBB_WGS = 4, SBB_THREADS = 128 * SBB_WGS;   // warpgroups
+constexpr int SBB_DY = 24;                  // K columns of a dy row
+constexpr int SBB_KP = 176;                 // 7 x 24 padded to k16 steps
+constexpr int SBB_KSTEPS = SBB_KP / 16;     // 11
 constexpr int SBB_FLUSH = 2;                // k16 steps a float32 flush
-constexpr int SBB_KG = SBB_KP / 8;          // core-matrix columns (20)
-constexpr int SBB_PLANE = SBB_KG * 8 * ST_C;   // halves of the bf16 plane
-// words of the plane's region, which also holds the pooling buffer
-constexpr int SBB_REGION = SB_SLOTS * SB_VLD > SBB_PLANE / 2
-                               ? SB_SLOTS * SB_VLD : SBB_PLANE / 2;
-constexpr int SBB_RAW = ST_WS / 2;          // words of a tap's raw weights
+constexpr int SBB_GROUPS = (SBB_KSTEPS + SBB_FLUSH - 1) / SBB_FLUSH;   // 6
+constexpr int SBB_PLANE = SBB_KP * ST_C;    // halves of a tap's plane
+constexpr int SBB_ROW = 168;                // halves of a staged row (56 px)
+constexpr int SBB_WORDS = SBB_ROW / 2;      // 32-bit words of a row
+constexpr int SBB_FRAME = SB_RING * SBB_ROW;
+constexpr int SBB_RING = SB_FIN * SBB_FRAME;   // halves of a ring copy
+constexpr int SBB_VLD = ST_C + 8;           // a pooling buffer row (halves)
+// the carry: a thread's bf16 channel pairs, [n8 tile][slot][t4] words
+constexpr int SBB_CARRY = ST_NF * SB_SLOTS * 4;
+constexpr int SBB_SMEM = 2 * (ST_KT * SBB_PLANE + 2 * SBB_RING +
+                              SB_SLOTS * SBB_VLD) + 4 * SBB_CARRY +
+                         4 * 2 * ST_C;   // + the folded scale and bias
+static_assert(SB_SLOTS == 32 * SBB_WGS, "a warpgroup an m64 tile");
+static_assert(SBB_DY >= ST_KW * ST_CIN && SBB_DY % 8 == 0,
+              "a k8 group lies in one dy row");
+static_assert(ST_S * ST_CIN * (SB_CC - 1) + SBB_DY <= SBB_ROW,
+              "a window lies in its staged row");
+static_assert(9 * 32 <= 2 * SBB_ROW, "a row's planar runs fit its slot");
+static_assert(SBB_SMEM <= 232448, "fits an SM");
 
-template <class Src>
-constexpr int SBB_SMEM_WORDS =
-    SBB_REGION + SBB_RAW + SB_RING * SBB_KP + BandRing<Src>::WORDS;
+// The raw (5, 7, 7, 3, 64) weight into the five K-major planes: element
+// (n, k) of tap dt at half dt * SBB_PLANE + (k / 8) * 512 + (n / 8) * 64 +
+// (n % 8) * 8 + k % 8, k = 24 dy + 3 dx + c, zero at the padding.
+__device__ __forceinline__ void pack_planes_bf16(
+    const uint16_t* __restrict__ w, uint16_t* planes) {
+  constexpr int KG = SBB_KP / 8;
+  for (int i = threadIdx.x; i < ST_KT * KG * ST_C; i += SBB_THREADS) {
+    const int n = i % ST_C, kg = (i / ST_C) % KG, dt = i / (ST_C * KG);
+    uint16_t h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 8 * kg + e, dy = k / SBB_DY, r = k - dy * SBB_DY;
+      h[e] = dy < ST_KH && r < ST_KW * ST_CIN
+                 ? __ldg(w + ((size_t)dt * ST_TAPS + dy * ST_KW * ST_CIN +
+                              r) * ST_C + n)
+                 : (uint16_t)0;
+    }
+    *reinterpret_cast<uint4*>(planes + dt * SBB_PLANE + kg * 8 * ST_C +
+                              (n >> 3) * 64 + (n & 7) * 8) =
+        make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]),
+                   pack_bf16(h[4], h[5]), pack_bf16(h[6], h[7]));
+  }
+}
 
-// Rows [y0, y0 + n) of bf16 float frames into their ring slots, as the
-// float32 issue_rows: a staged row is 168 bf16 from column x0.
-__device__ __forceinline__ void issue_rows(const Bf16Frames& s, int t0,
+// Input rows [y0, y0 + n) of the block's input frames (from t0) into
+// their ring slots: bf16 frames into copy 0, 168 halves from column x0
+// (cp.async when `async`: 16-byte aligned rows); planar bytes as they are,
+// the 9 runs (dw, c) of 32 bytes from w3 = x0 / 3 of planar row (t, y /
+// 3), planes (y % 3) * 9 + dw * 3 + c, over copy 1's slot of the row.
+// Pixels past the clip or the frame are zero.
+__device__ __forceinline__ void stage_rows(const Bf16Frames& s, int t0,
                                            int t_in, int x0, int y0, int n,
-                                           uint16_t* ring, bool async) {
-  using R = BandRing<Bf16Frames>;
+                                           uint16_t* ring0, uint16_t*,
+                                           bool async) {
+  constexpr int PIECES = SBB_ROW / 8;   // 16-byte copies a row
   const int wq = s.W * ST_CIN;
-  for (int i = threadIdx.x; i < SB_FIN * n * R::PIECES; i += SB_THREADS) {
-    const int fr = i / R::PIECES, q = (i - fr * R::PIECES) * 8;
+  for (int i = threadIdx.x; i < SB_FIN * n * PIECES; i += SBB_THREADS) {
+    const int fr = i / PIECES, q = (i - fr * PIECES) * 8;
     const int f = fr / n, y = y0 + fr % n;
     const int t = t0 + f, xq = x0 * ST_CIN + q;
-    uint16_t* dst = ring + (f * SB_RING + y % SB_RING) * R::ROW + q;
+    uint16_t* dst = ring0 + f * SBB_FRAME + (y % SB_RING) * SBB_ROW + q;
     const uint16_t* src = s.p + ((size_t)t * s.H + y) * wq + xq;
     const bool row_ok = t < t_in && y < s.H;
     if (async) {   // wq % 8 == 0: a piece is wholly inside or outside
@@ -464,191 +536,295 @@ __device__ __forceinline__ void issue_rows(const Bf16Frames& s, int t0,
   }
 }
 
-// cp.async copies of a tap's raw (147, 64) bf16 weights.
-__device__ __forceinline__ void issue_weights_raw_bf16(
-    const uint16_t* __restrict__ wt, uint16_t* raw) {
-  for (int i = threadIdx.x; i < ST_WS / 8; i += SB_THREADS)
-    cp_async16b(raw + 8 * i, wt + 8 * i, true);
-}
-
-// The landed raw weights into the K-major bf16 plane: element (n, k) at
-// half (k / 8) * 512 + (n / 8) * 64 + (n % 8) * 8 + k % 8; zero past the
-// 147 taps.
-__device__ __forceinline__ void repack_weights_bf16(const uint16_t* raw,
-                                                    uint16_t* plane) {
-  for (int i = threadIdx.x; i < SBB_KG * ST_C; i += SB_THREADS) {
-    const int kg = i / ST_C, n = i - kg * ST_C;
-    uint16_t h[8];
+__device__ __forceinline__ void stage_rows(const PlanarU8& s, int t0,
+                                           int t_in, int x0, int y0, int n,
+                                           uint16_t*, uint16_t* ring1,
+                                           bool async) {
+  const int H3 = s.H / 3, W3 = s.W / 3, w30 = x0 / 3;   // x0 % 3 == 0
+  for (int i = threadIdx.x; i < SB_FIN * n * 9 * 2; i += SBB_THREADS) {
+    const int half = i & 1, j = (i >> 1) % 9, fr = (i >> 1) / 9;
+    const int f = fr / n, y = y0 + fr % n;
+    const int t = t0 + f, h3 = y / 3, dh = y - 3 * h3;
+    const int w3 = w30 + 16 * half;
+    uint8_t* dst = reinterpret_cast<uint8_t*>(
+                       ring1 + f * SBB_FRAME + (y % SB_RING) * SBB_ROW) +
+                   j * 32 + 16 * half;
+    const uint8_t* src =
+        s.p + (((size_t)t * H3 + h3) * 27 + dh * 9 + j) * W3 + w3;
+    const bool row_ok = t < t_in && y < s.H;
+    if (async) {   // W3 % 16 == 0: a piece is wholly inside or outside
+      const bool ok = row_ok && w3 < W3;
+      cp_async16b(dst, ok ? src : s.p, ok);
+    } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int k = 8 * kg + e;
-      h[e] = k < ST_TAPS ? raw[k * ST_C + n] : (uint16_t)0;
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (row_ok && w3 + e < W3) ? __ldg(src + e) : (uint8_t)0;
     }
-    *reinterpret_cast<uint4*>(plane + kg * 8 * ST_C + (n >> 3) * 64 +
-                              (n & 7) * 8) =
-        make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]),
-                   pack_bf16(h[4], h[5]), pack_bf16(h[6], h[7]));
   }
 }
 
-// A ring element as a bf16 A value: bf16 pixels as they are; bytes
-// converted (exact).
-__device__ __forceinline__ uint16_t bf_value(uint16_t v) { return v; }
-__device__ __forceinline__ uint16_t bf_value(uint8_t v) {
-  return f2bf((float)v);
+// The ring rows of frame row fr of the rows [y0, y0 + n) just landed:
+// element offset of its slot.
+__device__ __forceinline__ int landed_row(int fr, int y0, int n) {
+  const int f = fr / n, y = y0 + fr - f * n;
+  return f * SBB_FRAME + (y % SB_RING) * SBB_ROW;
+}
+
+// Landed planar bytes of rows [y0, y0 + n) into both bf16 copies, a warp a
+// row: element (x, c) of a row is the byte at run (x % 3) * 3 + c, offset
+// x / 3, staged over the row's copy 1, so a warp reads its row's bytes
+// before any lane writes copy 1.
+__device__ __forceinline__ void convert_rows(int y0, int n, uint16_t* ring0,
+                                             uint16_t* ring1) {
+  constexpr int K = (SBB_WORDS + 31) / 32;   // words a lane
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int fr = warp; fr < SB_FIN * n; fr += SBB_THREADS / 32) {
+    const int row = landed_row(fr, y0, n);
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(ring1 + row);
+    uint16_t e[K][3];   // elements 2 wd .. 2 wd + 2 of the lane's words
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int el = 2 * (lane + 32 * k) + j, x = el / 3, c = el - 3 * x;
+        e[k][j] = el < SBB_ROW ? f2bf((float)b[((x % 3) * 3 + c) * 32 + x / 3])
+                               : (uint16_t)0;
+      }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int wd = lane + 32 * k;
+      if (wd >= SBB_WORDS) continue;
+      reinterpret_cast<uint32_t*>(ring0 + row)[wd] = pack_bf16(e[k][0], e[k][1]);
+      reinterpret_cast<uint32_t*>(ring1 + row)[wd] = pack_bf16(e[k][1], e[k][2]);
+    }
+  }
+}
+
+// Copy 1 of rows [y0, y0 + n): copy 0 shifted by one element (zero past
+// the row), a warp a row.
+__device__ __forceinline__ void shift_rows(int y0, int n,
+                                           const uint16_t* ring0,
+                                           uint16_t* ring1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int fr = warp; fr < SB_FIN * n; fr += SBB_THREADS / 32) {
+    const int row = landed_row(fr, y0, n);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(ring0 + row);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(ring1 + row);
+    for (int wd = lane; wd < SBB_WORDS; wd += 32) {
+      const uint32_t lo = src[wd], hi = wd + 1 < SBB_WORDS ? src[wd + 1] : 0u;
+      dst[wd] = __funnelshift_r(lo, hi, 16);
+    }
+  }
+}
+
+// k16 steps of flush group G of a tap: from S0, NS of them (the last
+// group is short).
+template <int G>
+struct BandGroup {
+  static constexpr int S0 = G * SBB_FLUSH;
+  static constexpr int NS =
+      S0 + SBB_FLUSH <= SBB_KSTEPS ? SBB_FLUSH : SBB_KSTEPS - S0;
+};
+
+// Flush group G's A registers of a thread's position, whose window starts
+// at x (copy and frame chosen), the ring slots of conv rows 2m and 2m + 1
+// starting at rho0, rho1. a[s][0]: row g (2m), k 2t, 2t + 1 of the step;
+// a[s][1]: row g + 8; a[s][2], a[s][3]: k + 8.
+template <int G>
+__device__ __forceinline__ void band_load(uint32_t (&a)[SBB_FLUSH][4],
+                                          const uint16_t* x, int rho0,
+                                          int rho1, int t4) {
+  using B = BandGroup<G>;
+#pragma unroll
+  for (int s = 0; s < B::NS; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * (B::S0 + s) + h;        // the k8 group
+      const int dy = q / 3, j = 8 * (q % 3) + 2 * t4;
+      const int r0 = rho0 + dy, r1 = rho1 + dy;
+      a[s][2 * h] = *reinterpret_cast<const uint32_t*>(
+          x + (r0 - (r0 >= SB_RING ? SB_RING : 0)) * SBB_ROW + j);
+      a[s][2 * h + 1] = *reinterpret_cast<const uint32_t*>(
+          x + (r1 - (r1 >= SB_RING ? SB_RING : 0)) * SBB_ROW + j);
+    }
+}
+
+// Issue flush group G of a tap (plane `pl`) on a: its steps' products from
+// zero into acc.
+template <int G>
+__device__ __forceinline__ void band_issue(float (&acc)[32],
+                                           const uint32_t (&a)[SBB_FLUSH][4],
+                                           const uint16_t* pl) {
+  using B = BandGroup<G>;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < B::NS; ++s)
+    wgmma_bf16(acc, a[s], wgmma_desc(pl + (B::S0 + s) * 2 * 8 * ST_C,
+                                     8 * ST_C * 2, 128),
+               s > 0);
+  wgmma_commit();
+}
+
+// sum += the finished group's products
+__device__ __forceinline__ void band_flush(float (&sum)[32],
+                                           float (&acc)[32]) {
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    wgmma_pin(acc[e]);
+    sum[e] += acc[e];
+  }
 }
 
 // src: (t_in, H, W, 3) frames, bf16 or planar bytes; w: (5, 7, 7, 3, 64)
-// DHWIO bf16; out: (t_in - 4, J, Wp, 64) bf16. Grid as stem_band_kernel.
+// DHWIO bf16; out: (t_in - 4, J, Wp, 64) bf16. A persistent grid over the
+// units (strip, frame group, run of `run` pooled rows), strip fastest.
 template <class Src>
-__global__ void __launch_bounds__(SB_THREADS, 1)
+__global__ void __launch_bounds__(SBB_THREADS, 1)
 stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias,
                       uint16_t* __restrict__ out, int t_in, int J, int Wp,
                       int run, bool async) {
-  using R = BandRing<Src>;
-  using Elem = typename R::Elem;
-  extern __shared__ __align__(16) float smem_sb[];
-  uint16_t* plane = reinterpret_cast<uint16_t*>(smem_sb);   // [20][8][8][8]
-  uint16_t* raw = reinterpret_cast<uint16_t*>(smem_sb + SBB_REGION);
-  int* koff = reinterpret_cast<int*>(smem_sb + SBB_REGION + SBB_RAW);
-  Elem* ring = reinterpret_cast<Elem*>(koff + SB_RING * SBB_KP);
+  extern __shared__ __align__(16) uint16_t smem_sbb[];
+  uint16_t* planes = smem_sbb;                       // [5][22][8][8][8]
+  uint16_t* ring0 = planes + ST_KT * SBB_PLANE;      // [11][10][168]
+  uint16_t* ring1 = ring0 + SBB_RING;
+  uint16_t* V = ring1 + SBB_RING;                    // [128][72]
+  uint32_t* carry = reinterpret_cast<uint32_t*>(V + SB_SLOTS * SBB_VLD);
+  float* sc = reinterpret_cast<float*>(carry + SBB_CARRY);   // [64] x 2
+  float* bi = sc + ST_C;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wg = warp >> 2, wq = warp & 3;
-  const int i0 = blockIdx.x * SB_PI;
-  const int t0 = blockIdx.y * SB_F;
-  const int j_a = blockIdx.z * run;
-  const int j_b = min(J, j_a + run);
   const int t_out = t_in - (ST_KT - 1);
-  const int x_in0 = 2 * ST_S * i0;
+  const int strips = (Wp + SB_PI - 1) / SB_PI;
+  const int groups = (t_out + SB_F - 1) / SB_F;
+  const int units = strips * groups * ((J + run - 1) / run);
 
-  issue_rows(src, t0, t_in, x_in0, 2 * ST_S * j_a, SB_RING, ring, async);
-  issue_weights_raw_bf16(w, raw);
-  cp_async_commit();
-  for (int i = tid; i < SB_RING * SBB_KP; i += SB_THREADS) {
-    const int rho = i / SBB_KP, k = i - rho * SBB_KP;
-    const int dy = k / (ST_KW * ST_CIN), r = k - dy * ST_KW * ST_CIN;
-    koff[i] = k < ST_TAPS
-                  ? R::koff((rho + dy) % SB_RING, r / ST_CIN, r % ST_CIN)
-                  : 0;
+  pack_planes_bf16(w, planes);
+  fence_proxy_async();   // the planes, written by threads, read by wgmma
+  if (tid < ST_C) {
+    sc[tid] = scale[tid];
+    bi[tid] = bias[tid];
   }
 
-  int slot[SB_MT], xoff[SB_MT];
-#pragma unroll
-  for (int i = 0; i < SB_MT; ++i) {
-    slot[i] = ((wg * SB_MT + i) * 4 + wq) * 8 + g;
-    const int q = min(slot[i], SB_NPOS - 1);
-    xoff[i] = (q / SB_CC) * R::FRAME + (q % SB_CC) * R::COL;
-  }
+  // this thread's position (slot) and its window in the ring: copy 1 for an
+  // odd conv column, so that the window starts on a 4-byte boundary
+  const int slot = warp * 8 + g;
+  const int q = min(slot, SB_NPOS - 1);
+  const int col = q % SB_CC;
+  const uint16_t* xw = ((col & 1) ? ring1 + ST_S * ST_CIN * col - 1
+                                  : ring0 + ST_S * ST_CIN * col) +
+                       (q / SB_CC) * SBB_FRAME;
 
-  float acc[SB_MT][32];
-  float carry[SB_MT][2 * ST_NF];
-#pragma unroll
-  for (int i = 0; i < SB_MT; ++i) {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 2 * ST_NF; ++e) carry[i][e] = 0.f;
-  }
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int i0 = (u % strips) * SB_PI;             // pooled col origin
+    const int t0 = (u / strips % groups) * SB_F;     // first output frame
+    const int j_a = u / (strips * groups) * run;     // pooled rows [j_a, j_b)
+    const int j_b = min(J, j_a + run);
+    const int x_in0 = 2 * ST_S * i0;                 // first input column
 
-  for (int m = j_a; m <= j_b; ++m) {      // pair m: conv rows 2m, 2m + 1
-    const int* k0 = koff + (2 * ST_S * m) % SB_RING * SBB_KP;
-    const int* k1 = koff + (2 * ST_S * m + ST_S) % SB_RING * SBB_KP;
-    float sum[SB_MT][32];
-#pragma unroll
-    for (int i = 0; i < SB_MT; ++i)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) sum[i][e] = 0.f;
-
-    for (int dt = 0; dt < ST_KT; ++dt) {
-      cp_async_wait<0>();
-      __syncthreads();   // the tap's raw weights (and the rows) landed; the
-                         // last tap's products and the pooling are done
-      repack_weights_bf16(raw, plane);
-      fence_proxy_async();
-      __syncthreads();   // the plane ready for wgmma; the raw buffer free
-      if (m < j_b || dt + 1 < ST_KT)
-        issue_weights_raw_bf16(w + (size_t)((dt + 1) % ST_KT) * ST_WS, raw);
-      cp_async_commit();
-      const Elem* x = ring + dt * R::FRAME;
-
-#pragma unroll
-      for (int s0 = 0; s0 < SBB_KSTEPS; s0 += SBB_FLUSH) {
-#pragma unroll
-        for (int s = s0; s < s0 + SBB_FLUSH; ++s) {
-          const int k = 16 * s + 2 * t4;
-          uint32_t a[SB_MT][4];
-#pragma unroll
-          for (int i = 0; i < SB_MT; ++i) {
-            const Elem* xp = x + xoff[i];
-            // rows g: conv row 2m (k0); rows g + 8: conv row 2m + 1 (k1)
-            a[i][0] = pack_bf16(bf_value(xp[k0[k]]), bf_value(xp[k0[k + 1]]));
-            a[i][1] = pack_bf16(bf_value(xp[k1[k]]), bf_value(xp[k1[k + 1]]));
-            a[i][2] = pack_bf16(bf_value(xp[k0[k + 8]]),
-                                bf_value(xp[k0[k + 9]]));
-            a[i][3] = pack_bf16(bf_value(xp[k1[k + 8]]),
-                                bf_value(xp[k1[k + 9]]));
-          }
-          // k16 step s: core-matrix columns 2s, 2s + 1 of the plane
-          const uint64_t desc =
-              wgmma_desc(plane + s * 2 * 8 * ST_C, 8 * ST_C * 2, 128);
-          wgmma_fence();
-#pragma unroll
-          for (int i = 0; i < SB_MT; ++i)
-            wgmma_bf16(acc[i], a[i], desc, s != s0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-#pragma unroll
-        for (int i = 0; i < SB_MT; ++i)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            wgmma_pin(acc[i][e]);
-            sum[i][e] += acc[i][e];
-          }
-      }
-    }
-
-    __syncthreads();   // every tap of the pair has read the ring and plane
-    if (m < j_b)
-      issue_rows(src, t0, t_in, x_in0, 2 * ST_S * m + SB_RING, SB_NEW, ring,
-                 async);
+    __syncthreads();   // the unit before is done with the ring and V
+    stage_rows(src, t0, t_in, x_in0, 2 * ST_S * j_a, SB_RING, ring0, ring1,
+               async);
     cp_async_commit();
+    int y_new = 2 * ST_S * j_a, n_new = SB_RING;   // rows that just landed
 
-    float* V = smem_sb;   // the plane's region: the next tap repacks later
+    for (int m = j_a; m <= j_b; ++m) {      // pair m: conv rows 2m, 2m + 1
+      cp_async_wait<0>();
+      __syncthreads();   // the rows landed
+      if constexpr (std::is_same<Src, PlanarU8>::value)
+        convert_rows(y_new, n_new, ring0, ring1);
+      else
+        shift_rows(y_new, n_new, ring0, ring1);
+      __syncthreads();   // both copies written
+
+      const int rho0 = (2 * ST_S * m) % SB_RING;
+      const int rho1 = (2 * ST_S * m + ST_S) % SB_RING;
+      float sum[32], acc[32];
 #pragma unroll
-    for (int j = 0; j < ST_NF; ++j) {
-      const int c = j * 8 + 2 * t4;
-      const float s0 = __ldg(scale + c), s1 = __ldg(scale + c + 1);
-      const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
-#pragma unroll
-      for (int i = 0; i < SB_MT; ++i) {
-        const float r0a = fmaxf(fmaf(sum[i][4 * j], s0, b0), 0.f);
-        const float r0b = fmaxf(fmaf(sum[i][4 * j + 1], s1, b1), 0.f);
-        const float r1a = fmaxf(fmaf(sum[i][4 * j + 2], s0, b0), 0.f);
-        const float r1b = fmaxf(fmaf(sum[i][4 * j + 3], s1, b1), 0.f);
-        if (m > j_a)
-          *reinterpret_cast<float2*>(V + slot[i] * SB_VLD + c) =
-              make_float2(fmaxf(carry[i][2 * j], r0a),
-                          fmaxf(carry[i][2 * j + 1], r0b));
-        carry[i][2 * j] = fmaxf(r0a, r1a);
-        carry[i][2 * j + 1] = fmaxf(r0b, r1b);
+      for (int e = 0; e < 32; ++e) sum[e] = 0.f;
+      uint32_t a0[SBB_FLUSH][4], a1[SBB_FLUSH][4];
+      band_load<0>(a0, xw, rho0, rho1, t4);
+      for (int dt = 0; dt < ST_KT; ++dt) {
+        const uint16_t* pl = planes + dt * SBB_PLANE;
+        const uint16_t* x = xw + dt * SBB_FRAME;
+        // each group's A loads overlap the group before on the tensor
+        // cores; the last group's, the next tap's first
+        band_issue<0>(acc, a0, pl);
+        band_load<1>(a1, x, rho0, rho1, t4);
+        band_flush(sum, acc);
+        band_issue<1>(acc, a1, pl);
+        band_load<2>(a0, x, rho0, rho1, t4);
+        band_flush(sum, acc);
+        band_issue<2>(acc, a0, pl);
+        band_load<3>(a1, x, rho0, rho1, t4);
+        band_flush(sum, acc);
+        band_issue<3>(acc, a1, pl);
+        band_load<4>(a0, x, rho0, rho1, t4);
+        band_flush(sum, acc);
+        band_issue<4>(acc, a0, pl);
+        band_load<5>(a1, x, rho0, rho1, t4);
+        band_flush(sum, acc);
+        band_issue<5>(acc, a1, pl);
+        if (dt + 1 < ST_KT)
+          band_load<0>(a0, x + SBB_FRAME, rho0, rho1, t4);
+        band_flush(sum, acc);
       }
-    }
-    if (m == j_a) continue;
-    __syncthreads();
-    for (int q = tid; q < SB_F * SB_PI * ST_C; q += SB_THREADS) {
-      const int o = q % ST_C;
-      const int pos = q / ST_C;
-      const int f = pos / SB_PI, pi = pos % SB_PI;
-      const int t = t0 + f, i = i0 + pi;
-      if (t >= t_out || i >= Wp) continue;
-      const float* v = V + (f * SB_CC + 2 * pi) * SB_VLD + o;
-      out[(((size_t)t * J + (m - 1)) * Wp + i) * ST_C + o] =
-          f2bf(fmaxf(fmaxf(v[0], v[SB_VLD]), v[2 * SB_VLD]));
+
+      __syncthreads();   // every warp has read the ring
+      if (m < j_b) {     // pair m + 1 reads rows 6m+6..6m+15
+        y_new = 2 * ST_S * m + SB_RING;
+        n_new = SB_NEW;
+        stage_rows(src, t0, t_in, x_in0, y_new, n_new, ring0, ring1, async);
+      }
+      cp_async_commit();
+
+      // BN + ReLU; V = bf16(max(carry, conv row 2m)); the carry becomes the
+      // bf16 of the pair's row max (rounding is monotone: the same V)
+#pragma unroll
+      for (int j = 0; j < ST_NF; ++j) {
+        uint32_t& cw = carry[(j * SB_SLOTS + slot) * 4 + t4];
+        const int c = j * 8 + 2 * t4;
+        const float s0 = sc[c], s1 = sc[c + 1], b0 = bi[c], b1 = bi[c + 1];
+        const float r0a = fmaxf(fmaf(sum[4 * j], s0, b0), 0.f);
+        const float r0b = fmaxf(fmaf(sum[4 * j + 1], s1, b1), 0.f);
+        const float r1a = fmaxf(fmaf(sum[4 * j + 2], s0, b0), 0.f);
+        const float r1b = fmaxf(fmaf(sum[4 * j + 3], s1, b1), 0.f);
+        if (m > j_a)
+          *reinterpret_cast<uint32_t*>(V + slot * SBB_VLD + c) =
+              pack_bf16(f2bf(fmaxf(bf2f(cw), r0a)),
+                        f2bf(fmaxf(bf2f(cw >> 16), r0b)));
+        cw = pack_bf16(f2bf(fmaxf(r0a, r1a)), f2bf(fmaxf(r0b, r1b)));
+      }
+      if (m == j_a) continue;
+      __syncthreads();   // V written
+      // pooled row m - 1: the 3-column window of V, 8 channels a thread
+      for (int i = tid; i < SB_F * SB_PI * (ST_C / 8); i += SBB_THREADS) {
+        const int cg = i % (ST_C / 8), pos = i / (ST_C / 8);
+        const int f = pos / SB_PI, pi = pos % SB_PI;
+        const int t = t0 + f, ii = i0 + pi;
+        if (t >= t_out || ii >= Wp) continue;
+        const uint16_t* v = V + (f * SB_CC + 2 * pi) * SBB_VLD + 8 * cg;
+        const uint4 p0 = *reinterpret_cast<const uint4*>(v);
+        const uint4 p1 = *reinterpret_cast<const uint4*>(v + SBB_VLD);
+        const uint4 p2 = *reinterpret_cast<const uint4*>(v + 2 * SBB_VLD);
+        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&p0);
+        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&p1);
+        const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&p2);
+        uint32_t r[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)   // bf16 >= 0 (after ReLU): max as floats
+          r[e] = pack_bf16(
+              f2bf(fmaxf(fmaxf(bf2f(w0[e]), bf2f(w1[e])), bf2f(w2[e]))),
+              f2bf(fmaxf(fmaxf(bf2f(w0[e] >> 16), bf2f(w1[e] >> 16)),
+                         bf2f(w2[e] >> 16))));
+        *reinterpret_cast<uint4*>(
+            out + (((size_t)t * J + (m - 1)) * Wp + ii) * ST_C + 8 * cg) =
+            make_uint4(r[0], r[1], r[2], r[3]);
+      }
     }
   }
 }
@@ -772,20 +948,20 @@ extern "C" int jt_stem_band_info(int planar, int* info) {
 template <class Src>
 static BandSetup band_setup_bf16() {
   using namespace jt;
-  constexpr int smem = (int)sizeof(float) * SBB_SMEM_WORDS<Src>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(stem_band_bf16_kernel<Src>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem)) != cudaSuccess ||
+                                SBB_SMEM)) != cudaSuccess ||
       (e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess ||
       (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, stem_band_bf16_kernel<Src>, SB_THREADS, smem)) !=
+           &per_sm, stem_band_bf16_kernel<Src>, SBB_THREADS, SBB_SMEM)) !=
           cudaSuccess)
     return {e, 0};
-  return {cudaSuccess, sms * (per_sm > 0 ? per_sm : 1)};
+  if (per_sm < 1) return {cudaErrorInvalidConfiguration, 0};
+  return {cudaSuccess, sms * per_sm};
 }
 
 template <class Src>
@@ -794,19 +970,19 @@ static int launch_stem_band_bf16(Src src, const uint16_t* w,
                                  uint16_t* out, int t_in, bool async,
                                  cudaStream_t stream) {
   using namespace jt;
-  constexpr int smem = (int)sizeof(float) * SBB_SMEM_WORDS<Src>;
   const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
-  if ((uintptr_t)w % 16 != 0) return JT_ERR_SHAPE;
+  if ((uintptr_t)out % 16 != 0) return JT_ERR_SHAPE;
   static const BandSetup setup = band_setup_bf16<Src>();
   if (setup.err != cudaSuccess) return (int)setup.err;
   const int t_out = t_in - (ST_KT - 1);
   const int strips = (Wp + SB_PI - 1) / SB_PI;
   const int groups = (t_out + SB_F - 1) / SB_F;
   const int run = band_run(strips * groups, J, setup.slots);
-  dim3 grid(strips, groups, (J + run - 1) / run);
-  stem_band_bf16_kernel<Src><<<grid, SB_THREADS, smem, stream>>>(
-      src, w, scale, bias, out, t_in, J, Wp, run, async);
+  const int units = strips * groups * ((J + run - 1) / run);
+  stem_band_bf16_kernel<Src>
+      <<<units < setup.slots ? units : setup.slots, SBB_THREADS, SBB_SMEM,
+         stream>>>(src, w, scale, bias, out, t_in, J, Wp, run, async);
   JT_CHECK_LAUNCH();
   return 0;
 }
@@ -840,9 +1016,7 @@ extern "C" int jt_stem_band_bf16_info(int planar, int* info) {
   using namespace jt;
   const void* fn = planar ? (const void*)stem_band_bf16_kernel<PlanarU8>
                           : (const void*)stem_band_bf16_kernel<Bf16Frames>;
-  const int smem = (int)sizeof(float) *
-                   (planar ? SBB_SMEM_WORDS<PlanarU8>
-                           : SBB_SMEM_WORDS<Bf16Frames>);
+  const int smem = SBB_SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -850,7 +1024,7 @@ extern "C" int jt_stem_band_bf16_info(int planar, int* info) {
   e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, SB_THREADS,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, SBB_THREADS,
                                                     smem);
   if (e != cudaSuccess) return (int)e;
   info[0] = a.numRegs;

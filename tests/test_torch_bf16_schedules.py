@@ -1,6 +1,6 @@
-"""The arithmetic of the bf16 kernels 6b and 7b, emulated on the CPU and
-held against their plain twins and the JAX Pallas kernels interpreted on
-bf16 inputs. The kernels run only on the card
+"""The arithmetic of the bf16 kernels 2b, 5b, 6b and 7b, emulated on the
+CPU and held against their plain twins and the JAX Pallas kernels
+interpreted on bf16 inputs. The kernels run only on the card
 (tests/test_torch_kernels_cuda.py); these tests keep their schedules
 testable here:
 
@@ -16,7 +16,18 @@ testable here:
 * block 2 in bf16 (csrc/conv2.cu, kernel 7b): the implicit GEMM's K one
   (kh, kw) tap a stage, 25 stages of 64 channels, one float32 chain
   through all of them; then the folded scale, bias and ReLU in float32 and
-  the output rounded to bf16 once.
+  the output rounded to bf16 once;
+* the band stem in bf16 (csrc/stem_band.cu, kernel 2b), on both entries:
+  each temporal tap's K in (dy, dx, c) order with each dy row's 21 columns
+  padded to 24 and 168 padded to 176, exact bf16 products summed in
+  float32 a flush group of 32 columns at a time (each group from zero,
+  added to the float32 sum), taps in order; BN and ReLU in float32; the
+  3x3 / 2 max pool; one bf16 rounding;
+* the XLM-R stack in bf16 (csrc/encoder_stack.cu, kernel 5b): each
+  product's K cut into gemm_plan.plan_bf16's slices on the H100's 132 SMs,
+  each slice one float32 chain, the slices added in slice order by the
+  last to finish, then bias, activation and residual, at `_stack_kernel`'s
+  rounding sites.
 
 A product of two bf16 values is exact in float32, so float32 matmuls of
 the bf16 pieces stand in for the tensor cores (their sums run in another
@@ -31,16 +42,22 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
 
 from jegal_tpu.ops.pallas import conv2 as JC2
 from jegal_tpu.ops.pallas import flash_attention as JFA
+from jegal_tpu.ops.pallas import fused_layer as JF
 from jegal_tpu.ops.pallas import stem as JS
 from jegal_torch.convert import tree_to_torch
 from jegal_torch.ops.kernels import conv2 as TC2
 from jegal_torch.ops.kernels import flash_attention as FA
+from jegal_torch.ops.kernels import fused_layer as TF
+from jegal_torch.ops.kernels import gemm_plan as GP
+from jegal_torch.ops.kernels import stem as TS
+from jegal_torch.ops.video import s2d_repack, s2d_unpack
 import bf16_bars as bars
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -231,3 +248,228 @@ def test_conv2_bf16_schedule_matches_twin_and_pallas_kernel(t, n_j, w_pool):
                                  interpret=True)
     bars.check_kernel_bar(got, np.asarray(want.astype(jnp.float32)),
                           "7b schedule vs Pallas")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2b: the bf16 band stem
+# ---------------------------------------------------------------------------
+
+BAND_DY = 24        # K columns of a dy row: 21 taps, 3 zero
+BAND_KP = 176       # 7 x 24, padded to k16 steps
+BAND_FLUSH = 32     # K columns a float32 flush
+
+
+def band_bf16_emulated(frames, w, scale, bias):
+    """Kernel 2b's schedule: frames (T4, H, W, 3) holding bf16 values (the
+    planar entry's raw pixels are exact in bf16), w (5, 7, 7, 3, 64) bf16
+    (the planar entry's with /255 folded) -> bf16 (T4 - 4, J, W_pool,
+    64)."""
+    x, wf = frames.float(), w.float()
+    t4, h, wd, _ = x.shape
+    t_out = t4 - 4
+    hc, wc = (h - 7) // 3 + 1, (wd - 7) // 3 + 1
+    ys, xs = 3 * torch.arange(hc), 3 * torch.arange(wc)
+    acc = torch.zeros(t_out * hc * wc, 64)
+    for dt in range(5):                   # the taps in order
+        cols = torch.zeros(t_out, hc, wc, BAND_KP)
+        wk = torch.zeros(BAND_KP, 64)
+        for dy in range(7):
+            rows = x[dt:dt + t_out][:, ys + dy]         # (t, hc, W, 3)
+            for dx in range(7):
+                k = BAND_DY * dy + 3 * dx
+                cols[..., k:k + 3] = rows[:, :, xs + dx]
+                wk[k:k + 3] = wf[dt, dy, dx]
+        a = cols.reshape(-1, BAND_KP)
+        for k0 in range(0, BAND_KP, BAND_FLUSH):
+            acc = acc + a[:, k0:k0 + BAND_FLUSH] @ wk[k0:k0 + BAND_FLUSH]
+    y = torch.relu(acc * scale + bias).reshape(t_out, hc, wc, 64)
+    y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+    return y.to(BF)
+
+
+def _blk1(rng):
+    """Block 1's tree with randomized BatchNorm statistics, float32."""
+    return {"conv": {"kernel": rng.standard_normal((5, 7, 7, 3, 64),
+                                                   dtype=np.float32) * 0.05,
+                     "bias": rng.standard_normal(64, dtype=np.float32)
+                     * 0.1},
+            "bn": {"scale": rng.random(64, dtype=np.float32) + 0.5,
+                   "bias": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                   "mean": rng.standard_normal(64, dtype=np.float32) * 0.1,
+                   "var": rng.random(64, dtype=np.float32) + 0.5}}
+
+
+def _blk1_ops(blk):
+    """Block 1 in bf16 on both sides (the same values), folded in float32:
+    the port's (weight, scale, bias) and the JAX package's."""
+    ops = TS.stem_kernel_params(jax.tree.map(lambda a: a.to(BF),
+                                             tree_to_torch(blk)))
+    jops = JS.stem_kernel_params(jax.tree.map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), blk))
+    return ops, jops
+
+
+def _mgrid_dense(m, w_pool):
+    return np.asarray(m.astype(jnp.float32))[
+        ..., 0:2 * w_pool:2].transpose(0, 1, 3, 2)
+
+
+@pytest.mark.parametrize("t4,h,w", [(13, 45, 48), (5, 15, 57), (9, 30, 111)])
+def test_band_bf16_schedule_matches_twin_float_entry(t4, h, w):
+    """The float entry's schedule against the bf16 twin: t_in 5 and J 1,
+    ragged strips; the /255 pixels rounded to bf16 as the mask rounds
+    them."""
+    rng = np.random.default_rng(31 + t4)
+    u8 = rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8)
+    frames = (torch.from_numpy(u8).float() / 255.0).to(BF)
+    ops, _ = _blk1_ops(_blk1(rng))
+    got = band_bf16_emulated(frames, *ops)
+    assert tuple(got.shape) == TS.pooled_shape(t4, h, w)
+    bars.check_kernel_bar(got, TS.stem_pool_plain(frames, *ops),
+                          f"2b schedule vs twin, {(t4, h, w)}")
+
+
+def test_band_bf16_schedule_matches_pallas_band_kernel():
+    """The float entry's schedule and twin against stem_mgrid_x(impl=
+    "band") interpreted on the same bf16 frames and block."""
+    t4, h, w = 13, 45, 48
+    rng = np.random.default_rng(37)
+    frames = torch.from_numpy(rng.random((t4, h, w, 3), dtype=np.float32)
+                              ).to(BF)
+    ops, jops = _blk1_ops(_blk1(rng))
+    got = band_bf16_emulated(frames, *ops)
+    m = JS.stem_mgrid_x(JS.s2d_lanes(_jax_bf16(frames)), *jops,
+                        w_valid=w // 3, interpret=True, impl="band")
+    want = _mgrid_dense(m, got.shape[2])
+    bars.check_kernel_bar(got, want, "2b schedule vs Pallas (float entry)")
+    bars.check_kernel_bar(TS.stem_pool_plain(frames, *ops), want,
+                          "bf16 twin vs Pallas (float entry)")
+
+
+@pytest.mark.parametrize("t4,h,w", [(12, 27, 48), (5, 15, 57)])
+def test_band_bf16_schedule_planar_entry(t4, h, w):
+    """The planar entry's schedule (raw bytes, the folded bf16 weight, chin
+    rows masked) against the planar twin, and at (12, 27, 48) against
+    stem_mgrid_planar(impl="band") interpreted in bf16; all-255 pixels
+    too."""
+    rng = np.random.default_rng(41 + w)
+    ops, jops = _blk1_ops(_blk1(rng))
+    for u8 in (rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8),
+               np.full((t4, h, w, 3), 255, np.uint8)):
+        cut = rng.integers(0, h // 2, t4).astype(np.int32)
+        planar = torch.from_numpy(s2d_repack(u8, cut))
+        pixels = s2d_unpack(planar).to(torch.float32)
+        got = band_bf16_emulated(pixels, TS.planar_weight(ops[0]), *ops[1:])
+        bars.check_kernel_bar(got, TS.stem_pool_planar_plain(planar, *ops),
+                              f"2b planar schedule vs twin, {(t4, h, w)}")
+        if (t4, h, w) == (12, 27, 48):
+            m = JS.stem_mgrid_planar(jnp.asarray(planar.numpy()), *jops,
+                                     dtype=jnp.bfloat16, interpret=True,
+                                     impl="band")
+            bars.check_kernel_bar(got, _mgrid_dense(m, got.shape[2]),
+                                  "2b planar schedule vs Pallas")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5b: the bf16 encoder stack
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def _split_mm(a, w, splits):
+    """a @ w (float32 holding bf16 values) as the stack kernel sums it: K in
+    plan_bf16's slices, each one float32 chain, added in slice order."""
+    out = None
+    for k0, k1 in GP.k_slices(a.shape[1], splits, GP.BK_BF16):
+        part = a[:, k0:k1] @ w[k0:k1]
+        out = part if out is None else out + part
+    return out
+
+
+def stack_bf16_emulated(x, w, seg, heads, *, prenorm, ln_kind, activation,
+                        kmask):
+    """Kernel 5b's schedule on bf16 rows x (R, d) -> bf16 (R, d): the
+    float32 residual stream r32 / y32 between sublayers and layers, bf16
+    product inputs, each product split as the kernel plans it."""
+    f32, bf = TF._f32, TF._bf
+    r, d = x.shape
+    dff = w["w1"].shape[-1]
+    splits = [GP.plan_bf16(m, n, k, H100_SMS)[2]
+              for m, n, k in TF.stack_products(r, d, dff)]
+    r32 = f32(x)
+    for l in range(w["wqkv"].shape[0]):
+        wl = {k: f32(w[k][l]) for k in TF.STACK_KEYS}
+        h = TF._ln_f32(r32, wl["g1"], wl["be1"], ln_kind) if prenorm else r32
+        qkv = _split_mm(bf(h), wl["wqkv"], splits[0]) + wl["bqkv"]
+        att = TF._attention_bf16(qkv, seg, heads, kmask)
+        y32 = r32 + (_split_mm(att, wl["wo"], splits[1]) + wl["bo"])
+        if not prenorm:
+            y32 = TF._ln_f32(y32, wl["g1"], wl["be1"], ln_kind)
+        h = TF._ln_f32(y32, wl["g2"], wl["be2"], ln_kind) if prenorm else y32
+        h1 = _split_mm(bf(h), wl["w1"], splits[2]) + wl["b1"]
+        h1 = bf(F.gelu(h1) if activation == "gelu" else torch.relu(h1))
+        r32 = y32 + (_split_mm(h1, wl["w2"], splits[3]) + wl["b2"])
+        if not prenorm:
+            r32 = TF._ln_f32(r32, wl["g2"], wl["be2"], ln_kind)
+    return r32.to(BF)
+
+
+def _stack_layers(seed, n, d, dff):
+    """n encoder layers (core/transformer layout), float32 numpy, with
+    randomized biases and LayerNorm parameters."""
+    rng = np.random.default_rng(seed)
+
+    def lin(i, o):
+        return {"kernel": (rng.standard_normal((i, o)) / np.sqrt(i))
+                .astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(o)).astype(np.float32)}
+
+    def ln():
+        return {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(
+                    np.float32),
+                "bias": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+
+    return [{"attn": {k: lin(d, d) for k in "qkvo"},
+             "ff": {"w1": lin(d, dff), "w2": lin(dff, d)},
+             "norm1": ln(), "norm2": ln()} for _ in range(n)]
+
+
+@pytest.mark.parametrize("n_seg,prenorm", [(1, False), (4, False),
+                                            (1, True)])
+def test_stack_bf16_schedule_matches_twin_and_pallas_kernel(n_seg, prenorm):
+    """XLM-R's widths (d 768, 12 heads, d_ff 3072), 2 layers, R 32 (a
+    clip's text) and R 128 (an extract_many chunk), whose products split
+    K as the H100's plans do, 32-token segments with a pad tail; against
+    the bf16 twin and fused_encoder_stack's single kernel interpreted on
+    the same bf16 values, at the stack's bar."""
+    seg, d, heads, dff = 32, 768, 12, 3072
+    r = n_seg * seg
+    layers = _stack_layers(71 + n_seg, 2, d, dff)
+    rng = np.random.default_rng(73 + n_seg)
+    x = rng.standard_normal((r, d)).astype(np.float32)
+    kmask = np.ones((n_seg, seg), np.float32)
+    kmask[:, 21:] = 0.0
+    kmask = kmask.reshape(-1)
+    kind = "ref" if prenorm else "std"
+    act = "relu" if prenorm else "gelu"
+    w = TF.stacked_weights(jax.tree.map(lambda a: a.to(BF),
+                                        tree_to_torch(layers)))
+    xb = torch.from_numpy(x).to(BF)
+    km = torch.from_numpy(kmask)
+    assert GP.plan_bf16(r, d, dff, H100_SMS)[2] > 1     # W2 split
+    got = stack_bf16_emulated(xb, w, seg, heads, prenorm=prenorm,
+                              ln_kind=kind, activation=act, kmask=km)
+    twin = TF.encoder_stack_plain_bf16(xb, w, seg, heads, prenorm=prenorm,
+                                       ln_kind=kind, activation=act,
+                                       kmask=km)
+    bars.check_kernel_bar(got, twin, f"5b schedule vs twin, R {r}",
+                          bars.STACK_MAX_ULPS)
+    want = JF.fused_encoder_stack(
+        jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), layers),
+        jnp.asarray(x, jnp.bfloat16), seg, heads, prenorm=prenorm,
+        ln_kind=kind, kmask=jnp.asarray(kmask), interpret=True,
+        activation=act, single_kernel=True)
+    bars.check_kernel_bar(got, np.asarray(want.astype(jnp.float32)),
+                          f"5b schedule vs Pallas, R {r}",
+                          bars.STACK_MAX_ULPS)

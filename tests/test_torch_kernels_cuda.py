@@ -22,9 +22,11 @@ plain loads, on all-0 and all-255 pixels, relaunched with identical bits,
 and its block without spills; the bf16 variants of every kernel, the
 window stem's (1b) and the flash attention's (6b, with a misaligned
 operand refused) among them, against their twins at the bars of
-tests/bf16_bars.py, 6b and 7b also within KERNEL_COS of the float32
-kernel, 6b at the long clip relaunched with identical bits, 7b over more
-tiles than SMs with a ragged last tile, and both without spills; the
+tests/bf16_bars.py, 2b, 6b and 7b also within KERNEL_COS of the float32
+kernel, 2b over more units than SMs, 6b at the long clip relaunched with
+identical bits, 7b over more tiles than SMs with a ragged last tile, and
+all three without spills; the bf16 stack at R 32 to 1024 (packed and
+streamed attention, both norm placements) and captured into a graph; the
 wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
 no backward among them; and the encoders' refusal of an input no kernel
@@ -861,11 +863,19 @@ def test_ffn_sublayer_bf16(dev, rows, d, dff, prenorm, kind, act):
 
 @pytest.mark.parametrize("n_layers,seg,n,heads,prenorm,kind,act", [
     (12, 32, 1, 12, False, "std", "gelu"),     # XLM-R, one 32-token text
+    (12, 32, 4, 12, False, "std", "gelu"),     # XLM-R, an extract_many chunk
     (12, 64, 8, 12, False, "std", "gelu"),     # XLM-R, a served batch
+    (2, 32, 4, 12, True, "ref", "gelu"),       # R 128, pre-norm
     (2, 33, 2, 8, True, "ref", "relu"),        # head width 96, pre-norm
+    (2, 128, 1, 8, True, "ref", "relu"),       # streamed, head width 96
+    (2, 512, 1, 12, False, "std", "gelu"),     # streamed, one 512 segment
+    (2, 512, 2, 8, True, "ref", "relu"),       # streamed, head width 96
 ])
 def test_encoder_stack_bf16(dev, n_layers, seg, n, heads, prenorm, kind,
                             act):
+    """The bf16 stack kernel against its twin at the stack's bar, one
+    launch counted, a relaunch bit-identical: R 32 to 1024, packed and
+    streamed attention at head widths 64 and 96, post- and pre-norm."""
     d, dff = 768, 3072
     w = {k: v.to(BF) if k.startswith("w") else v
          for k, v in _stacked(n_layers, d, dff, dev).items()}
@@ -914,18 +924,20 @@ def test_every_tile_bf16(dev, monkeypatch, tile, splits):
             x, w, prenorm=prenorm, ln_kind="std", activation="gelu"))
 
 
-def test_split_k_is_deterministic_bf16(dev):
+@pytest.mark.parametrize("rows", [32, 128])
+def test_split_k_is_deterministic_bf16(dev, rows):
     """Two launches of the bf16 sublayer and stack kernels at the text
-    encoder's 32 rows, where the FFN's W2 product (K 3072) is split and
-    summed in the product kernel by the last slice to finish, give
-    identical bits."""
-    x = torch.randn(32, 768, device=dev).to(BF)
+    encoder's 32 rows and an extract_many chunk's 128, where the FFN's W2
+    product (K 3072) is split and summed in the product kernel by the last
+    slice to finish, give identical bits; both norm placements of the
+    stack."""
+    x = torch.randn(rows, 768, device=dev).to(BF)
     w = _bf16_weights(768, 3072, dev, seed=1)
     stacked = {k: v.to(BF) if k.startswith("w") else v
                for k, v in _stacked(2, 768, 3072, dev).items()}
-    km = torch.ones(32, device=dev)
-    km[21:] = 0.0
-    assert GP.plan_bf16(32, 768, 3072, GP.sm_count(dev))[2] > 1
+    km = torch.ones(rows, device=dev)
+    km[21:32] = 0.0
+    assert GP.plan_bf16(rows, 768, 3072, GP.sm_count(dev))[2] > 1
     for run in (
             lambda: FL.ffn_sublayer(x, w, prenorm=False, ln_kind="std",
                                     activation="gelu"),
@@ -933,10 +945,40 @@ def test_split_k_is_deterministic_bf16(dev):
                                      ln_kind="ref", kmask=km),
             lambda: FL.encoder_stack(x, stacked, 32, 12, prenorm=False,
                                      ln_kind="std", activation="gelu",
+                                     kmask=km),
+            lambda: FL.encoder_stack(x, stacked, 32, 12, prenorm=True,
+                                     ln_kind="ref", activation="gelu",
                                      kmask=km)):
         a, b = run(), run()
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+def test_encoder_stack_bf16_graph_replay(dev):
+    """The bf16 stack kernel captured into a CUDA graph: two replays equal
+    the eager call bit for bit, and the capture counts one launch."""
+    x = torch.randn(32, 768, device=dev).to(BF)
+    stacked = {k: v.to(BF) if k.startswith("w") else v
+               for k, v in _stacked(12, 768, 3072, dev).items()}
+    km = torch.ones(32, device=dev)
+    km[21:] = 0.0
+    kw = dict(prenorm=False, ln_kind="std", activation="gelu", kmask=km)
+    eager = FL.encoder_stack(x, stacked, 32, 12, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FL.encoder_stack(x, stacked, 32, 12, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    _build.reset_launches()
+    with torch.cuda.graph(graph):
+        out = FL.encoder_stack(x, stacked, 32, 12, **kw)
+    assert _build.LAUNCHES["encoder_stack_bf16"] == 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("seg", [21, 32, 64, 65, 128, 256, 512])
@@ -1006,13 +1048,17 @@ def test_conv2_bf16_fits_an_sm_without_spills(dev):
 
 
 @pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
-                                    (12, 45, 96), (28, 270, 480)])
+                                    (12, 45, 96), (28, 270, 480),
+                                    (60, 120, 303)])
 @pytest.mark.parametrize("fill", [0, 255, None])
 def test_stem_band_bf16(dev, t4, h, w, fill):
-    """The band stem's bf16 variant on both entries (bf16 frames; planar
-    bytes with the folded bf16 weight), at t_in 5 and J 1, ragged strips,
-    plain-load planar widths and the real 270x480 frame, on all-0, all-255
-    and random bytes: against their twins, and relaunched bit-identical."""
+    """Kernel 2b on both entries (bf16 frames; planar bytes with the folded
+    bf16 weight), at t_in 5 and J 1, ragged strips, frame widths whose rows
+    take plain loads (W * 3 not a multiple of 8; planar W3 not a multiple
+    of 16), the real 270x480 frame, and more units than SMs (60, 120,
+    303: blocks of the persistent grid take several), on all-0, all-255
+    and random bytes: against their twins and within KERNEL_COS of the
+    float32 kernel, relaunched bit-identical."""
     if fill is None:
         u8 = torch.randint(0, 256, (t4, h, w, 3),
                            generator=torch.Generator().manual_seed(7),
@@ -1034,6 +1080,13 @@ def test_stem_band_bf16(dev, t4, h, w, fill):
     _check_bf16(got_p, S.stem_pool_planar_plain(planar, *ops), "stem planar")
     assert torch.equal(S.stem_pool(frames, *ops), got_f)
     assert torch.equal(S.stem_pool_planar(planar, *ops), got_p)
+    if fill is None:
+        ops32 = (wt.to(BF).float(), scale, bias)
+        bars = _bars()
+        assert bars.min_row_cos(got_f, S.stem_pool(frames.float(), *ops32)) \
+            >= bars.KERNEL_COS
+        assert bars.min_row_cos(got_p, S.stem_pool_planar(planar, *ops32)) \
+            >= bars.KERNEL_COS
 
 
 @pytest.mark.parametrize("planar", [False, True])

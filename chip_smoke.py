@@ -12,7 +12,7 @@ eval, the CLI's device subcommands and the HTTP server on one card.
     python3 chip_smoke.py --serve     # phase 11 (serving) alone
     python3 chip_smoke.py --bf16      # phase 12 (the bf16 engine) alone
     python3 chip_smoke.py [--bf16] --against DIR   # 12a also times kernel
-                                      # 2b as checkout DIR builds it
+                                      # 1b as checkout DIR builds it
 
 `--encoders` checks and times the attention, FFN and stack kernels as
 phase 3 does, with each launch's device kernels, reports what it finds
@@ -28,10 +28,10 @@ prints its `cli` line and no `ok` line; `--serve` runs phase 11 alone the
 same way and prints its `serve` line; `--bf16` runs phase 12 alone after
 phase 4's raw clip and prints its `bf16` and `kernels` lines (the bf16
 rows only). `--against DIR` (with no mode or `--bf16`) builds DIR's
-jegal_torch/csrc/stem_band.cu (REPLACED_SOURCES: the kernels this tree
+jegal_torch/csrc/stem.cu (REPLACED_SOURCES: the kernels this tree
 redesigned; another checkout, say the commit before the redesign,
 unpacked with `git archive` into a directory that .gitignore lists) and
-has 12a time its bf16 entries in turns with this tree's kernel 2b (both
+has 12a time its bf16 entries in turns with this tree's kernel 1b (both
 entries) on the same inputs (replaced, new, new, replaced; `replaced_ms`
 in their rows), failing if the new kernel is not the faster in both
 pairs.
@@ -253,7 +253,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     bf16 engine with stem_impl="window" on phase 4's raw and planar clip
     (kernel 1b's entry launched once a clip in place of 2b, the raw
     clip's replay against an eager run), held to the float32 engine and
-    to the bf16 band engine (0.9995); and phase 8's 1000-frame clip
+    to the bf16 band engine (0.9995), and 1b's pooled output on the clip
+    equal to 2b's bit for bit on both entries; and phase 8's 1000-frame clip
     through the bf16 engine (kernel 6b 6 launches, the replay against an
     eager run, warm ms beside the float32 engine's in turns), held to the
     float32 engine (0.9995) and to a bf16 engine on the CPU (0.999);
@@ -296,7 +297,8 @@ band stem, block 2, attention, FFN and stack from the bf16 engine's raw
 clip, the window stem's float and planar entries (`stem_pool_bf16`,
 `stem_pool_planar_bf16`) from the window engine's raw and planar clip,
 and the flash attention from the bf16 long clip, whose time it sums
-(`launches_per_clip` of each timed shape, 6 at the long clip's). The bf16
+(`launches_per_clip` of each timed shape, 6 at the long clip's), and each
+bf16 row its bound share (`bound_share`, bound_ms / ms). The bf16
 attention and FFN rows' per-shape rows also carry each launch's split
 (12a, torch.profiler after an L2 flush): its device operations, each
 product's plan (gemm_plan.plan_bf16), device ms and bound share, the
@@ -3965,12 +3967,12 @@ def hold_bf16(got, twin, f32_out, what: str, stack: bool = False) -> dict:
                 min_row_cos_f32=cos32)
 
 
-# --against DIR: the kernels this tree redesigned (2b; 6b and 7b take
+# --against DIR: the kernels this tree redesigned (1b; 2b, 6b and 7b take
 # their turns too when their sources are listed) as another checkout (DIR)
 # builds them, each timed in turns with this tree's in 12a: {source stem:
 # ctypes library}
 REPLACED: dict = {}
-REPLACED_SOURCES = ("stem_band",)
+REPLACED_SOURCES = ("stem",)
 
 
 def build_replaced(tree: Path) -> dict:
@@ -4003,7 +4005,10 @@ def build_replaced(tree: Path) -> dict:
             "conv2": {"jt_conv2_bf16": [void] * 5 + [i32] * 3 + [void]},
             "stem_band": {e: [void] * 5 + [i32] * 3 + [void]
                           for e in ("jt_stem_band_bf16",
-                                    "jt_stem_band_planar_bf16")}}
+                                    "jt_stem_band_planar_bf16")},
+            "stem": {e: [void] * 5 + [i32] * 3 + [void]
+                     for e in ("jt_stem_pool_bf16",
+                               "jt_stem_pool_planar_bf16")}}
     for stem in REPLACED_SOURCES:
         for entry, args in sigs[stem].items():
             getattr(libs[stem], entry).argtypes = args
@@ -4084,16 +4089,22 @@ def check_bf16_tower(gp, dev, stem_inputs):
     flops = stem_flops(t_in, h, w)
     out_b = 2.0 * t_out * j * wp * c
     replaced = {"window": (None, None), "band": (None, None)}
-    if "stem_band" in REPLACED:   # the --against tree's 2b, same operands
-        lib = REPLACED["stem_band"]
-        old_out = torch.empty(t_out, j, wp, c, device=dev, dtype=bf)
-        pw = S.planar_weight(ops[0]).contiguous()
-        replaced["band"] = (
-            functools.partial(launch_replaced, lib.jt_stem_band_bf16, frames,
-                              ops[0], ops[1], ops[2], old_out, t_in, h, w),
-            functools.partial(launch_replaced, lib.jt_stem_band_planar_bf16,
-                              planar, pw, ops[1], ops[2], old_out, t_in,
-                              h // 3, w // 3))
+    old_out = torch.empty(t_out, j, wp, c, device=dev, dtype=bf)
+    pw = S.planar_weight(ops[0]).contiguous()
+    # the --against tree's 1b and 2b, on the same operands
+    for impl, source, entry in (("window", "stem", "jt_stem_pool"),
+                                ("band", "stem_band", "jt_stem_band")):
+        if source in REPLACED:
+            lib = REPLACED[source]
+            replaced[impl] = (
+                functools.partial(launch_replaced,
+                                  getattr(lib, entry + "_bf16"), frames,
+                                  ops[0], ops[1], ops[2], old_out, t_in, h,
+                                  w),
+                functools.partial(launch_replaced,
+                                  getattr(lib, entry + "_planar_bf16"),
+                                  planar, pw, ops[1], ops[2], old_out, t_in,
+                                  h // 3, w // 3))
     rows = {}
     for impl, name in (("band", "stem_band_bf16"),
                        ("window", "stem_pool_bf16")):
@@ -4659,11 +4670,41 @@ def run_bf16_window(gp, jp, rp, sample, planar, raw_res, band_res):
         planar_vs_f32=hold_cos(res_p, raw_res, BF16_F32_COS,
                                "bf16 window planar vs float32 raw, vta clip"),
         planar_vs_band=hold_cos(res_p, band_res["planar"], BF16_F32_COS,
-                                "bf16 window vs bf16 band, planar vta clip"))
+                                "bf16 window vs bf16 band, planar vta clip"),
+        stems_equal=window_equals_band(gp, sample, planar, eng.device))
     eng.close()
     launches = {k: ran[k] + ran_p[k] for k in ran}
     out["launches"] = dict(raw=ran, planar=ran_p)
     return out, launches
+
+
+def window_equals_band(gp, sample, planar, dev) -> bool:
+    """12b (i): kernel 1b's pooled output against kernel 2b's on phase
+    4's clip as the bf16 engine feeds it (masked and edge-padded bf16
+    frames; the planar frames edge-padded), bit for bit on both entries:
+    the two kernels sum each position's products in one order."""
+    import torch
+
+    from jegal_torch.api import _cast_tree
+    from jegal_torch.ops.kernels import stem as S
+    from jegal_torch.ops.video import edge_pad, mask_frames_device
+
+    ops = S.stem_kernel_params(_cast_tree(gp, torch.bfloat16)["net_vid"][0])
+    frames = mask_frames_device(
+        torch.from_numpy(sample["frames"]).to(dev),
+        torch.from_numpy(sample["chin_rows"]).to(dev), torch.bfloat16)
+    pl = edge_pad(torch.from_numpy(planar["frames"]).to(dev)).contiguous()
+    for what, run in (
+            ("raw", lambda impl: S.stem_pool(frames, *ops, impl=impl)),
+            ("planar", lambda impl: S.stem_pool_planar(pl, *ops, impl=impl))):
+        window, band = run("window"), run("band")
+        if not torch.equal(window, band):
+            err = (window.float() - band.float()).abs().max().item()
+            raise AssertionError(f"kernel 1b differs from 2b on the {what} "
+                                 f"clip: max abs err {err:.3e}")
+        log(f"  kernel 1b equals 2b bit for bit on the {what} clip "
+            f"{tuple(window.shape)}")
+    return True
 
 
 def run_bf16_long_clip(jp, engines):
@@ -4727,6 +4768,13 @@ REDESIGNED = {
                       "from a two-copy bf16 ring; the five weight planes "
                       "packed once a block; 16 warps of one m64 tile each, "
                       "persistent",
+    "stem_pool_bf16": "2b's K layout and products on a window tile: each A "
+                      "register one 32-bit load from a two-copy bf16 patch "
+                      "a tap; the five weight planes packed once a block; "
+                      "16 warps of one m64 tile each, persistent over "
+                      "(strip, row tile, frame)",
+    "stem_pool_planar_bf16": "as stem_pool_bf16, the planar bytes converted "
+                             "into both copies a warp a row",
     "flash_attention_bf16": "q * scale and p as two bf16 pieces held in "
                             "registers; wgmma m64n64k16 at head width 64, "
                             "mma.sync m16n8k16 bf16 at 96",
@@ -4788,6 +4836,7 @@ def bf16_kernel_rows(tower, encoders, flash, launches) -> list:
             agg = {k: rows[0][k] for k in ("ms", "ms_f32", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "bound_by")}
+        agg["bound_share"] = agg["bound_ms"] / agg["ms"]
         if all("replaced_ms" in r for r in rows):   # --against
             agg["replaced_ms"] = rows[0]["replaced_ms"] if not clip_sum else [
                 sum(r["replaced_ms"][i] * r["launches_per_clip"]

@@ -76,27 +76,9 @@
 //     4x6 pooled tile) and 16 warps of 32 x 32 both ran slower, as did
 //     positions ordered so that the A loads hit 32 banks.
 //
-// jt_stem_pool_bf16 and jt_stem_pool_planar_bf16 are the bf16 variant
-// (kernel 1b, the JAX engine's bf16 dtype): bf16 frames in [0, 1], or the
-// planar bytes with a bf16 weight (/255 folded in float32, then rounded);
-// bf16 out. It computes what `_stem_kernel` computes on bf16 blocks
-// (stem.py:80-213): bf16 x bf16 products summed in float32, BN and ReLU in
-// float32, the conv rows kept in float32 (its `rows_ref`, stem.py:465 and
-// :552), the max pool in float32, and the pooled value rounded to bf16
-// once (:213). The same tile, warps, taps and epilogue as the float32
-// kernel, with:
-//   * one pass of mma.sync.m16n8k16 bf16 (a product of two bf16 values is
-//     exact in float32; a byte is exact in bf16), K padded to 160 (10 k16
-//     steps), a float32 flush every 2 steps (32 columns, as above);
-//   * one bf16 patch plane (the planar bytes converted as they land, bf16
-//     frames copied), where the float frames take two TF32 planes; an A
-//     register pairs taps k and k + 1, two 16-bit loads through koff;
-//   * the weights landed raw by cp.async in bf16, each row's 8-half
-//     groups swizzled by (k / 2) % 4, so that a B register (taps k, k + 1
-//     of one channel, two 16-bit loads) of every lane of a warp hits 16
-//     words in distinct banks;
-//   * 74.5 KB of shared memory (72.2 KB planar) against 177 KB.
-// Bound: 190.2 GFLOP at 989 TFLOP/s dense bf16, 0.192 ms a 5 s clip.
+// jt_stem_pool_bf16 and jt_stem_pool_planar_bf16 are the bf16 variant,
+// kernel 1b (the JAX engine's bf16 dtype), a design of its own on Hopper's
+// warpgroup products: see its note below.
 #include <type_traits>
 
 #include "gemm.cuh"
@@ -230,11 +212,8 @@ __device__ __forceinline__ void issue_weights(const float* __restrict__ wt,
   }
 }
 
-// A pooled value into the output: float32, or bf16 rounded once.
+// A pooled value into the output.
 __device__ __forceinline__ void store_pooled(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_pooled(uint16_t* p, float v) {
-  *p = f2bf(v);
-}
 
 // The end of a block, after its last tap (no copy in flight): BN + ReLU of
 // its float32 sums into the conv tile over the staging buffers, then the
@@ -424,194 +403,293 @@ stem_pool_kernel(Src src, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16
+// Kernel 1b: the bf16 window stem
 // ---------------------------------------------------------------------------
+//
+// stem_pool_bf16_kernel replaces `_stem_kernel` (stem.py:80-213) on bf16
+// blocks, reached through stem_mgrid_x and stem_mgrid_planar with the
+// JAX package's default impl "window": bf16 frames in [0, 1], or the
+// planar bytes with a bf16 weight (/255 folded in float32, then rounded);
+// bf16 out. Arithmetic: exact bf16 products summed in float32 (a byte is
+// exact in bf16), BN and ReLU in float32, the 3x3/2 max pool, the pooled
+// value rounded to bf16 once (stem.py:213); the conv tile is kept in bf16
+// for the pool, which gives the same value (rounding is monotone). Its K
+// layout, products, flushes and staging are kernel 2b's (stem.cuh), so a
+// position's float32 sums, and the pooled bits, equal 2b's.
+//
+// Bound: operations, 190.2 GFLOP at 989 TFLOP/s dense bf16, 0.192 ms a 5 s
+// clip; the window tile puts ~298 GFLOP through the tensor cores (1.31
+// conv positions computed for each one the pool reads, K 176 for 147).
+// The first bf16 design (the float32 kernel's schedule on mma.sync
+// m16n8k16; its times on the H100 are in PERF.md §6, row 1b) gathered
+// each A and B register with two 16-bit loads through a koff table,
+// launched 10,360 blocks a clip that each landed all five taps' weights
+// again (~1 GB of L2 reads), and stopped every block at two barriers
+// between taps to convert its patch (bytes one at a time on the planar
+// entry). This design:
+//  * The window decomposition kept: a unit is a tile of 7x8 pooled outputs
+//    of one output frame, all 64 channels; its 15x17 = 255 conv positions
+//    (neighbouring tiles recompute a shared conv row or column, as
+//    `_stem_kernel` does) and one pad row, which is never stored, are the
+//    256 GEMM rows: 4 consumer warpgroups of one m64 tile each (16 warps,
+//    512 threads, at most 128 registers). A warp's rows g and g + 8 are
+//    two positions, each read through its own window. GEMM row m is conv
+//    position (m % 15, m / 15): the 8 rows of one A load are then mostly
+//    one column's consecutive rows, whose windows lie in distinct banks
+//    (in row order two positions shared a bank in most loads).
+//  * A tap's patch, 49 input rows of 168 halves, in bf16 twice (copy 0 as
+//    staged, copy 1 shifted by one element, 24 halves further on for the
+//    banks), so that a conv column x, whose window starts at element 9x,
+//    reads copy 1 when x is odd and every A register is one aligned
+//    32-bit load at an offset known when the kernel is compiled plus its
+//    window's: no koff table.
+//  * Three taps' buffers and one barrier a tap: at tap k's barrier, tap
+//    k + 1's rows have landed and tap k's copies are built; tap k + 2's
+//    rows are issued (cp.async, or plain loads where a row is not 16-byte
+//    aligned), and each warp builds its rows of tap k + 1's copies between
+//    tap k's product groups, while the tensor cores run (the patch's
+//    shift, or the planar bytes' conversion). Two buffers, with a barrier
+//    for the rows and one for the copies between taps, ran slower on float
+//    frames.
+//  * The five weight planes packed once a block, at its start (110 KB):
+//    no weight traffic and no barrier for weights between taps.
+//  * Each flush group's A registers are loaded while the group before
+//    runs on the tensor cores.
+//  * Persistent: one block an SM (grid min(units, SMs)) walks the units
+//    (column strip, row tile, frame), frame fastest. The blocks in flight
+//    together then take consecutive frames of one tile, so each input
+//    frame's patch is read by up to five of them close together, from L2;
+//    the next unit's first two taps land while this unit's last taps run.
+//  * Epilogue: BN + ReLU into the bf16 conv tile, over the buffer of the
+//    unit's last tap (each row's 16-byte channel chunk c at chunk c ^ (row
+//    % 8), so that a warp's stores hit distinct banks), then the pool, 8
+//    channels a thread in 16-byte loads and stores.
+// Shared memory: planes 110 KB, 3 taps x 2 copies x 16.1 KB, scale and bias
+// 0.5 KB: 207.3 KB, one block an SM. A ring of all five frames' patches in
+// two copies (161 KB) does not fit beside the planes, nor a producer
+// warpgroup writing im2col A tiles (256 x 176 bf16, 88 KB a stage). What
+// the design leaves: a flush every 2 k16 steps (the arithmetic 2b shares)
+// keeps one product group in flight a warpgroup, and the A loads, the
+// planes' reads by wgmma and the copies' building share the SM's shared
+// memory; the planar entry's conversion reads its bytes with bank
+// conflicts (its bytes land in runs of 32).
 
-constexpr int SW_KP = 160;               // 147 taps padded to k16 steps
-constexpr int SW_KSTEPS = SW_KP / 16;    // 10
-constexpr int SW_FLUSH = 2;              // k16 steps a float32 flush
-constexpr int SW_WBUF = SW_KP * ST_C;    // halves of a tap's weights
+constexpr int SW_COPY = ST_IR * S16_ROW + 24;   // halves of a patch copy
+constexpr int SW_BUF = 2 * SW_COPY;             // a tap's two copies
+constexpr int SW_BUFS = 3;                      // taps in shared memory
+constexpr int SW_SMEM = 2 * (ST_KT * S16_PLANE + SW_BUFS * SW_BUF) +
+                        4 * 2 * ST_C;     // + the folded scale and bias
+static_assert(S16_WGS * 64 >= ST_NPOS, "a warpgroup an m64 tile");
+static_assert(ST_S * ST_CIN * (ST_CC - 1) + S16_DY <= S16_ROW,
+              "a window lies in its staged row");
+static_assert(ST_NPOS * ST_C <= SW_BUF, "the conv tile fits a tap buffer");
+static_assert(SW_SMEM <= 232448, "fits an SM");
 
-// Bytes of the raw staging buffer: bf16 frames stage the patch rows as they
-// are (168 halves a row); planar frames the 9 (dw, c) runs of each row.
-template <class Src>
-constexpr int SW_RAW_BYTES = std::is_same<Src, PlanarU8>::value
-                                 ? ST_IR * 9 * ST_RUN : ST_XS * 2;
-// Shared memory (bytes): the bf16 plane, the raw patch, two taps' weights,
-// the koff table.
-template <class Src>
-constexpr int SW_SMEM_BYTES =
-    2 * ST_XS + SW_RAW_BYTES<Src> + 2 * 2 * SW_WBUF + 4 * SW_KP;
-static_assert(4 * ST_NPOS * ST_CS_LD <=
-                  2 * ST_XS + ST_IR * 9 * ST_RUN + 2 * 2 * SW_WBUF,
-              "the conv tile fits over the bf16 staging buffers");
-
-// bf16 frames: patch row rr is 168 halves of frame row y0 + rr from
-// column x0 (the last 3 unused), in 16-byte pieces.
-__device__ __forceinline__ void issue_patch(const Bf16Frames& s, int t,
-                                            int y0, int x0, uint32_t* raw,
-                                            bool async) {
-  constexpr int CH = ST_ROW / 8;         // 16-byte pieces a row
-  const int wq = s.W * ST_CIN;
-  for (int i = threadIdx.x; i < ST_IR * CH; i += ST_THREADS) {
-    const int rr = i / CH, q = (i - rr * CH) * 8;
-    const int y = y0 + rr, xq = x0 * ST_CIN + q;
-    uint16_t* dst = reinterpret_cast<uint16_t*>(raw) + rr * ST_ROW + q;
-    const uint16_t* src = s.p + ((size_t)t * s.H + y) * wq + xq;
-    if (async) {   // wq % 8 == 0: a piece is wholly inside or outside
-      const bool ok = y < s.H && xq < wq;
-      cp_async16b(dst, ok ? src : s.p, ok);
-    } else {
+// Flush group G's A registers of a thread's two positions (rows g and
+// g + 8 of its warp), whose windows start at x0 and x1 (copy chosen):
+// a[s][0] row g, k 2t, 2t + 1 of the step; a[s][1] row g + 8; a[s][2],
+// a[s][3] k + 8.
+template <int G>
+__device__ __forceinline__ void window_load(uint32_t (&a)[S16_FLUSH][4],
+                                            const uint16_t* x0,
+                                            const uint16_t* x1, int t4) {
+  using B = S16Group<G>;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (y < s.H && xq + e < wq) ? __ldg(src + e) : (uint16_t)0;
+  for (int s = 0; s < B::NS; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * (B::S0 + s) + h;   // the k8 group
+      // group 21 is padding (dy 7, zero weights): it reads row 6
+      const int dy = min(q / 3, ST_KH - 1);
+      const int j = dy * S16_ROW + 8 * (q % 3) + 2 * t4;
+      a[s][2 * h] = *reinterpret_cast<const uint32_t*>(x0 + j);
+      a[s][2 * h + 1] = *reinterpret_cast<const uint32_t*>(x1 + j);
     }
-  }
 }
 
-// The landed raw patch into the bf16 plane: bf16 frames copied, planar
-// bytes converted (exact).
-__device__ __forceinline__ void convert_patch_bf16(const Bf16Frames&,
-                                                   const uint32_t* raw,
-                                                   uint16_t* plane) {
-  for (int i = threadIdx.x; i < ST_XS / 8; i += ST_THREADS)
-    reinterpret_cast<uint4*>(plane)[i] = reinterpret_cast<const uint4*>(raw)[i];
-}
-
-__device__ __forceinline__ void convert_patch_bf16(const PlanarU8&,
-                                                   const uint32_t* raw,
-                                                   uint16_t* plane) {
-  constexpr int ROW = ST_IC * ST_CIN;    // 165
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(raw);
-  for (int i = threadIdx.x; i < ST_IR * ROW; i += ST_THREADS) {
-    const int rr = i / ROW, q = i - rr * ROW;
-    const int xl = q / 3, c = q - 3 * xl;
-    const int w3i = xl / 3, dw = xl - 3 * w3i;
-    plane[rr * ST_ROW + q] =
-        f2bf((float)b[(rr * 9 + dw * 3 + c) * ST_RUN + w3i]);
-  }
-}
-
-// A tap's (147, 64) bf16 weights into a buffer of (160, 64) halves, row
-// k's 8-half groups swizzled by (k / 2) % 4 (group n / 8 ^ (k / 2) % 4):
-// the B registers of a warp (taps 2t + {0, 1} or 2t + {8, 9} of a k16
-// step, channel g of an n8 tile) then read 16 words in distinct banks.
-__device__ __forceinline__ void issue_weights_bf16(
-    const uint16_t* __restrict__ wt, uint16_t* wb) {
-  for (int i = threadIdx.x; i < ST_TAPS * ST_C / 8; i += ST_THREADS) {
-    const int k = i / (ST_C / 8), gi = i % (ST_C / 8);
-    cp_async16b(wb + k * ST_C + ((gi ^ ((k >> 1) & 3)) << 3),
-                wt + k * ST_C + 8 * gi, true);
-  }
-}
-
-// stem_pool_kernel in bf16. src: bf16 frames or planar bytes; w: (5, 7, 7,
-// 3, 64) DHWIO bf16; out: (T4-4, J, Wp, 64) bf16. Grid as above.
+// Piece i of building a landed tap's two copies (buffer xb): rows
+// warp + 16 i, a warp a row (the shift of copy 0 into copy 1, or the
+// planar bytes converted into both).
 template <class Src>
-__global__ void __launch_bounds__(ST_THREADS, 1)
+__device__ __forceinline__ void window_build(int i, uint16_t* xb) {
+  const int n = min(S16_THREADS / 32, ST_IR - S16_THREADS / 32 * i);
+  const auto row = [=](int r) {
+    return make_int3(0, 0, (r + S16_THREADS / 32 * i) * S16_ROW);
+  };
+  if constexpr (std::is_same<Src, PlanarU8>::value)
+    convert_rows(n, row, xb, xb + SW_COPY);
+  else
+    shift_rows(n, row, xb, xb + SW_COPY);
+}
+
+// src: (t_in, H, W, 3) frames, bf16 or planar bytes; w: (5, 7, 7, 3, 64)
+// DHWIO bf16; out: (t_in - 4, J, Wp, 64) bf16. A persistent grid over the
+// units (strip, row tile, frame), frame fastest.
+template <class Src>
+__global__ void __launch_bounds__(S16_THREADS, 1)
 stem_pool_bf16_kernel(Src src, const uint16_t* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias,
-                      uint16_t* __restrict__ out, int J, int Wp, bool async) {
-  extern __shared__ __align__(16) float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  uint16_t* X = reinterpret_cast<uint16_t*>(base);            // [49][168]
-  uint32_t* raw = reinterpret_cast<uint32_t*>(base + 2 * ST_XS);
-  uint16_t* Wb = reinterpret_cast<uint16_t*>(
-      base + 2 * ST_XS + SW_RAW_BYTES<Src>);                  // [2][160][64]
-  int* koff = reinterpret_cast<int*>(Wb + 2 * SW_WBUF);       // [160]
+                      uint16_t* __restrict__ out, int t_in, int J, int Wp,
+                      bool async) {
+  extern __shared__ __align__(16) uint16_t smem_sw[];
+  uint16_t* planes = smem_sw;                    // [5][22][8][8][8]
+  uint16_t* X = planes + ST_KT * S16_PLANE;      // [3 taps][2 copies]
+  float* sc = reinterpret_cast<float*>(X + SW_BUFS * SW_BUF);   // [64] x 2
+  float* bi = sc + ST_C;
 
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int i0 = blockIdx.x * ST_PI;
-  const int j0 = blockIdx.y * ST_PJ;
-  const int t = blockIdx.z;
-  const int y_in0 = 2 * ST_S * j0;
-  const int x_in0 = 2 * ST_S * i0;
+  const int t_out = t_in - (ST_KT - 1);
+  const int strips = (Wp + ST_PI - 1) / ST_PI;
+  const int units = strips * ((J + ST_PJ - 1) / ST_PJ) * t_out;
 
-  issue_patch(src, t, y_in0, x_in0, raw, async);
-  issue_weights_bf16(w, Wb);
+  pack_planes_bf16(w, planes);
+  fence_proxy_async();   // the planes, written by threads, read by wgmma
+  if (tid < ST_C) {
+    sc[tid] = scale[tid];
+    bi[tid] = bias[tid];
+  }
+
+  // GEMM row m (rows g and g + 8 of this thread's warp) is conv position
+  // (m % 15, m / 15): a warp's 8 rows of one A load are mostly 8
+  // consecutive rows of one column, whose windows (3 input rows apart)
+  // fall in distinct banks. pos: the position (-1: the pad row, which
+  // reads position (14, 15)); xo: its window's offset in a tap's buffer,
+  // in copy 1 for an odd conv column
+  int pos[2], xo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = warp * 16 + g + 8 * h;
+    const int r = m < ST_NPOS ? m % ST_CR : ST_CR - 1;
+    const int col = m < ST_NPOS ? m / ST_CR : ST_CC - 2;
+    pos[h] = m < ST_NPOS ? r * ST_CC + col : -1;
+    xo[h] = ST_S * r * S16_ROW + ST_S * ST_CIN * col +
+            ((col & 1) ? SW_COPY - 1 : 0);
+  }
+
+  // this block's tap k: tap k % 5 of its unit k / 5, in buffer k % 3
+  const auto unit_of = [&](int tap) {
+    return (int)blockIdx.x + tap / ST_KT * (int)gridDim.x;
+  };
+  const auto buffer = [&](int tap) { return X + tap % SW_BUFS * SW_BUF; };
+  const auto stage = [&](int tap) {   // its 49 input rows, if it exists
+    const int u = unit_of(tap);
+    if (u >= units) return;
+    const int tile = u / t_out, t = u - tile * t_out + tap % ST_KT;
+    const int y0 = 2 * ST_S * ST_PJ * (tile / strips);
+    uint16_t* xb = buffer(tap);
+    stage_rows(src, ST_IR,
+               [=](int r) { return make_int3(t, y0 + r, r * S16_ROW); },
+               t_in, 2 * ST_S * ST_PI * (tile % strips), xb, xb + SW_COPY,
+               async);
+  };
+
+  // taps 0 and 1 staged, tap 0's copies built
+  stage(0);
+  stage(1);
   cp_async_commit();
-  for (int k = tid; k < SW_KP; k += ST_THREADS) {
-    const int dy = k / (ST_KW * ST_CIN);
-    koff[k] = k < ST_TAPS ? dy * ST_ROW + (k - dy * ST_KW * ST_CIN) : 0;
-  }
-  constexpr int PAD = (SW_KP - ST_TAPS) * ST_C;   // zero rows 147..159
-  for (int i = tid; i < 2 * PAD; i += ST_THREADS)
-    Wb[(i / PAD) * SW_WBUF + ST_TAPS * ST_C + i % PAD] = 0;
-
-  int xoff[ST_MF][2];
-  position_offsets(xoff);
-
-  float sum[ST_MF][ST_NF][4];
+  cp_async_wait<0>();
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < ST_MF; ++i)
-#pragma unroll
-    for (int j = 0; j < ST_NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
+  for (int i = 0; i < 4; ++i) window_build<Src>(i, buffer(0));
 
-  for (int dt = 0; dt < ST_KT; ++dt) {
-    cp_async_wait<0>();
-    __syncthreads();  // tap dt's patch and weights landed; tap dt-1 done
-    convert_patch_bf16(src, raw, X);
-    __syncthreads();  // the plane ready, the raw buffer free
-    if (dt + 1 < ST_KT) {
-      issue_patch(src, t + dt + 1, y_in0, x_in0, raw, async);
-      issue_weights_bf16(w + (size_t)(dt + 1) * ST_WS,
-                         Wb + ((dt + 1) & 1) * SW_WBUF);
+  int k = 0;   // the tap at hand
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = u / t_out, t = u - tile * t_out;
+    const int j0 = ST_PJ * (tile / strips), i0 = ST_PI * (tile % strips);
+    float sum[32], acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sum[e] = 0.f;
+
+    for (int dt = 0; dt < ST_KT; ++dt, ++k) {
+      __syncthreads();   // tap k's copies built and tap k + 1's rows
+                         // landed; tap k - 1 is done with buffer k + 2
+      stage(k + 2);
+      cp_async_commit();
+      const uint16_t* xb = buffer(k);
+      uint16_t* nb = unit_of(k + 1) < units ? buffer(k + 1) : nullptr;
+      const uint16_t* pl = planes + dt * S16_PLANE;
+      const uint16_t* x0 = xb + xo[0];
+      const uint16_t* x1 = xb + xo[1];
+      uint32_t a0[S16_FLUSH][4], a1[S16_FLUSH][4];
+      // each group's A loads, and a piece of tap k + 1's copies, overlap
+      // the group before on the tensor cores
+      window_load<0>(a0, x0, x1, t4);
+      group_issue<0>(acc, a0, pl);
+      if (nb) window_build<Src>(0, nb);
+      window_load<1>(a1, x0, x1, t4);
+      group_flush(sum, acc);
+      group_issue<1>(acc, a1, pl);
+      if (nb) window_build<Src>(1, nb);
+      window_load<2>(a0, x0, x1, t4);
+      group_flush(sum, acc);
+      group_issue<2>(acc, a0, pl);
+      if (nb) window_build<Src>(2, nb);
+      window_load<3>(a1, x0, x1, t4);
+      group_flush(sum, acc);
+      group_issue<3>(acc, a1, pl);
+      if (nb) window_build<Src>(3, nb);
+      window_load<4>(a0, x0, x1, t4);
+      group_flush(sum, acc);
+      group_issue<4>(acc, a0, pl);
+      window_load<5>(a1, x0, x1, t4);
+      group_flush(sum, acc);
+      group_issue<5>(acc, a1, pl);
+      group_flush(sum, acc);
+      cp_async_wait<0>();   // tap k + 2's rows (this thread's copies)
     }
-    cp_async_commit();
-    const uint16_t* wb = Wb + (dt & 1) * SW_WBUF;
 
+    // BN + ReLU in float32 into the conv tile, over the buffer of the
+    // unit's last tap, rounded to bf16 (the pooled max rounds the same:
+    // rounding is monotone); row p's 16-byte channel chunk c at chunk
+    // c ^ (p % 8); the pad row is not stored
+    uint16_t* Cs = buffer(k - 1);
+    __syncthreads();   // every warp is done with that buffer
 #pragma unroll
-    for (int s0 = 0; s0 < SW_KSTEPS; s0 += SW_FLUSH) {
-      float acc[ST_MF][ST_NF][4];
+    for (int j = 0; j < ST_NF; ++j) {
+      const int c = j * 8 + 2 * t4;
+      const float s0 = sc[c], s1 = sc[c + 1], b0 = bi[c], b1 = bi[c + 1];
 #pragma unroll
-      for (int i = 0; i < ST_MF; ++i)
+      for (int h = 0; h < 2; ++h)
+        if (pos[h] >= 0)
+          *reinterpret_cast<uint32_t*>(
+              Cs + pos[h] * ST_C + ((j ^ (pos[h] & 7)) << 3) + 2 * t4) =
+              pack_bf16(f2bf(fmaxf(fmaf(sum[4 * j + 2 * h], s0, b0), 0.f)),
+                        f2bf(fmaxf(fmaf(sum[4 * j + 2 * h + 1], s1, b1),
+                                   0.f)));
+    }
+    __syncthreads();   // the conv tile written
+    // the 3x3 stride-2 max pool, 8 channels a thread; the next tap's
+    // barrier keeps the tile until every thread has pooled
+    for (int i = tid; i < ST_PJ * ST_PI * (ST_C / 8); i += S16_THREADS) {
+      const int cg = i % (ST_C / 8), p = i / (ST_C / 8);
+      const int pj = p / ST_PI, pi = p % ST_PI;
+      const int jj = j0 + pj, ii = i0 + pi;
+      if (jj >= J || ii >= Wp) continue;
+      float m[8];
 #pragma unroll
-        for (int j = 0; j < ST_NF; ++j)
+      for (int a = 0; a < 3; ++a)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+        for (int bb = 0; bb < 3; ++bb) {
+          const int q = (2 * pj + a) * ST_CC + 2 * pi + bb;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              Cs + q * ST_C + ((cg ^ (q & 7)) << 3));
+          const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int s = s0; s < s0 + SW_FLUSH; ++s) {
-        // taps k, k + 1 (a0, a1, b0) and k + 8, k + 9 (a2, a3, b1)
-        const int k = 16 * s + 2 * t4;
-        const int ka = koff[k], kb = koff[k + 1];
-        const int kc = koff[k + 8], kd = koff[k + 9];
-        uint32_t a[ST_MF][4];
-#pragma unroll
-        for (int i = 0; i < ST_MF; ++i) {
-          const uint16_t* x0 = X + xoff[i][0];
-          const uint16_t* x1 = X + xoff[i][1];
-          a[i][0] = pack_bf16(x0[ka], x0[kb]);
-          a[i][1] = pack_bf16(x1[ka], x1[kb]);
-          a[i][2] = pack_bf16(x0[kc], x0[kd]);
-          a[i][3] = pack_bf16(x1[kc], x1[kd]);
+          for (int e = 0; e < 8; ++e) {
+            const float x = bf2f(wd[e / 2] >> (16 * (e % 2)));
+            m[e] = a + bb == 0 ? x : fmaxf(m[e], x);
+          }
         }
-        uint32_t b[ST_NF][2];
-#pragma unroll
-        for (int j = 0; j < ST_NF; ++j) {
-          // (k / 2) % 4 == t4 for all four taps: the swizzled column
-          const uint16_t* wc = wb + (((j ^ t4) << 3) + g);
-          b[j][0] = pack_bf16(wc[k * ST_C], wc[(k + 1) * ST_C]);
-          b[j][1] = pack_bf16(wc[(k + 8) * ST_C], wc[(k + 9) * ST_C]);
-        }
-#pragma unroll
-        for (int i = 0; i < ST_MF; ++i)
-#pragma unroll
-          for (int j = 0; j < ST_NF; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < ST_MF; ++i)
-#pragma unroll
-        for (int j = 0; j < ST_NF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)t * J + jj) * Wp + ii) * ST_C + 8 * cg) =
+          make_uint4(pack_bf16(f2bf(m[0]), f2bf(m[1])),
+                     pack_bf16(f2bf(m[2]), f2bf(m[3])),
+                     pack_bf16(f2bf(m[4]), f2bf(m[5])),
+                     pack_bf16(f2bf(m[6]), f2bf(m[7])));
     }
   }
-
-  stem_epilogue(sum, smem, scale, bias, out, t, j0, i0, J, Wp);
 }
 
 }  // namespace jt
@@ -664,17 +742,17 @@ static int launch_stem_pool_bf16(Src src, const uint16_t* w,
                                  uint16_t* out, int t_in, bool async,
                                  cudaStream_t stream) {
   using namespace jt;
-  constexpr int smem = SW_SMEM_BYTES<Src>;
   const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
-  if ((uintptr_t)w % 16 != 0) return JT_ERR_SHAPE;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      stem_pool_bf16_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((Wp + ST_PI - 1) / ST_PI, (J + ST_PJ - 1) / ST_PJ, t_in - 4);
-  stem_pool_bf16_kernel<Src><<<grid, ST_THREADS, smem, stream>>>(
-      src, w, scale, bias, out, J, Wp, async);
+  if ((uintptr_t)out % 16 != 0) return JT_ERR_SHAPE;
+  static const Resident setup =
+      resident_blocks(stem_pool_bf16_kernel<Src>, S16_THREADS, SW_SMEM);
+  if (setup.err != cudaSuccess) return (int)setup.err;
+  const int units = (Wp + ST_PI - 1) / ST_PI * ((J + ST_PJ - 1) / ST_PJ) *
+                    (t_in - (ST_KT - 1));
+  stem_pool_bf16_kernel<Src>
+      <<<units < setup.slots ? units : setup.slots, S16_THREADS, SW_SMEM,
+         stream>>>(src, w, scale, bias, out, t_in, J, Wp, async);
   JT_CHECK_LAUNCH();
   return 0;
 }
@@ -703,42 +781,24 @@ extern "C" int jt_stem_pool_planar_bf16(const uint8_t* planar,
                                (cudaStream_t)stream);
 }
 
-// What the compiler and the occupancy calculator say of a kernel with
-// `smem` bytes of dynamic shared memory a block: info = {registers a
-// thread, local (spill) bytes a thread, dynamic shared bytes a block,
-// blocks an SM}.
-static int kernel_info(const void* fn, int smem, int* info) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                    jt::ST_THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  info[0] = a.numRegs;
-  info[1] = (int)a.localSizeBytes;
-  info[2] = smem;
-  info[3] = blocks;
-  return 0;
-}
-
-// The info of one entry's kernel (planar: 0 float frames, 1 planar).
+// What the compiler and the occupancy calculator say of one entry's kernel
+// (planar: 0 float frames, 1 planar): info = {registers a thread, local
+// (spill) bytes a thread, dynamic shared bytes a block, blocks an SM}.
 extern "C" int jt_stem_pool_info(int planar, int* info) {
   using namespace jt;
-  return planar ? kernel_info((const void*)stem_pool_kernel<PlanarU8>,
-                              4 * ST_SMEM_WORDS<PlanarU8>, info)
-                : kernel_info((const void*)stem_pool_kernel<FloatFrames>,
-                              4 * ST_SMEM_WORDS<FloatFrames>, info);
+  return planar ? stem_kernel_info((const void*)stem_pool_kernel<PlanarU8>,
+                                   ST_THREADS, 4 * ST_SMEM_WORDS<PlanarU8>,
+                                   info)
+                : stem_kernel_info((const void*)stem_pool_kernel<FloatFrames>,
+                                   ST_THREADS, 4 * ST_SMEM_WORDS<FloatFrames>,
+                                   info);
 }
 
 // The same of the bf16 variant's entries.
 extern "C" int jt_stem_pool_bf16_info(int planar, int* info) {
   using namespace jt;
-  return planar ? kernel_info((const void*)stem_pool_bf16_kernel<PlanarU8>,
-                              SW_SMEM_BYTES<PlanarU8>, info)
-                : kernel_info((const void*)stem_pool_bf16_kernel<Bf16Frames>,
-                              SW_SMEM_BYTES<Bf16Frames>, info);
+  return stem_kernel_info(
+      planar ? (const void*)stem_pool_bf16_kernel<PlanarU8>
+             : (const void*)stem_pool_bf16_kernel<Bf16Frames>,
+      S16_THREADS, SW_SMEM, info);
 }

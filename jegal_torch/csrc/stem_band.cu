@@ -455,187 +455,39 @@ stem_band_kernel(Src src, const float* __restrict__ w,
 // shared memory) does not fit: 256 GEMM rows x 160 K is 80 KB a stage.
 // Shared memory: 5 planes 110 KB, the two ring copies 72.2 KB, the pooling
 // buffer 18 KB, the carry 16 KB, scale and bias 0.5 KB: 216.7 KB, one
-// block an SM.
+// block an SM. The K layout, the planes' packing, the rows' staging,
+// shift and conversion and the flush groups are stem.cuh's, shared with
+// the bf16 window stem (stem.cu, kernel 1b).
 
-constexpr int SBB_WGS = 4, SBB_THREADS = 128 * SBB_WGS;   // warpgroups
-constexpr int SBB_DY = 24;                  // K columns of a dy row
-constexpr int SBB_KP = 176;                 // 7 x 24 padded to k16 steps
-constexpr int SBB_KSTEPS = SBB_KP / 16;     // 11
-constexpr int SBB_FLUSH = 2;                // k16 steps a float32 flush
-constexpr int SBB_GROUPS = (SBB_KSTEPS + SBB_FLUSH - 1) / SBB_FLUSH;   // 6
-constexpr int SBB_PLANE = SBB_KP * ST_C;    // halves of a tap's plane
-constexpr int SBB_ROW = 168;                // halves of a staged row (56 px)
-constexpr int SBB_WORDS = SBB_ROW / 2;      // 32-bit words of a row
-constexpr int SBB_FRAME = SB_RING * SBB_ROW;
+constexpr int SBB_FRAME = SB_RING * S16_ROW;
 constexpr int SBB_RING = SB_FIN * SBB_FRAME;   // halves of a ring copy
 constexpr int SBB_VLD = ST_C + 8;           // a pooling buffer row (halves)
 // the carry: a thread's bf16 channel pairs, [n8 tile][slot][t4] words
 constexpr int SBB_CARRY = ST_NF * SB_SLOTS * 4;
-constexpr int SBB_SMEM = 2 * (ST_KT * SBB_PLANE + 2 * SBB_RING +
+constexpr int SBB_SMEM = 2 * (ST_KT * S16_PLANE + 2 * SBB_RING +
                               SB_SLOTS * SBB_VLD) + 4 * SBB_CARRY +
                          4 * 2 * ST_C;   // + the folded scale and bias
-static_assert(SB_SLOTS == 32 * SBB_WGS, "a warpgroup an m64 tile");
-static_assert(SBB_DY >= ST_KW * ST_CIN && SBB_DY % 8 == 0,
-              "a k8 group lies in one dy row");
-static_assert(ST_S * ST_CIN * (SB_CC - 1) + SBB_DY <= SBB_ROW,
+static_assert(SB_SLOTS == 32 * S16_WGS, "a warpgroup an m64 tile");
+static_assert(ST_S * ST_CIN * (SB_CC - 1) + S16_DY <= S16_ROW,
               "a window lies in its staged row");
-static_assert(9 * 32 <= 2 * SBB_ROW, "a row's planar runs fit its slot");
 static_assert(SBB_SMEM <= 232448, "fits an SM");
 
-// The raw (5, 7, 7, 3, 64) weight into the five K-major planes: element
-// (n, k) of tap dt at half dt * SBB_PLANE + (k / 8) * 512 + (n / 8) * 64 +
-// (n % 8) * 8 + k % 8, k = 24 dy + 3 dx + c, zero at the padding.
-__device__ __forceinline__ void pack_planes_bf16(
-    const uint16_t* __restrict__ w, uint16_t* planes) {
-  constexpr int KG = SBB_KP / 8;
-  for (int i = threadIdx.x; i < ST_KT * KG * ST_C; i += SBB_THREADS) {
-    const int n = i % ST_C, kg = (i / ST_C) % KG, dt = i / (ST_C * KG);
-    uint16_t h[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int k = 8 * kg + e, dy = k / SBB_DY, r = k - dy * SBB_DY;
-      h[e] = dy < ST_KH && r < ST_KW * ST_CIN
-                 ? __ldg(w + ((size_t)dt * ST_TAPS + dy * ST_KW * ST_CIN +
-                              r) * ST_C + n)
-                 : (uint16_t)0;
-    }
-    *reinterpret_cast<uint4*>(planes + dt * SBB_PLANE + kg * 8 * ST_C +
-                              (n >> 3) * 64 + (n & 7) * 8) =
-        make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]),
-                   pack_bf16(h[4], h[5]), pack_bf16(h[6], h[7]));
-  }
-}
-
-// Input rows [y0, y0 + n) of the block's input frames (from t0) into
-// their ring slots: bf16 frames into copy 0, 168 halves from column x0
-// (cp.async when `async`: 16-byte aligned rows); planar bytes as they are,
-// the 9 runs (dw, c) of 32 bytes from w3 = x0 / 3 of planar row (t, y /
-// 3), planes (y % 3) * 9 + dw * 3 + c, over copy 1's slot of the row.
-// Pixels past the clip or the frame are zero.
-__device__ __forceinline__ void stage_rows(const Bf16Frames& s, int t0,
-                                           int t_in, int x0, int y0, int n,
-                                           uint16_t* ring0, uint16_t*,
-                                           bool async) {
-  constexpr int PIECES = SBB_ROW / 8;   // 16-byte copies a row
-  const int wq = s.W * ST_CIN;
-  for (int i = threadIdx.x; i < SB_FIN * n * PIECES; i += SBB_THREADS) {
-    const int fr = i / PIECES, q = (i - fr * PIECES) * 8;
-    const int f = fr / n, y = y0 + fr % n;
-    const int t = t0 + f, xq = x0 * ST_CIN + q;
-    uint16_t* dst = ring0 + f * SBB_FRAME + (y % SB_RING) * SBB_ROW + q;
-    const uint16_t* src = s.p + ((size_t)t * s.H + y) * wq + xq;
-    const bool row_ok = t < t_in && y < s.H;
-    if (async) {   // wq % 8 == 0: a piece is wholly inside or outside
-      const bool ok = row_ok && xq < wq;
-      cp_async16b(dst, ok ? src : s.p, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (row_ok && xq + e < wq) ? __ldg(src + e) : (uint16_t)0;
-    }
-  }
-}
-
-__device__ __forceinline__ void stage_rows(const PlanarU8& s, int t0,
-                                           int t_in, int x0, int y0, int n,
-                                           uint16_t*, uint16_t* ring1,
-                                           bool async) {
-  const int H3 = s.H / 3, W3 = s.W / 3, w30 = x0 / 3;   // x0 % 3 == 0
-  for (int i = threadIdx.x; i < SB_FIN * n * 9 * 2; i += SBB_THREADS) {
-    const int half = i & 1, j = (i >> 1) % 9, fr = (i >> 1) / 9;
-    const int f = fr / n, y = y0 + fr % n;
-    const int t = t0 + f, h3 = y / 3, dh = y - 3 * h3;
-    const int w3 = w30 + 16 * half;
-    uint8_t* dst = reinterpret_cast<uint8_t*>(
-                       ring1 + f * SBB_FRAME + (y % SB_RING) * SBB_ROW) +
-                   j * 32 + 16 * half;
-    const uint8_t* src =
-        s.p + (((size_t)t * H3 + h3) * 27 + dh * 9 + j) * W3 + w3;
-    const bool row_ok = t < t_in && y < s.H;
-    if (async) {   // W3 % 16 == 0: a piece is wholly inside or outside
-      const bool ok = row_ok && w3 < W3;
-      cp_async16b(dst, ok ? src : s.p, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        dst[e] = (row_ok && w3 + e < W3) ? __ldg(src + e) : (uint8_t)0;
-    }
-  }
-}
-
-// The ring rows of frame row fr of the rows [y0, y0 + n) just landed:
-// element offset of its slot.
-__device__ __forceinline__ int landed_row(int fr, int y0, int n) {
+// The ring slot of frame row fr of the rows [y0, y0 + n) of the block's
+// input frames (from t0): {t, y, element offset of its slot}.
+__device__ __forceinline__ int3 ring_row(int fr, int t0, int y0, int n) {
   const int f = fr / n, y = y0 + fr - f * n;
-  return f * SBB_FRAME + (y % SB_RING) * SBB_ROW;
+  return make_int3(t0 + f, y, f * SBB_FRAME + (y % SB_RING) * S16_ROW);
 }
-
-// Landed planar bytes of rows [y0, y0 + n) into both bf16 copies, a warp a
-// row: element (x, c) of a row is the byte at run (x % 3) * 3 + c, offset
-// x / 3, staged over the row's copy 1, so a warp reads its row's bytes
-// before any lane writes copy 1.
-__device__ __forceinline__ void convert_rows(int y0, int n, uint16_t* ring0,
-                                             uint16_t* ring1) {
-  constexpr int K = (SBB_WORDS + 31) / 32;   // words a lane
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int fr = warp; fr < SB_FIN * n; fr += SBB_THREADS / 32) {
-    const int row = landed_row(fr, y0, n);
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(ring1 + row);
-    uint16_t e[K][3];   // elements 2 wd .. 2 wd + 2 of the lane's words
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int el = 2 * (lane + 32 * k) + j, x = el / 3, c = el - 3 * x;
-        e[k][j] = el < SBB_ROW ? f2bf((float)b[((x % 3) * 3 + c) * 32 + x / 3])
-                               : (uint16_t)0;
-      }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int wd = lane + 32 * k;
-      if (wd >= SBB_WORDS) continue;
-      reinterpret_cast<uint32_t*>(ring0 + row)[wd] = pack_bf16(e[k][0], e[k][1]);
-      reinterpret_cast<uint32_t*>(ring1 + row)[wd] = pack_bf16(e[k][1], e[k][2]);
-    }
-  }
-}
-
-// Copy 1 of rows [y0, y0 + n): copy 0 shifted by one element (zero past
-// the row), a warp a row.
-__device__ __forceinline__ void shift_rows(int y0, int n,
-                                           const uint16_t* ring0,
-                                           uint16_t* ring1) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int fr = warp; fr < SB_FIN * n; fr += SBB_THREADS / 32) {
-    const int row = landed_row(fr, y0, n);
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(ring0 + row);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(ring1 + row);
-    for (int wd = lane; wd < SBB_WORDS; wd += 32) {
-      const uint32_t lo = src[wd], hi = wd + 1 < SBB_WORDS ? src[wd + 1] : 0u;
-      dst[wd] = __funnelshift_r(lo, hi, 16);
-    }
-  }
-}
-
-// k16 steps of flush group G of a tap: from S0, NS of them (the last
-// group is short).
-template <int G>
-struct BandGroup {
-  static constexpr int S0 = G * SBB_FLUSH;
-  static constexpr int NS =
-      S0 + SBB_FLUSH <= SBB_KSTEPS ? SBB_FLUSH : SBB_KSTEPS - S0;
-};
 
 // Flush group G's A registers of a thread's position, whose window starts
 // at x (copy and frame chosen), the ring slots of conv rows 2m and 2m + 1
 // starting at rho0, rho1. a[s][0]: row g (2m), k 2t, 2t + 1 of the step;
 // a[s][1]: row g + 8; a[s][2], a[s][3]: k + 8.
 template <int G>
-__device__ __forceinline__ void band_load(uint32_t (&a)[SBB_FLUSH][4],
+__device__ __forceinline__ void band_load(uint32_t (&a)[S16_FLUSH][4],
                                           const uint16_t* x, int rho0,
                                           int rho1, int t4) {
-  using B = BandGroup<G>;
+  using B = S16Group<G>;
 #pragma unroll
   for (int s = 0; s < B::NS; ++s)
 #pragma unroll
@@ -644,44 +496,17 @@ __device__ __forceinline__ void band_load(uint32_t (&a)[SBB_FLUSH][4],
       const int dy = q / 3, j = 8 * (q % 3) + 2 * t4;
       const int r0 = rho0 + dy, r1 = rho1 + dy;
       a[s][2 * h] = *reinterpret_cast<const uint32_t*>(
-          x + (r0 - (r0 >= SB_RING ? SB_RING : 0)) * SBB_ROW + j);
+          x + (r0 - (r0 >= SB_RING ? SB_RING : 0)) * S16_ROW + j);
       a[s][2 * h + 1] = *reinterpret_cast<const uint32_t*>(
-          x + (r1 - (r1 >= SB_RING ? SB_RING : 0)) * SBB_ROW + j);
+          x + (r1 - (r1 >= SB_RING ? SB_RING : 0)) * S16_ROW + j);
     }
-}
-
-// Issue flush group G of a tap (plane `pl`) on a: its steps' products from
-// zero into acc.
-template <int G>
-__device__ __forceinline__ void band_issue(float (&acc)[32],
-                                           const uint32_t (&a)[SBB_FLUSH][4],
-                                           const uint16_t* pl) {
-  using B = BandGroup<G>;
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < B::NS; ++s)
-    wgmma_bf16(acc, a[s], wgmma_desc(pl + (B::S0 + s) * 2 * 8 * ST_C,
-                                     8 * ST_C * 2, 128),
-               s > 0);
-  wgmma_commit();
-}
-
-// sum += the finished group's products
-__device__ __forceinline__ void band_flush(float (&sum)[32],
-                                           float (&acc)[32]) {
-  wgmma_wait<0>();
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    wgmma_pin(acc[e]);
-    sum[e] += acc[e];
-  }
 }
 
 // src: (t_in, H, W, 3) frames, bf16 or planar bytes; w: (5, 7, 7, 3, 64)
 // DHWIO bf16; out: (t_in - 4, J, Wp, 64) bf16. A persistent grid over the
 // units (strip, frame group, run of `run` pooled rows), strip fastest.
 template <class Src>
-__global__ void __launch_bounds__(SBB_THREADS, 1)
+__global__ void __launch_bounds__(S16_THREADS, 1)
 stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias,
@@ -689,7 +514,7 @@ stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
                       int run, bool async) {
   extern __shared__ __align__(16) uint16_t smem_sbb[];
   uint16_t* planes = smem_sbb;                       // [5][22][8][8][8]
-  uint16_t* ring0 = planes + ST_KT * SBB_PLANE;      // [11][10][168]
+  uint16_t* ring0 = planes + ST_KT * S16_PLANE;      // [11][10][168]
   uint16_t* ring1 = ring0 + SBB_RING;
   uint16_t* V = ring1 + SBB_RING;                    // [128][72]
   uint32_t* carry = reinterpret_cast<uint32_t*>(V + SB_SLOTS * SBB_VLD);
@@ -726,19 +551,21 @@ stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
     const int j_b = min(J, j_a + run);
     const int x_in0 = 2 * ST_S * i0;                 // first input column
 
+    int y_new = 2 * ST_S * j_a, n_new = SB_RING;   // the rows staged last
+    const auto landed = [&](int fr) {
+      return ring_row(fr, t0, y_new, n_new);
+    };
     __syncthreads();   // the unit before is done with the ring and V
-    stage_rows(src, t0, t_in, x_in0, 2 * ST_S * j_a, SB_RING, ring0, ring1,
-               async);
+    stage_rows(src, SB_FIN * n_new, landed, t_in, x_in0, ring0, ring1, async);
     cp_async_commit();
-    int y_new = 2 * ST_S * j_a, n_new = SB_RING;   // rows that just landed
 
     for (int m = j_a; m <= j_b; ++m) {      // pair m: conv rows 2m, 2m + 1
       cp_async_wait<0>();
       __syncthreads();   // the rows landed
       if constexpr (std::is_same<Src, PlanarU8>::value)
-        convert_rows(y_new, n_new, ring0, ring1);
+        convert_rows(SB_FIN * n_new, landed, ring0, ring1);
       else
-        shift_rows(y_new, n_new, ring0, ring1);
+        shift_rows(SB_FIN * n_new, landed, ring0, ring1);
       __syncthreads();   // both copies written
 
       const int rho0 = (2 * ST_S * m) % SB_RING;
@@ -746,39 +573,40 @@ stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
       float sum[32], acc[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) sum[e] = 0.f;
-      uint32_t a0[SBB_FLUSH][4], a1[SBB_FLUSH][4];
+      uint32_t a0[S16_FLUSH][4], a1[S16_FLUSH][4];
       band_load<0>(a0, xw, rho0, rho1, t4);
       for (int dt = 0; dt < ST_KT; ++dt) {
-        const uint16_t* pl = planes + dt * SBB_PLANE;
+        const uint16_t* pl = planes + dt * S16_PLANE;
         const uint16_t* x = xw + dt * SBB_FRAME;
         // each group's A loads overlap the group before on the tensor
         // cores; the last group's, the next tap's first
-        band_issue<0>(acc, a0, pl);
+        group_issue<0>(acc, a0, pl);
         band_load<1>(a1, x, rho0, rho1, t4);
-        band_flush(sum, acc);
-        band_issue<1>(acc, a1, pl);
+        group_flush(sum, acc);
+        group_issue<1>(acc, a1, pl);
         band_load<2>(a0, x, rho0, rho1, t4);
-        band_flush(sum, acc);
-        band_issue<2>(acc, a0, pl);
+        group_flush(sum, acc);
+        group_issue<2>(acc, a0, pl);
         band_load<3>(a1, x, rho0, rho1, t4);
-        band_flush(sum, acc);
-        band_issue<3>(acc, a1, pl);
+        group_flush(sum, acc);
+        group_issue<3>(acc, a1, pl);
         band_load<4>(a0, x, rho0, rho1, t4);
-        band_flush(sum, acc);
-        band_issue<4>(acc, a0, pl);
+        group_flush(sum, acc);
+        group_issue<4>(acc, a0, pl);
         band_load<5>(a1, x, rho0, rho1, t4);
-        band_flush(sum, acc);
-        band_issue<5>(acc, a1, pl);
+        group_flush(sum, acc);
+        group_issue<5>(acc, a1, pl);
         if (dt + 1 < ST_KT)
           band_load<0>(a0, x + SBB_FRAME, rho0, rho1, t4);
-        band_flush(sum, acc);
+        group_flush(sum, acc);
       }
 
       __syncthreads();   // every warp has read the ring
       if (m < j_b) {     // pair m + 1 reads rows 6m+6..6m+15
         y_new = 2 * ST_S * m + SB_RING;
         n_new = SB_NEW;
-        stage_rows(src, t0, t_in, x_in0, y_new, n_new, ring0, ring1, async);
+        stage_rows(src, SB_FIN * n_new, landed, t_in, x_in0, ring0, ring1,
+                   async);
       }
       cp_async_commit();
 
@@ -802,7 +630,7 @@ stem_band_bf16_kernel(Src src, const uint16_t* __restrict__ w,
       if (m == j_a) continue;
       __syncthreads();   // V written
       // pooled row m - 1: the 3-column window of V, 8 channels a thread
-      for (int i = tid; i < SB_F * SB_PI * (ST_C / 8); i += SBB_THREADS) {
+      for (int i = tid; i < SB_F * SB_PI * (ST_C / 8); i += S16_THREADS) {
         const int cg = i % (ST_C / 8), pos = i / (ST_C / 8);
         const int f = pos / SB_PI, pi = pos % SB_PI;
         const int t = t0 + f, ii = i0 + pi;
@@ -845,31 +673,6 @@ static int band_run(int units, int J, int slots) {
   return best;
 }
 
-// An entry's shared-memory limit raised, and the blocks the card holds at
-// once (SMs x resident blocks an SM) for band_run.
-struct BandSetup {
-  cudaError_t err;
-  int slots;
-};
-
-template <class Src>
-static BandSetup band_setup() {
-  using namespace jt;
-  constexpr int smem = (int)sizeof(float) * SB_SMEM_WORDS<Src>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(stem_band_kernel<Src>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem)) != cudaSuccess ||
-      (e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, stem_band_kernel<Src>, SB_THREADS, smem)) != cudaSuccess)
-    return {e, 0};
-  return {cudaSuccess, sms * (per_sm > 0 ? per_sm : 1)};
-}
-
 template <class Src>
 static int launch_stem_band(Src src, const float* w, const float* scale,
                             const float* bias, float* out, int t_in,
@@ -880,7 +683,8 @@ static int launch_stem_band(Src src, const float* w, const float* scale,
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
   // once per entry, not at every launch (a launcher's static has internal
   // linkage here, so it is this library's own)
-  static const BandSetup setup = band_setup<Src>();
+  static const Resident setup =
+      resident_blocks(stem_band_kernel<Src>, SB_THREADS, smem);
   if (setup.err != cudaSuccess) return (int)setup.err;
   const int t_out = t_in - (ST_KT - 1);
   const int strips = (Wp + SB_PI - 1) / SB_PI;
@@ -919,50 +723,17 @@ extern "C" int jt_stem_band_planar(const uint8_t* planar, const float* w,
 // local (spill) bytes a thread, dynamic shared bytes a block, blocks an SM}.
 extern "C" int jt_stem_band_info(int planar, int* info) {
   using namespace jt;
-  const void* fn = planar ? (const void*)stem_band_kernel<PlanarU8>
-                          : (const void*)stem_band_kernel<FloatFrames>;
-  const int smem = (int)sizeof(float) *
-                   (planar ? SB_SMEM_WORDS<PlanarU8>
-                           : SB_SMEM_WORDS<FloatFrames>);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, SB_THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  info[0] = a.numRegs;
-  info[1] = (int)a.localSizeBytes;
-  info[2] = smem;
-  info[3] = blocks;
-  return 0;
+  return planar ? stem_kernel_info((const void*)stem_band_kernel<PlanarU8>,
+                                   SB_THREADS,
+                                   4 * SB_SMEM_WORDS<PlanarU8>, info)
+                : stem_kernel_info((const void*)stem_band_kernel<FloatFrames>,
+                                   SB_THREADS,
+                                   4 * SB_SMEM_WORDS<FloatFrames>, info);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 entries
 // ---------------------------------------------------------------------------
-
-template <class Src>
-static BandSetup band_setup_bf16() {
-  using namespace jt;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(stem_band_bf16_kernel<Src>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                SBB_SMEM)) != cudaSuccess ||
-      (e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, stem_band_bf16_kernel<Src>, SBB_THREADS, SBB_SMEM)) !=
-          cudaSuccess)
-    return {e, 0};
-  if (per_sm < 1) return {cudaErrorInvalidConfiguration, 0};
-  return {cudaSuccess, sms * per_sm};
-}
 
 template <class Src>
 static int launch_stem_band_bf16(Src src, const uint16_t* w,
@@ -973,7 +744,8 @@ static int launch_stem_band_bf16(Src src, const uint16_t* w,
   const int J = stem_pooled(src.H), Wp = stem_pooled(src.W);
   if (t_in < ST_KT || J < 1 || Wp < 1) return JT_ERR_SHAPE;
   if ((uintptr_t)out % 16 != 0) return JT_ERR_SHAPE;
-  static const BandSetup setup = band_setup_bf16<Src>();
+  static const Resident setup =
+      resident_blocks(stem_band_bf16_kernel<Src>, S16_THREADS, SBB_SMEM);
   if (setup.err != cudaSuccess) return (int)setup.err;
   const int t_out = t_in - (ST_KT - 1);
   const int strips = (Wp + SB_PI - 1) / SB_PI;
@@ -981,7 +753,7 @@ static int launch_stem_band_bf16(Src src, const uint16_t* w,
   const int run = band_run(strips * groups, J, setup.slots);
   const int units = strips * groups * ((J + run - 1) / run);
   stem_band_bf16_kernel<Src>
-      <<<units < setup.slots ? units : setup.slots, SBB_THREADS, SBB_SMEM,
+      <<<units < setup.slots ? units : setup.slots, S16_THREADS, SBB_SMEM,
          stream>>>(src, w, scale, bias, out, t_in, J, Wp, run, async);
   JT_CHECK_LAUNCH();
   return 0;
@@ -1014,22 +786,8 @@ extern "C" int jt_stem_band_planar_bf16(const uint8_t* planar,
 // jt_stem_band_info of the bf16 kernel's entries.
 extern "C" int jt_stem_band_bf16_info(int planar, int* info) {
   using namespace jt;
-  const void* fn = planar ? (const void*)stem_band_bf16_kernel<PlanarU8>
-                          : (const void*)stem_band_bf16_kernel<Bf16Frames>;
-  const int smem = SBB_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, SBB_THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  info[0] = a.numRegs;
-  info[1] = (int)a.localSizeBytes;
-  info[2] = smem;
-  info[3] = blocks;
-  return 0;
+  return stem_kernel_info(
+      planar ? (const void*)stem_band_bf16_kernel<PlanarU8>
+             : (const void*)stem_band_bf16_kernel<Bf16Frames>,
+      S16_THREADS, SBB_SMEM, info);
 }

@@ -1,4 +1,4 @@
-"""The arithmetic of the bf16 kernels 2b, 5b, 6b and 7b, emulated on the
+"""The arithmetic of the bf16 kernels 1b, 2b, 5b, 6b and 7b, emulated on the
 CPU and held against their plain twins and the JAX Pallas kernels
 interpreted on bf16 inputs. The kernels run only on the card
 (tests/test_torch_kernels_cuda.py); these tests keep their schedules
@@ -17,12 +17,17 @@ testable here:
   (kh, kw) tap a stage, 25 stages of 64 channels, one float32 chain
   through all of them; then the folded scale, bias and ReLU in float32 and
   the output rounded to bf16 once;
-* the band stem in bf16 (csrc/stem_band.cu, kernel 2b), on both entries:
-  each temporal tap's K in (dy, dx, c) order with each dy row's 21 columns
-  padded to 24 and 168 padded to 176, exact bf16 products summed in
-  float32 a flush group of 32 columns at a time (each group from zero,
-  added to the float32 sum), taps in order; BN and ReLU in float32; the
-  3x3 / 2 max pool; one bf16 rounding;
+* the bf16 stem schedule that the window stem (csrc/stem.cu, kernel 1b)
+  and the band stem (csrc/stem_band.cu, kernel 2b) share (csrc/stem.cuh),
+  on both entries: each temporal tap's K in (dy, dx, c) order with each dy
+  row's 21 columns padded to 24 and 168 padded to 176, exact bf16 products
+  summed in float32 a flush group of 32 columns at a time (each group from
+  zero, added to the float32 sum), taps in order; BN and ReLU in float32;
+  the 3x3 / 2 max pool; one bf16 rounding. Held against the Pallas window
+  kernel (`_stem_kernel`) and band kernel (`_stem_kernel_band`), each
+  interpreted in bf16; and kernel 1b's addressing (its GEMM rows in
+  column order, each tap's patch kept twice, the swizzled conv tile),
+  which reads the schedule's columns and pools to its bits;
 * the XLM-R stack in bf16 (csrc/encoder_stack.cu, kernel 5b): each
   product's K cut into gemm_plan.plan_bf16's slices on the H100's 132 SMs,
   each slice one float32 chain, the slices added in slice order by the
@@ -251,7 +256,7 @@ def test_conv2_bf16_schedule_matches_twin_and_pallas_kernel(t, n_j, w_pool):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 2b: the bf16 band stem
+# Kernels 1b and 2b: the bf16 stem schedule (window and band)
 # ---------------------------------------------------------------------------
 
 BAND_DY = 24        # K columns of a dy row: 21 taps, 3 zero
@@ -259,32 +264,157 @@ BAND_KP = 176       # 7 x 24, padded to k16 steps
 BAND_FLUSH = 32     # K columns a float32 flush
 
 
-def band_bf16_emulated(frames, w, scale, bias):
-    """Kernel 2b's schedule: frames (T4, H, W, 3) holding bf16 values (the
-    planar entry's raw pixels are exact in bf16), w (5, 7, 7, 3, 64) bf16
-    (the planar entry's with /255 folded) -> bf16 (T4 - 4, J, W_pool,
-    64)."""
-    x, wf = frames.float(), w.float()
+def stem_columns(x, dt: int):
+    """Tap dt's A rows of every conv position in the K layout of kernels
+    1b and 2b: x (T4, H, W, 3) float32 -> (T4 - 4, hc, wc, 176), column
+    24 dy + 3 dx + c the pixel (3 y + dy, 3 x + dx, c) of frame t + dt,
+    zero at the padding."""
     t4, h, wd, _ = x.shape
     t_out = t4 - 4
     hc, wc = (h - 7) // 3 + 1, (wd - 7) // 3 + 1
     ys, xs = 3 * torch.arange(hc), 3 * torch.arange(wc)
-    acc = torch.zeros(t_out * hc * wc, 64)
+    cols = torch.zeros(t_out, hc, wc, BAND_KP)
+    for dy in range(7):
+        rows = x[dt:dt + t_out][:, ys + dy]         # (t, hc, W, 3)
+        for dx in range(7):
+            k = BAND_DY * dy + 3 * dx
+            cols[..., k:k + 3] = rows[:, :, xs + dx]
+    return cols
+
+
+def stem_bf16_sums(columns, w, scale, bias):
+    """BN + ReLU of the float32 sums of kernels 1b and 2b: columns(dt) ->
+    each conv position's K row (stem_columns' layout) -> float32 (t, hc,
+    wc, 64), each flush group of 32 columns from zero, taps in order."""
+    wf = w.float()
+    acc = None
     for dt in range(5):                   # the taps in order
-        cols = torch.zeros(t_out, hc, wc, BAND_KP)
+        cols = columns(dt)
         wk = torch.zeros(BAND_KP, 64)
         for dy in range(7):
-            rows = x[dt:dt + t_out][:, ys + dy]         # (t, hc, W, 3)
             for dx in range(7):
                 k = BAND_DY * dy + 3 * dx
-                cols[..., k:k + 3] = rows[:, :, xs + dx]
                 wk[k:k + 3] = wf[dt, dy, dx]
         a = cols.reshape(-1, BAND_KP)
+        if acc is None:
+            acc = torch.zeros(a.shape[0], 64)
         for k0 in range(0, BAND_KP, BAND_FLUSH):
             acc = acc + a[:, k0:k0 + BAND_FLUSH] @ wk[k0:k0 + BAND_FLUSH]
-    y = torch.relu(acc * scale + bias).reshape(t_out, hc, wc, 64)
+    return torch.relu(acc * scale + bias).reshape(*cols.shape[:3], 64)
+
+
+def stem_bf16_emulated(frames, w, scale, bias):
+    """The schedule of kernels 1b and 2b (each position's float32 sums are
+    the same in both; they differ in which positions a block computes, and
+    1b computes some twice): frames (T4, H, W, 3) holding bf16 values (the
+    planar entry's raw pixels are exact in bf16), w (5, 7, 7, 3, 64) bf16
+    (the planar entry's with /255 folded) -> bf16 (T4 - 4, J, W_pool,
+    64)."""
+    x = frames.float()
+    y = stem_bf16_sums(lambda dt: stem_columns(x, dt), w, scale, bias)
     y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
     return y.to(BF)
+
+
+# Kernel 1b's tile and shared memory (csrc/stem.cu): a tap's 49 input rows
+# of 168 elements, kept twice in a buffer, copy 1 (shifted by one element)
+# WINDOW_COPY elements after copy 0
+WINDOW_ROW = 168
+WINDOW_COPY = 49 * WINDOW_ROW + 24
+
+
+def window_rows(order: str = "column"):
+    """Kernel 1b's GEMM rows: row m is conv position (m % 15, m // 15) of
+    its tile (order "row": (m // 17, m % 17), for comparison); row 255
+    pads, reads position (14, 15) and is not stored. -> (row, column,
+    stored), each (256,)."""
+    m = np.arange(256)
+    r, col = (m % 15, m // 15) if order == "column" else (m // 17, m % 17)
+    return np.where(m < 255, r, 14), np.where(m < 255, col, 15), m < 255
+
+
+def window_offsets(order: str = "column"):
+    """The element of a tap's buffer that kernel 1b reads for each (GEMM
+    row, K column) (window_load): the position's window at 9 x in copy 0
+    (x even) or at 9 x - 1 in copy 1 (x odd), then dy rows of 168 and the
+    k8 group's 8 (q % 3); group 21 (dy 7, zero weights) reads row 6.
+    -> (256, 176)."""
+    r, col, _ = window_rows(order)
+    xo = (3 * r * WINDOW_ROW + 9 * col
+          + np.where(col % 2 == 1, WINDOW_COPY - 1, 0))
+    k = np.arange(BAND_KP)
+    q = k // 8
+    dy = np.minimum(q // 3, 6)
+    return torch.from_numpy(xo[:, None] + dy * WINDOW_ROW + 8 * (q % 3)
+                            + k % 8)
+
+
+def window_buffer(x, t: int, y0: int, x0: int):
+    """A tap's buffer as kernel 1b stages and builds it: frame t's input
+    rows y0..y0 + 48, 168 elements from column x0 each (zero past the
+    frame), as copy 0 and copy 1 (each row shifted by one element, zero
+    past it). -> (2 WINDOW_COPY,) float32."""
+    _, h, wd, _ = x.shape
+    flat = x[t].reshape(h, 3 * wd)
+    rows = torch.zeros(49, WINDOW_ROW)
+    n_y, n_e = min(h - y0, 49), min(3 * wd - 3 * x0, WINDOW_ROW)
+    rows[:n_y, :n_e] = flat[y0:y0 + n_y, 3 * x0:3 * x0 + n_e]
+    shifted = torch.zeros_like(rows)
+    shifted[:, :-1] = rows[:, 1:]
+    buf = torch.zeros(2 * WINDOW_COPY)
+    buf[:49 * WINDOW_ROW] = rows.reshape(-1)
+    buf[WINDOW_COPY:WINDOW_COPY + 49 * WINDOW_ROW] = shifted.reshape(-1)
+    return buf
+
+
+def window_bf16_emulated(frames, w, scale, bias, columns_out=None):
+    """Kernel 1b's schedule through its addressing: each unit (tile, frame)
+    reads its A rows from its taps' buffers at window_offsets, sums them
+    as stem_bf16_sums does, and pools its conv tile through the kernel's
+    swizzled bf16 tile (row p's 8-channel chunk c at chunk c ^ (p % 8)).
+    Frames as stem_bf16_emulated's -> bf16 (T4 - 4, J, W_pool, 64).
+    columns_out: a dict that receives each tap's columns as the units read
+    them (every conv position the pool reads)."""
+    x = frames.float()
+    t4, h, wd, _ = x.shape
+    t_out, n_j, w_pool, _ = TS.pooled_shape(t4, h, wd)
+    hc, wc = (h - 7) // 3 + 1, (wd - 7) // 3 + 1
+    strips, tiles = -(-w_pool // 8), -(-w_pool // 8) * -(-n_j // 7)
+    r, col, stored = window_rows()
+    off = window_offsets()
+    units = [(7 * (tile // strips), 8 * (tile % strips), t)
+             for tile in range(tiles) for t in range(t_out)]
+
+    def columns(dt):
+        cols = torch.zeros(t_out, hc, wc, BAND_KP)
+        for j0, i0, t in units:
+            cy, cx = 2 * j0 + r, 2 * i0 + col
+            keep = stored & (cy < hc) & (cx < wc)
+            a = window_buffer(x, t + dt, 6 * j0, 6 * i0)[off]
+            cols[t, cy[keep], cx[keep]] = a[torch.from_numpy(keep)]
+        if columns_out is not None:
+            columns_out[dt] = cols
+        return cols
+
+    y = stem_bf16_sums(columns, w, scale, bias).to(BF)
+    out = torch.zeros(t_out, n_j, w_pool, 64, dtype=BF)
+    ch = np.arange(64)
+    for j0, i0, t in units:
+        tile = torch.zeros(255 * 64, dtype=BF)   # the conv tile
+        cy, cx = 2 * j0 + r, 2 * i0 + col
+        keep = stored & (cy < hc) & (cx < wc)
+        p = 17 * r[keep] + col[keep]
+        at = p[:, None] * 64 + ((ch // 8) ^ (p[:, None] % 8)) * 8 + ch % 8
+        tile[torch.from_numpy(at)] = y[t, cy[keep], cx[keep]]
+        for pj in range(min(7, n_j - j0)):
+            for pi in range(min(8, w_pool - i0)):
+                q = np.array([(2 * pj + a) * 17 + 2 * pi + b
+                              for a in range(3) for b in range(3)])
+                at = q[:, None] * 64 + ((ch // 8) ^ (q[:, None] % 8)) * 8 \
+                    + ch % 8
+                out[t, j0 + pj, i0 + pi] = tile[torch.from_numpy(at)] \
+                    .float().amax(0).to(BF)
+    return out
 
 
 def _blk1(rng):
@@ -317,41 +447,48 @@ def _mgrid_dense(m, w_pool):
 @pytest.mark.parametrize("t4,h,w", [(13, 45, 48), (5, 15, 57), (9, 30, 111)])
 def test_band_bf16_schedule_matches_twin_float_entry(t4, h, w):
     """The float entry's schedule against the bf16 twin: t_in 5 and J 1,
-    ragged strips; the /255 pixels rounded to bf16 as the mask rounds
-    them."""
+    ragged strips and tiles; the /255 pixels rounded to bf16 as the mask
+    rounds them."""
     rng = np.random.default_rng(31 + t4)
     u8 = rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8)
     frames = (torch.from_numpy(u8).float() / 255.0).to(BF)
     ops, _ = _blk1_ops(_blk1(rng))
-    got = band_bf16_emulated(frames, *ops)
+    got = stem_bf16_emulated(frames, *ops)
     assert tuple(got.shape) == TS.pooled_shape(t4, h, w)
     bars.check_kernel_bar(got, TS.stem_pool_plain(frames, *ops),
-                          f"2b schedule vs twin, {(t4, h, w)}")
+                          f"bf16 stem schedule vs twin, {(t4, h, w)}")
 
 
-def test_band_bf16_schedule_matches_pallas_band_kernel():
-    """The float entry's schedule and twin against stem_mgrid_x(impl=
-    "band") interpreted on the same bf16 frames and block."""
+@pytest.mark.parametrize("impl", ["band", "window"])
+def test_band_bf16_schedule_matches_pallas_band_kernel(impl):
+    """The float entry's schedule and twin against stem_mgrid_x(impl=impl)
+    interpreted on the same bf16 frames and block: the band kernel
+    (`_stem_kernel_band`, which kernel 2b replaces) and the window kernel
+    (`_stem_kernel`, which kernel 1b replaces)."""
     t4, h, w = 13, 45, 48
     rng = np.random.default_rng(37)
     frames = torch.from_numpy(rng.random((t4, h, w, 3), dtype=np.float32)
                               ).to(BF)
     ops, jops = _blk1_ops(_blk1(rng))
-    got = band_bf16_emulated(frames, *ops)
+    got = stem_bf16_emulated(frames, *ops)
     m = JS.stem_mgrid_x(JS.s2d_lanes(_jax_bf16(frames)), *jops,
-                        w_valid=w // 3, interpret=True, impl="band")
+                        w_valid=w // 3, interpret=True, impl=impl)
     want = _mgrid_dense(m, got.shape[2])
-    bars.check_kernel_bar(got, want, "2b schedule vs Pallas (float entry)")
+    bars.check_kernel_bar(got, want,
+                          f"bf16 stem schedule vs Pallas {impl} (float entry)")
     bars.check_kernel_bar(TS.stem_pool_plain(frames, *ops), want,
-                          "bf16 twin vs Pallas (float entry)")
+                          f"bf16 twin vs Pallas {impl} (float entry)")
 
 
-@pytest.mark.parametrize("t4,h,w", [(12, 27, 48), (5, 15, 57)])
-def test_band_bf16_schedule_planar_entry(t4, h, w):
+@pytest.mark.parametrize("t4,h,w,impl", [
+    pytest.param(12, 27, 48, "band", id="12-27-48"),
+    pytest.param(5, 15, 57, "band", id="5-15-57"),
+    pytest.param(12, 27, 48, "window", id="window-12-27-48")])
+def test_band_bf16_schedule_planar_entry(t4, h, w, impl):
     """The planar entry's schedule (raw bytes, the folded bf16 weight, chin
     rows masked) against the planar twin, and at (12, 27, 48) against
-    stem_mgrid_planar(impl="band") interpreted in bf16; all-255 pixels
-    too."""
+    stem_mgrid_planar(impl=impl) interpreted in bf16, the band kernel and
+    the window kernel; all-255 pixels too."""
     rng = np.random.default_rng(41 + w)
     ops, jops = _blk1_ops(_blk1(rng))
     for u8 in (rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8),
@@ -359,15 +496,95 @@ def test_band_bf16_schedule_planar_entry(t4, h, w):
         cut = rng.integers(0, h // 2, t4).astype(np.int32)
         planar = torch.from_numpy(s2d_repack(u8, cut))
         pixels = s2d_unpack(planar).to(torch.float32)
-        got = band_bf16_emulated(pixels, TS.planar_weight(ops[0]), *ops[1:])
+        got = stem_bf16_emulated(pixels, TS.planar_weight(ops[0]), *ops[1:])
         bars.check_kernel_bar(got, TS.stem_pool_planar_plain(planar, *ops),
-                              f"2b planar schedule vs twin, {(t4, h, w)}")
+                              f"bf16 stem planar schedule vs twin, "
+                              f"{(t4, h, w)}")
         if (t4, h, w) == (12, 27, 48):
             m = JS.stem_mgrid_planar(jnp.asarray(planar.numpy()), *jops,
                                      dtype=jnp.bfloat16, interpret=True,
-                                     impl="band")
-            bars.check_kernel_bar(got, _mgrid_dense(m, got.shape[2]),
-                                  "2b planar schedule vs Pallas")
+                                     impl=impl)
+            want = _mgrid_dense(m, got.shape[2])
+            bars.check_kernel_bar(got, want, f"bf16 stem planar schedule "
+                                  f"vs Pallas {impl}")
+            bars.check_kernel_bar(TS.stem_pool_planar_plain(planar, *ops),
+                                  want, f"bf16 planar twin vs Pallas {impl}")
+
+
+def _real_columns():
+    """The K columns of stem_columns' layout that hold a tap (not padding)."""
+    k = torch.arange(BAND_KP)
+    return (k % BAND_DY < 21) & (k < 7 * BAND_DY)
+
+
+@pytest.mark.parametrize("t4,h,w", [(13, 45, 48), (5, 15, 57), (9, 30, 111),
+                                    (6, 57, 150)])
+def test_window_bf16_schedule_reads_the_stem_columns(t4, h, w):
+    """Kernel 1b's addressing (its GEMM rows in column order, each tap's
+    patch kept twice, copy 1 for an odd conv column, the padding group read
+    from row 6, the swizzled conv tile) reads each conv position the pool
+    reads as stem_columns lays it out, at every column that holds a tap,
+    and pools to stem_bf16_emulated's bits: t_in 5 and J 1, ragged row
+    tiles and strips, several strips and row tiles."""
+    rng = np.random.default_rng(43 + w)
+    u8 = rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8)
+    frames = (torch.from_numpy(u8).float() / 255.0).to(BF)
+    ops, _ = _blk1_ops(_blk1(rng))
+    seen = {}
+    got = window_bf16_emulated(frames, *ops, columns_out=seen)
+    _, n_j, w_pool, _ = TS.pooled_shape(t4, h, w)
+    real = _real_columns()
+    for dt in range(5):
+        want = stem_columns(frames.float(), dt)
+        assert torch.equal(seen[dt][:, :2 * n_j + 1, :2 * w_pool + 1, real],
+                           want[:, :2 * n_j + 1, :2 * w_pool + 1, real]), dt
+    assert torch.equal(got, stem_bf16_emulated(frames, *ops))
+
+
+def window_bank_conflicts(order: str) -> float:
+    """The mean bank conflict (the most distinct 32-bit words one bank
+    serves) of kernel 1b's A loads: each load is a warp's 8 GEMM rows (g,
+    or g + 8) at lanes' columns 2t of one k8 group, 4 words a row."""
+    words = window_offsets(order).numpy() // 2
+    ways = []
+    for rows in range(0, 256, 8):
+        for q in range(BAND_KP // 8):
+            w = np.unique(words[rows:rows + 8, 8 * q:8 * q + 8:2])
+            ways.append(np.bincount(w % 32).max())
+    return float(np.mean(ways))
+
+
+def test_window_rows_spread_the_a_loads_over_the_banks():
+    """Kernel 1b's rows in column order: the 8 rows of one A load are
+    mostly one column's consecutive conv rows, whose windows (3 input rows
+    of 84 words apart) fall in distinct banks; in row order two windows
+    share a bank in most loads."""
+    column, row = window_bank_conflicts("column"), window_bank_conflicts("row")
+    assert column < 1.25 < 1.9 < row, (column, row)
+
+
+def test_window_bf16_schedule_planar_entry():
+    """Kernel 1b's schedule on the planar entry's raw bytes (the folded
+    bf16 weight, chin rows masked): stem_bf16_emulated's bits, the planar
+    twin's bars, and stem_mgrid_planar(impl="window") interpreted in
+    bf16."""
+    t4, h, w = 12, 27, 48
+    rng = np.random.default_rng(47)
+    ops, jops = _blk1_ops(_blk1(rng))
+    u8 = rng.integers(0, 256, (t4, h, w, 3), dtype=np.uint8)
+    planar = torch.from_numpy(s2d_repack(u8, rng.integers(0, h // 2, t4)
+                                         .astype(np.int32)))
+    pixels = s2d_unpack(planar).to(torch.float32)
+    got = window_bf16_emulated(pixels, TS.planar_weight(ops[0]), *ops[1:])
+    assert torch.equal(got, stem_bf16_emulated(
+        pixels, TS.planar_weight(ops[0]), *ops[1:]))
+    bars.check_kernel_bar(got, TS.stem_pool_planar_plain(planar, *ops),
+                          "1b planar schedule vs twin")
+    m = JS.stem_mgrid_planar(jnp.asarray(planar.numpy()), *jops,
+                             dtype=jnp.bfloat16, interpret=True,
+                             impl="window")
+    bars.check_kernel_bar(got, _mgrid_dense(m, got.shape[2]),
+                          "1b planar schedule vs Pallas window")
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ operand refused) among them, against their twins at the bars of
 tests/bf16_bars.py, 2b, 6b and 7b also within KERNEL_COS of the float32
 kernel, 2b over more units than SMs, 6b at the long clip relaunched with
 identical bits, 7b over more tiles than SMs with a ragged last tile, and
-all three without spills; the bf16 stack at R 32 to 1024 (packed and
+all three without spills; 1b equal to 2b bit for bit on both entries,
+its persistent grid (fewer units than SMs, and the real clip's 10,360
+units) read from the profiler's trace, a relaunch after a launch of
+another shape, and one block an SM; the bf16 stack at R 32 to 1024 (packed and
 streamed attention, both norm placements) and captured into a graph; the
 wrappers' refusals, a
 misaligned flash operand and a gradient through a kernel that has
@@ -1173,6 +1176,128 @@ def test_stem_window_bf16_fits_an_sm_without_spills(dev, planar):
     info = S.kernel_info(planar, impl="window", bf16=True)
     assert info["spill_bytes"] == 0, info
     assert info["blocks_per_sm"] >= 1, info
+
+
+def _window_bf16_inputs(dev, t4, h, w, fill, seed=9):
+    """Bytes of all `fill` (or random), their planar repack and the bf16
+    frames, with kernel 1b's bf16 operands."""
+    if fill is None:
+        u8 = torch.randint(0, 256, (t4, h, w, 3),
+                           generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.uint8)
+    else:
+        u8 = torch.full((t4, h, w, 3), fill, dtype=torch.uint8)
+    planar = torch.from_numpy(s2d_repack(u8.numpy())).to(dev)
+    frames = (u8.to(dev).float() / 255.0).to(BF)
+    wt, scale, bias = _stem_weights(dev, seed=10)
+    return frames, planar, (wt.to(BF), scale, bias)
+
+
+@pytest.mark.parametrize("t4,h,w", [(5, 15, 60), (13, 30, 111), (9, 57, 150),
+                                    (12, 45, 96), (28, 270, 480)])
+@pytest.mark.parametrize("fill", [0, 255, None])
+def test_stem_window_bf16_equals_band_bf16(dev, t4, h, w, fill):
+    """Kernel 1b gives kernel 2b's bits on both entries: both sum each
+    position's bf16 products in the same K order and flush groups and
+    pool with the same epilogue arithmetic (csrc/stem.cuh), at
+    test_stem_window_bf16's shapes and fills."""
+    frames, planar, ops = _window_bf16_inputs(dev, t4, h, w, fill)
+    assert torch.equal(S.stem_pool(frames, *ops, impl="window"),
+                       S.stem_pool(frames, *ops, impl="band"))
+    assert torch.equal(S.stem_pool_planar(planar, *ops, impl="window"),
+                       S.stem_pool_planar(planar, *ops, impl="band"))
+
+
+def _units(t4, h, w):
+    """Kernel 1b's units: (column strip, row tile, frame)."""
+    t_out, n_j, w_pool, _ = S.pooled_shape(t4, h, w)
+    return -(-w_pool // 8) * -(-n_j // 7) * t_out
+
+
+def _launch_grid(fn, name):
+    """The grid of the launch of kernel `name` that fn makes, from the
+    profiler's trace; spin kernels first, so that the window's first
+    stretch, which the profiler can lose, holds none of fn's work."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                torch.cuda._sleep(2_000_000)
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            prof.export_chrome_trace(f.name)
+            events = json.load(open(f.name))["traceEvents"]
+        grids = [e["args"]["grid"] for e in events
+                 if name in e.get("name", "") and "grid" in e.get("args", {})]
+        if grids:
+            assert len(grids) == 1, grids
+            return grids[0]
+    raise AssertionError(f"no launch of {name} in three profiles")
+
+
+@pytest.mark.parametrize("t4,h,w", [(7, 30, 60), (152, 270, 480)])
+def test_stem_window_bf16_persistent_grid(dev, t4, h, w):
+    """Kernel 1b's persistent grid: min(units, SMs) blocks, at a shape with
+    fewer units than SMs (3) and at the real clip's (152, 270, 480, 3),
+    whose 10,360 units are not a multiple of the SM count; against the
+    twins, 2b's bits on both entries."""
+    frames, planar, ops = _window_bf16_inputs(dev, t4, h, w, None, seed=11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    units = _units(t4, h, w)
+    assert units < sms if t4 == 7 else units % sms
+    for form, x, run in (
+            ("Bf16Frames", frames,
+             lambda impl: S.stem_pool(frames, *ops, impl=impl)),
+            ("PlanarU8", planar,
+             lambda impl: S.stem_pool_planar(planar, *ops, impl=impl))):
+        got = run("window")
+        twin = (S.stem_pool_plain(frames, *ops) if x is frames
+                else S.stem_pool_planar_plain(planar, *ops))
+        _check_bf16(got, twin, f"window {form}")
+        assert torch.equal(got, run("band"))
+        grid = _launch_grid(lambda: run("window"), "stem_pool_bf16_kernel")
+        assert grid == [min(units, sms), 1, 1], (grid, units, sms)
+
+
+def test_stem_window_bf16_relaunch_after_another_shape(dev):
+    """Kernel 1b keeps no state from one launch to the next: each entry at
+    one shape, then at another (more units, a ragged tile), then at the
+    first again, bit-identical to its first launch."""
+    small = _window_bf16_inputs(dev, 9, 57, 150, None, seed=12)
+    big = _window_bf16_inputs(dev, 40, 270, 480, None, seed=13)
+    for planar in (False, True):
+        def run(inp):
+            frames, pl, ops = inp
+            return (S.stem_pool_planar(pl, *ops, impl="window") if planar
+                    else S.stem_pool(frames, *ops, impl="window"))
+        first = run(small)
+        other = run(big)
+        assert torch.equal(run(small), first)
+        assert torch.equal(run(big), other)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_stem_window_bf16_one_block_an_sm(dev, planar):
+    """kernel_info of kernel 1b: no spills, one block an SM (16 warps,
+    210.7 KB of shared memory), and a launch at the real clip's shape takes
+    a grid no larger than the SM count."""
+    info = S.kernel_info(planar, impl="window", bf16=True)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] == 1, info
+    frames, pl, ops = _window_bf16_inputs(dev, 152, 270, 480, None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = _launch_grid(
+        (lambda: S.stem_pool_planar(pl, *ops, impl="window")) if planar
+        else (lambda: S.stem_pool(frames, *ops, impl="window")),
+        "stem_pool_bf16_kernel")
+    assert grid[0] <= sms and grid[1:] == [1, 1], (grid, sms)
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 128, 64), (2, 2, 256, 64),

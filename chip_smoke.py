@@ -11,6 +11,7 @@ eval, the CLI's device subcommands and the HTTP server on one card.
     python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
     python3 chip_smoke.py --serve     # phase 11 (serving) alone
     python3 chip_smoke.py --bf16      # phase 12 (the bf16 engine) alone
+    python3 chip_smoke.py --mesh-cards  # training on meshes of 4 cards
     python3 chip_smoke.py [--bf16] --against DIR   # 12a also times kernel
                                       # 1b as checkout DIR builds it
 
@@ -34,7 +35,11 @@ unpacked with `git archive` into a directory that .gitignore lists) and
 has 12a time its bf16 entries in turns with this tree's kernel 1b (both
 entries) on the same inputs (replaced, new, new, replaced; `replaced_ms`
 in their rows), failing if the new kernel is not the faster in both
-pairs.
+pairs. `--mesh-cards` (a machine with 4 cards) runs phase 7d's step over
+NCCL, one rank a card, at meshes (4, 1), (2, 2) and (1, 4), each against
+the one-rank step on card 0 at 7d's bars, then times 20 steps a rank
+beside 20 one-rank steps, and prints a `mesh_cards` line and no `ok`
+line.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -133,7 +138,27 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     (flash 9, stack 1, sublayers 0), warm ms/step (host clock, median and
     quartiles of 20), one step's device busy time (torch.profiler), and a
     falling loss; (c) one step of the same weights and batch on the card
-    against the port on the CPU, loss and every gradient leaf;
+    against the port on the CPU, loss and every gradient leaf; (d)
+    training on a (data, model) mesh (jegal_torch/parallel/mesh.py), each
+    step with every launch counter set to 0 just before and read just
+    after, from a fresh AdamW state at gates (1, 1) on (b)'s batch: (i) a
+    one-rank NCCL group at mesh (1, 1), whose loss, gradients and
+    parameters after the step equal the step's without a group bit for
+    bit (both under cuDNN's deterministic algorithms: the audio CNN's
+    backward otherwise sums in a varying order), launches stack 1 and
+    flash 9; (ii) four child processes of this script (`--mesh-rank`) on
+    this card over gloo (NCCL takes one rank a card) at mesh (2, 2), each
+    drawing the weights from SEED again (checked by a digest) and stepping
+    once: a rank's launches flash 21 (6 gesture, 3 text and XLM-R's 12 on
+    the Megatron layer loop) and stack 0, every rank's global loss the
+    same, and the loss, the gathered gradient and the parameters after
+    the step against the one-rank step (loss rel 1e-5, gradient cosine
+    0.9999 and norm rel 1e-5, parameters abs 1e-5 where both gradients
+    have one sign and exceed 10 eps, and within 2 lr elsewhere); a rank
+    that fails or outlives MESH_TIMEOUT_S fails the phase and every rank
+    is killed; then kernel 6 at a (2, 2) rank's shapes (4, 4, 128, 64),
+    (4, 4, 32, 96) and (4, 6, 32, 64) against its twin (abs 1e-4) and
+    timed as in phase 3;
  8. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
     with T = 1000 (bucket 1024, past the fused gate's 512): 6 flash
     launches and no sublayer launch, and the card against the CPU;
@@ -258,7 +283,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     through the bf16 engine (kernel 6b 6 launches, the replay against an
     eager run, warm ms beside the float32 engine's in turns), held to the
     float32 engine (0.9995) and to a bf16 engine on the CPU (0.999);
-13. a `training` JSON line, a `checkpoints` JSON line, a `cli` JSON line
+13. a `training` JSON line (with phase 7d under `mesh`), a `checkpoints`
+    JSON line, a `cli` JSON line
     (each subcommand's wall seconds and launches, whether the decoder was
     real), a `serve` JSON line, a `bf16` JSON line, one `kernels` JSON
     line (the bf16 variants' rows after the float32 kernels'), the card
@@ -276,7 +302,9 @@ launches of the graphs phase 11b's served batches replayed. The flash
 attention row is per training step in the same way (6 gesture and 3 text
 launches); its `launches` is the count of one step of phase 7(b), and its
 long-clip shape, 0 launches a step, carries its 6 launches a clip from
-phase 8. The
+phase 8. The flash attention and stack rows carry a rank's launches in a
+step at each mesh of phase 7d (`launches_mesh`), and the flash row phase
+7d's (2, 2) shapes (`mesh_shapes`). The
 stem and block-2 rows take their launches from the run of the path that
 takes each (`path`): the band stem (the default) from phase 4's raw clip,
 its time at the float entry (the planar entry's numbers under
@@ -319,6 +347,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -940,26 +969,19 @@ def _library_flash(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
 
 
-def check_flash(dev):
-    """The flash attention kernel at the training step's two shapes and
-    the long clip's, forward against its twin and timed, and at a ragged
-    (2, 3, 100, 96), checked only; then one backward through
-    FlashAttention against the twin's autograd."""
+def flash_rows(dev, g, shapes):
+    """The flash attention kernel at each (label, (B, H, T, D), valid keys,
+    launch counts or None) of `shapes`: random q, k, v from `g` with the
+    first `valid` keys of every batch row valid and the last batch row
+    fully masked (B > 1), forward against its twin and relaunched
+    bit-identical; then, where launch counts are given, timed beside its
+    twin, SDPA and its 3xTF32 bound -> those rows."""
     import torch
 
     from jegal_torch.ops.kernels import flash_attention as FA
 
-    g = torch.Generator().manual_seed(SEED + 6)
     rows = []
-    for label, (b, h, t, d), valid, per_step, per_long in (
-            ("gesture encoder, training (8, 8, 128, 64)", (8, 8, 128, 64),
-             100, 6, 0),
-            ("text encoder, training (8, 8, 32, 96)", (8, 8, 32, 96), 21,
-             3, 0),
-            ("gesture encoder, long clip (1, 8, 1024, 64)",
-             (1, 8, 1024, 64), 1000, 0, 6),
-            ("ragged (2, 3, 100, 96), untimed", (2, 3, 100, 96), 77, None,
-             None)):
+    for label, (b, h, t, d), valid, launches in shapes:
         q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev)
                    for _ in range(3))
         mask = torch.zeros(b, t)
@@ -978,13 +1000,12 @@ def check_flash(dev):
 
         err = max_err(kern(), plain(), "flash_attention", KERNEL_ATOL)
         relaunch_identical(kern, "flash_attention")
-        if per_step is None:
+        if launches is None:
             continue
         # products only: the softmax's few operations a score add < 2 %
         b_ms, b_by, f32_ms = bound_3xtf32(4.0 * b * h * t * t * d,
                                           4.0 * (4 * b * h * t * d + b * t))
-        row = dict(shape=label, launches_per_step=per_step,
-                   launches_per_long_clip=per_long, ms=cuda_ms(kern),
+        row = dict(shape=label, **launches, ms=cuda_ms(kern),
                    plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(lambda: _library_flash(q, k, v, mask)),
                    bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
@@ -993,6 +1014,28 @@ def check_flash(dev):
         log(f"  flash_attention ms {row['ms']:.4f} plain "
             f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
             f"{b_ms:.4f} ({b_by}, 3xTF32; float32 {f32_ms:.4f})")
+    return rows
+
+
+def check_flash(dev):
+    """The flash attention kernel at the training step's two shapes and
+    the long clip's, forward against its twin and timed, and at a ragged
+    (2, 3, 100, 96), checked only; then one backward through
+    FlashAttention against the twin's autograd."""
+    import torch
+
+    from jegal_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    rows = flash_rows(dev, g, (
+        ("gesture encoder, training (8, 8, 128, 64)", (8, 8, 128, 64),
+         100, dict(launches_per_step=6, launches_per_long_clip=0)),
+        ("text encoder, training (8, 8, 32, 96)", (8, 8, 32, 96), 21,
+         dict(launches_per_step=3, launches_per_long_clip=0)),
+        ("gesture encoder, long clip (1, 8, 1024, 64)",
+         (1, 8, 1024, 64), 1000,
+         dict(launches_per_step=0, launches_per_long_clip=6)),
+        ("ragged (2, 3, 100, 96), untimed", (2, 3, 100, 96), 77, None)))
 
     q, k, v = (torch.randn(8, 8, 128, 64, generator=g).to(dev)
                for _ in range(3))
@@ -2163,6 +2206,377 @@ def run_training(jp, rp, batch):
                losses=losses)
     out["card_vs_cpu"] = train_card_vs_cpu(jp, rp, batch)
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7d: training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS, MESH_MODEL = 4, 2          # the (2, 2) mesh of phase 7d(ii)
+MESH_TIMEOUT_S = 420
+MESH_LR, MESH_WEIGHT_DECAY = 1e-4, 1e-2
+# A sharded step against one rank (tests/test_torch_training_mesh.py's
+# bars): the loss within rel 1e-5; the gathered gradient's cosine >= 0.9999
+# and its norm within rel 1e-5; the parameters after one AdamW step within
+# abs 1e-5 where both runs' gradients have one sign and are at least 10 eps
+# in size, and every element within 2 lr. (AdamW's first step moves an
+# element by lr g / (|g| + 1e-8), about lr times the sign of g: where the
+# two gradients differ in sign or one is near 0, rounding decides it.)
+MESH_RESOLVED_GRAD = 1e-7
+MESH_PARAM_ATOL = 1e-5
+# kernel 6 at a (2, 2) rank's shapes (B 8 / 2, heads / 2) and its launches
+# a step: the gesture encoder's 6 layers, the text encoder's 3, XLM-R's 12
+MESH_FLASH_SHAPES = (
+    ("gesture encoder, (2, 2) rank (4, 4, 128, 64)", (4, 4, 128, 64), 100,
+     dict(launches_per_rank_step=6)),
+    ("text encoder, (2, 2) rank (4, 4, 32, 96)", (4, 4, 32, 96), 21,
+     dict(launches_per_rank_step=3)),
+    ("XLM-R, (2, 2) rank (4, 6, 32, 64)", (4, 6, 32, 64), 21,
+     dict(launches_per_rank_step=12)))
+
+
+def mesh_step(jp, rp, batch, mesh):
+    """One training step of `jp` at gates (1, 1) on `mesh` (None: one rank,
+    phase 7b's path), each from a fresh AdamW state: -> dict(loss,
+    step_loss, grads and params (whole leaves: the gradient of the loss,
+    the parameters after the step), launches (the step's kernel
+    launches))."""
+    import torch
+
+    from jegal_torch.models.roberta import XLMR_BASE
+    from jegal_torch.ops.kernels import _build
+    from jegal_torch.parallel import mesh as M
+    from jegal_torch.training import trainer as TR
+
+    def fresh():
+        opt = TR.make_optimizer(lr=MESH_LR, weight_decay=MESH_WEIGHT_DECAY)
+        state = TR.init_state(jp, opt)
+        if mesh is None:
+            return state, rp, batch, opt
+        return (*TR.shard_training(mesh, state, rp, batch), opt)
+
+    state, rps, b, _ = fresh()
+    loss, grads = TR.loss_and_grads(state.params, rps, b, (1.0, 1.0),
+                                    XLMR_BASE, mesh=mesh)
+    del state
+    state, rps, b, opt = fresh()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    state, step_loss = TR.make_train_step(opt, XLMR_BASE, mesh=mesh)(
+        state, b, (1.0, 1.0), rps)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    params = [p.detach() for p in TR.param_leaves(state.params)]
+    if mesh is not None:
+        specs = M.spec_leaves(TR.param_spec(state.params))
+        grads = M.gather_leaves(grads, specs, mesh)
+        params = M.gather_leaves(params, specs, mesh)
+    return dict(loss=loss.item(), step_loss=step_loss.item(), grads=grads,
+                params=params, launches=launches)
+
+
+def mesh_weights(dev):
+    """main()'s JEGAL and XLM-R trees, drawn again from SEED in main()'s
+    order (GestSync's draws first, discarded)."""
+    import torch
+
+    from jegal_torch.convert import (
+        init_gestsync_params,
+        init_jegal_params,
+        init_roberta_params,
+    )
+
+    g = torch.Generator().manual_seed(SEED)
+    init_gestsync_params(g)
+    return init_jegal_params(g, dev), init_roberta_params(g, device=dev)
+
+
+def weights_digest(jp, rp) -> list:
+    """A few sums that tell two draws of the trees apart."""
+    return [float(jp["proj_op_rgb"]["kernel"].double().sum()),
+            float(jp["encoder_text"]["layers"][2]["ff"]["w2"]["kernel"]
+                  .double().sum()),
+            float(rp["embeddings"]["word"][-1000:].double().sum()),
+            float(rp["layers"][11]["out"]["kernel"].double().sum())]
+
+
+def mesh_step_ms(jp, rp, batch, mesh, reps: int):
+    """Host ms of `reps` warm training steps at gates (1, 1) on `mesh`
+    (None: one rank), each ending in a synchronize, after 3 untimed ones
+    -> (median, first quartile, third quartile)."""
+    import torch
+
+    from jegal_torch.models.roberta import XLMR_BASE
+    from jegal_torch.training import trainer as TR
+
+    opt = TR.make_optimizer(lr=MESH_LR, weight_decay=MESH_WEIGHT_DECAY)
+    state, rps, b = TR.init_state(jp, opt), rp, batch
+    if mesh is not None:
+        state, rps, b = TR.shard_training(mesh, state, rp, batch)
+    step = TR.make_train_step(opt, XLMR_BASE, mesh=mesh)
+    walls = []
+    for i in range(reps + 3):
+        t0 = time.perf_counter()
+        state, _ = step(state, b, (1.0, 1.0), rps)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    return med, q1, q3
+
+
+def mesh_rank_main(argv) -> int:
+    """A rank started by `run_mesh_ranks` as `chip_smoke.py --mesh-rank
+    RANK WORLD MODEL INIT_FILE OUT_DIR BACKEND REPS`: joins the BACKEND
+    group (its card LOCAL_RANK's), steps once on the (WORLD / MODEL,
+    MODEL) mesh, then times REPS more steps (none for 0), and writes what
+    it found under OUT_DIR."""
+    import torch
+
+    rank, world, model = (int(x) for x in argv[:3])
+    init, out, backend, reps = argv[3], Path(argv[4]), argv[5], int(argv[6])
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from jegal_torch.models import roberta as R
+    from jegal_torch.parallel import mesh as M
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    M.initialize_distributed(backend=backend, device="cuda",
+                             init_method=f"file://{init}", rank=rank,
+                             world_size=world)
+    mesh = M.make_mesh(world, model)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    jp, rp = mesh_weights(dev)
+    if model == 1:          # XLM-R on the stack kernel, as loop.train has it
+        rp = R.stack_layers(rp)
+    batch = {k: v.to(dev) for k, v in fixed_batch(word_tokenizer()).items()}
+    res = mesh_step(jp, rp, batch, mesh)
+    if rank == 0:
+        torch.save({k: res[k] for k in ("grads", "params")},
+                   out / "rank0.pt")
+    timed = mesh_step_ms(jp, rp, batch, mesh, reps) if reps else None
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, coordinate=list(mesh.get_coordinate()),
+        backend=dist.get_backend(), card=str(dev), loss=res["loss"],
+        step_loss=res["step_loss"], launches=res["launches"],
+        digest=weights_digest(jp, rp), step_ms=timed,
+        wall_s=time.perf_counter() - t0)))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_compare(got, want, what: str) -> dict:
+    """A sharded step's loss, gradient and parameters against one rank's
+    (MESH_* bars); raises if one fails."""
+    import torch
+
+    def flat(leaves):
+        return torch.cat([x.reshape(-1) for x in leaves]).double()
+
+    a, b = flat(got["grads"]), flat(want["grads"])
+    cos = float(a @ b / (a.norm() * b.norm()))
+    norm_rel = float((a.norm() - b.norm()).abs() / b.norm())
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    resolved = (torch.sign(a) == torch.sign(b)) & (
+        torch.minimum(a.abs(), b.abs()) >= MESH_RESOLVED_GRAD)
+    del a, b
+    diff = (flat(got["params"]) - flat(want["params"])).abs()
+    res = dict(loss=got["loss"], loss_one_rank=want["loss"],
+               loss_rel_err=loss_rel, grad_cos=cos, grad_norm_rel_err=norm_rel,
+               params_max_abs_resolved=float(diff[resolved].max()),
+               params_resolved=int(resolved.sum()),
+               params_over=int((diff > MESH_PARAM_ATOL).sum()),
+               params_max_abs=float(diff.max()), elements=diff.numel())
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_MIN_COS
+          and norm_rel <= TRAIN_LOSS_RTOL
+          and res["params_max_abs_resolved"] <= MESH_PARAM_ATOL
+          and res["params_max_abs"] <= 2 * MESH_LR)
+    log(f"  {what} against one rank: loss {got['loss']:.7f} vs "
+        f"{want['loss']:.7f} (rel {loss_rel:.3e}); gradient cosine "
+        f"{cos:.10f}, norm rel {norm_rel:.3e}; parameters after one AdamW "
+        f"step max abs {res['params_max_abs_resolved']:.3e} over the "
+        f"{res['params_resolved']} elements whose gradients resolve the "
+        f"step; {res['params_over']} of {res['elements']} elements over "
+        f"{MESH_PARAM_ATOL:g} (max {res['params_max_abs']:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the sharded step disagrees with one "
+                             f"rank: {res}")
+    return res
+
+
+def run_mesh_ranks(tmp: Path, want, digest, dp: int, mp: int,
+                   backend: str, cards: int, reps: int) -> dict:
+    """dp * mp child ranks (`--mesh-rank`) over `backend`, rank r on card r
+    % cards, one step each on the (dp, mp) mesh against the one-rank step
+    `want` (mesh_step) and its weights' `digest`, then `reps` timed steps:
+    a rank's launches (kernels 5 and 6 as one rank's at mp 1; else kernel 6
+    alone, 21), every rank's global loss equal, and mesh_compare's bars. A
+    rank that fails or outlives MESH_TIMEOUT_S fails the phase, and every
+    rank is killed. -> the stats."""
+    import torch
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    world = dp * mp
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(tmp / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), str(world), str(mp), str(tmp / "pg"), str(tmp),
+                 backend, str(reps)],
+                stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                env=dict(os.environ, LOCAL_RANK=str(r % cards))))
+    try:
+        for r, p in enumerate(procs):
+            left = MESH_TIMEOUT_S - (time.perf_counter() - t0)
+            if p.wait(timeout=max(left, 1.0)) != 0:
+                tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+                raise AssertionError(f"mesh rank {r} exited "
+                                     f"{p.returncode}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(world)]
+    per_rank = want["launches"] if mp == 1 else counts(flash_attention=sum(
+        x["launches_per_rank_step"] for _, _, _, x in MESH_FLASH_SHAPES))
+    for x in ranks:
+        log(f"  rank {x['rank']} at {x['coordinate']} ({x['backend']}, "
+            f"{x['card']}): loss {x['loss']:.7f}, launches "
+            f"{ {k: n for k, n in x['launches'].items() if n} }, "
+            f"{x['wall_s']:.1f} s"
+            + ("" if x["step_ms"] is None else
+               f", step {x['step_ms'][0]:.3f} ms (quartiles "
+               f"{x['step_ms'][1]:.3f} / {x['step_ms'][2]:.3f})"))
+        if x["digest"] != digest:
+            raise AssertionError(f"mesh rank {x['rank']} drew other "
+                                 f"weights: {x['digest']} vs {digest}")
+        if x["launches"] != per_rank:
+            raise AssertionError(f"mesh rank {x['rank']}: launches "
+                                 f"{x['launches']}, want {per_rank}")
+        if x["loss"] != ranks[0]["loss"]:
+            raise AssertionError("the ranks' global losses differ")
+    sharded = torch.load(tmp / "rank0.pt", map_location="cuda")
+    res = mesh_compare(dict(sharded, loss=ranks[0]["loss"]), want,
+                       f"the ({dp}, {mp}) mesh's step")
+    return dict(backend=ranks[0]["backend"], ranks=world,
+                cards=sorted({x["card"] for x in ranks}),
+                launches_per_rank=ranks[0]["launches"], wall_s=wall,
+                rank_wall_s=[x["wall_s"] for x in ranks],
+                step_ms=[x["step_ms"] for x in ranks], **res)
+
+
+def run_mesh_training(jp, rp, batch):
+    """Phase 7d: (i) a one-rank NCCL group at mesh (1, 1), whose step must
+    equal phase 7b's path (no group) bit for bit; (ii) MESH_RANKS child
+    processes on this card over gloo at the (2, 2) mesh, one step each,
+    against the one-rank step; then kernel 6 at a (2, 2) rank's shapes
+    against its twin. -> (the phase's stats, kernel 6's rows)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from jegal_torch.parallel import mesh as M
+
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        log("training on a mesh: (i) one NCCL rank at mesh (1, 1) against "
+            "no group, phase 7b's batch, with cuDNN's deterministic "
+            "algorithms (the audio CNN's backward otherwise sums in an "
+            "order that varies from run to run)")
+        torch.backends.cudnn.deterministic = True
+        try:
+            M.initialize_distributed(device="cuda",
+                                     init_method=f"file://{tmp}/pg1", rank=0,
+                                     world_size=1)
+            try:
+                got = mesh_step(jp, rp, dev_batch, M.make_mesh(1, 1))
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            want = mesh_step(jp, rp, dev_batch, None)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        same = (got["loss"] == want["loss"]
+                and got["step_loss"] == want["step_loss"]
+                and all(torch.equal(x, y) for x, y in
+                        zip(got["grads"] + got["params"],
+                            want["grads"] + want["params"])))
+        log(f"  backend {backend}: loss {got['loss']:.7f}, gradients and "
+            f"parameters after the step "
+            f"{'bit-equal' if same else 'DIFFER'}; launches "
+            f"{got['launches']} (no group: {want['launches']})")
+        one_launches = counts(encoder_stack=1, flash_attention=9)
+        if not same or got["launches"] != one_launches \
+                or want["launches"] != one_launches:
+            raise AssertionError("the (1, 1) mesh's step differs from the "
+                                 "step without a group")
+        out["1x1"] = dict(backend=backend, bit_equal=same,
+                          launches=got["launches"])
+
+        dp = MESH_RANKS // MESH_MODEL
+        log(f"training on a mesh: (ii) {MESH_RANKS} ranks on this card over "
+            f"gloo at mesh ({dp}, {MESH_MODEL}), one step each (a check of "
+            f"the sharded path; one card, so no multi-GPU speed)")
+        out[f"{dp}x{MESH_MODEL}"] = run_mesh_ranks(
+            tmp / "ranks", want, weights_digest(jp, rp), dp, MESH_MODEL,
+            "gloo", cards=1, reps=0)
+    g = torch.Generator().manual_seed(SEED + 12)
+    rows = flash_rows(torch.device("cuda"), g, MESH_FLASH_SHAPES)
+    return out, rows
+
+
+MESH_CARD_MESHES = ((4, 1), (2, 2), (1, 4))
+MESH_CARD_REPS = 20
+
+
+def run_mesh_cards(jp, rp, batch) -> dict:
+    """`--mesh-cards`: training on (data, model) meshes of this machine's
+    cards over NCCL, one rank a card: at each of MESH_CARD_MESHES a step
+    against the one-rank step on card 0 (run_mesh_ranks's checks), then
+    MESH_CARD_REPS timed steps a rank, beside MESH_CARD_REPS one-rank steps
+    on card 0 timed first (host clock, each step ending in a
+    synchronize). rp: XLM-R with its stack operands."""
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    world = max(dp * mp for dp, mp in MESH_CARD_MESHES)
+    if n < world:
+        raise AssertionError(f"--mesh-cards needs {world} cards, found {n}")
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    want = mesh_step(jp, rp, dev_batch, None)
+    med, q1, q3 = mesh_step_ms(jp, rp, dev_batch, None, MESH_CARD_REPS)
+    log(f"one rank on card 0: step {med:.3f} ms (median of "
+        f"{MESH_CARD_REPS}, quartiles {q1:.3f} / {q3:.3f}), launches "
+        f"{ {k: v for k, v in want['launches'].items() if v} }")
+    out = {"cards": n, "one_rank": dict(step_ms=[med, q1, q3],
+                                        launches=want["launches"])}
+    digest = weights_digest(jp, rp)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for dp, mp in MESH_CARD_MESHES:
+            log(f"training on a mesh of cards: ({dp}, {mp}) over NCCL, one "
+                f"rank a card")
+            out[f"{dp}x{mp}"] = run_mesh_ranks(
+                Path(tmp) / f"{dp}x{mp}", want, digest, dp, mp, "nccl",
+                cards=n, reps=MESH_CARD_REPS)
+    return out
 
 
 def run_long_clip(engine, jp):
@@ -4888,6 +5302,8 @@ def smoke_text_ids():
 
 def main() -> int:
     global CHECK_KERNEL_COUNTS
+    if sys.argv[1:2] == ["--mesh-rank"]:     # a child of phase 7d(ii)
+        return mesh_rank_main(sys.argv[2:])
     mode = sys.argv[1:]
     against = None
     if "--against" in mode[:-1]:
@@ -4895,11 +5311,12 @@ def main() -> int:
         against = Path(mode[at + 1]).resolve()
         mode = mode[:at] + mode[at + 2:]
     if mode not in ([], ["--encoders"], ["--stems"], ["--profiler"],
-                    ["--cli"], ["--serve"], ["--bf16"]) or (
+                    ["--cli"], ["--serve"], ["--bf16"],
+                    ["--mesh-cards"]) or (
             against is not None and mode not in ([], ["--bf16"])):
         print(f"usage: {sys.argv[0]} [--encoders | --stems | --profiler | "
-              f"--cli | --serve | --bf16] [--against DIR] (--against with "
-              f"no mode or --bf16)", file=sys.stderr)
+              f"--cli | --serve | --bf16 | --mesh-cards] [--against DIR] "
+              f"(--against with no mode or --bf16)", file=sys.stderr)
         return 2
     if not (ROOT / "jegal_torch").is_dir():
         print(f"chip_smoke.py: no jegal_torch package beside {__file__}; "
@@ -4952,6 +5369,13 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
+    if mode == ["--mesh-cards"]:
+        from jegal_torch.models import roberta as R
+
+        log(json.dumps({"mesh_cards": run_mesh_cards(
+            jp, R.stack_layers(rp), train_batch)}))
+        log(smi.stdout.strip())
+        return 0
     if mode in (["--cli"], ["--serve"]):   # phase 10 or 11 alone
         from jegal_torch.api import JegalEngine
 
@@ -5009,6 +5433,8 @@ def main() -> int:
                                            sample)))
     training, step_launches = run_training(jp, engine.roberta_params,
                                            train_batch)
+    training["mesh"], mesh_flash = run_mesh_training(
+        jp, engine.roberta_params, train_batch)
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
     launches["flash_attention"] = step_launches["flash_attention"]
     checkpoints = run_checkpoints(gp, jp, rp, engine, sample, raw_res,
@@ -5080,6 +5506,16 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             path=path, per_launch=shapes if len(shapes) > 1 else None,
             bound_f32_ms=row["bound_f32_ms"]))
+    # phase 7d: kernels 5 and 6 a rank in a step at each mesh, and kernel 6
+    # at a (2, 2) rank's shapes
+    for row in kernels:
+        if row["name"] in ("encoder_stack", "flash_attention"):
+            row["launches_mesh"] = {
+                m: stats["launches" if m == "1x1" else
+                         "launches_per_rank"][row["name"]]
+                for m, stats in training["mesh"].items()}
+        if row["name"] == "flash_attention":
+            row["mesh_shapes"] = mesh_flash
     step_want = sum(r["launches_per_step"] for r in stack)
     if step_launches["encoder_stack"] != step_want:
         raise AssertionError(f"encoder_stack: {step_launches} in a training "

@@ -28,8 +28,11 @@ JAX_PLATFORMS). Without a card a `cuda` run raises: nothing falls back to
 the CPU. `--bf16` (infer, extract-feats, extract-embs, verify, warmup,
 serve) builds the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`), as the
 JAX CLI's `--bf16` does; the outputs stay float32 rows. `--data_parallel`
-(and `train --model_parallel` above 1) exit with the ROADMAP item that will
-bring them.
+exits with the ROADMAP item that will bring it. `train` launched as
+several ranks (`torchrun --nproc_per_node N -m jegal_torch train
+--model_parallel M ...`, WORLD_SIZE > 1) joins the process group
+(NCCL on the card, gloo with `--device cpu`) and trains on the (N / M, M)
+mesh (training/loop.py).
 
 The JAX CLI's persistent XLA compilation cache (`setup_compilation_cache`)
 has no counterpart here: the port compiles its CUDA kernels once into
@@ -49,8 +52,8 @@ import threading
 COMBOS = ["vta", "vt", "va", "ta", "v", "t", "a"]
 BF16_HELP = "bfloat16 compute: the engine's bf16 kernels"
 NOT_YET = {
-    "data_parallel": "--data_parallel needs the multi-GPU port, ROADMAP "
-                     "queue 1 item 4 (multi-GPU)",
+    "data_parallel": "--data_parallel needs data-parallel inference, ROADMAP "
+                     "queue 1 item 4b (multi-GPU)",
 }
 
 
@@ -311,8 +314,9 @@ def build_parser():
     p.add_argument("--ckpt_every", type=int, default=500)
     p.add_argument("--log_path", default=None)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help=">1 needs the multi-GPU port, ROADMAP queue 1 "
-                        "item 4 (multi-GPU)")
+                   help="ranks a model group splits heads and FFN width "
+                        "over, when launched as several ranks (ignored "
+                        "on one)")
     p.add_argument("--seed", type=int, default=0)
     _add_device(p)
 
@@ -509,15 +513,12 @@ def _resolve_shard(args):
     """--rank/--nshard default to torch.distributed's rank and world size
     when a process group is initialized, so that each process of a
     distributed launch takes its own file shard; standalone runs resolve to
-    0/1. Explicit flags always win (the reference's manual --rank/--nshard
-    launch style, extract_kps.py:23-26)."""
-    import torch.distributed as dist
+    0/1 (parallel/mesh.resolve_shard). Explicit flags always win (the
+    reference's manual --rank/--nshard launch style,
+    extract_kps.py:23-26)."""
+    from jegal_torch.parallel.mesh import resolve_shard
 
-    rank, nshard = args.rank, args.nshard
-    if dist.is_available() and dist.is_initialized():
-        rank = dist.get_rank() if rank is None else rank
-        nshard = dist.get_world_size() if nshard is None else nshard
-    return (0 if rank is None else rank), (1 if nshard is None else nshard)
+    return resolve_shard(args.rank, args.nshard)
 
 
 _decode_thread = threading.local()    # a decode thread's upload stream
@@ -937,11 +938,23 @@ def cmd_transcribe(args):
 
 def cmd_train(args):
     import torch
+    import torch.distributed as dist
 
     from jegal_torch.convert import checkpoints as C
     from jegal_torch.convert import init_jegal_params
+    from jegal_torch.parallel import mesh as M
     from jegal_torch.text.tokenizer import WordTokenizer
     from jegal_torch.training.loop import train
+
+    launched = int(os.environ.get("WORLD_SIZE", 1))
+    if launched > 1:
+        try:
+            M.check_mesh_shape(launched, args.model_parallel)
+        except ValueError as e:
+            raise SystemExit(f"train: {e}") from None
+    joins = launched > 1 and not dist.is_initialized()
+    if joins:
+        M.initialize_distributed(device=args.device)
 
     if args.checkpoint_path:
         jegal_params = C.load_jegal(args.checkpoint_path)
@@ -971,6 +984,8 @@ def cmd_train(args):
         device=args.device,
     )
     print(json.dumps(result))
+    if joins:
+        dist.destroy_process_group()
 
 
 COMMANDS = {
@@ -998,7 +1013,4 @@ def main(argv=None):
     for flag, msg in NOT_YET.items():
         if getattr(args, flag, False):
             raise SystemExit(msg)
-    if getattr(args, "model_parallel", 1) > 1:
-        raise SystemExit("--model_parallel > 1 needs the multi-GPU port, "
-                         "ROADMAP queue 1 item 4 (multi-GPU)")
     COMMANDS[args.cmd](args)

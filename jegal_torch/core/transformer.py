@@ -21,6 +21,15 @@ one. On a CUDA tensor nothing runs the plain attention: an input that no
 kernel takes (a mask that is not a key mask, a shape `_flash_ok` refuses)
 raises.
 
+Tensor parallelism (parallel/mesh.py): the layer loop's functions take
+`group`, the model group of a (data, model) mesh, or None. Under a group of
+m ranks the tree holds this rank's shards (`jegal_param_spec`): q, k, v and
+w1 by columns, so the rank computes num_heads / m contiguous heads and a
+1/m slice of the FFN width; o and w2 by rows, whose partial products are
+summed over the group (`reduce_from_model`) before their bias is added,
+once. The inputs of the column products pass `copy_to_model`, whose
+backward sums their gradient over the group.
+
 Parameter trees (JAX layout):
   mha:   {"q": linear, "k": linear, "v": linear, "o": linear}
   ffn:   {"w1": linear, "w2": linear}
@@ -39,6 +48,11 @@ import torch
 from jegal_torch.core.layers import linear, ref_layer_norm, std_layer_norm
 from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
+from jegal_torch.parallel.collectives import (
+    copy_to_model,
+    group_size,
+    reduce_from_model,
+)
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int,
@@ -111,17 +125,49 @@ def _flash_ok(t: int, d_k: int) -> bool:
     return t % 8 == 0 and (t <= 128 or t % 128 == 0) and d_k % 32 == 0
 
 
-def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
+def local_heads(num_heads: int, group) -> int:
+    """The heads a rank of the model `group` computes."""
+    m = group_size(group)
+    if num_heads % m:
+        raise ValueError(f"{num_heads} heads do not split over a model group "
+                         f"of {m} ranks")
+    return num_heads // m
+
+
+def _copy_inputs(q_in, k_in, v_in, group):
+    """copy_to_model on each distinct input, keeping which are the same
+    tensor (self-attention stays recognizable)."""
+    q = copy_to_model(q_in, group)
+    k = q if k_in is q_in else copy_to_model(k_in, group)
+    v = k if v_in is k_in else (q if v_in is q_in
+                                else copy_to_model(v_in, group))
+    return q, k, v
+
+
+def row_parallel_linear(params, x, group):
+    """x @ kernel + bias with the kernel's rows split over `group`: the
+    partial products summed over the group, then the bias once."""
+    if group_size(group) == 1:
+        return linear(params, x)
+    y = reduce_from_model(torch.matmul(x, params["kernel"]), group)
+    return y if params.get("bias") is None else y + params["bias"]
+
+
+def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int,
+                         group=None):
     """MHA (reference models/modules.py:88-120). mask: None or
     broadcastable to (B, 1, Tq, Tk) after a head-axis unsqueeze — pass
     (B, 1, Tk) or (B, Tq, Tk). On a CUDA tensor this is
     `flash_attention_diff` (transformer.py:169-188), which takes
     self-attention with a key mask at a shape `_flash_ok` admits, in
     float32 or bf16; anything else raises there. On a CPU tensor it is the
-    dense reference."""
-    q = _split_heads(linear(params["q"], q_in), num_heads)
-    k = _split_heads(linear(params["k"], k_in), num_heads)
-    v = _split_heads(linear(params["v"], v_in), num_heads)
+    dense reference. Under a model `group` the rank computes its heads
+    (module docstring)."""
+    h = local_heads(num_heads, group)
+    q_in, k_in, v_in = _copy_inputs(q_in, k_in, v_in, group)
+    q = _split_heads(linear(params["q"], q_in), h)
+    k = _split_heads(linear(params["k"], k_in), h)
+    v = _split_heads(linear(params["v"], v_in), h)
     b, _, t, d_k = q.shape
     if _on_card(q):
         if q_in is not k_in or t != k.shape[2] or not _flash_ok(t, d_k):
@@ -131,7 +177,7 @@ def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
                 f"Tq {t}, Tk {k.shape[2]}, d_k {d_k}"
                 + ("" if q_in is k_in else ", cross-attention"))
         out = FA.flash_attention_diff(q, k, v, _key_mask(mask, b, t))
-        return linear(params["o"], _merge_heads(out))
+        return row_parallel_linear(params["o"], _merge_heads(out), group)
     m = mask
     if m is not None:
         while m.dim() < 4:
@@ -143,43 +189,48 @@ def multi_head_attention(params, q_in, k_in, v_in, mask, num_heads: int):
             / math.sqrt(d_k)
         p = masked_attention_weights(scores, m).to(q.dtype)
         out = torch.matmul(p.float(), v.float()).to(q.dtype)
-        return linear(params["o"], _merge_heads(out))
+        return row_parallel_linear(params["o"], _merge_heads(out), group)
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_k)
     p = masked_attention_weights(scores, m).to(q.dtype)
-    return linear(params["o"], _merge_heads(torch.matmul(p, v)))
+    return row_parallel_linear(params["o"], _merge_heads(torch.matmul(p, v)),
+                               group)
 
 
-def _ffn(params, x):
-    return linear(params["w2"], torch.relu(linear(params["w1"], x)))
+def _ffn(params, x, group=None):
+    h = torch.relu(linear(params["w1"], copy_to_model(x, group)))
+    return row_parallel_linear(params["w2"], h, group)
 
 
-def encoder_layer(params, x, mask, num_heads: int):
+def encoder_layer(params, x, mask, num_heads: int, group=None):
     h = ref_layer_norm(params["norm1"], x)
-    x = x + multi_head_attention(params["attn"], h, h, h, mask, num_heads)
+    x = x + multi_head_attention(params["attn"], h, h, h, mask, num_heads,
+                                 group)
     h = ref_layer_norm(params["norm2"], x)
-    return x + _ffn(params["ff"], h)
+    return x + _ffn(params["ff"], h, group)
 
 
-def encoder_stack(params, x, mask, num_heads: int, fused: bool = True):
+def encoder_stack(params, x, mask, num_heads: int, fused: bool = True,
+                  group=None):
     """N pre-norm layers + the final reference LayerNorm. x: (B, T, d).
 
-    On a CUDA tensor, with fused=True and a shape that
-    fused_layer.fused_stack_ok admits (T <= 512), the layers run as the
-    fused sublayer kernels over the (B*T, d) rows. Otherwise the layer loop
-    below runs: on the CPU, and on the card for T > 512 (a long clip) and
-    with fused=False, which training passes because the fused kernels have
-    no backward (JAX package transformer.py:206-247); its attention there
-    is the flash attention kernel. On the card the mask must be a key
-    mask."""
+    On a CUDA tensor, with fused=True, no model group of more than one
+    rank and a shape that fused_layer.fused_stack_ok admits (T <= 512),
+    the layers run as the fused sublayer kernels over the (B*T, d) rows.
+    Otherwise the layer loop below runs: on the CPU, and on the card for T
+    > 512 (a long clip), under a model group, and with fused=False, which
+    training passes because the fused kernels have no backward (JAX
+    package transformer.py:206-247); its attention there is the flash
+    attention kernel. On the card the mask must be a key mask."""
     b, t, d = x.shape
-    if _on_card(x) and fused and FL.fused_stack_ok(t, d, num_heads):
+    if (_on_card(x) and fused and group_size(group) == 1
+            and FL.fused_stack_ok(t, d, num_heads)):
         kmask = _key_mask(mask, b, t)
         km = None if kmask is None else kmask.reshape(-1)
         out = FL.fused_prenorm_stack(params, x.reshape(b * t, d), t,
                                      num_heads, kmask=km)
         return ref_layer_norm(params["norm"], out.reshape(b, t, d))
     for layer in params["layers"]:
-        x = encoder_layer(layer, x, mask, num_heads)
+        x = encoder_layer(layer, x, mask, num_heads, group)
     return ref_layer_norm(params["norm"], x)
 
 

@@ -55,11 +55,14 @@ def _mlp2(params, x):
     return linear(params[1], torch.relu(linear(params[0], x)))
 
 
-def forward_gestures(params, visual_feats, visual_mask, fused: bool = True):
+def forward_gestures(params, visual_feats, visual_mask, fused: bool = True,
+                     group=None):
     """(B, T, 1024), (B, T) -> (B, T, 512) gesture embeddings (pre-align).
     The PE table extends past the reference's 500 rows with the same
     formula, so long clips work. fused=False runs the encoder's layer loop
-    (training: the fused sublayer kernels have no backward)."""
+    (training: the fused sublayer kernels have no backward). group: the
+    model group the encoder's heads and FFN width are split over
+    (core/transformer.py), None for none; the rest stays replicated."""
     x = linear(params["proj_ip_rgb"][0], visual_feats)
     x = torch.relu(std_layer_norm(params["proj_ip_ln"], x))
     x = linear(params["proj_ip_rgb"][1], x)
@@ -67,16 +70,18 @@ def forward_gestures(params, visual_feats, visual_mask, fused: bool = True):
     pe = sinusoidal_position_encoding(max(PE_MAX_LEN, t), D_MODEL, x.device)
     x = x + pe[None, :t].to(x.dtype)
     mask = visual_mask[:, None, :] if visual_mask is not None else None
-    x = encoder_stack(params["encoder_rgb"], x, mask, NUM_HEADS, fused=fused)
+    x = encoder_stack(params["encoder_rgb"], x, mask, NUM_HEADS, fused=fused,
+                      group=group)
     return linear(params["proj_op_rgb"], x)
 
 
-def forward_text(params, roberta_out, text_mask, fused: bool = True):
-    """(B, S, 768), (B, S) -> (B, S, 256) subword embeddings. fused as in
-    `forward_gestures`."""
+def forward_text(params, roberta_out, text_mask, fused: bool = True,
+                 group=None):
+    """(B, S, 768), (B, S) -> (B, S, 256) subword embeddings. fused and
+    group as in `forward_gestures`."""
     mask = text_mask[:, None, :] if text_mask is not None else None
     x = encoder_stack(params["encoder_text"], roberta_out, mask, NUM_HEADS,
-                      fused=fused)
+                      fused=fused, group=group)
     return linear(params["proj_op_text"], x)
 
 

@@ -26,6 +26,14 @@ Parameter tree (the JAX package's `params_from_hf` layout):
 adds "fused_ops", the stack kernel's (L, ...) operands, once at load time.
 (The JAX package also stacks "layers" for a lax.scan; the eager loop here
 has no use for that copy.)
+
+Under a model group of m > 1 ranks (parallel/mesh.py) the layers hold this
+rank's shards (`roberta_param_spec`: q, k, v and inter by columns,
+attn_out and out by rows) and run a Megatron layer loop: 12 / m heads a
+rank, each row-split product summed over the group before its bias, the
+residual and the post-LN; on a CUDA tensor its attention is the flash
+attention kernel (ops/kernels/flash_attention.py). `fused_ops` is never
+split: a sharded tree has none.
 """
 
 from __future__ import annotations
@@ -37,7 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from jegal_torch.core.layers import linear, std_layer_norm
+from jegal_torch.core.transformer import local_heads, row_parallel_linear
+from jegal_torch.ops.kernels import flash_attention as FA
 from jegal_torch.ops.kernels import fused_layer as FL
+from jegal_torch.parallel.collectives import copy_to_model, group_size
 
 PAD_TOKEN_ID = 1  # RoBERTa/XLM-R padding_idx
 
@@ -84,37 +95,44 @@ def embeddings(params, input_ids, cfg: RobertaConfig):
     return std_layer_norm(params["ln"], x, eps=cfg.layer_norm_eps)
 
 
-def _attention(params, x, ext_mask, cfg: RobertaConfig):
+def _attention(params, x, mask, cfg: RobertaConfig, group=None):
+    """Self-attention and its output product. mask: HF's additive (B, 1,
+    1, S) mask on a CPU tensor; on a CUDA tensor (the layer loop of a
+    model group) the (B, S) key mask of the flash attention kernel."""
     b, s, d = x.shape
-    h = cfg.num_heads
-    dk = d // h
+    h = local_heads(cfg.num_heads, group)
+    dk = d // cfg.num_heads
+    x = copy_to_model(x, group)
 
     def heads(p):
         return linear(p, x).reshape(b, s, h, dk).transpose(1, 2)
 
     q, k, v = heads(params["q"]), heads(params["k"]), heads(params["v"])
-    if x.dtype != torch.float32:
+    if x.is_cuda:
+        ctx = FA.flash_attention_diff(q, k, v, mask)
+    elif x.dtype != torch.float32:
         # bf16: float32 scores, mask and softmax; p and the context
         # rounded to bf16 (the JAX package's _attention)
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
             / math.sqrt(dk)
-        if ext_mask is not None:
-            scores = scores + ext_mask
+        if mask is not None:
+            scores = scores + mask
         p = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.matmul(p.float(), v.float()).to(x.dtype)
-        return linear(params["attn_out"],
-                      ctx.transpose(1, 2).reshape(b, s, d))
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
-    if ext_mask is not None:
-        scores = scores + ext_mask
-    ctx = torch.matmul(torch.softmax(scores, dim=-1), v)
-    return linear(params["attn_out"], ctx.transpose(1, 2).reshape(b, s, d))
+    else:
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
+        if mask is not None:
+            scores = scores + mask
+        ctx = torch.matmul(torch.softmax(scores, dim=-1), v)
+    return row_parallel_linear(params["attn_out"], ctx.transpose(1, 2)
+                               .reshape(b, s, h * dk), group)
 
 
-def encoder_layer(params, x, ext_mask, cfg: RobertaConfig):
-    a = _attention(params, x, ext_mask, cfg)
+def encoder_layer(params, x, mask, cfg: RobertaConfig, group=None):
+    a = _attention(params, x, mask, cfg, group)
     x = std_layer_norm(params["attn_ln"], x + a, eps=cfg.layer_norm_eps)
-    f = linear(params["out"], F.gelu(linear(params["inter"], x)))
+    inter = F.gelu(linear(params["inter"], copy_to_model(x, group)))
+    f = row_parallel_linear(params["out"], inter, group)
     return std_layer_norm(params["out_ln"], x + f, eps=cfg.layer_norm_eps)
 
 
@@ -136,13 +154,24 @@ def stack_layers(params):
         [_fused_layout(l) for l in params["layers"]]))
 
 
-def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE):
+def _extended_mask(attention_mask):
+    """HF's additive mask, (1 - mask) * finfo(float32).min, (B, 1, 1, S)."""
+    if attention_mask is None:
+        return None
+    ext = (1.0 - attention_mask.to(torch.float32))[:, None, None, :]
+    return ext * torch.finfo(torch.float32).min
+
+
+def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE,
+            group=None):
     """input_ids, attention_mask: (B, S) -> last_hidden_state (B, S, d).
 
     On a CUDA tensor the stack is one kernel call (any S: the positions cap
     it at 512), on `fused_ops` when `stack_layers` has added them, else on
     operands stacked for this call. On a CPU tensor the plain layer loop
-    runs.
+    runs. Under a model `group` of more than one rank the tree is this
+    rank's shards and the Megatron layer loop runs (module docstring), on
+    the flash attention kernel on a CUDA tensor.
 
     The kernel has no backward, and its wrapper raises under a gradient.
     The trainer calls this backbone inside torch.no_grad() (the counterpart
@@ -151,6 +180,11 @@ def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE):
     Pallas kernel there has no VJP at all, and this backbone needs none."""
     x = embeddings(params["embeddings"], input_ids, cfg)
     b, s, d = x.shape
+    if group_size(group) > 1:
+        mask = attention_mask if x.is_cuda else _extended_mask(attention_mask)
+        for layer in params["layers"]:
+            x = encoder_layer(layer, x, mask, cfg, group)
+        return x
     if x.is_cuda:
         if cfg.layer_norm_eps != 1e-5:
             raise ValueError(f"the stack kernel's LayerNorm has eps 1e-5, "
@@ -162,10 +196,7 @@ def forward(params, input_ids, attention_mask, cfg: RobertaConfig = XLMR_BASE):
         out = FL.fused_roberta_stack(layers, x.reshape(b * s, d), s,
                                      cfg.num_heads, kmask=km)
         return out.reshape(b, s, d)
-    ext_mask = None
-    if attention_mask is not None:
-        ext_mask = (1.0 - attention_mask.to(torch.float32))[:, None, None, :]
-        ext_mask = ext_mask * torch.finfo(torch.float32).min
+    ext_mask = _extended_mask(attention_mask)
     for layer in params["layers"]:
         x = encoder_layer(layer, x, ext_mask, cfg)
     return x

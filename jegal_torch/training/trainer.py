@@ -25,6 +25,19 @@ semantics are kept on purpose, not fixed:
 Parameters stay the port's nested dicts of tensors (jegal_torch.convert
 layout); the optimizer sees them as the leaves of a flattening in sorted
 key-path order (`param_leaves`), stable across save and restore.
+
+On a (data, model) mesh (parallel/mesh.py; the JAX package's
+`shard_training` and `make_train_step`, trainer.py:163-219) each rank holds
+its Megatron shards of the JEGAL and XLM-R trees (`jegal_param_spec`,
+`roberta_param_spec`), the AdamW moments of its shards, and its rows of
+the batch. The step computes the one-rank step over the global batch:
+  1. the forward with the model group (core/transformer.py);
+  2. `gather_from_data` on both video-level embeddings, so every rank's
+     InfoNCE sees the whole B x B similarity matrix;
+  3. the backward, in which the gather keeps this rank's rows;
+  4. each gradient summed over the data group (no division: each rank's
+     gradient is its rows' share of the global loss's);
+  5. AdamW on the local leaves, which is element by element.
 """
 
 from __future__ import annotations
@@ -40,6 +53,12 @@ from torch.utils.checkpoint import checkpoint
 from jegal_torch.models import jegal as J
 from jegal_torch.models import roberta as R
 from jegal_torch.ops.pooling import pool_words
+from jegal_torch.parallel import mesh as M
+from jegal_torch.parallel.collectives import (
+    gather_from_data,
+    group_size,
+    sum_over,
+)
 
 TEMPERATURE = 0.07
 
@@ -73,21 +92,23 @@ def masked_mean(x, mask, eps: float = 1e-6):
 
 
 def video_level_embeddings(params, roberta_params, batch, roberta_cfg,
-                           drop_gates=(1.0, 1.0)):
+                           drop_gates=(1.0, 1.0), group=None):
     """Forward the three branches and pool to one embedding per video.
 
     batch keys: visual_feats (B,T,1024), visual_mask (B,T), input_ids (B,S),
     text_mask (B,S), text_pool (B,W,S), audio_mel (B,Tm,80),
     audio_pool (B,W,Tm/4), word_mask (B,W), optional audio_valid (B,).
-    drop_gates: (audio_gate, text_gate), 0/1 each."""
+    drop_gates: (audio_gate, text_gate), 0/1 each. group: the model group
+    the encoders and XLM-R are split over, None for none."""
     g = J.forward_gestures(params, batch["visual_feats"],
-                           batch["visual_mask"], fused=False)
+                           batch["visual_mask"], fused=False, group=group)
     gesture_vid = masked_mean(g, batch["visual_mask"])
 
     with torch.no_grad():   # frozen backbone, on its fused stack kernel
         hidden = R.forward(roberta_params, batch["input_ids"],
-                           batch["text_mask"], roberta_cfg)
-    sub = J.forward_text(params, hidden, batch["text_mask"], fused=False)
+                           batch["text_mask"], roberta_cfg, group=group)
+    sub = J.forward_text(params, hidden, batch["text_mask"], fused=False,
+                         group=group)
     text_words = pool_words(batch["text_pool"], sub) * drop_gates[1]
 
     tokens = J.forward_audio(params, batch["audio_mel"],
@@ -120,17 +141,22 @@ def modality_drop_gates(generator: torch.Generator):
 
 
 def loss_fn(params, roberta_params, batch, gates, roberta_cfg,
-            remat: bool = False):
-    """The InfoNCE loss under the given modality gates. remat recomputes the
-    branch forwards in the backward pass instead of keeping their
-    activations (jax.checkpoint in the JAX package)."""
+            remat: bool = False, mesh=None):
+    """The InfoNCE loss under the given modality gates, over the global
+    batch on a mesh. remat recomputes the branch forwards in the backward
+    pass instead of keeping their activations (jax.checkpoint in the JAX
+    package); on a mesh the recomputation issues the forward's collectives
+    again, in the same order on every rank."""
+    group = M.mesh_group(mesh, "model")
     if remat:
         g, c = checkpoint(video_level_embeddings, params, roberta_params,
-                          batch, roberta_cfg, gates, use_reentrant=False)
+                          batch, roberta_cfg, gates, group,
+                          use_reentrant=False)
     else:
         g, c = video_level_embeddings(params, roberta_params, batch,
-                                      roberta_cfg, gates)
-    return info_nce(g, c)
+                                      roberta_cfg, gates, group)
+    data = M.mesh_group(mesh, "data")
+    return info_nce(gather_from_data(g, data), gather_from_data(c, data))
 
 
 # ---------------------------------------------------------------------------
@@ -267,16 +293,110 @@ def init_state(params, optimizer: Optimizer) -> TrainState:
     return TrainState(params, optimizer.init(param_leaves(params)), 0)
 
 
-def train_step(state: TrainState, batch, gates, *, roberta_params,
-               roberta_cfg, optimizer: Optimizer, remat: bool = False):
-    """One step under the given modality gates -> (state, loss). The state
-    is updated in place; the loss stays on the device (no host sync)."""
-    leaves = param_leaves(state.params)
-    loss = loss_fn(state.params, roberta_params, batch, gates, roberta_cfg,
-                   remat)
+def param_spec(params):
+    """jegal_param_spec at the depths of the tree's encoders."""
+    return M.jegal_param_spec(len(params["encoder_rgb"]["layers"]),
+                              len(params["encoder_text"]["layers"]))
+
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def map_opt_state(sd: dict, fn) -> dict:
+    """An OptState.state_dict() with the tensors that follow the leaves
+    (each leaf's AdamW moments and accumulated gradient) replaced by fn([(leaf
+    index, tensor), ...]), a list of as many tensors; the step counts and
+    hyperparameters are kept."""
+    state = sd["adam"]["state"]
+    items = [(i, state[i][k]) for i in sorted(state) for k in _MOMENTS
+             if k in state[i]]
+    items += list(enumerate(sd["acc"]))
+    new = iter(fn(items))
+    adam = dict(sd["adam"], state={
+        i: dict(state[i], **{k: next(new) for k in _MOMENTS
+                             if k in state[i]})
+        for i in sorted(state)})
+    return dict(sd, adam=adam, acc=[next(new) for _ in sd["acc"]])
+
+
+def shard_opt_state(sd: dict, params, mesh) -> dict:
+    """A whole tree's optimizer state dict -> this rank's shards of it."""
+    specs = M.spec_leaves(param_spec(params))
+    return map_opt_state(sd, lambda items: [
+        M.shard_leaf(t, specs[i], mesh).clone() for i, t in items])
+
+
+def gather_opt_state(sd: dict, params, mesh) -> dict:
+    """This rank's optimizer state dict -> the whole tree's, on every
+    rank."""
+    specs = M.spec_leaves(param_spec(params))
+    return map_opt_state(sd, lambda items: M.gather_leaves(
+        [t for _, t in items], [specs[i] for i, _ in items], mesh))
+
+
+def shard_training(mesh, state: TrainState, roberta_params, batch):
+    """Place training state and inputs on the mesh (the JAX package's
+    trainer.py:163-202) -> (state, roberta_params, batch): the JEGAL
+    params as this rank's `jegal_param_spec` shards (fresh leaves), the
+    optimizer's state sliced to the same shards, XLM-R by
+    `roberta_param_spec` when the model axis has more than one rank (its
+    stack kernel's `fused_ops` dropped; at one, the tree as given, on the
+    stack kernel), and this rank's rows of the batch."""
+    spec = param_spec(state.params)
+    params = _trainable(M.shard_pytree(state.params, spec, mesh))
+    leaves = param_leaves(params)
+    # load_state_dict brings the hyperparameters with the moments
+    opt = OptState(torch.optim.AdamW(leaves),
+                   [torch.zeros_like(p) for p in leaves]
+                   if state.opt_state.acc else [])
+    opt.load_state_dict(shard_opt_state(state.opt_state.state_dict(),
+                                        state.params, mesh))
+    rparams = roberta_params
+    if group_size(M.mesh_group(mesh, "model")) > 1:
+        rparams = M.shard_pytree(
+            {k: roberta_params[k] for k in ("embeddings", "layers")},
+            M.roberta_param_spec(len(roberta_params["layers"])), mesh)
+    rows = M.put_batch(list(batch.values()), mesh, leaves[0].device)
+    return (TrainState(params, opt, state.step), rparams,
+            dict(zip(batch, rows)))
+
+
+def loss_and_grads(params, roberta_params, batch, gates, roberta_cfg,
+                   remat: bool = False, mesh=None):
+    """-> (loss, the gradient of every leaf of `param_leaves(params)`): on
+    a mesh, the gradients of this rank's shards summed over the data group,
+    so that they are the shards of the one-rank gradient over the global
+    batch. A leaf the loss does not reach gets zeros."""
+    leaves = param_leaves(params)
+    loss = loss_fn(params, roberta_params, batch, gates, roberta_cfg, remat,
+                   mesh)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    optimizer.update(leaves, grads, state.opt_state)
+    sum_over(grads, M.mesh_group(mesh, "data"))
+    return loss.detach(), grads
+
+
+def train_step(state: TrainState, batch, gates, *, roberta_params,
+               roberta_cfg, optimizer: Optimizer, remat: bool = False,
+               mesh=None):
+    """One step under the given modality gates -> (state, loss). The state
+    is updated in place; the loss stays on the device (no host sync). On
+    a mesh, the state, XLM-R and batch are `shard_training`'s."""
+    loss, grads = loss_and_grads(state.params, roberta_params, batch, gates,
+                                 roberta_cfg, remat, mesh)
+    optimizer.update(param_leaves(state.params), grads, state.opt_state)
     state.step += 1
-    return state, loss.detach()
+    return state, loss
+
+
+def make_train_step(optimizer: Optimizer, roberta_cfg, remat: bool = False,
+                    mesh=None):
+    """The step (state, batch, gates, roberta_params) -> (state, loss) (the
+    JAX package's trainer.py:205-219); on a mesh, over
+    `shard_training`'s state, XLM-R and batch."""
+    def step(state, batch, gates, roberta_params):
+        return train_step(state, batch, gates, roberta_params=roberta_params,
+                          roberta_cfg=roberta_cfg, optimizer=optimizer,
+                          remat=remat, mesh=mesh)
+    return step

@@ -16,8 +16,9 @@ tests/tok_util.py as a tokenizer.json, all drawn from seeds.
   within 1e-6, and the same results as the JAX CLI's on its own files.
 - `convert`, `verify` (the tower stubbed, as tests/test_verify.py does),
   `warmup` at tiny buckets, and the refusals: missing inputs, `--bf16`,
-  `--data_parallel`, `--model_parallel 2`, and every device subcommand
-  without a card unless given `--device cpu`.
+  `--data_parallel`, `--model_parallel 3` at a world of 4, and every device
+  subcommand without a card unless given `--device cpu`; `train
+  --model_parallel 2` under two gloo ranks.
 - With libav: `extract-feats` on two decoded 270x480 clips (batch 2, two
   decode threads) against the engine on the same decoded planar frames
   (2e-5), then a second run that skips both; and `infer --modalities vta`
@@ -153,14 +154,47 @@ def test_infer_missing_args(ckpts):
                   "--modalities", combo])
 
 
+def _train_two_ranks(ckpts, root):
+    """`python -m jegal_torch train --model_parallel 2 --device cpu` as two
+    ranks of a torchrun launch (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR
+    and a free MASTER_PORT on localhost; gloo) over a 3-clip corpus, 2
+    steps -> each rank's printed result."""
+    import socket
+    import sys
+
+    from torch_mesh_worker import finish_ranks, start_ranks
+    from torch_tiny import write_corpus
+
+    corpus = write_corpus(root)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_ = s.getsockname()[1]
+    argv = [sys.executable, "-m", "jegal_torch", "train", "--file_path",
+            corpus["csv"], "--feature_dir", corpus["feat_dir"],
+            *_text_args(ckpts), "--steps", "2", "--batch_size", "2",
+            "--model_parallel", "2", "--device", "cpu", "--ckpt_dir",
+            str(root / "ckpt"), "--log_path", str(root / "train.jsonl")]
+    procs = start_ranks([(argv, dict(RANK=str(r), LOCAL_RANK=str(r),
+                                     WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                                     MASTER_PORT=str(port_)))
+                         for r in range(2)], root / "logs")
+    return [json.loads(out.strip().splitlines()[-1])
+            for out in finish_ranks(procs, root / "logs")]
+
+
 @pytest.mark.parametrize("argv", [
     ["infer", "--bf16"], ["extract-feats", "--bf16"],
     ["extract-feats", "--data_parallel"], ["extract-embs", "--bf16"],
     ["verify", "--bf16"], ["warmup", "--bf16"], ["train", "--model_parallel", "2"],
+    ["train", "--model_parallel", "3"],
 ], ids=lambda a: "_".join(a).replace("-", ""))
-def test_unported_options_exit(ckpts, argv, monkeypatch):
-    """An option that waits for a ROADMAP item exits naming it. `--bf16`
-    no longer waits: it reaches its subcommand with the bf16 dtype."""
+def test_unported_options_exit(ckpts, argv, monkeypatch, tmp_path):
+    """An option that waits for a ROADMAP item exits naming it:
+    `--data_parallel` (item 4b). `--bf16` no longer waits: it reaches its
+    subcommand with the bf16 dtype. Nor does `train --model_parallel`:
+    at 2 it trains 2 steps under two gloo ranks, both ranks returning the
+    same finite loss, and at 3 with WORLD_SIZE 4 it exits naming the
+    divisibility."""
     required = {
         "infer": ["--checkpoint_path_jegal", ckpts["jegal"]],
         "extract-feats": ["--file_path", "x.csv", "--video_dir", "v",
@@ -180,7 +214,19 @@ def test_unported_options_exit(ckpts, argv, monkeypatch):
         port(argv[:1] + required + argv[1:])
         assert seen == [torch.bfloat16]
         return
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item [34]"):
+    if argv == ["train", "--model_parallel", "2"]:
+        ranks = _train_two_ranks(ckpts, tmp_path)
+        assert ranks[0] == ranks[1] and ranks[0]["steps"] == 2
+        assert np.isfinite(ranks[0]["final_loss"])
+        lines = (tmp_path / "train.jsonl").read_text().splitlines()
+        assert [json.loads(x)["step"] for x in lines] == [1, 2]
+        return
+    if argv[0] == "train":
+        monkeypatch.setenv("WORLD_SIZE", "4")
+        with pytest.raises(SystemExit, match="does not divide the 4 ranks"):
+            port(argv[:1] + required + argv[1:])
+        return
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 4b"):
         port(argv[:1] + required + argv[1:])
 
 

@@ -31,7 +31,8 @@ REQUIRED = ("jegal_torch.ops.kernels.flash_attention",
             "jegal_torch.utils.profiling", "jegal_torch.data.datasets",
             "jegal_torch.verify", "jegal_torch.cli.main",
             "jegal_torch.serving", "jegal_torch.host.preprocess",
-            "jegal_torch.data.download")
+            "jegal_torch.data.download", "jegal_torch.parallel.mesh",
+            "jegal_torch.parallel.collectives")
 # optional packages: imported lazily, by the functions that need them
 LAZY = ("pandas", "matplotlib", "safetensors")
 SOURCES = sorted((ROOT / "jegal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -23,13 +23,7 @@ import jax.numpy as jnp
 from jegal_tpu.models import roberta as JR
 from jegal_tpu.training import data as JD
 from jegal_tpu.training import trainer as JTR
-from jegal_torch.convert import (
-    init_jegal_params,
-    init_roberta_params,
-    tree_to_torch,
-)
-from jegal_torch.models import roberta as TR_R
-from jegal_torch.ops import pooling as P
+from jegal_torch.convert import tree_to_torch
 from jegal_torch.parallel import checkpoint as CK
 from jegal_torch.text.tokenizer import WordTokenizer
 from jegal_torch.training import data as TD
@@ -37,6 +31,13 @@ from jegal_torch.training import loop as TL
 from jegal_torch.training import trainer as TR
 from tok_util import make_tiny_tokenizer, make_word_tokenizer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tiny import (
+    setup_step,
+    tiny_jegal,
+    tiny_roberta,
+    transcript_rows,
+    write_corpus,
+)
 
 LOSS_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -46,57 +47,12 @@ def _as_numpy(tree):
     return jax.tree.map(lambda t: t.numpy(), tree)
 
 
-def _tiny_jegal(seed: int, layers: int):
-    params = init_jegal_params(torch.Generator().manual_seed(seed))
-    for enc in ("encoder_rgb", "encoder_text"):
-        params[enc]["layers"] = params[enc]["layers"][:layers]
-    return params
-
-
-def _tiny_roberta(seed: int, vocab: int, max_pos: int):
-    cfg = TR_R.RobertaConfig(vocab_size=vocab, num_layers=1,
-                             max_position_embeddings=max_pos)
-    return init_roberta_params(torch.Generator().manual_seed(seed), cfg), cfg
-
-
-def _batch(rng, b, t, s, w, mel, vocab):
-    """A training batch of b clips: t frames (the second clip's last two
-    masked), an 11-token text of w words (its subwords after the first w-1
-    starts pool into the last word), w audio words over the mel's tokens,
-    and a word mask with one clip's last word masked."""
-    ids = np.full((b, s), 1, np.int32)
-    ids[:, 0], ids[:, 12] = 0, 2
-    ids[:, 1:12] = rng.integers(4, vocab, (b, 11))
-    tpool, _, _ = P.build_text_pooling([[1, 3, 6, 8]] * b, [w] * b, s, w)
-    wbs = [["w", 2 * i, 2 * i + 1] for i in range(w)]
-    apool, valid, _ = P.build_audio_pooling([wbs] * b, mel // 4, w)
-    assert valid.all()
-    vmask = np.ones((b, t), np.float32)
-    vmask[1, t - 2:] = 0.0
-    wmask = np.ones((b, w), np.float32)
-    wmask[2, w - 1:] = 0.0
-    return {
-        "visual_feats": rng.standard_normal((b, t, 1024)).astype(np.float32),
-        "visual_mask": vmask,
-        "input_ids": ids,
-        "text_mask": (ids != 1).astype(np.float32),
-        "text_pool": tpool,
-        "audio_mel": rng.standard_normal((b, mel, 80)).astype(np.float32),
-        "audio_pool": apool,
-        "audio_valid": np.array([mel, mel - 4, mel, mel - 12], np.int32)[:b],
-        "word_mask": wmask,
-    }
-
-
 @pytest.fixture(scope="module")
 def setup():
-    jp = _tiny_jegal(1, 2)
-    rp, cfg = _tiny_roberta(2, 128, 32)
-    batch = _batch(np.random.default_rng(0), b=4, t=8, s=16, w=4, mel=32,
-                   vocab=128)
+    jp, rp, cfg, tbatch = setup_step()
     jax_cfg = JR.RobertaConfig(**vars(cfg))
     rp_j = jax.tree.map(jnp.asarray, _as_numpy(rp))
-    batch_j = jax.tree.map(jnp.asarray, batch)
+    batch_j = jax.tree.map(jnp.asarray, _as_numpy(tbatch))
 
     @jax.jit
     def jax_loss_grad(params, gates):
@@ -104,7 +60,6 @@ def setup():
             *JTR.video_level_embeddings(p, rp_j, batch_j, jax_cfg, gates)))(
                 params)
 
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     return dict(jp=jp, jp_np=_as_numpy(jp), rp=rp, cfg=cfg, batch=tbatch,
                 jax_loss_grad=jax_loss_grad)
 
@@ -262,46 +217,18 @@ def test_checkpoint_roundtrip(tmp_path):
 # Data pipeline and loop
 # ---------------------------------------------------------------------------
 
-def _rows(n=10):
-    words = ["Hello,", "world", "--", "a", "Bob's", "lo", "w0", "ab", "he",
-             "wo"]
-    return [f"{words[i % len(words)]}, {i * 0.4:.2f}, {i * 0.4 + 0.3:.2f}, 0.9"
-            for i in range(n)]
-
-
 def test_sample_word_window_equals_jax():
     for seed in range(6):
         g_t, g_j = np.random.default_rng(seed), np.random.default_rng(seed)
         for n in (4, 10, 25):
             for _ in range(5):
-                assert TD.sample_word_window(_rows(n), g_t) == \
-                    JD.sample_word_window(_rows(n), g_j)
+                assert TD.sample_word_window(transcript_rows(n), g_t) == \
+                    JD.sample_word_window(transcript_rows(n), g_j)
 
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    from scipy.io import wavfile
-
-    root = tmp_path_factory.mktemp("corpus")
-    feat_dir = root / "feats"
-    feat_dir.mkdir()
-    rng = np.random.default_rng(5)
-    rows = []
-    for i in range(3):
-        np.save(feat_dir / f"c{i}.npy",
-                rng.standard_normal((110, 1024)).astype(np.float32))
-        wav_path = root / f"c{i}.wav"
-        wavfile.write(wav_path, 16000, (rng.standard_normal(16000 * 5) * 300)
-                      .astype(np.int16))
-        txt_path = root / f"c{i}.txt"
-        txt_path.write_text("Text: x\nLang: en\n\nWORD, START, END, SCORE\n"
-                            + "\n".join(_rows(10)) + "\n")
-        rows.append({"filename": f"c{i}", "text_path": str(txt_path),
-                     "audio_path": str(wav_path)})
-    csv_path = root / "corpus.csv"
-    csv_path.write_text("filename,text_path,audio_path\n" + "".join(
-        f"{r['filename']},{r['text_path']},{r['audio_path']}\n" for r in rows))
-    return dict(rows=rows, feat_dir=str(feat_dir), csv=str(csv_path))
+    return write_corpus(tmp_path_factory.mktemp("corpus"))
 
 
 def test_load_and_collate_equal_jax(corpus):
@@ -339,8 +266,8 @@ def test_missing_files_return_none(tmp_path):
 
 
 def test_loop_trains_checkpoints_and_resumes(corpus, tmp_path):
-    jp = _tiny_jegal(6, 1)
-    rp, cfg = _tiny_roberta(7, 64, 64)
+    jp = tiny_jegal(6, 1)
+    rp, cfg = tiny_roberta(7, 64, 64)
     tok = WordTokenizer(make_tiny_tokenizer())
     ckpt, log = tmp_path / "ckpt", tmp_path / "train.jsonl"
     kw = dict(batch_size=2, lr=1e-3, warmup_steps=1, cosine_decay=True,
@@ -364,9 +291,18 @@ def test_loop_trains_checkpoints_and_resumes(corpus, tmp_path):
 
 
 def test_loop_refuses_what_it_does_not_run(corpus):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TL.train(corpus["csv"], corpus["feat_dir"], {}, {}, None, None,
-                 model_parallel=2, device="cpu")
+    """With no process group `model_parallel` is ignored, as the JAX loop
+    ignores it on one device: the loop trains as at model_parallel 1.
+    Without a card the default device still raises."""
+    jp = tiny_jegal(6, 1)
+    rp, cfg = tiny_roberta(7, 64, 64)
+    tok = WordTokenizer(make_tiny_tokenizer())
+    kw = dict(steps=1, batch_size=2, seed=3, device="cpu")
+    got = TL.train(corpus["csv"], corpus["feat_dir"], jp, rp, cfg, tok,
+                   model_parallel=2, **kw)
+    want = TL.train(corpus["csv"], corpus["feat_dir"], jp, rp, cfg, tok, **kw)
+    assert got["steps"] == 1 and np.isfinite(got["final_loss"])
+    assert got == want
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):

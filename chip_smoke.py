@@ -11,7 +11,8 @@ eval, the CLI's device subcommands and the HTTP server on one card.
     python3 chip_smoke.py --cli       # phase 10 (the CLI) alone
     python3 chip_smoke.py --serve     # phase 11 (serving) alone
     python3 chip_smoke.py --bf16      # phase 12 (the bf16 engine) alone
-    python3 chip_smoke.py --mesh-cards  # training on meshes of 4 cards
+    python3 chip_smoke.py --mesh-cards  # training and inference on meshes
+                                        # of 4 cards
     python3 chip_smoke.py [--bf16] --against DIR   # 12a also times kernel
                                       # 1b as checkout DIR builds it
 
@@ -38,8 +39,16 @@ in their rows), failing if the new kernel is not the faster in both
 pairs. `--mesh-cards` (a machine with 4 cards) runs phase 7d's step over
 NCCL, one rank a card, at meshes (4, 1), (2, 2) and (1, 4), each against
 the one-rank step on card 0 at 7d's bars, then times 20 steps a rank
-beside 20 one-rank steps, and prints a `mesh_cards` line and no `ok`
-line.
+beside 20 one-rank steps; then data-parallel inference at (4, 1) over
+NCCL (phase 7e's code, `run_mesh_cards_infer`): extract_many of 32
+planar 5 s clips (batch 16, 4 rows a rank) in float32 and in bf16, every
+rank's results bit-equal and within the bars of card 0's one-rank call
+(float32 abs 1e-4 and min row cosine 0.99999; bf16 min row cosine
+0.9999, tests/bf16_bars.py), clips/s of both (host clock, median of 5
+calls in turns), and 48 binary planar `vta` requests from 16 threads
+served on one card and at (4, 1) in turns (one, mesh, mesh, one;
+requests/s), every answer within the bars of `extract`; and it prints a
+`mesh_cards` line (the inference under `infer`) and no `ok` line.
 
 Phases, in order; any failed check raises, so the script exits non-zero:
 
@@ -159,6 +168,19 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     is killed; then kernel 6 at a (2, 2) rank's shapes (4, 4, 128, 64),
     (4, 4, 32, 96) and (4, 6, 32, 64) against its twin (abs 1e-4) and
     timed as in phase 3;
+    7e. data-parallel inference (parallel/mesh.py; phase 6c's eight planar
+    clips, batch_size 4): (i) a one-rank NCCL group at mesh (1, 1), whose
+    extract_many(mesh=) equals the call without a group bit for bit; (ii)
+    two child processes of this script (`--infer-rank`) on this card over
+    gloo at (2, 1), each drawing the weights from SEED again (checked by a
+    digest): extract_many(mesh=), each rank's replays launching its rows'
+    kernels 2, 7, 3, 4 and 5 (per chunk its share of the padded batch:
+    band stem and block 2 5 each, attention and FFN 45, stack 3), both
+    ranks' results bit-equal and within abs 1e-4 and min row cosine
+    0.99999 of the one-rank call; then a two-rank server (rank 0 serves,
+    rank 1 follows; batch window 50 ms, batch 4) answering 4 binary
+    planar `vta` requests within the same bars of `extract`; a rank that
+    fails or outlives INFER_TIMEOUT_S fails the phase;
  8. a long clip: `JegalEngine.extract(modalities="v", visual_feats=...)`
     with T = 1000 (bucket 1024, past the fused gate's 512): 6 flash
     launches and no sublayer launch, and the card against the CPU;
@@ -283,7 +305,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
     through the bf16 engine (kernel 6b 6 launches, the replay against an
     eager run, warm ms beside the float32 engine's in turns), held to the
     float32 engine (0.9995) and to a bf16 engine on the CPU (0.999);
-13. a `training` JSON line (with phase 7d under `mesh`), a `checkpoints`
+13. a `training` JSON line (with phase 7d under `mesh`), an `infer_mesh`
+    JSON line (phase 7e), a `checkpoints`
     JSON line, a `cli` JSON line
     (each subcommand's wall seconds and launches, whether the decoder was
     real), a `serve` JSON line, a `bf16` JSON line, one `kernels` JSON
@@ -304,7 +327,8 @@ launches); its `launches` is the count of one step of phase 7(b), and its
 long-clip shape, 0 launches a step, carries its 6 launches a clip from
 phase 8. The flash attention and stack rows carry a rank's launches in a
 step at each mesh of phase 7d (`launches_mesh`), and the flash row phase
-7d's (2, 2) shapes (`mesh_shapes`). The
+7d's (2, 2) shapes (`mesh_shapes`). Every float32 row carries a (2, 1)
+rank's launches in phase 7e's extract_many call (`launches_mesh_infer`). The
 stem and block-2 rows take their launches from the run of the path that
 takes each (`path`): the band stem (the default) from phase 4's raw clip,
 its time at the float entry (the planar entry's numbers under
@@ -1742,10 +1766,12 @@ def many_samples():
     return out
 
 
-def many_launches(samples, batch_size: int, kw: dict):
-    """The launches extract_many must make: per chunk (of one T bucket)
-    one tower launch per padded clip and 160-frame piece, and one JEGAL
-    forward (15 attention and FFN sublayers, one XLM-R stack)."""
+def many_launches(samples, batch_size: int, kw: dict, dp: int = 1):
+    """The launches extract_many must make (a rank's, with its batch over
+    `dp` data ranks: each chunk's padded batch rounded up to a multiple of
+    dp, the rank's share of it): per chunk (of one T bucket) one tower
+    launch per padded clip and 160-frame piece, and one JEGAL forward (15
+    attention and FFN sublayers, one XLM-R stack)."""
     from jegal_torch.data.bucketing import T_BUCKETS, batch_ladder, next_bucket
 
     groups: dict = {}
@@ -1756,7 +1782,8 @@ def many_launches(samples, batch_size: int, kw: dict):
     for bucket, n in groups.items():
         pieces = -(-(bucket + 20) // 160)
         for lo in range(0, n, batch_size):
-            tower += batch_ladder(min(batch_size, n - lo), batch_size) * pieces
+            b = batch_ladder(min(batch_size, n - lo), batch_size)
+            tower += -(-b // dp) * pieces
             chunks += 1
     want = dict(tower_launches(kw, tower, True),
                 attn_sublayer=15 * chunks, ffn_sublayer=15 * chunks,
@@ -2275,9 +2302,9 @@ def mesh_step(jp, rp, batch, mesh):
                 params=params, launches=launches)
 
 
-def mesh_weights(dev):
-    """main()'s JEGAL and XLM-R trees, drawn again from SEED in main()'s
-    order (GestSync's draws first, discarded)."""
+def smoke_weights(dev):
+    """main()'s GestSync, JEGAL and XLM-R trees, drawn again from SEED in
+    main()'s order."""
     import torch
 
     from jegal_torch.convert import (
@@ -2287,8 +2314,8 @@ def mesh_weights(dev):
     )
 
     g = torch.Generator().manual_seed(SEED)
-    init_gestsync_params(g)
-    return init_jegal_params(g, dev), init_roberta_params(g, device=dev)
+    gp = init_gestsync_params(g, dev)
+    return gp, init_jegal_params(g, dev), init_roberta_params(g, device=dev)
 
 
 def weights_digest(jp, rp) -> list:
@@ -2353,7 +2380,7 @@ def mesh_rank_main(argv) -> int:
                              world_size=world)
     mesh = M.make_mesh(world, model)
     dev = torch.device("cuda", torch.cuda.current_device())
-    jp, rp = mesh_weights(dev)
+    _, jp, rp = smoke_weights(dev)
     if model == 1:          # XLM-R on the stack kernel, as loop.train has it
         rp = R.stack_layers(rp)
     batch = {k: v.to(dev) for k, v in fixed_batch(word_tokenizer()).items()}
@@ -2412,6 +2439,35 @@ def mesh_compare(got, want, what: str) -> dict:
     return res
 
 
+def run_children(tmp: Path, flag: str, world: int, cards: int,
+                 timeout: float, args_of):
+    """`world` child processes `chip_smoke.py FLAG *args_of(rank)`, rank r
+    on card r % cards (LOCAL_RANK), each logging to tmp/rank<r>.log; a rank
+    that fails or outlives `timeout` seconds raises, and every rank is
+    killed."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(tmp / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                 *args_of(r)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                env=dict(os.environ, LOCAL_RANK=str(r % cards))))
+    try:
+        for r, p in enumerate(procs):
+            left = timeout - (time.perf_counter() - t0)
+            if p.wait(timeout=max(left, 1.0)) != 0:
+                tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+                raise AssertionError(f"{flag} {r} exited {p.returncode}:\n"
+                                     f"{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def run_mesh_ranks(tmp: Path, want, digest, dp: int, mp: int,
                    backend: str, cards: int, reps: int) -> dict:
     """dp * mp child ranks (`--mesh-rank`) over `backend`, rank r on card r
@@ -2423,30 +2479,11 @@ def run_mesh_ranks(tmp: Path, want, digest, dp: int, mp: int,
     rank is killed. -> the stats."""
     import torch
 
-    tmp.mkdir(parents=True, exist_ok=True)
     world = dp * mp
     t0 = time.perf_counter()
-    procs = []
-    for r in range(world):
-        with open(tmp / f"rank{r}.log", "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
-                 str(r), str(world), str(mp), str(tmp / "pg"), str(tmp),
-                 backend, str(reps)],
-                stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
-                env=dict(os.environ, LOCAL_RANK=str(r % cards))))
-    try:
-        for r, p in enumerate(procs):
-            left = MESH_TIMEOUT_S - (time.perf_counter() - t0)
-            if p.wait(timeout=max(left, 1.0)) != 0:
-                tail = (tmp / f"rank{r}.log").read_text()[-3000:]
-                raise AssertionError(f"mesh rank {r} exited "
-                                     f"{p.returncode}:\n{tail}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    run_children(tmp, "--mesh-rank", world, cards, MESH_TIMEOUT_S,
+                 lambda r: [str(r), str(world), str(mp), str(tmp / "pg"),
+                            str(tmp), backend, str(reps)])
     wall = time.perf_counter() - t0
     ranks = [json.loads((tmp / f"rank{r}.json").read_text())
              for r in range(world)]
@@ -2576,6 +2613,394 @@ def run_mesh_cards(jp, rp, batch) -> dict:
             out[f"{dp}x{mp}"] = run_mesh_ranks(
                 Path(tmp) / f"{dp}x{mp}", want, digest, dp, mp, "nccl",
                 cards=n, reps=MESH_CARD_REPS)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7e: data-parallel inference on a mesh
+# ---------------------------------------------------------------------------
+
+INFER_RANKS = 2               # (ii): gloo ranks on this card at (2, 1)
+INFER_TIMEOUT_S = 300
+INFER_REQUESTS = 4
+INFER_WINDOW_MS = 50
+# --mesh-cards: 32 planar 5 s clips at (4, 1), batch 16 (4 rows a rank)
+CARDS_CLIPS, CARDS_BATCH, CARDS_REPS = 32, 16, 5
+CARDS_REQUESTS, CARDS_THREADS = 48, 16
+
+
+def gestsync_digest(gp) -> list:
+    return [float(gp["net_vid"][0]["conv"]["kernel"].double().sum()),
+            float(gp["transformer"]["layers"][5]["ff"]["w2"]["kernel"]
+                  .double().sum())]
+
+
+def infer_rank_main(argv) -> int:
+    """A rank started by `run_infer_ranks` as `chip_smoke.py --infer-rank
+    RANK WORLD INIT_FILE OUT_DIR BACKEND MODE`: joins the BACKEND group (its
+    card LOCAL_RANK's) at the (WORLD, 1) mesh, draws main()'s weights, and
+    runs MODE's collective calls ("card": phase 7e(ii); "cards": the
+    `--mesh-cards` inference), writing what it found under OUT_DIR."""
+    import pickle
+
+    import torch
+
+    rank, world = int(argv[0]), int(argv[1])
+    init, out, backend, mode = argv[2], Path(argv[3]), argv[4], argv[5]
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from jegal_torch.parallel import mesh as M
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    M.initialize_distributed(backend=backend, device="cuda",
+                             init_method=f"file://{init}", rank=rank,
+                             world_size=world)
+    mesh = M.make_mesh(world, 1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gp, jp, rp = smoke_weights(dev)
+    res = dict(rank=rank, card=str(dev), backend=dist.get_backend(),
+               digest=gestsync_digest(gp) + weights_digest(jp, rp))
+    run = infer_card if mode == "card" else infer_cards
+    res.update(run(gp, jp, rp, mesh, rank))
+    res["wall_s"] = time.perf_counter() - t0
+    with open(out / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_vta(engine, mesh, rank: int, n: int, threads: int,
+              max_batch: int) -> dict:
+    """A data-parallel server (mesh) or a one-card one (mesh None) on this
+    engine: rank 0 serves `n` binary planar `vta` requests (phase 11's
+    samples, T 100 and 125) from `threads` client threads of its own, after
+    the warm-up `serve` runs, then closes it; a rank > 0 follows. -> rank
+    0's answers (with the requests' meta and extract() kwargs) and
+    requests/s."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jegal_torch import serving
+
+    serving.warmup(engine, ("vta",), INFER_WINDOW_MS, max_batch, "planar",
+                   mesh)
+    if rank != 0:
+        serving.follow(engine, mesh)
+        return {}
+    base, content, clips = serve_samples()
+    server = serving.create_server(engine, port=0, mesh=mesh,
+                                   batch_window_ms=INFER_WINDOW_MS,
+                                   max_batch=max_batch)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = [request_of("vta", i, base, content, clips)
+                for i in range(n)]
+    bodies = [(r, encode_request(*r[:2], True)) for r in requests]
+
+    def one(item):
+        (meta, _, kw), body = item
+        return post(url, *body), meta, kw
+
+    try:
+        with ThreadPoolExecutor(threads) as ex:
+            t0 = time.perf_counter()
+            answers = list(ex.map(one, bodies))
+            wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    for (status, _), meta, _ in answers:
+        if status != 200:
+            raise AssertionError(f"served {meta['fname']}: status {status}")
+    return dict(answers=[(ans, meta, kw) for (_, ans), meta, kw in answers],
+                requests=n, wall_s=wall, requests_per_s=n / wall)
+
+
+def infer_card(gp, jp, rp, mesh, rank: int) -> dict:
+    """Phase 7e(ii) in a rank: extract_many(mesh=) of phase 6c's eight
+    planar clips (batch_size 4), its launches counted as `drive_call`
+    counts them (this rank's graphs), then INFER_REQUESTS served `vta`
+    requests through a two-rank server (batch 4)."""
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.parallel import mesh as M
+
+    engine = JegalEngine(jp, gp, roberta_params=rp,
+                         tokenizer=word_tokenizer())
+    samples = many_samples()
+    want, _ = many_launches(samples, 4, {}, dp=M.data_size(mesh))
+    results, ran = drive_call(
+        lambda: engine.extract_many(samples, "vta", batch_size=4, mesh=mesh),
+        want, f"rank {rank}'s extract_many (mesh ({M.data_size(mesh)}, 1))")
+    served = serve_vta(engine, mesh, rank, INFER_REQUESTS, INFER_REQUESTS,
+                       4)
+    return dict(results=results, launches=ran,
+                want=counts(**want), served=served)
+
+
+def infer_cards(gp, jp, rp, mesh, rank: int) -> dict:
+    """The `--mesh-cards` inference in a rank of the (4, 1) mesh over NCCL:
+    for a float32 and a bf16 engine, extract_many of CARDS_CLIPS planar 5 s
+    clips (batch CARDS_BATCH) at the mesh, and on rank 0 the same call
+    without a mesh on card 0 (the others waiting at a barrier), CARDS_REPS
+    warm calls of each in turns (host clock); then a served `vta` load on
+    one card and at the mesh, in turns (one, mesh, mesh, one)."""
+    import torch
+    import torch.distributed as dist
+
+    from jegal_torch.api import JegalEngine
+
+    samples = cards_samples()
+    out: dict = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        engine = JegalEngine(jp, gp, roberta_params=rp,
+                             tokenizer=word_tokenizer(), dtype=dtype)
+
+        def call(m):
+            return engine.extract_many(samples, "vta",
+                                       batch_size=CARDS_BATCH, mesh=m)
+
+        got, launches = replayed(lambda: call(mesh))
+        one = call(None) if rank == 0 else None
+        dist.barrier()
+        walls = {"one_card": [], "mesh": []}
+        for _ in range(CARDS_REPS):
+            if rank == 0:
+                t0 = time.perf_counter()
+                call(None)
+                walls["one_card"].append(time.perf_counter() - t0)
+            dist.barrier()
+            t0 = time.perf_counter()
+            call(mesh)
+            walls["mesh"].append(time.perf_counter() - t0)
+            dist.barrier()
+        out[label] = dict(results=got, launches=launches, one_card=one,
+                          walls=walls)
+        if label == "float32":
+            served = []
+            for m in (None, mesh, mesh, None):
+                if m is not None or rank == 0:
+                    served.append(serve_vta(engine, m, rank, CARDS_REQUESTS,
+                                            CARDS_THREADS, CARDS_BATCH))
+                dist.barrier()
+            out["served"] = served
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def cards_samples():
+    """CARDS_CLIPS planar `vta` 5 s clips (T 125), phase 6c's content."""
+    import numpy as np
+
+    from jegal_torch.ops.video import s2d_repack
+
+    base = clip(125, 12, SEED + 3)
+    out = []
+    for i in range(CARDS_CLIPS):
+        rng = np.random.default_rng(SEED + 100 + i)
+        frames = rng.integers(0, 256, (125, 270, 480, 3), dtype=np.uint8)
+        out.append(dict(frames=s2d_repack(frames, rng.integers(90, 200, 125)),
+                        text=SMOKE_TEXT, wav=base["wav"],
+                        word_boundaries=base["word_boundaries"],
+                        fname=f"cards_{i}"))
+    return out
+
+
+def run_infer_ranks(tmp: Path, world: int, backend: str, cards: int,
+                    mode: str, digest) -> list:
+    """`world` child ranks (`--infer-rank`) over `backend`, rank r on card r
+    % cards, running MODE; a rank that fails or outlives INFER_TIMEOUT_S
+    fails the phase and every rank is killed. -> each rank's results."""
+    import pickle
+
+    t0 = time.perf_counter()
+    run_children(tmp, "--infer-rank", world, cards, INFER_TIMEOUT_S,
+                 lambda r: [str(r), str(world), str(tmp / "pg"), str(tmp),
+                            backend, mode])
+    ranks = []
+    for r in range(world):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+        x = ranks[-1]
+        log(f"  rank {r} ({x['backend']}, {x['card']}): "
+            f"{x['wall_s']:.1f} s")
+        if x["digest"] != digest:
+            raise AssertionError(f"inference rank {r} drew other weights")
+    log(f"  {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def same_ranks(ranks, key, what: str):
+    """Every rank's results bit for bit rank 0's."""
+    import numpy as np
+
+    for x in ranks[1:]:
+        for a, b in zip(x[key], ranks[0][key]):
+            if not all(np.array_equal(a[k], b[k])
+                       for k in ("gesture_emb", "content_emb")):
+                raise AssertionError(f"{what}: rank {x['rank']}'s results "
+                                     f"differ from rank 0's")
+
+
+def run_mesh_inference(engine, digest) -> dict:
+    """Phase 7e: (i) a one-rank NCCL group at mesh (1, 1): extract_many(
+    mesh=) of phase 6c's eight planar clips bit-equal to the call without a
+    group; (ii) INFER_RANKS child processes on this card over gloo at (2,
+    1): the same call in each, its launches this rank's rows' (kernels 2,
+    7, 3, 4 and 5), both ranks' results bit-equal and within abs 1e-4 and
+    min row cosine 0.99999 of (i)'s one-rank results, then a two-rank
+    server (batch window INFER_WINDOW_MS, batch 4) answering INFER_REQUESTS
+    `vta` requests as `extract` does."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from jegal_torch.parallel import mesh as M
+
+    samples = many_samples()
+    out: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        log("data-parallel inference: (i) one NCCL rank at mesh (1, 1) "
+            "against no group, extract_many of phase 6c's eight planar "
+            "clips")
+        want = engine.extract_many(samples, "vta", batch_size=4)
+        M.initialize_distributed(device="cuda",
+                                 init_method=f"file://{tmp}/pg1", rank=0,
+                                 world_size=1)
+        try:
+            got, ran = replayed(lambda: engine.extract_many(
+                samples, "vta", batch_size=4, mesh=M.make_mesh(1, 1)))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(got, want)
+                   for k in ("gesture_emb", "content_emb"))
+        log(f"  backend {backend}: {'bit-equal' if same else 'DIFFER'}; "
+            f"graphs replayed {ran}")
+        if not same:
+            raise AssertionError("extract_many at mesh (1, 1) differs from "
+                                 "the call without a group")
+        out["1x1"] = dict(backend=backend, bit_equal=same, launches=ran)
+
+        log(f"data-parallel inference: (ii) {INFER_RANKS} ranks on this "
+            f"card over gloo at mesh ({INFER_RANKS}, 1) (a check of the "
+            f"path; one card, so no multi-GPU speed)")
+        ranks = run_infer_ranks(tmp / "ranks", INFER_RANKS, "gloo", 1,
+                                "card", digest)
+    same_ranks(ranks, "results", "extract_many at (2, 1)")
+    worst = dict(err=0.0, cos=1.0)
+    for s, r, w in zip(samples, ranks[0]["results"], want):
+        c = compare(r, w, f"(2, 1) vs one rank, {s['fname']}")
+        worst = dict(err=max(worst["err"], c["err"]),
+                     cos=min(worst["cos"], c["cos"]))
+    for x in ranks:
+        log(f"  rank {x['rank']} launches {x['launches']}")
+        if x["launches"] != x["want"]:
+            raise AssertionError(f"rank {x['rank']}: launches "
+                                 f"{x['launches']}, want {x['want']}")
+    served = ranks[0]["served"]
+    sworst = dict(err=0.0, cos=1.0)
+    for ans, meta, kw in served["answers"]:
+        w = hold_answer(ans, expected(engine, meta, kw),
+                        f"two-rank server, {meta['fname']}")
+        sworst = dict(err=max(sworst["err"], w["err"]),
+                      cos=min(sworst["cos"], w["cos"]))
+    log(f"  two-rank server: {served['requests']} vta requests, "
+        f"{served['requests_per_s']:.2f} requests/s (a check, not a "
+        f"speed), every answer within the bars of extract")
+    torch.cuda.synchronize()
+    out[f"{INFER_RANKS}x1"] = dict(
+        backend=ranks[0]["backend"], launches_per_rank=ranks[0]["launches"],
+        rank_wall_s=[x["wall_s"] for x in ranks], max_abs_err=worst["err"],
+        min_row_cos=worst["cos"], served=served["requests"],
+        served_max_abs_err=sworst["err"], served_min_row_cos=sworst["cos"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 7e: {out['wall_s']:.1f} s")
+    return out
+
+
+def run_mesh_cards_infer(engine, digest, cards: int) -> dict:
+    """`--mesh-cards` inference: four ranks over NCCL at (4, 1), one a
+    card (infer_cards): each engine's mesh results bit-equal on every rank
+    and within the bars of card 0's one-rank results (float32: abs 1e-4,
+    min row cosine 0.99999; bf16: tests/bf16_bars.py's min row cosine
+    0.9999), clips/s of each beside one card, and the served `vta` load's
+    requests/s on one card and at the mesh, every answer within the bars
+    of `extract` on this process's float32 engine."""
+    import tempfile
+
+    import numpy as np
+
+    world = 4
+    if cards < world:
+        raise AssertionError(f"--mesh-cards needs {world} cards, found "
+                             f"{cards}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ranks = run_infer_ranks(Path(tmp) / "infer", world, "nccl", cards,
+                                "cards", digest)
+    out: dict = {}
+    bar16 = bf16_bars().KERNEL_COS
+    for label in ("float32", "bf16"):
+        same_ranks([x[label] | dict(rank=x["rank"]) for x in ranks],
+                   "results", f"{label} extract_many at (4, 1)")
+        mesh_res = ranks[0][label]["results"]
+        one = ranks[0][label]["one_card"]
+        worst = dict(err=0.0, cos=1.0)
+        for i, (a, b) in enumerate(zip(mesh_res, one)):
+            if label == "float32":
+                c = compare(a, b, f"(4, 1) vs card 0, float32, clip {i}")
+            else:
+                c = dict(err=max(float(np.abs(a[k] - b[k]).max())
+                                 for k in ("gesture_emb", "content_emb")),
+                         cos=hold_cos(a, b, bar16,
+                                      f"(4, 1) vs card 0, bf16, clip {i}"))
+            worst = dict(err=max(worst["err"], c["err"]),
+                         cos=min(worst["cos"], c["cos"]))
+        walls = ranks[0][label]["walls"]
+        one_s = statistics.median(walls["one_card"])
+        mesh_s = statistics.median(walls["mesh"])
+        out[label] = dict(
+            clips=CARDS_CLIPS, batch_size=CARDS_BATCH,
+            clips_per_s_one_card=CARDS_CLIPS / one_s,
+            clips_per_s_mesh=CARDS_CLIPS / mesh_s,
+            walls_one_card_s=walls["one_card"], walls_mesh_s=walls["mesh"],
+            launches_per_rank=ranks[0][label]["launches"],
+            max_abs_err=worst["err"], min_row_cos=worst["cos"])
+        log(f"  {label}: {CARDS_CLIPS} planar 5 s clips, batch "
+            f"{CARDS_BATCH}: one card {CARDS_CLIPS / one_s:.3f} clips/s, "
+            f"(4, 1) {CARDS_CLIPS / mesh_s:.3f} clips/s (median of "
+            f"{CARDS_REPS} calls in turns; host clock)")
+    served = ranks[0]["served"]
+    for s, what in zip(served, ("one card", "(4, 1)", "(4, 1)",
+                                "one card")):
+        for ans, meta, kw in s["answers"]:
+            hold_answer(ans, expected(engine, meta, kw),
+                        f"served at {what}, {meta['fname']}")
+        log(f"  served {s['requests']} vta requests at {what} from "
+            f"{CARDS_THREADS} threads: {s['requests_per_s']:.2f} "
+            f"requests/s")
+    out["served"] = dict(requests=CARDS_REQUESTS, threads=CARDS_THREADS,
+                         max_batch=CARDS_BATCH,
+                         requests_per_s_one_card=[served[0]["requests_per_s"],
+                                                  served[3]["requests_per_s"]],
+                         requests_per_s_mesh=[served[1]["requests_per_s"],
+                                              served[2]["requests_per_s"]])
+    out["rank_wall_s"] = [x["wall_s"] for x in ranks]
     return out
 
 
@@ -5304,6 +5729,8 @@ def main() -> int:
     global CHECK_KERNEL_COUNTS
     if sys.argv[1:2] == ["--mesh-rank"]:     # a child of phase 7d(ii)
         return mesh_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--infer-rank"]:    # a child of phase 7e(ii)
+        return infer_rank_main(sys.argv[2:])
     mode = sys.argv[1:]
     against = None
     if "--against" in mode[:-1]:
@@ -5369,11 +5796,19 @@ def main() -> int:
     ids32, mask32 = smoke_text_ids()
     train_batch = fixed_batch(word_tokenizer())
 
+    digest = gestsync_digest(gp) + weights_digest(jp, rp)
     if mode == ["--mesh-cards"]:
+        from jegal_torch.api import JegalEngine
         from jegal_torch.models import roberta as R
 
-        log(json.dumps({"mesh_cards": run_mesh_cards(
-            jp, R.stack_layers(rp), train_batch)}))
+        cards = run_mesh_cards(jp, R.stack_layers(rp), train_batch)
+        engine = JegalEngine(jp, gp, roberta_params=rp,
+                             tokenizer=word_tokenizer())
+        log("data-parallel inference on a mesh of cards: (4, 1) over NCCL, "
+            "one rank a card")
+        cards["infer"] = run_mesh_cards_infer(engine, digest,
+                                              torch.cuda.device_count())
+        log(json.dumps({"mesh_cards": cards}))
         log(smi.stdout.strip())
         return 0
     if mode in (["--cli"], ["--serve"]):   # phase 10 or 11 alone
@@ -5435,6 +5870,7 @@ def main() -> int:
                                            train_batch)
     training["mesh"], mesh_flash = run_mesh_training(
         jp, engine.roberta_params, train_batch)
+    infer_mesh = run_mesh_inference(engine, digest)
     long_launches, training["long_clip"] = run_long_clip(engine, jp)
     launches["flash_attention"] = step_launches["flash_attention"]
     checkpoints = run_checkpoints(gp, jp, rp, engine, sample, raw_res,
@@ -5524,6 +5960,9 @@ def main() -> int:
     if long_launches["flash_attention"] != long_want:
         raise AssertionError(f"flash_attention: {long_launches} on the long "
                              f"clip, the timed shapes assume {long_want}")
+    for row in kernels:     # phase 7e: a (2, 1) rank's extract_many call
+        row["launches_mesh_infer"] = infer_mesh[f"{INFER_RANKS}x1"][
+            "launches_per_rank"].get(row["name"], 0)
     for row in kernels:     # rows 3-5: launches of one forward_validation
         if row["name"] in VALIDATION_LAUNCHES:
             row["launches_validation"] = \
@@ -5544,6 +5983,7 @@ def main() -> int:
             if not cli["launches"][cmd].get(name):
                 raise AssertionError(f"{name}: no launch in the CLI's {cmd}")
     log(json.dumps({"training": training}))
+    log(json.dumps({"infer_mesh": infer_mesh}))
     log(json.dumps({"checkpoints": checkpoints}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"serve": serve}))

@@ -26,6 +26,14 @@ are written on the host into pinned staging buffers kept with each graph
 and uploaded without blocking the host. A capture that fails raises. On
 the CPU the same ledger holds the eager forward, which runs as it is.
 
+Data-parallel inference (`mesh=` on `extract_many`,
+`gestsync_features_from_raw_many` and `warmup`; the JAX engine's `mesh`,
+which shards a batch over its devices' 'data' axis) is one process a
+card: each is then a collective call over the ranks of a
+parallel/mesh.make_mesh DeviceMesh, every rank filling, uploading and
+replaying only its rows of each padded batch and gathering the rows over
+'data' before the host fetches them.
+
 The text modality needs XLM-R parameters and a tokenizer: a
 `jegal_torch.text.WordTokenizer` over any backend with its duck-typed
 interface (for the real vocabulary, `WordTokenizer.from_file` on
@@ -88,6 +96,7 @@ from jegal_torch.ops.pooling import (
     text_word_starts,
 )
 from jegal_torch.ops.video import FALLBACK_ROWS, mask_frames_device
+from jegal_torch.parallel import mesh as M
 
 RAW_FRAME = (270, 480, 3)
 PLANAR_FRAME = (90, 27, 160)
@@ -433,7 +442,8 @@ class JegalEngine:
 
     def gestsync_features_from_raw_many(self, clips: list,
                                         batch_size: int = 16,
-                                        as_device: bool = False) -> list:
+                                        as_device: bool = False,
+                                        mesh=None) -> list:
         """Cross-clip tower batching: clips is a list of (frames_u8 (T, 270,
         480, 3), chin_rows (T,) | None), or of (planar_u8 (T, 90, 27, 160),
         None); a call is all raw or all planar. Clips of one T bucket run
@@ -444,9 +454,21 @@ class JegalEngine:
         The frames are host arrays, or uint8 tensors the caller already put
         on the engine's device (the extract-feats driver uploads on its
         decode threads): those stack on the device and never come back to
-        the host. A call mixing the two is a client error."""
+        the host. A call mixing the two is a client error.
+
+        mesh: a ('data', 'model') DeviceMesh (parallel/mesh.make_mesh);
+        the call is then collective: every rank of the mesh calls with the
+        same clips, each chunk's padded batch rounds up to a multiple of
+        the 'data' size dp, each rank fills, uploads and runs only its
+        rows of it, and the features are gathered over 'data', so every
+        rank returns every clip's (the JAX package's shard_map over
+        'data'). Clips on the device are a client error under a mesh (the
+        JAX package's device stacking is for mesh=None alone)."""
         self._gestsync()
         on_device = self._clips_on_device(clips)
+        if on_device and mesh is not None:
+            raise ClientError("clips on the device run without a mesh; "
+                              "pass host arrays with mesh=")
         kinds = {self._frames_kind(f) for f, _ in clips}
         if len(kinds) > 1:
             raise ClientError("clips must be all raw or all planar")
@@ -458,6 +480,8 @@ class JegalEngine:
         for i, (frames, _) in enumerate(clips):
             groups.setdefault((kind, next_bucket(frames.shape[0], T_BUCKETS)),
                               []).append(i)
+        M.check_same((batch_size, [f.shape[0] for f, _ in clips],
+                      list(groups.items())), mesh, "the tower's chunks")
         results: list = [None] * len(clips)
 
         def settle(chunk, fetch):
@@ -469,7 +493,8 @@ class JegalEngine:
             self._pipeline(
                 ((chunk, feats if as_device else self._start_fetch(feats))
                  for chunk, feats in self._tower_chunks(
-                     groups, clips.__getitem__, batch_size, on_device)),
+                     groups, clips.__getitem__, batch_size, on_device,
+                     mesh)),
                 settle)
         return results
 
@@ -489,21 +514,24 @@ class JegalEngine:
         return where == {True}
 
     def _tower_chunks(self, groups: dict, clip_of, batch_size: int,
-                      on_device: bool = False):
+                      on_device: bool = False, mesh=None):
         """The batched tower's dispatches of gestsync_features_from_raw_many
         (eager: extract_many's chunks replay graphs instead). groups: {(kind,
         T bucket): [clip indices]}; clip_of(i) -> (frames, chin_rows |
         None). Each group runs in chunks of batch_size, padded to the
-        power-of-two ladder, through one batched tower call a chunk: host
-        clips stacked in pinned memory and uploaded, device clips
+        power-of-two ladder (rounded up to a multiple of dp under a mesh),
+        through one batched tower call a chunk on this rank's rows of it:
+        host clips stacked in pinned memory and uploaded, device clips
         (on_device) stacked on the device by device-to-device copies
         (`_stack_on_device`). Yields (chunk, features (b, T bucket, 1024)
-        on the device)."""
+        on the device, every rank's rows gathered)."""
         for (kind, t_bucket), idxs in groups.items():
             for lo in range(0, len(idxs), batch_size):
                 chunk = idxs[lo:lo + batch_size]
-                clips = [clip_of(i) for i in chunk]
-                b = batch_ladder(len(chunk), batch_size)
+                rows = M.batch_rows(M.round_to_data(
+                    batch_ladder(len(chunk), batch_size), mesh), mesh)
+                clips = [clip_of(i) for i in chunk[rows]]
+                b = rows.stop - rows.start
                 pinned = self.device.type == "cuda"
                 shape = (b, t_bucket) + FRAME_SHAPES[kind]
                 cut = None if kind == "planar" else torch.empty(
@@ -522,7 +550,7 @@ class JegalEngine:
                 feats = self._tower(kind, self._to_device(fr),
                                     None if cut is None
                                     else self._to_device(cut), batched=True)
-                yield chunk, feats
+                yield chunk, M.gather_rows(feats, mesh)
 
     def _tower(self, kind: str, frames, cut, batched: bool):
         """GestSync features of device frames: (b, T bucket, ...) with
@@ -1028,18 +1056,21 @@ class JegalEngine:
     # Batched extraction
     # ------------------------------------------------------------------
 
-    def _stack_parts(self, parts, b: int):
+    def _stack_parts(self, parts, b: int, like):
         """Stack per-sample arrays into a (b, ...) batch, zero rows past
-        len(parts). Device tensors stack on the device; host arrays stack
-        on the host, for the graph's staging buffer."""
+        len(parts) (all b rows when parts is empty, a rank's rows that are
+        all padding); `like` is one sample's array of the group. Device
+        tensors stack on the device; host arrays stack on the host, for
+        the graph's staging buffer."""
         if any(isinstance(p, torch.Tensor) and p.device == self.device
-               for p in parts):
-            parts = [self._to_device(p) for p in parts]
-            parts += [torch.zeros_like(parts[0])] * (b - len(parts))
-            return torch.stack(parts)
-        parts = [np.asarray(p) for p in parts]
-        out = np.zeros((b,) + parts[0].shape, parts[0].dtype)
-        out[:len(parts)] = parts
+               for p in parts + [like]):
+            pad = torch.zeros_like(self._to_device(like))
+            return torch.stack([self._to_device(p) for p in parts]
+                               + [pad] * (b - len(parts)))
+        like = np.asarray(like)
+        out = np.zeros((b,) + like.shape, like.dtype)
+        if parts:
+            out[:len(parts)] = [np.asarray(p) for p in parts]
         return out
 
     def _prep_map(self, fn, items):
@@ -1096,14 +1127,16 @@ class JegalEngine:
         return label
 
     @staticmethod
-    def _chunk_b(n: int, batch_size: int, ladder: bool) -> int:
+    def _chunk_b(n: int, batch_size: int, ladder: bool, mesh=None) -> int:
         """Padded batch length of an n-sample chunk: the power-of-two
-        ladder, or always batch_size with ladder=False."""
-        return batch_ladder(n, batch_size) if ladder else batch_size
+        ladder, or always batch_size with ladder=False; rounded up to a
+        multiple of the 'data' size under a mesh."""
+        return M.round_to_data(batch_ladder(n, batch_size) if ladder
+                               else batch_size, mesh)
 
     def extract_many(self, samples: list[dict], modalities: str = "vta",
-                     batch_size: int = 16,
-                     ladder: bool = True) -> list[dict | None]:
+                     batch_size: int = 16, ladder: bool = True,
+                     mesh=None) -> list[dict | None]:
         """Batched extraction: samples sharing a shape bucket run as one
         batch on the device, in chunks of batch_size, each chunk one replay
         of its key's graph. ladder=True pads a straggler chunk to the
@@ -1120,7 +1153,16 @@ class JegalEngine:
         JEGAL forward per chunk with the features kept on the device.
         Returns per-sample result dicts in order, the rows `extract` gives
         (batch padding is neutral), and None for a sample that is invalid
-        or malformed: one bad sample never fails the batch."""
+        or malformed: one bad sample never fails the batch.
+
+        mesh: a ('data', 'model') DeviceMesh; the call is then collective
+        (every rank calls with the same samples in the same order and
+        returns every result): the chunks are planned on every rank from
+        the arguments alone (and checked equal across the ranks), each
+        chunk's batch rounds up to a multiple of the 'data' size dp, each
+        rank stages, uploads and replays only its rows of it in its own
+        graph of b / dp rows, and the packed output is gathered over
+        'data' before the fetch."""
         self._check_modalities(modalities)
         use = tuple(c in modalities for c in "vta")
         results: list = [None] * len(samples)
@@ -1169,27 +1211,38 @@ class JegalEngine:
             lambda item: (prep_fused if is_fused[item[0]]
                           else prep_two_stage)(item[1]),
             list(enumerate(samples)))
-        fused = {i: p for i, p in enumerate(preps) if is_fused[i]}
+        fused = {i: p for i, p in enumerate(preps)
+                 if is_fused[i] and p is not None}
         prepared = {i: p for i, p in enumerate(preps)
                     if not is_fused[i] and p is not None}
-        with torch.inference_mode():
-            if fused:
-                self._extract_many_fused(samples, fused, use, results,
-                                         batch_size, ladder)
-            self._extract_many_two_stage(samples, prepared, use, results,
-                                         batch_size, ladder)
-        return results
-
-    def _extract_many_two_stage(self, samples, prepared, use, results,
-                                batch_size, ladder):
-        """extract_many's samples without frames: per shape signature,
-        chunks of stacked arrays through the JEGAL forward. Writes into
-        `results`."""
+        fgroups: dict = {}
+        for i, (kind, frames, _, arrays, _) in fused.items():
+            fgroups.setdefault((kind, next_bucket(frames.shape[0], T_BUCKETS),
+                                self._shape_sig(arrays)), []).append(i)
         groups: dict = {}
         for i, prep in prepared.items():
-            sig = tuple(sorted((k, tuple(v.shape[1:]))
-                               for k, v in prep[0].items()))
-            groups.setdefault(sig, []).append(i)
+            groups.setdefault(self._shape_sig(prep[0]), []).append(i)
+        M.check_same((modalities, batch_size, ladder, list(fgroups.items()),
+                      list(groups.items())), mesh, "extract_many's chunks")
+        with torch.inference_mode():
+            if fused:
+                self._extract_many_fused(samples, fused, fgroups, use,
+                                         results, batch_size, ladder, mesh)
+            self._extract_many_two_stage(samples, prepared, groups, use,
+                                         results, batch_size, ladder, mesh)
+        return results
+
+    @staticmethod
+    def _shape_sig(arrays: dict) -> tuple:
+        """A sample's arrays' names and per-sample shapes: samples with
+        equal signatures stack into one batch."""
+        return tuple(sorted((k, tuple(v.shape[1:])) for k, v in arrays.items()))
+
+    def _extract_many_two_stage(self, samples, prepared, groups, use, results,
+                                batch_size, ladder, mesh):
+        """extract_many's samples without frames: per shape signature
+        (groups), chunks of stacked arrays through the JEGAL forward, this
+        rank's rows of each under a mesh. Writes into `results`."""
 
         def settle(chunk, fetch):
             packed = self._finish_fetch(fetch)
@@ -1208,32 +1261,26 @@ class JegalEngine:
             for idxs in groups.values():
                 for lo in range(0, len(idxs), batch_size):
                     chunk = idxs[lo:lo + batch_size]
-                    b = self._chunk_b(len(chunk), batch_size, ladder)
+                    rows = M.batch_rows(self._chunk_b(
+                        len(chunk), batch_size, ladder, mesh), mesh)
+                    like = prepared[chunk[0]][0]
                     arrays = {k: self._stack_parts(
-                        [prepared[i][0][k][0] for i in chunk], b)
-                        for k in prepared[chunk[0]][0]}
-                    yield chunk, self._start_fetch(self._forward(use,
-                                                                 arrays))
+                        [prepared[i][0][k][0] for i in chunk[rows]],
+                        rows.stop - rows.start, like[k][0]) for k in like}
+                    yield chunk, self._start_fetch(M.gather_rows(
+                        self._forward(use, arrays), mesh))
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 
-    def _extract_many_fused(self, samples, fused, use, results, batch_size,
-                            ladder):
+    def _extract_many_fused(self, samples, fused, groups, use, results,
+                            batch_size, ladder, mesh):
         """extract_many's frame-carrying samples: per (kind, T bucket,
-        content shapes) chunk, one replay of the batched fused graph (tower
-        and JEGAL forward, the features never leaving the device), its
-        frames, chin rows, mask and content written into the graph's
-        pinned staging buffers. Writes into `results`."""
+        content shapes) chunk (groups), one replay of the batched fused
+        graph (tower and JEGAL forward, the features never leaving the
+        device) on this rank's rows of the chunk under a mesh, its frames,
+        chin rows, mask and content written into the graph's pinned
+        staging buffers. Writes into `results`."""
         self._gestsync()
-        groups: dict = {}
-        for i, prep in fused.items():
-            if prep is None:
-                continue
-            kind, frames, _, arrays, _ = prep
-            sig = (kind, next_bucket(frames.shape[0], T_BUCKETS),
-                   tuple(sorted((k, tuple(v.shape[1:]))
-                                for k, v in arrays.items())))
-            groups.setdefault(sig, []).append(i)
 
         def settle(chunk, t_bucket, fetch):
             gesture, content = self._unpack_emb(
@@ -1249,14 +1296,18 @@ class JegalEngine:
             for (kind, t_bucket, _), idxs in groups.items():
                 for lo in range(0, len(idxs), batch_size):
                     chunk = idxs[lo:lo + batch_size]
-                    b = self._chunk_b(len(chunk), batch_size, ladder)
+                    rows = M.batch_rows(self._chunk_b(
+                        len(chunk), batch_size, ladder, mesh), mesh)
+                    mine, b = chunk[rows], rows.stop - rows.start
+                    like = fused[chunk[0]][3]
                     arrays = {k: self._stack_parts(
-                        [fused[i][3][k][0] for i in chunk], b)
-                        for k in fused[chunk[0]][3]}
+                        [fused[i][3][k][0] for i in mine], b, like[k][0])
+                        for k in like}
                     packed = self._fused(kind, use[1], use[2], t_bucket, b,
-                                         [fused[i][1:3] for i in chunk],
+                                         [fused[i][1:3] for i in mine],
                                          arrays)
-                    yield chunk, t_bucket, self._start_fetch(packed)
+                    yield chunk, t_bucket, self._start_fetch(
+                        M.gather_rows(packed, mesh))
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 
@@ -1266,10 +1317,10 @@ class JegalEngine:
 
     def warmup(self, modalities: str = "vta", t: int = 128, s: int = 64,
                w: int = 16, mel: int = 512, batch: int = 1,
-               frames_kind: str | None = None) -> None:
+               frames_kind: str | None = None, mesh=None) -> None:
         """Capture (on the CPU: run) the graph of one (combo, bucket) so
         that the first real request replays it (the JAX engine's warmup,
-        api.py:1187, without `mesh`). Shapes are bucket values from
+        api.py:1187). Shapes are bucket values from
         jegal_torch.data.bucketing.
 
         frames_kind ('planar' | 'raw'): the fused frames -> embeddings
@@ -1277,10 +1328,19 @@ class JegalEngine:
         single-clip graph (`extract(frames=...)`), batch > 1 the batched
         chunk graph (`extract_many`'s chunks of that padded batch). The
         inputs take the shapes, dtypes and staging that live requests use,
-        so that they hit the graph warmed here."""
+        so that they hit the graph warmed here.
+
+        mesh: warm what an `extract_many(mesh=)` chunk of `batch` samples
+        replays (a collective call, as that one): batch rounds up to a
+        multiple of the 'data' size dp, each rank captures its graph of
+        batch / dp rows, the batched graph even at batch 1 (as the JAX
+        engine), and the output is gathered over 'data' (which also sets
+        up the group's communicator ahead of traffic)."""
         self._check_modalities(modalities)
         use_v, use_t, use_a = (c in modalities for c in "vta")
-        batched = batch > 1
+        batch = M.round_to_data(batch, mesh)
+        batched = batch > 1 or mesh is not None
+        batch //= M.data_size(mesh)       # this rank's rows
         arrays: dict = {}
         if use_t:
             ids = np.full((batch, s), 1, np.int64)
@@ -1310,7 +1370,7 @@ class JegalEngine:
                 # no clip: zero frames, the fallback chin rows
                 out = self._fused(frames_kind, use_t, use_a, t,
                                   batch if batched else None, [], arrays)
-            out.reshape(-1)[:1].cpu()            # waits for the run
+            M.gather_rows(out, mesh).reshape(-1)[:1].cpu()  # waits for it
 
     def warmup_all(self, combos=("vta", "vt", "va", "ta", "v", "t", "a"),
                    t_buckets=(128,), s_buckets=(64,), w_buckets=(16,),

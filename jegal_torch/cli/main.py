@@ -27,12 +27,23 @@ the port's plain CPU path (the JAX CLI takes that choice from
 JAX_PLATFORMS). Without a card a `cuda` run raises: nothing falls back to
 the CPU. `--bf16` (infer, extract-feats, extract-embs, verify, warmup,
 serve) builds the bf16 engine (`JegalEngine(dtype=torch.bfloat16)`), as the
-JAX CLI's `--bf16` does; the outputs stay float32 rows. `--data_parallel`
-exits with the ROADMAP item that will bring it. `train` launched as
-several ranks (`torchrun --nproc_per_node N -m jegal_torch train
+JAX CLI's `--bf16` does; the outputs stay float32 rows. `train` launched
+as several ranks (`torchrun --nproc_per_node N -m jegal_torch train
 --model_parallel M ...`, WORLD_SIZE > 1) joins the process group
 (NCCL on the card, gloo with `--device cpu`) and trains on the (N / M, M)
 mesh (training/loop.py).
+
+Data-parallel inference, one rank a card as `torchrun` starts them
+(WORLD_SIZE > 1): `extract-feats --data_parallel`, `serve
+--data_parallel` (with `--batch_window_ms` > 0), `extract-embs
+--batch_size` > 1 and `eval-* --on_device` join the process group the
+same way and run their engine calls collectively on the (N, 1) mesh
+(`_data_mesh`, the JAX CLI's all-devices mesh): every rank takes the same
+inputs, computes its rows of each batch, and rank 0 alone writes the
+files and prints. On one process the mesh is None, as the JAX CLI's on
+one device. Explicit `--rank` / `--nshard` conflict with a data mesh and
+exit; without `--data_parallel`, a launch of several ranks shards
+extract-feats' files by rank (RANK and WORLD_SIZE) instead.
 
 The JAX CLI's persistent XLA compilation cache (`setup_compilation_cache`)
 has no counterpart here: the port compiles its CUDA kernels once into
@@ -44,6 +55,8 @@ processes load them.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import os
 import sys
@@ -51,10 +64,8 @@ import threading
 
 COMBOS = ["vta", "vt", "va", "ta", "v", "t", "a"]
 BF16_HELP = "bfloat16 compute: the engine's bf16 kernels"
-NOT_YET = {
-    "data_parallel": "--data_parallel needs data-parallel inference, ROADMAP "
-                     "queue 1 item 4b (multi-GPU)",
-}
+# a collective that waits longer for a peer fails, and the run with it
+MESH_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def _add_device(p):
@@ -66,10 +77,12 @@ def _add_device(p):
 def _add_shard(p):
     p.add_argument("--rank", type=int, default=None,
                    help="file-shard index (default: torch.distributed's "
-                        "rank when it is initialized, else 0)")
+                        "rank when it is initialized, else the launcher's "
+                        "RANK, else 0)")
     p.add_argument("--nshard", type=int, default=None,
                    help="file-shard count (default: torch.distributed's "
-                        "world size when it is initialized, else 1)")
+                        "world size when it is initialized, else the "
+                        "launcher's WORLD_SIZE, else 1)")
 
 
 def _add_infer(sub):
@@ -123,7 +136,10 @@ def build_parser():
                         "loop (the ctypes call releases the GIL, so "
                         "threads scale)")
     p.add_argument("--data_parallel", action="store_true",
-                   help=NOT_YET["data_parallel"])
+                   help="launched as several ranks (torchrun), run each "
+                        "tower batch over all of them ('data' mesh axis, "
+                        "one rank a card) — pair with --batch_size >= "
+                        "the ranks")
     p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
@@ -139,7 +155,9 @@ def build_parser():
     p.add_argument("--modalities", default="vta", choices=COMBOS)
     _add_shard(p)
     p.add_argument("--batch_size", type=int, default=1,
-                   help=">1 groups samples into device batches")
+                   help=">1 groups samples into device batches (over "
+                        "every rank's card when launched as several "
+                        "ranks)")
     p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
@@ -270,7 +288,9 @@ def build_parser():
     p.add_argument("--max_body_mb", type=int, default=512,
                    help="reject request bodies larger than this (HTTP 413)")
     p.add_argument("--data_parallel", action="store_true",
-                   help=NOT_YET["data_parallel"])
+                   help="launched as several ranks (torchrun), run each "
+                        "batched call over all of them (needs "
+                        "--batch_window_ms > 0); rank 0 serves")
     p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     _add_device(p)
 
@@ -511,14 +531,52 @@ def _transcribe(audio_path, res_dir):
 
 def _resolve_shard(args):
     """--rank/--nshard default to torch.distributed's rank and world size
-    when a process group is initialized, so that each process of a
-    distributed launch takes its own file shard; standalone runs resolve to
-    0/1 (parallel/mesh.resolve_shard). Explicit flags always win (the
-    reference's manual --rank/--nshard launch style,
-    extract_kps.py:23-26)."""
+    when a process group is initialized, else to the launcher's RANK and
+    WORLD_SIZE, so that each process of a distributed launch takes its own
+    file shard; standalone runs resolve to 0/1 (parallel/mesh.
+    resolve_shard). Explicit flags always win (the reference's manual
+    --rank/--nshard launch style, extract_kps.py:23-26)."""
+    import torch.distributed as dist
+
     from jegal_torch.parallel.mesh import resolve_shard
 
-    return resolve_shard(args.rank, args.nshard)
+    rank, nshard = args.rank, args.nshard
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+        nshard = int(os.environ["WORLD_SIZE"]) if nshard is None else nshard
+    return resolve_shard(rank, nshard)
+
+
+@contextlib.contextmanager
+def _data_mesh(args, wanted: bool = True):
+    """The data-parallel mesh of a subcommand (the JAX CLI's _data_mesh):
+    launched as several ranks (WORLD_SIZE > 1) and `wanted`, this process
+    joins the process group as `train` does (NCCL on the card, gloo with
+    --device cpu; MESH_TIMEOUT) and gets the (ranks, 1) mesh, leaving the
+    group after; else None, one rank, as the JAX CLI on one device. Under
+    a mesh every rank must take the same inputs, so an explicit --rank /
+    --nshard exits."""
+    if not wanted or int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        yield None
+        return
+    if getattr(args, "rank", None) is not None \
+            or getattr(args, "nshard", None) is not None:
+        raise SystemExit(f"{args.cmd}: --rank / --nshard conflict with the "
+                         f"data mesh, whose ranks take the same files in "
+                         f"one collective call; drop them (a launch without "
+                         f"the mesh shards files by rank)")
+    import torch.distributed as dist
+
+    from jegal_torch.parallel import mesh as M
+
+    joins = not dist.is_initialized()
+    if joins:
+        M.initialize_distributed(device=args.device, timeout=MESH_TIMEOUT)
+    try:
+        yield M.make_mesh(dist.get_world_size(), 1)
+    finally:
+        if joins:
+            dist.destroy_process_group()
 
 
 _decode_thread = threading.local()    # a decode thread's upload stream
@@ -547,7 +605,18 @@ def cmd_extract_feats(args):
     decode threads feeds a bounded queue while the card runs the batched
     tower (same-bucket clips share one call —
     engine.gestsync_features_from_raw_many). The reference's counterpart
-    is the strictly serial extract_gestsync_feats.py:273-351 loop."""
+    is the strictly serial extract_gestsync_feats.py:273-351 loop.
+
+    --data_parallel under several ranks: rank 0 lists the pending files
+    and broadcasts the list, every rank decodes all of it in order (the
+    feeder delivers in submission order, so every rank forms the same
+    batches) into host arrays, and the tower calls are collective
+    (mesh=); rank 0 alone saves and prints."""
+    with _data_mesh(args, args.data_parallel) as mesh:
+        _extract_feats(args, mesh)
+
+
+def _extract_feats(args, mesh):
     import queue
 
     import numpy as np
@@ -556,8 +625,11 @@ def cmd_extract_feats(args):
     from jegal_torch.api import JegalEngine
     from jegal_torch.convert import checkpoints as C
     from jegal_torch.data.datasets import read_csv
+    from jegal_torch.parallel import mesh as M
+    from jegal_torch.serving import on_engine_device
 
-    rank, nshard = _resolve_shard(args)
+    main = M.is_main(mesh)
+    rank, nshard = (0, 1) if mesh is not None else _resolve_shard(args)
     files = [r["filename"] for r in read_csv(args.file_path)]
     files = files[rank::nshard] if nshard > 1 else files
     engine = JegalEngine(
@@ -566,17 +638,21 @@ def cmd_extract_feats(args):
         device=args.device,
         dtype=_dtype(args),
     )
-    on_card = engine.device.type == "cuda"
-    os.makedirs(args.res_dir, exist_ok=True)
+    # under a mesh decoded clips stay host arrays: each rank uploads only
+    # its rows of a batch
+    on_card = engine.device.type == "cuda" and mesh is None
     stats = {"done": 0, "skipped": 0, "failed": 0}
 
     pending = []
-    for f in files:
-        out = os.path.join(args.res_dir, f + ".npy")
-        if os.path.exists(out):  # idempotent file-level resume
-            stats["skipped"] += 1
-        else:
-            pending.append((f, out))
+    if main:
+        os.makedirs(args.res_dir, exist_ok=True)
+        for f in files:
+            out = os.path.join(args.res_dir, f + ".npy")
+            if os.path.exists(out):  # idempotent file-level resume
+                stats["skipped"] += 1
+            else:
+                pending.append((f, out))
+    pending, stats = M.broadcast_object((pending, stats), mesh)
 
     q: queue.Queue = queue.Queue(maxsize=max(2, args.batch_size))
     workers = max(1, args.decode_workers)
@@ -629,9 +705,15 @@ def cmd_extract_feats(args):
     batch: list = []
 
     def save_one(f, out, feat):
-        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-        np.save(out, feat)
+        if main:
+            os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+            np.save(out, feat)
         stats["done"] += 1
+
+    def ledger(f, msg):
+        stats["failed"] += 1
+        if main:
+            print(json.dumps({"file": f, "error": msg}), file=sys.stderr)
 
     # one engine call in flight on a worker thread: the tower of batch k
     # overlaps the decode pool AND the np.save of batch k-1
@@ -644,9 +726,14 @@ def cmd_extract_feats(args):
         """Runs ONLY on the single-worker pool thread: the engine's caches
         are not lock-protected, so every engine call (batched AND the
         per-clip fallback that keeps one bad clip from sinking its
-        batchmates) stays on this one thread. Each clip's upload is waited
-        for on this thread's stream first. Errors come back as (feats,
-        error_records) so the main thread only saves and prints."""
+        batchmates) stays on this one thread, on the engine's card. Each
+        clip's upload is waited for on this thread's stream first. Errors
+        come back as (feats, error_records) so the main thread only saves
+        and prints."""
+        with on_engine_device(engine):
+            return _compute(items)
+
+    def _compute(items):
         clips = []
         for _, _, (fr, done, chin) in items:
             if done is not None:
@@ -657,7 +744,9 @@ def cmd_extract_feats(args):
         errors = []
         try:
             feats = engine.gestsync_features_from_raw_many(
-                clips, batch_size=args.batch_size)
+                clips, batch_size=args.batch_size, mesh=mesh)
+        except M.CollectiveError:
+            raise
         except Exception:
             feats = []
             for (f, _, _), (fr, chin) in zip(items, clips):
@@ -677,17 +766,14 @@ def cmd_extract_feats(args):
         items, fut = inflight.pop(0)
         feats, errors = fut.result()
         for f, msg in errors:
-            stats["failed"] += 1
-            print(json.dumps({"file": f, "error": msg}), file=sys.stderr)
+            ledger(f, msg)
         for (f, out, _), feat in zip(items, feats):
             if feat is None:
                 continue
             try:
                 save_one(f, out, feat)
             except Exception as e:
-                stats["failed"] += 1
-                print(json.dumps({"file": f, "error": str(e)}),
-                      file=sys.stderr)
+                ledger(f, str(e))
 
     def flush():
         if not batch:
@@ -704,13 +790,10 @@ def cmd_extract_feats(args):
             break
         f, out, decoded, err = item
         if err is not None:  # structured error ledger, not silent skip
-            stats["failed"] += 1
-            print(json.dumps({"file": f, "error": str(err)}), file=sys.stderr)
+            ledger(f, str(err))
             continue
         if decoded is None:  # gesture-visibility gate rejected the video
-            stats["failed"] += 1
-            print(json.dumps({"file": f, "error": "gestures not visible"}),
-                  file=sys.stderr)
+            ledger(f, "gestures not visible")
             continue
         batch.append((f, out, decoded))
         if len(batch) >= args.batch_size:
@@ -718,49 +801,65 @@ def cmd_extract_feats(args):
     flush()
     drain()
     compute_pool.shutdown(wait=True)
-    print(json.dumps(stats))
+    if main:
+        print(json.dumps(stats))
 
 
 def cmd_extract_embs(args):
+    """With --batch_size > 1 under several ranks, extract_many runs on the
+    data mesh (every rank the whole CSV; rank 0 writes and prints); else
+    each rank takes its file shard, as the JAX CLI's extract-embs."""
     from jegal_torch.data.datasets import extract_embeddings_csv
+    from jegal_torch.parallel import mesh as M
 
-    rank, nshard = _resolve_shard(args)
-    engine = _load_engine(args)
-    stats = extract_embeddings_csv(
-        engine,
-        csv_path=args.file_path,
-        video_dir=args.video_dir,
-        feature_dir=args.feature_dir,
-        res_dir=os.path.join(args.res_dir, args.modalities),
-        modalities=args.modalities,
-        rank=rank,
-        nshard=nshard,
-        batch_size=args.batch_size,
-    )
-    print(json.dumps(stats))
+    with _data_mesh(args, args.batch_size > 1) as mesh:
+        rank, nshard = (0, 1) if mesh is not None else _resolve_shard(args)
+        engine = _load_engine(args)
+        stats = extract_embeddings_csv(
+            engine,
+            csv_path=args.file_path,
+            video_dir=args.video_dir,
+            feature_dir=args.feature_dir,
+            res_dir=os.path.join(args.res_dir, args.modalities),
+            modalities=args.modalities,
+            rank=rank,
+            nshard=nshard,
+            batch_size=args.batch_size,
+            mesh=mesh,
+        )
+        if M.is_main(mesh):
+            print(json.dumps(stats))
+
+
+def _device_eval(args, run, host):
+    """An eval subcommand: `run(mesh)` on the device with --on_device (on
+    the data mesh under several ranks, rank 0 printing), else `host()`."""
+    from jegal_torch.parallel import mesh as M
+
+    if not args.on_device:
+        print(json.dumps(host(), indent=2))
+        return
+    with _data_mesh(args) as mesh:
+        res = run(mesh)
+        if M.is_main(mesh):
+            print(json.dumps(res, indent=2))
 
 
 def cmd_eval_retrieval(args):
     from jegal_torch.eval import retrieval
 
-    if args.on_device:
-        res = retrieval.evaluate_device(args.path, device=args.device)
-    else:
-        res = retrieval.evaluate(args.path)
-    print(json.dumps(res, indent=2))
+    _device_eval(args, lambda mesh: retrieval.evaluate_device(
+        args.path, device=args.device, mesh=mesh),
+        lambda: retrieval.evaluate(args.path))
 
 
 def cmd_eval_spotting(args):
     from jegal_torch.eval import spotting
 
-    if args.on_device:
-        res = spotting.evaluate_device(args.path, args.threshold,
-                                       args.frame_threshold,
-                                       device=args.device)
-    else:
-        res = spotting.evaluate(args.path, args.threshold,
-                                args.frame_threshold)
-    print(json.dumps(res, indent=2))
+    _device_eval(args, lambda mesh: spotting.evaluate_device(
+        args.path, args.threshold, args.frame_threshold, device=args.device,
+        mesh=mesh), lambda: spotting.evaluate(args.path, args.threshold,
+                                              args.frame_threshold))
 
 
 class Rows:
@@ -779,11 +878,9 @@ def cmd_eval_asd(args):
     from jegal_torch.eval import asd
 
     table = Rows(read_csv(args.file))
-    if args.on_device:
-        res = asd.evaluate_device(args.path, table, device=args.device)
-    else:
-        res = asd.evaluate(args.path, table)
-    print(json.dumps(res, indent=2))
+    _device_eval(args, lambda mesh: asd.evaluate_device(
+        args.path, table, device=args.device, mesh=mesh),
+        lambda: asd.evaluate(args.path, table))
 
 
 def cmd_heatmap(args):
@@ -903,12 +1000,17 @@ def cmd_warmup(args):
 def cmd_serve(args):
     from jegal_torch.serving import serve
 
-    engine = _load_engine(args)
-    combos = [c for c in args.warmup_combos.split(",") if c]
-    serve(engine, host=args.host, port=args.port, warmup_combos=combos,
-          batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
-          max_body_bytes=args.max_body_mb * 1024 * 1024,
-          warmup_frames=args.warmup_frames)
+    if args.data_parallel and args.batch_window_ms <= 0:
+        raise SystemExit(
+            "--data_parallel requires --batch_window_ms > 0: requests run "
+            "data-parallel only through the cross-request batcher")
+    with _data_mesh(args, args.data_parallel) as mesh:
+        engine = _load_engine(args)
+        combos = [c for c in args.warmup_combos.split(",") if c]
+        serve(engine, host=args.host, port=args.port, warmup_combos=combos,
+              batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+              mesh=mesh, max_body_bytes=args.max_body_mb * 1024 * 1024,
+              warmup_frames=args.warmup_frames)
 
 
 def cmd_convert(args):
@@ -1010,7 +1112,4 @@ COMMANDS = {
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, msg in NOT_YET.items():
-        if getattr(args, flag, False):
-            raise SystemExit(msg)
     COMMANDS[args.cmd](args)

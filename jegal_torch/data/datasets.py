@@ -115,23 +115,42 @@ def extract_embeddings_csv(engine, csv_path: str, video_dir: str,
                            feature_dir: str, res_dir: str,
                            modalities: str = "vta", rank: int = 0,
                            nshard: int = 1, prefetch: int = 2,
-                           batch_size: int = 1) -> dict:
+                           batch_size: int = 1, mesh=None) -> dict:
     """Run the engine over a CSV shard; returns an accounting dict.
 
     batch_size > 1 groups bucket-compatible samples into device batches
     through extract_many, whose rows equal per-sample extraction's.
+
+    mesh: a ('data', 'model') DeviceMesh; a collective call. Every rank
+    reads the same rows (no shard: rank and nshard must stay 0 and 1),
+    takes the outputs that rank 0 found already written as skipped, and
+    runs extract_many(mesh=) on the same batches; rank 0 alone writes the
+    .pkl files. Every rank returns the same counts.
     """
+    from jegal_torch.parallel import mesh as M
+
+    if mesh is not None and nshard > 1:
+        raise ValueError("a mesh runs every rank on the whole CSV: shard it "
+                         "by rank / nshard without a mesh")
     rows = read_csv(csv_path)
     if nshard > 1:
         rows = rows[rank::nshard]
-    os.makedirs(res_dir, exist_ok=True)
+    writes = M.is_main(mesh)
+    exists = os.path.exists
+    if mesh is not None:     # rank 0's view of the outputs, for every rank
+        exists = M.broadcast_object({
+            p for p in (os.path.join(res_dir, _out_name(r["filename"]))
+                        for r in rows) if os.path.exists(p)}
+            if writes else None, mesh).__contains__
+    if writes:
+        os.makedirs(res_dir, exist_ok=True)
 
     stats = {"done": 0, "skipped": 0, "failed": 0, "invalid": 0}
     errors = []
 
     def prepare(row):
         out_path = os.path.join(res_dir, _out_name(row["filename"]))
-        if os.path.exists(out_path):
+        if exists(out_path):
             return ("skip", out_path, None, None)
         try:
             return ("ok", out_path, load_sample(row, video_dir, feature_dir,
@@ -142,8 +161,9 @@ def extract_embeddings_csv(engine, csv_path: str, video_dir: str,
     def save(feats, row, out_path):
         feats["info"] = dict(row)  # full CSV row (phrase, boundaries,
         # target_word_boundary, neg_files, ...) — needed by the evals
-        with open(out_path, "wb") as f:
-            pickle.dump(feats, f)
+        if writes:
+            with open(out_path, "wb") as f:
+                pickle.dump(feats, f)
         stats["done"] += 1
 
     pending = []  # (payload, row, out_path) accumulated for a device batch
@@ -153,7 +173,7 @@ def extract_embeddings_csv(engine, csv_path: str, video_dir: str,
             return
         results = engine.extract_many([p for p, _, _ in pending],
                                       modalities=modalities,
-                                      batch_size=batch_size)
+                                      batch_size=batch_size, mesh=mesh)
         for feats, (_, row, out_path) in zip(results, pending):
             if feats is None:
                 stats["invalid"] += 1
@@ -176,7 +196,7 @@ def extract_embeddings_csv(engine, csv_path: str, video_dir: str,
                 stats["failed"] += 1
                 errors.append({"file": str(row["filename"]), "error": payload})
                 continue
-            if batch_size <= 1:
+            if batch_size <= 1 and mesh is None:
                 try:
                     feats = engine.extract(**payload)
                 except ClientError as e:
@@ -204,6 +224,7 @@ def extract_embeddings_csv(engine, csv_path: str, video_dir: str,
                     flush()
         flush()
 
-    for e in errors:
-        print(json.dumps(e), file=sys.stderr)
+    if writes:
+        for e in errors:
+            print(json.dumps(e), file=sys.stderr)
     return stats

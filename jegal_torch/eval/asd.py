@@ -102,9 +102,14 @@ def _asd_batch_device(query, cands, cand_count, speakers):
             for n_spk in speakers}
 
 
-def evaluate_device(res_dir: str, df, device="cuda") -> dict:
-    """`evaluate`, with every query's scoring in one batch on `device`."""
+def evaluate_device(res_dir: str, df, device="cuda", mesh=None) -> dict:
+    """`evaluate`, with every query's scoring in one batch on `device`.
+    mesh: a collective call: the queries pad to a multiple of the 'data'
+    size (as the JAX package pads them), each rank scores its rows, and
+    the predictions are gathered over 'data', so that every rank reduces
+    them to the same rates."""
     from jegal_torch.api import resolve_device
+    from jegal_torch.parallel import mesh as M
 
     dev = resolve_device(device)
     queries, cand_sets = [], []
@@ -118,16 +123,17 @@ def evaluate_device(res_dir: str, df, device="cuda") -> dict:
         return out
     d = queries[0].shape[0]
     s_max = max(max(len(c) for c in cand_sets), max(ASD_SPEAKERS))
-    q = np.zeros((evaluated, d), np.float32)
-    cands = np.zeros((evaluated, s_max, d), np.float32)
-    count = np.zeros((evaluated,), np.int64)
+    n_pad = M.round_to_data(evaluated, mesh)
+    q = np.zeros((n_pad, d), np.float32)
+    cands = np.zeros((n_pad, s_max, d), np.float32)
+    count = np.ones((n_pad,), np.int64)     # a pad row: one dummy candidate
     for i, (qc, cs) in enumerate(zip(queries, cand_sets)):
         q[i] = qc
         cands[i, :len(cs)] = np.stack(cs)
         count[i] = len(cs)
-    preds = _asd_batch_device(*(torch.from_numpy(a).to(dev)
-                                for a in (q, cands, count)), ASD_SPEAKERS)
+    preds = _asd_batch_device(*M.put_batch((q, cands, count), mesh, dev),
+                              ASD_SPEAKERS)
     for n_spk in ASD_SPEAKERS:
-        out[f"acc_{n_spk}spk"] = float(
-            (preds[n_spk].cpu().numpy() == 0).mean())
+        pred = M.gather_rows(preds[n_spk], mesh)[:evaluated]
+        out[f"acc_{n_spk}spk"] = float((pred.cpu().numpy() == 0).mean())
     return out

@@ -79,18 +79,26 @@ def evaluate(path: str) -> dict:
 # On a device
 # ---------------------------------------------------------------------------
 
-def _metrics_on_device(emb_q, emb_k, valid) -> dict:
-    """emb_q, emb_k: (N, D) float32 tensors; valid: (N,) 1 for a real row,
+def _metrics_on_device(emb_q, emb_k, valid, offset: int = 0,
+                       mesh=None) -> dict:
+    """emb_q: (n, D) float32 query rows offset .. offset + n of the N (all
+    of them without a mesh), emb_k: (N, D); valid: (N,) 1 for a real row,
     0 for a pad row. rank_i = #{valid j : sim[i, j] > sim[i, i]}, the
-    0-based rank of the diagonal (the numpy sort's without ties)."""
+    0-based rank of the diagonal (the numpy sort's without ties); under a
+    mesh each rank ranks its query rows and the ranks are gathered over
+    'data', so that every rank reduces every row's rank to the same
+    metrics (the median needs them all)."""
+    from jegal_torch.parallel import mesh as M
+
     def norm(x):
         return x / torch.linalg.norm(x, dim=1, keepdim=True).clamp_min(1e-12)
 
     sim = norm(emb_q) @ norm(emb_k).T
     # the diagonal from the same product values the ranks compare against
-    diag = torch.diagonal(sim)
+    rows = torch.arange(sim.shape[0], device=sim.device)
+    diag = sim[rows, rows + offset]
     beats = (sim > diag[:, None]) & (valid[None, :] == 1.0)
-    ranks = beats.sum(dim=1).to(torch.float32)
+    ranks = M.gather_rows(beats.sum(dim=1).to(torch.float32), mesh)
     rowmask = valid == 1.0
     n = valid.sum()
 
@@ -109,23 +117,34 @@ def _metrics_on_device(emb_q, emb_k, valid) -> dict:
 
 
 def compute_metrics_device(emb_q: np.ndarray, emb_k: np.ndarray,
-                           device="cuda") -> dict:
+                           device="cuda", mesh=None) -> dict:
     """`compute_metrics(similarity_matrix(emb_q, emb_k))` with the (N, N)
-    similarity and the ranks on `device`."""
+    similarity and the ranks on `device`. mesh: a collective call (every
+    rank with the same embeddings): the query rows pad to a multiple of
+    the 'data' size (as the JAX package pads them), each rank takes its
+    rows of them against every key, and every rank returns the metrics."""
     from jegal_torch.api import resolve_device
+    from jegal_torch.parallel import mesh as M
 
     dev = resolve_device(device)
-    q = torch.as_tensor(np.asarray(emb_q, np.float32), device=dev)
-    k = torch.as_tensor(np.asarray(emb_k, np.float32), device=dev)
-    valid = torch.ones(q.shape[0], dtype=torch.float32, device=dev)
-    return {name: float(v) for name, v in
-            _metrics_on_device(q, k, valid).items()}
+    n = emb_q.shape[0]
+    n_pad = M.round_to_data(n, mesh)
+    q = np.zeros((n_pad, emb_q.shape[1]), np.float32)
+    k = np.zeros((n_pad, emb_k.shape[1]), np.float32)
+    q[:n], k[:n] = emb_q, emb_k
+    valid = np.zeros((n_pad,), np.float32)
+    valid[:n] = 1.0
+    rows = M.batch_rows(n_pad, mesh)
+    return {name: float(v) for name, v in _metrics_on_device(
+        *(torch.from_numpy(a).to(dev) for a in (q[rows], k, valid)),
+        rows.start, mesh).items()}
 
 
-def evaluate_device(path: str, device="cuda") -> dict:
-    """`evaluate`, with the O(N^2) similarity and rank math on `device`."""
+def evaluate_device(path: str, device="cuda", mesh=None) -> dict:
+    """`evaluate`, with the O(N^2) similarity and rank math on `device`
+    (over the mesh's 'data' ranks with a mesh: a collective call)."""
     gesture, content, _ = load_video_level_embeddings(path)
     return {
-        "c2g": compute_metrics_device(content, gesture, device),
-        "g2c": compute_metrics_device(gesture, content, device),
+        "c2g": compute_metrics_device(content, gesture, device, mesh),
+        "g2c": compute_metrics_device(gesture, content, device, mesh),
     }

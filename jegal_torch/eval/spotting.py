@@ -97,11 +97,15 @@ def _spot_batch_device(gesture, content, t_valid, w_valid, word_idx,
     return row.argmax(dim=1), row.amax(dim=1)
 
 
-def predict_device(path: str, device="cuda") -> list:
+def predict_device(path: str, device="cuda", mesh=None) -> list:
     """Each .pkl's (target word boundary, pred_frame, pred_score), in
     `list_embedding_files` order, with the attention and argmax batched on
-    `device`: `spot_word`'s prediction for every video at once."""
+    `device`: `spot_word`'s prediction for every video at once. mesh: a
+    collective call: each group's videos pad to a multiple of the 'data'
+    size (as the JAX package pads them), each rank computes its rows and
+    the predictions are gathered over 'data', on every rank."""
     from jegal_torch.api import resolve_device
+    from jegal_torch.parallel import mesh as M
 
     dev = resolve_device(device)
     videos = []
@@ -136,31 +140,33 @@ def predict_device(path: str, device="cuda") -> list:
     score = np.zeros((n,), np.float64)
     for idxs in groups:
         m = len(idxs)
+        m_pad = M.round_to_data(m, mesh)
         t_max = max(videos[i][0].shape[0] for i in idxs)
         w_max = max(videos[i][1].shape[0] for i in idxs)
-        gest = np.zeros((m, t_max, d), np.float32)
-        cont = np.zeros((m, w_max, d), np.float32)
-        t_valid = np.ones((m,), np.int64)
-        w_valid = np.ones((m,), np.int64)
-        word_idx = np.zeros((m,), np.int64)
+        gest = np.zeros((m_pad, t_max, d), np.float32)
+        cont = np.zeros((m_pad, w_max, d), np.float32)
+        t_valid = np.ones((m_pad,), np.int64)   # a pad row: one dummy each
+        w_valid = np.ones((m_pad,), np.int64)
+        word_idx = np.zeros((m_pad,), np.int64)
         for bi, i in enumerate(idxs):
             g, c, wi, _ = videos[i]
             gest[bi, :g.shape[0]] = g
             cont[bi, :c.shape[0]] = c
             t_valid[bi], w_valid[bi], word_idx[bi] = g.shape[0], c.shape[0], wi
-        p, s = _spot_batch_device(
-            *(torch.from_numpy(a).to(dev)
-              for a in (gest, cont, t_valid, w_valid, word_idx)), TEMP)
-        pred[idxs], score[idxs] = p.cpu().numpy(), s.cpu().numpy()
+        p, s = (M.gather_rows(x, mesh) for x in _spot_batch_device(
+            *M.put_batch((gest, cont, t_valid, w_valid, word_idx), mesh, dev),
+            TEMP))
+        pred[idxs], score[idxs] = p[:m].cpu().numpy(), s[:m].cpu().numpy()
     return [(target, int(pred[i]), float(score[i]))
             for i, (_, _, _, target) in enumerate(videos)]
 
 
 def evaluate_device(path: str, thresh: float = SPOT_THRESHOLD,
                     frame_thresh: int = SPOT_FRAME_THRESHOLD,
-                    device="cuda") -> dict:
-    """`evaluate`, with the predictions from `predict_device`."""
-    preds = predict_device(path, device)
+                    device="cuda", mesh=None) -> dict:
+    """`evaluate`, with the predictions from `predict_device` (a collective
+    call with a mesh)."""
+    preds = predict_device(path, device, mesh)
     if not preds:
         return {"accuracy": 0.0, "correct": 0, "total": 0}
     correct = sum(int(_hit(target, pred, score, thresh, frame_thresh))

@@ -231,6 +231,57 @@ def extract_features_batch_planar(params, planar_u8, chunk: int = 160,
     return _batch_tokens_to_feats(params, tokens)
 
 
+def shard_batch_tower(fn, mesh):
+    """The data-parallel contract of the batched tower entries (the JAX
+    package's shard_map over 'data'): wrap fn(params, frames (B, ...), cut
+    (B, T) | None) -> (B, T, 1024) so that each rank runs it on its rows
+    [d B / dp, (d + 1) B / dp) alone, with the params replicated, and the
+    rows are gathered over 'data' (parallel/mesh.gather_rows), every rank
+    returning the whole (B, T, 1024). Clips are independent, so the tower
+    itself needs no collective. B must be a multiple of dp, else
+    ValueError. The one wrapper of the raw and planar entries, so their
+    row specs cannot diverge; fn itself without a mesh."""
+    from jegal_torch.parallel import mesh as M
+
+    if mesh is None:
+        return fn
+
+    def sharded(params, frames, cut=None):
+        rows = M.batch_rows(frames.shape[0], mesh)
+        return M.gather_rows(fn(params, frames[rows],
+                                None if cut is None else cut[rows]), mesh)
+
+    return sharded
+
+
+def extract_features_batch_raw_sharded(params, frames_u8, cut, mesh,
+                                       chunk: int = 160,
+                                       stem_impl: str = "band",
+                                       conv2_impl: str = "dense"):
+    """extract_features_batch_raw with the clips over 'data'
+    (shard_batch_tower)."""
+    def fn(p, frames, c):
+        return extract_features_batch_raw(p, frames, c, chunk=chunk,
+                                          stem_impl=stem_impl,
+                                          conv2_impl=conv2_impl)
+
+    return shard_batch_tower(fn, mesh)(params, frames_u8, cut)
+
+
+def extract_features_batch_planar_sharded(params, planar_u8, mesh,
+                                          chunk: int = 160,
+                                          stem_impl: str = "band",
+                                          conv2_impl: str = "dense"):
+    """extract_features_batch_planar with the clips over 'data'
+    (shard_batch_tower)."""
+    def fn(p, frames, _):
+        return extract_features_batch_planar(p, frames, chunk=chunk,
+                                             stem_impl=stem_impl,
+                                             conv2_impl=conv2_impl)
+
+    return shard_batch_tower(fn, mesh)(params, planar_u8)
+
+
 def forward_vid_windowed(params, clips):
     """Reference-exact per-window path, the oracle of the shared-conv path:
     clips (B, 25, 270, 480, 3) -> (B, 1024, 21) like reference forward_vid

@@ -8,7 +8,8 @@ step (jegal_tpu/training/trainer.py:205-219), written out.
                      After a row-parallel product, before its bias.
   gather_from_data   forward concatenates the data ranks' rows in rank
                      order; backward keeps this rank's rows of the
-                     gradient (not summed).
+                     gradient (not summed). `gather_rows` is its forward
+                     alone, for inference.
 
 Each is the identity, with no collective, when its group is None or has
 one rank. (torch.distributed.nn.functional.all_reduce is not
@@ -68,14 +69,22 @@ def _rows_of(n: int, group):
     return slice(r * n, (r + 1) * n)
 
 
+def gather_rows(x, group):
+    """`gather_from_data`'s forward with no autograd: this rank's rows ->
+    the data ranks' rows in rank order (x itself for a trivial group)."""
+    if _trivial(group):
+        return x
+    out = x.new_zeros((x.shape[0] * dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    out[_rows_of(x.shape[0], group)] = x
+    return _all_reduce(out, group)
+
+
 class _GatherFromData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group, ctx.n = group, x.shape[0]
-        out = x.new_zeros((x.shape[0] * dist.get_world_size(group),)
-                          + tuple(x.shape[1:]))
-        out[_rows_of(x.shape[0], group)] = x
-        return _all_reduce(out, group)
+        return gather_rows(x, group)
 
     @staticmethod
     def backward(ctx, g):

@@ -18,12 +18,13 @@ dicts and lists are the containers, as in the parameter trees.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
 import torch.distributed as dist
 
-from jegal_torch.parallel.collectives import sum_over
+from jegal_torch.parallel import collectives as C
 
 AXES = ("data", "model")
 
@@ -125,15 +126,116 @@ def put_batch(arrays, mesh=None, device="cuda"):
     """Host (numpy or CPU tensor) batch arrays -> tensors on `device`: with
     a mesh, this rank's rows [d n / dp, (d + 1) n / dp) of each, so each
     rank moves only its own rows; raises when dp does not divide n."""
-    out = []
-    for a in arrays:
-        t = torch.as_tensor(a)
-        if mesh is not None:
-            t = t[_rows(t.shape[0], mesh.size(AXES.index("data")),
-                        mesh.get_local_rank("data"),
-                        "batch rows over 'data'")]
-        out.append(t.to(device))
-    return out
+    return [torch.as_tensor(a)[batch_rows(len(a), mesh)].to(device)
+            for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel inference
+#
+# An inference call on a mesh is collective: every rank calls with equal
+# arguments, computes the rows of its 'data' index (ranks that differ only
+# in their 'model' index compute the same rows: inference replicates over
+# 'model', as the JAX package's P("data") specs do) and gathers the whole
+# result over 'data', so every rank returns the same. A collective that
+# fails (a peer that raised, hung past the group's timeout or left) raises
+# CollectiveError, which callers let end the run.
+# ---------------------------------------------------------------------------
+
+CONTROL_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+class CollectiveError(RuntimeError):
+    """A collective of the mesh failed or its ranks disagree: the run
+    cannot go on (a rank that carried on would leave its peers waiting)."""
+
+
+def data_size(mesh) -> int:
+    """The mesh's 'data' size dp; 1 without a mesh."""
+    return 1 if mesh is None else mesh.size(AXES.index("data"))
+
+
+def round_to_data(n: int, mesh) -> int:
+    """n rounded up to a multiple of dp (a batch each data rank can take an
+    equal share of)."""
+    dp = data_size(mesh)
+    return -(-n // dp) * dp
+
+
+def batch_rows(n: int, mesh) -> slice:
+    """This rank's rows [d n / dp, (d + 1) n / dp) of an n-row batch (all
+    of them without a mesh); raises ValueError when dp does not divide n."""
+    if mesh is None:
+        return slice(0, n)
+    return _rows(n, data_size(mesh), mesh.get_local_rank("data"),
+                 "batch rows over 'data'")
+
+
+def is_main(mesh) -> bool:
+    """Whether this process writes a collective call's files and prints its
+    results: the mesh's rank 0, or any process without a mesh."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _collective(fn, what: str):
+    try:
+        return fn()
+    except RuntimeError as e:
+        if isinstance(e, CollectiveError):
+            raise
+        raise CollectiveError(f"{what} over the mesh failed: {e}") from e
+
+
+def gather_rows(x, mesh):
+    """Inference's gather: this rank's rows of a batch -> the whole batch,
+    the data ranks' rows in rank order, on every rank (an all-reduce of a
+    zeroed buffer: exact, see parallel/collectives.py), with no autograd
+    state; x itself without a mesh."""
+    if mesh is None:
+        return x
+    with torch.inference_mode():
+        return _collective(lambda: C.gather_rows(x, mesh.get_group("data")),
+                           "the gather of a batch's rows")
+
+
+def control_group(mesh):
+    """The mesh's host control group: gloo over all its ranks, made at the
+    first call on a mesh (a collective: every rank makes that call at the
+    same point of the run) and kept with it, with a finite timeout."""
+    group = getattr(mesh, "_jegal_control", None)
+    if group is None:
+        group = _collective(lambda: dist.new_group(
+            backend="gloo", timeout=CONTROL_TIMEOUT), "making the control "
+            "group")
+        mesh._jegal_control = group
+    return group
+
+
+def broadcast_object(obj, mesh):
+    """A picklable object from the mesh's rank 0 to every rank (the others'
+    `obj` is ignored) -> rank 0's object; obj itself without a mesh or on
+    one rank."""
+    if mesh is None or dist.get_world_size() == 1:
+        return obj
+    box = [obj if dist.get_rank() == 0 else None]
+    _collective(lambda: dist.broadcast_object_list(
+        box, src=0, group=control_group(mesh)), "a broadcast from rank 0")
+    return box[0]
+
+
+def check_same(obj, mesh, what: str) -> None:
+    """Raise CollectiveError on every rank unless every rank of the mesh
+    holds an equal `obj` (the plan of a collective call: ranks that would
+    run different chunks must not enter the collectives)."""
+    if mesh is None or dist.get_world_size() == 1:
+        return
+    seen = [None] * dist.get_world_size()
+    _collective(lambda: dist.all_gather_object(seen, obj,
+                                               group=control_group(mesh)),
+                f"comparing the ranks' {what}")
+    if any(s != seen[0] for s in seen):
+        raise CollectiveError(f"the ranks disagree on {what}: a collective "
+                              f"call needs equal arguments on every rank")
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +386,7 @@ def gather_leaves(xs, specs, mesh) -> list:
             full = xs[i].new_zeros(shape)
             full.narrow(dim, mesh.get_local_rank(axis) * n, n).copy_(xs[i])
             fulls.append(full)
-        sum_over(fulls, group)
+        C.sum_over(fulls, group)
         for i, full in zip(which, fulls):
             xs[i] = full
     return xs

@@ -35,6 +35,16 @@ the request thread, outside the lock, by the C++ repack
 (host/csrc/repack.cc, no libav). Its library is built when a server for
 an engine with GestSync weights is created: a build that fails raises
 there, never per request.
+
+Data-parallel serving (`mesh=`, a ('data', 'model') DeviceMesh, one
+process a rank): rank 0 binds the address, runs the handlers and the
+batcher, and before each batched `extract_many(mesh=)` broadcasts the
+batch's (modalities, samples) over the mesh's control group; every other
+rank warms the same graphs and then `follow`s, making the same collective
+call for each broadcast batch until rank 0 broadcasts None at shutdown.
+An idle rank 0 broadcasts an empty heartbeat every HEARTBEAT_S, so that
+no follower waits past the control group's timeout; a collective that
+fails ends every rank's run.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import contextlib
 import io
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -51,6 +62,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from jegal_torch.api import ClientError
+from jegal_torch.parallel import mesh as M
+
+HEARTBEAT_S = 60.0      # an idle rank 0's beat to the followers
 
 
 def encode_array(arr) -> str | None:
@@ -141,15 +155,25 @@ class _Batcher:
     SUBMIT_TIMEOUT_S = 600.0
 
     def __init__(self, engine, window_ms: float, max_batch: int,
-                 lock: threading.Lock):
+                 lock: threading.Lock, mesh=None, on_death=None):
         self.engine = engine
         self.window = window_ms / 1000.0
         self.max_batch = max_batch
         self.lock = lock        # shared with the unbatched path
+        self.mesh = mesh        # data-parallel extract_many, rank 0's side
+        self.on_death = on_death
         self.q: queue.Queue = queue.Queue()
         self.dead: BaseException | None = None
         self._inflight: list = []   # items dequeued but not yet answered
-        threading.Thread(target=self._run, daemon=True).start()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        """Stop the worker after the batches already queued (under a mesh
+        it then broadcasts None, which ends the followers' loops) and wait
+        for it."""
+        self.q.put(None)
+        self._thread.join()
 
     def submit(self, modalities: str, sample: dict):
         """Blocking; -> result dict | None (rejected) | raises the
@@ -187,6 +211,8 @@ class _Batcher:
                 self._run_loop()
         except BaseException as e:  # noqa: BLE001 — deliberate backstop
             self.dead = e
+            if self.on_death is not None:
+                self.on_death()
             err = RuntimeError(f"batcher worker died: {e!r}")
             # in-flight items were already dequeued — error them first,
             # then drain whatever is still queued
@@ -196,15 +222,29 @@ class _Batcher:
                     ev.set()
             while True:
                 try:
-                    _, _, ev, slot = self.q.get_nowait()
+                    item = self.q.get_nowait()
                 except queue.Empty:
                     break
-                slot["error"] = err
-                ev.set()
+                if item is not None:
+                    item[3]["error"] = err
+                    item[2].set()
+
+    def _next(self):
+        """The next queued item; under a mesh, an idle wait broadcasts a
+        heartbeat every HEARTBEAT_S."""
+        while True:
+            try:
+                return self.q.get(timeout=None if self.mesh is None
+                                  else HEARTBEAT_S)
+            except queue.Empty:
+                M.broadcast_object((), self.mesh)
 
     def _run_loop(self):
         while True:
-            items = [self.q.get()]
+            items = [self._next()]
+            if items[0] is None:
+                M.broadcast_object(None, self.mesh)
+                return
             self._inflight = items
             deadline = time.monotonic() + self.window
             while len(items) < self.max_batch:
@@ -215,23 +255,25 @@ class _Batcher:
                     items.append(self.q.get(timeout=left))
                 except queue.Empty:
                     break
+                if items[-1] is None:     # close: after this batch
+                    self.q.put(items.pop())
+                    break
             by_mod: dict = {}
             for it in items:
                 by_mod.setdefault(it[0], []).append(it)
             for mod, group in by_mod.items():
+                samples = [g[1] for g in group]
                 try:
                     # one card: shared with the unbatched path. extract_many
                     # fetches every result to the host before it returns,
                     # so no replay can overwrite an output after the lock
                     with self.lock:
-                        results = self.engine.extract_many(
-                            [g[1] for g in group], modalities=mod,
-                            batch_size=self.max_batch,
-                            # every live call pads to max_batch: the ONE
-                            # batch size serve() warmed. The power-of-two
-                            # ladder would capture a new (key, shape,
-                            # batch) graph inside a request
-                            ladder=False)
+                        M.broadcast_object((mod, samples, self.max_batch),
+                                           self.mesh)
+                        results = _extract_batch(self.engine, mod, samples,
+                                                 self.max_batch, self.mesh)
+                except M.CollectiveError:
+                    raise
                 except Exception:
                     # per-request isolation: one malformed batchmate must
                     # not fail the others — retry each sample alone and
@@ -274,6 +316,34 @@ class _Batcher:
                     sample.get("word_boundaries"), sample.get("wav"))
         except ClientError as e:
             slot["error"] = e
+
+
+def _extract_batch(engine, mod: str, samples: list, max_batch: int, mesh):
+    """The batcher's one engine call, on every rank alike: every call pads
+    to max_batch, the ONE batch size `warmup` warmed (the power-of-two
+    ladder would capture a new (key, shape, batch) graph inside a
+    request)."""
+    return engine.extract_many(samples, modalities=mod, batch_size=max_batch,
+                               ladder=False, mesh=mesh)
+
+
+def follow(engine, mesh) -> None:
+    """A data-parallel server's rank > 0: make rank 0's batched call for
+    each batch it broadcasts (its heartbeats aside), until it broadcasts
+    None. A call that raises alike on every rank (rank 0 retries its
+    samples one by one, on its own card) is left for the next batch; a
+    failed collective ends the run."""
+    with on_engine_device(engine):
+        while (msg := M.broadcast_object(None, mesh)) is not None:
+            if not msg:
+                continue
+            try:
+                _extract_batch(engine, *msg, mesh)
+            except M.CollectiveError:
+                raise
+            except Exception as e:  # noqa: BLE001 — rank 0 answers for it
+                print(f"follower: a batch raised {e!r}; rank 0 retries its "
+                      f"samples alone", file=sys.stderr, flush=True)
 
 
 def _repack_raw(frames: np.ndarray) -> np.ndarray:
@@ -428,34 +498,68 @@ DEFAULT_MAX_BODY = 512 * 1024 * 1024  # raw-frames payloads are large
                                       # (125 frames uint8 ~ 65 MB as b64)
 
 
+class _Server(ThreadingHTTPServer):
+    """The HTTP server; `server_close` also stops its batcher (under a
+    mesh, that ends the followers' loops)."""
+
+    batcher: _Batcher | None = None
+
+    def server_close(self):
+        super().server_close()
+        if self.batcher is not None:
+            self.batcher.close()
+
+
+def _check_mesh_window(mesh, batch_window_ms: float) -> None:
+    if mesh is not None and batch_window_ms <= 0:
+        # without a window every request runs engine.extract on one clip:
+        # the mesh would only steer warmup into graphs no request replays
+        raise ValueError("data-parallel serving (mesh=...) requires "
+                         "batch_window_ms > 0 — requests run data-parallel "
+                         "only through the cross-request batcher")
+
+
 def create_server(engine, host: str = "127.0.0.1", port: int = 8000,
                   batch_window_ms: float = 0.0,
-                  max_batch: int = 8,
+                  max_batch: int = 8, mesh=None,
                   max_body_bytes: int = DEFAULT_MAX_BODY
                   ) -> ThreadingHTTPServer:
-    """Build (but do not start) the HTTP server; `.serve_forever()` runs it.
-    Port 0 binds an ephemeral port (tests). batch_window_ms > 0 batches
-    concurrent requests into one engine call (_Batcher). For an engine
-    with GestSync weights the C++ repack of raw frames is built and loaded
-    here, so that a failed build raises now and not inside a request.
+    """Build (but do not start) the HTTP server; `.serve_forever()` runs it,
+    `.shutdown()` and `.server_close()` stop it. Port 0 binds an ephemeral
+    port (tests). batch_window_ms > 0 batches concurrent requests into one
+    engine call (_Batcher). For an engine with GestSync weights the C++
+    repack of raw frames is built and loaded here, so that a failed build
+    raises now and not inside a request.
+
+    mesh: data-parallel serving, on the mesh's rank 0 (the other ranks run
+    `follow`): the batcher's calls are collective (needs batch_window_ms >
+    0, else ValueError), and a batcher that dies of a failed collective
+    shuts the server down.
 
     The endpoint has NO authentication and binds loopback by default;
     exposing it beyond localhost requires a fronting proxy / auth layer
     (pass host='0.0.0.0' explicitly). Bodies over max_body_bytes are
     rejected with 413 before being read."""
+    _check_mesh_window(mesh, batch_window_ms)
     if getattr(engine, "gestsync_params", None) is not None:
         from jegal_torch.host import media
 
         media.get_repack_lib()
     lock = threading.Lock()
-    batcher = (_Batcher(engine, batch_window_ms, max_batch, lock)
+    batcher = (_Batcher(engine, batch_window_ms, max_batch, lock, mesh=mesh)
                if batch_window_ms > 0 else None)
-    return ThreadingHTTPServer(
-        (host, port), _make_handler(engine, lock, batcher, max_body_bytes))
+    server = _Server((host, port),
+                     _make_handler(engine, lock, batcher, max_body_bytes))
+    server.batcher = batcher
+    if mesh is not None:
+        batcher.on_death = lambda: threading.Thread(target=server.shutdown,
+                                                    daemon=True).start()
+    return server
 
 
 def warmup(engine, warmup_combos=(), batch_window_ms: float = 0.0,
-           max_batch: int = 16, warmup_frames: str | None = None) -> None:
+           max_batch: int = 16, warmup_frames: str | None = None,
+           mesh=None) -> None:
     """Capture the graphs the traffic will hit, before the server takes
     any (what `serve` runs, as the JAX package's serve): the batcher pads
     every call to max_batch (extract_many with ladder=False), the
@@ -464,26 +568,40 @@ def warmup(engine, warmup_combos=(), batch_window_ms: float = 0.0,
     different graph from the two-stage forward; warmup_frames warms it for
     the kind the deployment expects ('planar' when clients or a fronting
     decoder repack, 'raw' for RGB uint8; the server repacks raw frames,
-    so raw traffic runs the planar graph)."""
+    so raw traffic runs the planar graph). mesh: the data-parallel graphs
+    (engine.warmup(mesh=)), on every rank alike."""
     warm_batch = max_batch if batch_window_ms > 0 else 1
     for combo in warmup_combos:
-        engine.warmup(modalities=combo, batch=warm_batch)
+        engine.warmup(modalities=combo, batch=warm_batch, mesh=mesh)
         if warmup_frames and "v" in combo:
             engine.warmup(modalities=combo, batch=warm_batch,
-                          frames_kind=warmup_frames)
+                          frames_kind=warmup_frames, mesh=mesh)
 
 
 def serve(engine, host: str = "127.0.0.1", port: int = 8000,
           warmup_combos=(), batch_window_ms: float = 0.0,
-          max_batch: int = 16,
+          max_batch: int = 16, mesh=None,
           max_body_bytes: int = DEFAULT_MAX_BODY,
           warmup_frames: str | None = None) -> None:
-    warmup(engine, warmup_combos, batch_window_ms, max_batch, warmup_frames)
+    """Warm, then serve until interrupted. mesh: every rank of the mesh
+    calls `serve` alike; rank 0 serves, the others `follow`. A batcher
+    that died of a failed collective ends the call with RuntimeError."""
+    _check_mesh_window(mesh, batch_window_ms)
+    warmup(engine, warmup_combos, batch_window_ms, max_batch, warmup_frames,
+           mesh)
+    if not M.is_main(mesh):
+        follow(engine, mesh)
+        return
     server = create_server(engine, host, port,
                            batch_window_ms=batch_window_ms,
-                           max_batch=max_batch,
+                           max_batch=max_batch, mesh=mesh,
                            max_body_bytes=max_body_bytes)
     print(json.dumps({"serving": f"http://{host}:{server.server_address[1]}",
                       "warmed": list(warmup_combos),
                       "batch_window_ms": batch_window_ms}), flush=True)
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+    if server.batcher is not None and server.batcher.dead is not None:
+        raise RuntimeError(f"the batcher died: {server.batcher.dead!r}")

@@ -189,10 +189,11 @@ def _train_two_ranks(ckpts, root):
     ["train", "--model_parallel", "3"],
 ], ids=lambda a: "_".join(a).replace("-", ""))
 def test_unported_options_exit(ckpts, argv, monkeypatch, tmp_path):
-    """An option that waits for a ROADMAP item exits naming it:
-    `--data_parallel` (item 4b). `--bf16` no longer waits: it reaches its
-    subcommand with the bf16 dtype. Nor does `train --model_parallel`:
-    at 2 it trains 2 steps under two gloo ranks, both ranks returning the
+    """No option waits for a ROADMAP item any more. `--bf16` reaches its
+    subcommand with the bf16 dtype. `extract-feats --data_parallel` reaches
+    it with no mesh in one process, and with the (2, 1) data mesh under
+    two gloo ranks of a torchrun-style launch. `train --model_parallel`
+    at 2 trains 2 steps under two gloo ranks, both ranks returning the
     same finite loss, and at 3 with WORLD_SIZE 4 it exits naming the
     divisibility."""
     required = {
@@ -226,8 +227,20 @@ def test_unported_options_exit(ckpts, argv, monkeypatch, tmp_path):
         with pytest.raises(SystemExit, match="does not divide the 4 ranks"):
             port(argv[:1] + required + argv[1:])
         return
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 4b"):
-        port(argv[:1] + required + argv[1:])
+    from torch_mesh_worker import cli_ranks
+
+    seen = []
+    monkeypatch.setattr(TCLI, "_extract_feats",
+                        lambda args, mesh: seen.append(mesh))
+    port(argv[:1] + required + argv[1:])
+    assert seen == [None]
+    outs = cli_ranks(argv[:1] + required + argv[1:] + ["--device", "cpu"], 2,
+                     tmp_path, prelude=(
+                         "import json\n"
+                         "from jegal_torch.cli import main as M\n"
+                         "M._extract_feats = lambda args, mesh: print("
+                         "json.dumps([list(mesh.shape), mesh.get_rank()]))"))
+    assert [json.loads(o) for o in outs] == [[[2, 1], 0], [[2, 1], 1]]
 
 
 def test_convert_round_trip(ckpts, tmp_path):
@@ -485,6 +498,14 @@ def test_shard_resolution(monkeypatch):
     ns = argparse.Namespace
     assert TCLI._resolve_shard(ns(rank=None, nshard=None)) == (0, 1)
     assert TCLI._resolve_shard(ns(rank=2, nshard=3)) == (2, 3)
+    # a torchrun launch that joins no group: the launcher's RANK and
+    # WORLD_SIZE, each flag still winning
+    monkeypatch.setenv("RANK", "2")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    assert TCLI._resolve_shard(ns(rank=None, nshard=None)) == (2, 3)
+    assert TCLI._resolve_shard(ns(rank=0, nshard=None)) == (0, 3)
+    monkeypatch.delenv("RANK")
+    monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda: 1)
     monkeypatch.setattr(dist, "get_world_size", lambda: 4)

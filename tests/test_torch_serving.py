@@ -480,7 +480,7 @@ def test_batcher_dispatches_without_ladder():
                     lock=threading.Lock())
     assert b.submit("t", {"text": "ab hello"}) == {"ok": True}
     assert calls and calls[0]["ladder"] is False
-    assert calls[0]["batch_size"] == 4 and "mesh" not in calls[0]
+    assert calls[0]["batch_size"] == 4 and calls[0]["mesh"] is None
 
 
 def test_poison_batch_does_not_stall_healthy_clients():
@@ -606,8 +606,12 @@ def test_serve_warms_what_jax_serve_warms(monkeypatch, capsys, window_ms,
     frames kind) for the same flags, in the same order, before it serves."""
     class NoServer:
         server_address = ("127.0.0.1", 1234)
+        batcher = None
 
         def serve_forever(self):
+            pass
+
+        def server_close(self):
             pass
 
     logs = {}
@@ -738,19 +742,27 @@ def test_cli_serve_prints_url_and_answers(ckpt_files, port_engine):
 @pytest.mark.parametrize("flag,item", [("--bf16", "item 3"),
                                        ("--data_parallel", "item 4")])
 def test_cli_serve_refuses_what_waits(flag, item, monkeypatch):
-    """`--data_parallel` exits naming its ROADMAP item; `--bf16` (item 3,
-    done) reaches `serve` with the bf16 dtype."""
+    """Neither option waits for its ROADMAP item any more: `--bf16` (item
+    3) reaches `serve` with the bf16 dtype, and `--data_parallel` (item 4)
+    runs (tests/test_torch_infer_mesh.py) but, as the JAX CLI's, exits
+    without a batch window (`--batch_window_ms` 0, the default), with the
+    JAX CLI's message."""
     import torch
 
     from jegal_torch.cli import main as TCLI
+    from jegal_tpu.cli import main as jax_main
 
-    argv = ["serve", "--checkpoint_path", "x.npz", flag, "--device", "cpu"]
+    argv = ["serve", "--checkpoint_path", "x.npz", flag]
     if flag == "--bf16":
         seen = []
         monkeypatch.setitem(TCLI.COMMANDS, "serve",
                             lambda args: seen.append(TCLI._dtype(args)))
-        TCLI.main(argv)
+        TCLI.main(argv + ["--device", "cpu"])
         assert seen == [torch.bfloat16]
         return
-    with pytest.raises(SystemExit, match=item):
-        TCLI.main(argv)
+    with pytest.raises(SystemExit) as port_exit:
+        TCLI.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as jax_exit:
+        jax_main(argv)
+    assert str(port_exit.value) == str(jax_exit.value)
+    assert "requires --batch_window_ms > 0" in str(port_exit.value)

@@ -17,7 +17,18 @@ Tasks:
          gathered gradient, parameters after one AdamW step; with
          "extras", remat, two-step accumulation and checkpoints across
          meshes;
-  loop   training.loop.train for 2 steps and then to 3 with a resume.
+  loop   training.loop.train for 2 steps and then to 3 with a resume;
+  infer  data-parallel inference (collective calls, every rank returning
+         what it got): `warmup(mesh=)` and the graphs a live call of the
+         same shapes adds, `extract_many(mesh=)` on `ta` samples and, with
+         "tower", on `v` raw frames, `shard_batch_tower` on raw and
+         planar frames and `gestsync_features_from_raw_many(mesh=)`; with
+         "evals", the three `evaluate_device(mesh=)`; with "serve", a
+         server on rank 0 (port 0, a batch window) answering `ta`
+         requests from threads while rank 1 follows, then shut down.
+
+`start_cli_ranks` / `cli_ranks` run `python -m jegal_torch` as torchrun-style
+ranks.
 """
 
 import json
@@ -121,6 +132,105 @@ def compare_params(got, want, grads, grads_want) -> dict:
                resolved=int(resolved.sum()),
                over=int((diff > PARAM_ATOL).sum()), elements=diff.numel())
     return out
+
+
+# ---------------------------------------------------------------------------
+# The inference tests' inputs (tests/test_torch_infer_mesh.py draws the
+# same ones for the JAX package and the port's one-rank references)
+# ---------------------------------------------------------------------------
+
+TINY_XLMR = dict(vocab_size=64, hidden_size=768, num_layers=1, num_heads=8,
+                 intermediate_size=256, max_position_embeddings=64)
+CLIP_T = (6, 8, 10)          # one T bucket (32): a chunk of 3, padded to 4
+
+
+def infer_weights():
+    """(JEGAL, GestSync, tiny XLM-R) trees in the JAX layout, and the XLM-R
+    config."""
+    from jegal_torch.convert import (
+        init_gestsync_params,
+        init_jegal_params,
+        init_roberta_params,
+    )
+    from jegal_torch.models.roberta import RobertaConfig
+
+    cfg = RobertaConfig(**TINY_XLMR)
+    return (init_jegal_params(torch.Generator().manual_seed(71)),
+            init_gestsync_params(torch.Generator().manual_seed(72)),
+            init_roberta_params(torch.Generator().manual_seed(73), cfg), cfg)
+
+
+def infer_engine():
+    """The port's CPU engine on infer_weights."""
+    from jegal_torch.api import JegalEngine
+    from jegal_torch.text.tokenizer import WordTokenizer
+    from tok_util import make_tiny_tokenizer
+
+    jp, gp, rp, cfg = infer_weights()
+    return JegalEngine(jp, gp, device="cpu", roberta_params=rp,
+                       roberta_cfg=cfg,
+                       tokenizer=WordTokenizer(make_tiny_tokenizer()))
+
+
+def infer_clips():
+    """Raw (T, 270, 480, 3) uint8 clips with chin rows, T of CLIP_T."""
+    import numpy as np
+
+    rng = np.random.default_rng(74)
+    return [(rng.integers(0, 256, (t, 270, 480, 3), dtype=np.uint8),
+             rng.integers(90, 200, t).astype(np.int64)) for t in CLIP_T]
+
+
+def planar_clips():
+    """infer_clips repacked and masked (ops/video.s2d_repack)."""
+    from jegal_torch.ops.video import s2d_repack
+
+    return [(s2d_repack(f, c), None) for f, c in infer_clips()]
+
+
+def infer_samples():
+    """Three `ta` samples (the features of `vta` beside them), one shape
+    signature: a chunk of 3, padded to 4."""
+    import numpy as np
+
+    rng = np.random.default_rng(75)
+    wbs = [["ab", 1, 3], ["hello", 4, 6], ["x", 7, 9]]
+    return [{"visual_feats": rng.standard_normal((8 + 2 * i, 1024))
+             .astype(np.float32), "text": "ab hello x",
+             "word_boundaries": wbs,
+             "wav": (rng.standard_normal(8000) * 300).astype(np.float32),
+             "fname": f"s{i}"} for i in range(3)]
+
+
+def fake_decode(video_path: str, planar: bool = True):
+    """cli.main._decode_for_features for the CLI tests' ranks: clip<i>.avi
+    -> planar_clips()[i] (no decoder needed)."""
+    i = int(Path(video_path).stem.removeprefix("clip"))
+    return planar_clips()[i]
+
+
+def start_cli_ranks(argv, world: int, root: Path, prelude: str = ""):
+    """Start `python -m jegal_torch ARGV` as `world` ranks of a torchrun
+    launch (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR and a free
+    MASTER_PORT on localhost), each running `prelude` first, their output
+    under `root` -> the processes (finish_ranks waits for them)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("import sys\n" + prelude
+            + "\nfrom jegal_torch.cli.main import main\nmain(sys.argv[1:])\n")
+    return start_ranks([([sys.executable, "-c", code, *argv],
+                         dict(RANK=str(r), LOCAL_RANK=str(r),
+                              WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(port)))
+                        for r in range(world)], root)
+
+
+def cli_ranks(argv, world: int, root: Path, prelude: str = ""):
+    """start_cli_ranks, waited for -> each rank's stdout."""
+    return finish_ranks(start_cli_ranks(argv, world, root, prelude), root)
 
 
 def collective_inputs(rank: int):
@@ -367,7 +477,127 @@ def _loop_task(mesh, rank, world, args):
     return [TL.train(steps=2, **kw), TL.train(steps=3, **kw)]
 
 
-TASKS = {"mesh": _mesh_task, "step": _step_task, "loop": _loop_task}
+def _shapes(engine, sample, modalities: str) -> dict:
+    """The S, W and mel buckets of a sample's `modalities` arrays."""
+    arrays = engine._prepare_sample(modalities, None, sample["text"],
+                                    sample["word_boundaries"],
+                                    sample["wav"])[0]
+    return dict(s=arrays["input_ids"].shape[1],
+                w=arrays["text_pool"].shape[1],
+                mel=arrays["audio_mel"].shape[1])
+
+
+def _post(url: str, sample: dict, modalities: str):
+    """A JSON /extract request -> (status, the answer's embeddings)."""
+    import urllib.request
+
+    from jegal_torch import serving
+
+    body = dict(modalities=modalities, text=sample["text"],
+                word_boundaries=sample["word_boundaries"],
+                wav=serving.encode_array(sample["wav"]),
+                fname=sample["fname"])
+    req = urllib.request.Request(url + "/extract",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        ans = json.loads(resp.read())
+        return resp.status, {k: serving.decode_array(ans[k])
+                             for k in ("gesture_emb", "content_emb")}
+
+
+def _serve_task(engine, mesh, rank, samples):
+    """Rank 0 serves (a batch window, max batch 4) and sends each sample as
+    a `ta` request from its own thread; the others follow until rank 0's
+    server_close ends them."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jegal_torch import serving
+
+    if rank != 0:
+        serving.follow(engine, mesh)
+        return {"followed": True}
+    server = serving.create_server(engine, port=0, batch_window_ms=200,
+                                   max_batch=4, mesh=mesh)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with ThreadPoolExecutor(len(samples)) as ex:
+            answers = list(ex.map(lambda s: _post(url, s, "ta"), samples))
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return {"served": answers, "healthz": health}
+
+
+def _infer_task(mesh, rank, world, args):
+    import numpy as np
+
+    from jegal_torch.cli.main import Rows
+    from jegal_torch.eval import asd, retrieval, spotting
+    from jegal_torch.models import gestsync as G
+
+    engine = infer_engine()
+    samples = infer_samples()
+    out = {}
+    # warm what the live calls below replay, then hold the cache to it
+    engine.warmup("ta", batch=3, mesh=mesh,
+                  **_shapes(engine, samples[0], "ta"))
+    if args.get("tower"):
+        engine.warmup("v", t=32, batch=3, frames_kind="raw", mesh=mesh)
+    warmed = list(engine.cached_graphs)
+    out["ta"] = engine.extract_many(samples, "ta", batch_size=4, mesh=mesh)
+    if args.get("tower"):
+        clips = infer_clips()
+        out["v"] = engine.extract_many(
+            [dict(frames=f, chin_rows=c, fname=f"clip{i}")
+             for i, (f, c) in enumerate(clips)], "v", batch_size=4,
+            mesh=mesh)
+    out["graphs_added"] = [g for g in engine.cached_graphs
+                           if g not in warmed]
+    out["graphs"] = len(engine.cached_graphs)
+    if args.get("tower"):
+        gp = engine.gestsync_params
+        fr = np.zeros((4, 32, 270, 480, 3), np.uint8)
+        cut = np.zeros((4, 32), np.int64)
+        engine._fill_frames(fr, cut, clips)
+        feats = G.extract_features_batch_raw_sharded(
+            gp, torch.from_numpy(fr), torch.from_numpy(cut), mesh,
+            conv2_impl="kernel")
+        out["tower_raw"] = [feats[i, :t].numpy()
+                            for i, t in enumerate(CLIP_T)]
+        planar = planar_clips()
+        fr = np.zeros((4, 32, 90, 27, 160), np.uint8)
+        engine._fill_frames(fr, None, planar)
+        feats = G.extract_features_batch_planar_sharded(
+            gp, torch.from_numpy(fr), mesh, conv2_impl="kernel")
+        out["tower_planar"] = [feats[i, :t].numpy()
+                               for i, t in enumerate(CLIP_T)]
+        out["raw_many"] = engine.gestsync_features_from_raw_many(
+            planar, batch_size=4, mesh=mesh)
+    if args.get("evals"):
+        ev = args["evals"]
+        out["retrieval"] = retrieval.evaluate_device(ev["retrieval"], "cpu",
+                                                     mesh)
+        out["spotting"] = spotting.evaluate_device(ev["spotting"],
+                                                   device="cpu", mesh=mesh)
+        out["spot_preds"] = spotting.predict_device(ev["spotting"], "cpu",
+                                                    mesh)
+        out["asd"] = asd.evaluate_device(ev["asd"], Rows(ev["asd_rows"]),
+                                         "cpu", mesh)
+    if args.get("serve"):
+        out.update(_serve_task(engine, mesh, rank, samples))
+    engine.close()
+    return out
+
+
+TASKS = {"mesh": _mesh_task, "step": _step_task, "loop": _loop_task,
+         "infer": _infer_task}
 
 
 def main(argv):

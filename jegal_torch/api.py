@@ -26,6 +26,18 @@ are written on the host into pinned staging buffers kept with each graph
 and uploaded without blocking the host. A capture that fails raises. On
 the CPU the same ledger holds the eager forward, which runs as it is.
 
+Spans (utils/profiling.annotate; a flag check when no profiler runs),
+all on the calling thread but the prep workers': one a call
+(`jt.extract_many`, `jt.tower_many`) holding four kinds of leaves that
+never nest or overlap: `jt.prep` (`_prep_map`), `jt.stage` (a chunk's
+inputs made ready on the host), `jt.launch` (its upload, replay or eager
+tower, and the queued fetch) and `jt.settle` (`_pipeline`'s fetch and
+post-processing of one chunk); `jt.capture` (a graph's capture) and
+`jt.stage.wait` (a wait for an older upload) open inside `jt.stage`
+when they happen, and `jt.prep.text` / `jt.prep.audio` inside each
+sample's prep. `extract` and `warmup` get the stage and launch spans of
+the helpers they share.
+
 Data-parallel inference (`mesh=` on `extract_many`,
 `gestsync_features_from_raw_many` and `warmup`; the JAX engine's `mesh`,
 which shards a batch over its devices' 'data' axis) is one process a
@@ -97,6 +109,7 @@ from jegal_torch.ops.pooling import (
 )
 from jegal_torch.ops.video import FALLBACK_ROWS, mask_frames_device
 from jegal_torch.parallel import mesh as M
+from jegal_torch.utils.profiling import annotate
 
 RAW_FRAME = (270, 480, 3)
 PLANAR_FRAME = (90, 27, 160)
@@ -279,7 +292,8 @@ class _Graph:
                 or self._uploaded[i].query()]
         self._slot = free[0] if free else 1 - self._last
         if not free:
-            self._uploaded[self._slot].synchronize()
+            with annotate("jt.stage.wait"):
+                self._uploaded[self._slot].synchronize()
         bufs = self._staging[self._slot]
         for k in names:
             if k not in bufs:
@@ -489,13 +503,10 @@ class JegalEngine:
             for bi, ci in enumerate(chunk):
                 results[ci] = feats[bi, :clips[ci][0].shape[0]]
 
-        with torch.inference_mode():
-            self._pipeline(
-                ((chunk, feats if as_device else self._start_fetch(feats))
-                 for chunk, feats in self._tower_chunks(
-                     groups, clips.__getitem__, batch_size, on_device,
-                     mesh)),
-                settle)
+        with torch.inference_mode(), annotate("jt.tower_many"):
+            self._pipeline(self._tower_chunks(
+                groups, clips.__getitem__, batch_size, on_device, mesh,
+                as_device), settle)
         return results
 
     def _clips_on_device(self, clips) -> bool:
@@ -514,7 +525,8 @@ class JegalEngine:
         return where == {True}
 
     def _tower_chunks(self, groups: dict, clip_of, batch_size: int,
-                      on_device: bool = False, mesh=None):
+                      on_device: bool = False, mesh=None,
+                      as_device: bool = False):
         """The batched tower's dispatches of gestsync_features_from_raw_many
         (eager: extract_many's chunks replay graphs instead). groups: {(kind,
         T bucket): [clip indices]}; clip_of(i) -> (frames, chin_rows |
@@ -523,8 +535,9 @@ class JegalEngine:
         through one batched tower call a chunk on this rank's rows of it:
         host clips stacked in pinned memory and uploaded, device clips
         (on_device) stacked on the device by device-to-device copies
-        (`_stack_on_device`). Yields (chunk, features (b, T bucket, 1024)
-        on the device, every rank's rows gathered)."""
+        (`_stack_on_device`). Yields (chunk, the features (b, T bucket,
+        1024), every rank's rows gathered: on the device with
+        as_device=True, else their fetch queued by `_start_fetch`)."""
         for (kind, t_bucket), idxs in groups.items():
             for lo in range(0, len(idxs), batch_size):
                 chunk = idxs[lo:lo + batch_size]
@@ -534,23 +547,27 @@ class JegalEngine:
                 b = rows.stop - rows.start
                 pinned = self.device.type == "cuda"
                 shape = (b, t_bucket) + FRAME_SHAPES[kind]
-                cut = None if kind == "planar" else torch.empty(
-                    (b, t_bucket), dtype=torch.int64, pin_memory=pinned)
-                if on_device:
-                    fr = torch.empty(shape, dtype=torch.uint8,
-                                     device=self.device)
-                    self._stack_on_device(fr, clips)
-                    if cut is not None:
-                        self._fill_cut(cut.numpy(), clips)
-                else:
-                    fr = torch.empty(shape, dtype=torch.uint8,
-                                     pin_memory=pinned)
-                    self._fill_frames(fr.numpy(), None if cut is None
-                                      else cut.numpy(), clips)
-                feats = self._tower(kind, self._to_device(fr),
-                                    None if cut is None
-                                    else self._to_device(cut), batched=True)
-                yield chunk, M.gather_rows(feats, mesh)
+                with annotate("jt.stage"):
+                    cut = None if kind == "planar" else torch.empty(
+                        (b, t_bucket), dtype=torch.int64, pin_memory=pinned)
+                    if on_device:
+                        fr = torch.empty(shape, dtype=torch.uint8,
+                                         device=self.device)
+                        self._stack_on_device(fr, clips)
+                        if cut is not None:
+                            self._fill_cut(cut.numpy(), clips)
+                    else:
+                        fr = torch.empty(shape, dtype=torch.uint8,
+                                         pin_memory=pinned)
+                        self._fill_frames(fr.numpy(), None if cut is None
+                                          else cut.numpy(), clips)
+                with annotate("jt.launch"):
+                    feats = M.gather_rows(self._tower(
+                        kind, self._to_device(fr), None if cut is None
+                        else self._to_device(cut), batched=True), mesh)
+                    if not as_device:
+                        feats = self._start_fetch(feats)
+                yield chunk, feats
 
     def _tower(self, kind: str, frames, cut, batched: bool):
         """GestSync features of device frames: (b, T bucket, ...) with
@@ -709,7 +726,8 @@ class JegalEngine:
                 raise ClientError("modality 't' requires text")
             if not isinstance(text, str) or not text.strip():
                 raise ClientError("text must be a non-empty string")
-            ta, w_true = self.prepare_text(text)
+            with annotate("jt.prep.text"):
+                ta, w_true = self.prepare_text(text)
             if ta is None:
                 return None
             arrays.update(ta)
@@ -733,8 +751,9 @@ class JegalEngine:
                 raise ClientError(
                     "word_boundaries must be a non-empty list of "
                     "(word, start, end) with start <= end")
-            aa, n_words = self.prepare_audio(wv.astype(np.float32),
-                                             word_boundaries)
+            with annotate("jt.prep.audio"):
+                aa, n_words = self.prepare_audio(wv.astype(np.float32),
+                                                 word_boundaries)
             if aa is None:
                 return None
             arrays.update(aa)
@@ -831,8 +850,9 @@ class JegalEngine:
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             try:
-                entry = _Graph(self._key_fn(key), dict(sig[1]), self.device,
-                               self._graph_pool, self.dtype)
+                with annotate("jt.capture"):
+                    entry = _Graph(self._key_fn(key), dict(sig[1]),
+                                   self.device, self._graph_pool, self.dtype)
             except BaseException:
                 self._graph_ledger.pop(sig, None)
                 raise
@@ -879,6 +899,14 @@ class JegalEngine:
         """The two-stage forward of combo `use` on `arrays` (each with its
         batch axis: host arrays, or tensors on the engine's device) through
         its graph -> packed embeddings on the device."""
+        with annotate("jt.stage"):
+            launch = self._staged_forward(use, arrays)
+        with annotate("jt.launch"):
+            return launch()
+
+    def _staged_forward(self, use, arrays: dict):
+        """`_forward`'s host half: its graph's staging buffers filled with
+        `arrays` -> the call that uploads them and replays the graph."""
         on_device = {k: self._to_device(v) for k, v in arrays.items()
                      if isinstance(v, torch.Tensor) and v.device == self.device}
         entry = self._graph(tuple(use), {k: v.shape
@@ -886,7 +914,7 @@ class JegalEngine:
         staged = entry.stage([k for k in arrays if k not in on_device])
         for k, buf in staged.items():
             _put(buf, arrays[k])
-        return entry(staged, on_device)
+        return functools.partial(entry, staged, on_device)
 
     def _fused(self, kind: str, use_t: bool, use_a: bool, t_bucket: int, b,
                clips, content: dict):
@@ -895,6 +923,16 @@ class JegalEngine:
         content arrays (each with its batch axis), written into the graph's
         staging buffers -> packed embeddings on the device. b is None for
         the single-clip graph, whose frames have no batch axis."""
+        with annotate("jt.stage"):
+            launch = self._staged_fused(kind, use_t, use_a, t_bucket, b,
+                                        clips, content)
+        with annotate("jt.launch"):
+            return launch()
+
+    def _staged_fused(self, kind: str, use_t: bool, use_a: bool,
+                      t_bucket: int, b, clips, content: dict):
+        """`_fused`'s host half: its graph's staging buffers filled -> the
+        call that uploads them and replays the graph."""
         lead = () if b is None else (b,)
         shapes = {"frames": lead + (t_bucket,) + FRAME_SHAPES[kind],
                   "visual_mask": (b or 1, t_bucket),
@@ -913,7 +951,7 @@ class JegalEngine:
             staged["visual_mask"][bi, :frames.shape[0]] = 1.0
         for k, v in content.items():
             _put(staged[k], v)
-        return entry(staged)
+        return functools.partial(entry, staged)
 
     @staticmethod
     def _pack_emb(gesture, content):
@@ -1078,14 +1116,15 @@ class JegalEngine:
         inline (a pool would cost more than it saves); more share one
         4-thread pool, created under a lock at first use and shut by
         `close` (the mel FFT and the pooling matrices release the GIL)."""
-        if len(items) <= 4:
-            return [fn(x) for x in items]
-        with self._pool_lock:
-            if self._prep_pool is None:
-                self._prep_pool = ThreadPoolExecutor(
-                    max_workers=4, thread_name_prefix="jegal-prep")
-            pool = self._prep_pool
-        return list(pool.map(fn, items))
+        with annotate("jt.prep"):
+            if len(items) <= 4:
+                return [fn(x) for x in items]
+            with self._pool_lock:
+                if self._prep_pool is None:
+                    self._prep_pool = ThreadPoolExecutor(
+                        max_workers=4, thread_name_prefix="jegal-prep")
+                pool = self._prep_pool
+            return list(pool.map(fn, items))
 
     @staticmethod
     def _pipeline(dispatches, settle, chunk_label=None):
@@ -1103,7 +1142,8 @@ class JegalEngine:
         samples (chunk_label maps a chunk's indices to that string)."""
         def guarded(item):
             try:
-                settle(*item)
+                with annotate("jt.settle"):
+                    settle(*item)
             except Exception as e:
                 if chunk_label is not None:
                     e.add_note("while settling pipelined chunk "
@@ -1207,29 +1247,32 @@ class JegalEngine:
             except ClientError:
                 return None
 
-        preps = self._prep_map(
-            lambda item: (prep_fused if is_fused[item[0]]
-                          else prep_two_stage)(item[1]),
-            list(enumerate(samples)))
-        fused = {i: p for i, p in enumerate(preps)
-                 if is_fused[i] and p is not None}
-        prepared = {i: p for i, p in enumerate(preps)
-                    if not is_fused[i] and p is not None}
-        fgroups: dict = {}
-        for i, (kind, frames, _, arrays, _) in fused.items():
-            fgroups.setdefault((kind, next_bucket(frames.shape[0], T_BUCKETS),
-                                self._shape_sig(arrays)), []).append(i)
-        groups: dict = {}
-        for i, prep in prepared.items():
-            groups.setdefault(self._shape_sig(prep[0]), []).append(i)
-        M.check_same((modalities, batch_size, ladder, list(fgroups.items()),
-                      list(groups.items())), mesh, "extract_many's chunks")
-        with torch.inference_mode():
-            if fused:
-                self._extract_many_fused(samples, fused, fgroups, use,
-                                         results, batch_size, ladder, mesh)
-            self._extract_many_two_stage(samples, prepared, groups, use,
-                                         results, batch_size, ladder, mesh)
+        with annotate("jt.extract_many"):
+            preps = self._prep_map(
+                lambda item: (prep_fused if is_fused[item[0]]
+                              else prep_two_stage)(item[1]),
+                list(enumerate(samples)))
+            fused = {i: p for i, p in enumerate(preps)
+                     if is_fused[i] and p is not None}
+            prepared = {i: p for i, p in enumerate(preps)
+                        if not is_fused[i] and p is not None}
+            fgroups: dict = {}
+            for i, (kind, frames, _, arrays, _) in fused.items():
+                fgroups.setdefault(
+                    (kind, next_bucket(frames.shape[0], T_BUCKETS),
+                     self._shape_sig(arrays)), []).append(i)
+            groups: dict = {}
+            for i, prep in prepared.items():
+                groups.setdefault(self._shape_sig(prep[0]), []).append(i)
+            M.check_same((modalities, batch_size, ladder,
+                          list(fgroups.items()), list(groups.items())),
+                         mesh, "extract_many's chunks")
+            with torch.inference_mode():
+                if fused:
+                    self._extract_many_fused(samples, fused, fgroups, use,
+                                             results, batch_size, ladder, mesh)
+                self._extract_many_two_stage(samples, prepared, groups, use,
+                                             results, batch_size, ladder, mesh)
         return results
 
     @staticmethod
@@ -1264,11 +1307,15 @@ class JegalEngine:
                     rows = M.batch_rows(self._chunk_b(
                         len(chunk), batch_size, ladder, mesh), mesh)
                     like = prepared[chunk[0]][0]
-                    arrays = {k: self._stack_parts(
-                        [prepared[i][0][k][0] for i in chunk[rows]],
-                        rows.stop - rows.start, like[k][0]) for k in like}
-                    yield chunk, self._start_fetch(M.gather_rows(
-                        self._forward(use, arrays), mesh))
+                    with annotate("jt.stage"):
+                        arrays = {k: self._stack_parts(
+                            [prepared[i][0][k][0] for i in chunk[rows]],
+                            rows.stop - rows.start, like[k][0]) for k in like}
+                        launch = self._staged_forward(use, arrays)
+                    with annotate("jt.launch"):
+                        fetch = self._start_fetch(M.gather_rows(launch(),
+                                                                mesh))
+                    yield chunk, fetch
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 
@@ -1300,14 +1347,17 @@ class JegalEngine:
                         len(chunk), batch_size, ladder, mesh), mesh)
                     mine, b = chunk[rows], rows.stop - rows.start
                     like = fused[chunk[0]][3]
-                    arrays = {k: self._stack_parts(
-                        [fused[i][3][k][0] for i in mine], b, like[k][0])
-                        for k in like}
-                    packed = self._fused(kind, use[1], use[2], t_bucket, b,
-                                         [fused[i][1:3] for i in mine],
-                                         arrays)
-                    yield chunk, t_bucket, self._start_fetch(
-                        M.gather_rows(packed, mesh))
+                    with annotate("jt.stage"):
+                        arrays = {k: self._stack_parts(
+                            [fused[i][3][k][0] for i in mine], b, like[k][0])
+                            for k in like}
+                        launch = self._staged_fused(
+                            kind, use[1], use[2], t_bucket, b,
+                            [fused[i][1:3] for i in mine], arrays)
+                    with annotate("jt.launch"):
+                        fetch = self._start_fetch(M.gather_rows(launch(),
+                                                                mesh))
+                    yield chunk, t_bucket, fetch
 
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 

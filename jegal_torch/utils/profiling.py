@@ -1,9 +1,10 @@
 """Tracing and timing utilities (the JAX package's utils/profiling.py).
 
-`trace` records a torch.profiler trace (host and, on the card, CUDA
-activity) and writes it into a directory as a Chrome trace (open it in
-Perfetto or chrome://tracing); `annotate` names a region inside it; the
-stage timers accumulate the host pipeline's wall seconds; `time_jitted`
+`trace` records a torch.profiler trace (host activity on every thread,
+where the installed torch can, and CUDA activity on the card) and writes
+it into a directory as a Chrome trace (open it in Perfetto or
+chrome://tracing); `annotate` opens a named span in it, the only way the
+port does, and costs one flag check when no profiler runs; `time_jitted`
 times a function on the card with CUDA events, and on the host clock for
 CPU results.
 """
@@ -11,10 +12,8 @@ CPU results.
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
-from collections import defaultdict
 
 import torch
 
@@ -23,23 +22,44 @@ import torch
 def trace(log_dir: str):
     """Profile the block and write `<log_dir>/trace-<pid>-<n>.json`
     (Chrome trace format). CUDA activity is recorded when a card is
-    present."""
+    present, and the spans of every thread (the prep pool's too) where
+    the installed torch can record them."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_all_threads()) as prof:
         yield prof
     n = len([f for f in os.listdir(log_dir) if f.startswith("trace-")])
     prof.export_chrome_trace(os.path.join(log_dir,
                                           f"trace-{os.getpid()}-{n}.json"))
 
 
+def _all_threads():
+    """Kineto's setting that records the host events of every thread, or
+    None (the calling thread alone) where the installed torch lacks it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region inside a trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+    """A named span of the running profiler's trace
+    (torch.profiler.record_function), or, with no profiler running, one
+    shared null context: a span then costs a flag check, not a dispatcher
+    call. The flag is the process's, so a span on a worker thread opens
+    too (`trace` records it; a profiler of the calling thread alone drops
+    it)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _cuda_tensors(out):
@@ -84,30 +104,3 @@ def time_jitted(fn, args, iters: int = 10, warmup: int = 1) -> float:
         out = fn(*args)
     return (time.perf_counter() - t0) / iters
 
-
-class StageTimers:
-    """Accumulating wall-clock timers for host pipeline stages.
-
-    with timers.stage("decode"): ...
-    print(timers.report())
-    """
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        return json.dumps({
-            k: {"total_s": round(v, 4), "count": self.counts[k],
-                "mean_s": round(v / max(self.counts[k], 1), 4)}
-            for k, v in sorted(self.totals.items())
-        })

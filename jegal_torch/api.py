@@ -23,8 +23,12 @@ signature of its inputs. The first call of a key captures it (`_Graph`);
 `max_cached_graphs` signatures are kept, evicted least recently used by
 combo, exactly as the JAX engine's ledger does (`cached_graphs`). Inputs
 are written on the host into pinned staging buffers kept with each graph
-and uploaded without blocking the host. A capture that fails raises. On
-the CPU the same ledger holds the eager forward, which runs as it is.
+and uploaded without blocking the host. A chunk's frames are the bulk of
+them (1.59 GB for 16 planar clips at T 256), so the engine's staging
+pool writes them, in equal runs of frame slots over up to STAGE_WORKERS
+threads, the process's share of the host's cores (`_fill_frames`). A
+capture that fails raises. On the CPU the same ledger holds the eager
+forward, which runs as it is.
 
 Spans (utils/profiling.annotate; a flag check when no profiler runs),
 all on the calling thread but the prep workers': one a call
@@ -34,9 +38,11 @@ inputs made ready on the host), `jt.launch` (its upload, replay or eager
 tower, and the queued fetch) and `jt.settle` (`_pipeline`'s fetch and
 post-processing of one chunk); `jt.capture` (a graph's capture) and
 `jt.stage.wait` (a wait for an older upload) open inside `jt.stage`
-when they happen, and `jt.prep.text` / `jt.prep.audio` inside each
-sample's prep. `extract` and `warmup` get the stage and launch spans of
-the helpers they share.
+when they happen, `jt.prep.text` / `jt.prep.audio` inside each
+sample's prep, and `jt.stage.fill` on each staging worker's run of a
+frame fill (inside its `jt.stage` in time, on another thread).
+`extract` and `warmup` get the stage and launch spans of the helpers
+they share.
 
 Data-parallel inference (`mesh=` on `extract_many`,
 `gestsync_features_from_raw_many` and `warmup`; the JAX engine's `mesh`,
@@ -81,7 +87,7 @@ import os
 import pickle
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -118,6 +124,11 @@ INT_INPUTS = {"frames": torch.uint8, "cut": torch.int64,
               "input_ids": torch.int64, "audio_valid": torch.int64}
 MASK_INPUTS = ("visual_mask", "text_mask")      # float32 in either dtype
 DTYPES = (torch.float32, torch.bfloat16)
+# Frame fills run on the staging pool (`_fill_frames`): a one-thread copy
+# of a T-256 chunk of 16 planar clips took about as long as the card's work
+# on the chunk before it (PERF.md §5); 4 threads copy it in under a third
+# of that time.
+STAGE_WORKERS = 4
 
 
 def input_dtype(name: str, dtype: torch.dtype = torch.float32) -> torch.dtype:
@@ -172,6 +183,41 @@ def _put(buf, value) -> None:
         buf[...] = value
 
 
+def _fill_slots(fr, clips, lo: int, hi: int) -> None:
+    """Frame slots [lo, hi) of the host batch fr (b, T bucket, ...), taken
+    row after row: in row i < len(clips) clip i's frames (host arrays) and
+    its last frame repeated to the bucket, in the rows past them zeros.
+    Numpy slice assignments, which release the GIL."""
+    t_bucket = fr.shape[1]
+    while lo < hi:
+        bi, j0 = divmod(lo, t_bucket)
+        j1 = min(t_bucket, j0 + hi - lo)
+        if bi >= len(clips):
+            fr[bi, j0:j1] = 0
+        else:
+            frames = clips[bi]
+            t = frames.shape[0]
+            if j0 < t:
+                fr[bi, j0:min(j1, t)] = frames[j0:j1]
+            if j1 > t:
+                fr[bi, max(j0, t):j1] = frames[-1]
+        lo += j1 - j0
+
+
+def _fill_run(fr, clips, lo: int, hi: int) -> None:
+    """`_fill_slots` on a staging worker, in its own span."""
+    with annotate("jt.stage.fill"):
+        _fill_slots(fr, clips, lo, hi)
+
+
+def _stage_workers() -> int:
+    """Threads a frame fill runs on: STAGE_WORKERS, or fewer where the
+    process's cores, shared by the process group's ranks (a mesh's ranks
+    are one host's cards), are fewer; at least 1."""
+    cores = len(os.sched_getaffinity(0)) // M.world_size()
+    return max(1, min(STAGE_WORKERS, cores))
+
+
 def _cast_tree(tree, dtype):
     """Every floating leaf of a parameter tree cast to `dtype` (once, at
     construction, as the JAX engine does)."""
@@ -217,11 +263,14 @@ class _Graph:
     nothing to the counts; the eager run and the capture add one each).
     A capture that fails raises.
 
-    A call writes its host inputs into `stage()`'s pinned buffers, then
-    `__call__` uploads them with non_blocking=True into the static inputs,
-    copies device-resident inputs, and replays on the current stream. The
-    returned output is the graph's own buffer: its caller copies it out,
-    in stream order, before the next replay of any graph in the pool.
+    A call writes its host inputs into `stage()`'s pinned buffers (the
+    frames by `JegalEngine._fill_frames`, in runs on the engine's
+    staging pool, complete before `stage`'s caller launches), then
+    `__call__` uploads them with non_blocking=True into the static
+    inputs, copies device-resident inputs, and replays on the current
+    stream. The returned output is the graph's own buffer: its caller
+    copies it out, in stream order, before the next replay of any graph
+    in the pool.
 
     Two sets of staging buffers (allocated at first use): extract_many's
     depth-1 pipeline stages chunk k+1 while chunk k's upload may still be
@@ -371,14 +420,18 @@ class JegalEngine:
         self._tok_lock = threading.Lock()
         self._pool_lock = threading.Lock()
         self._prep_pool = None             # created by _prep_map, see close
+        self._stage_pool = None            # created by _fill_frames
 
     def close(self) -> None:
-        """Shut the prep pool down (waiting for its threads); the engine
-        stays usable and creates a new pool when it needs one."""
+        """Shut the prep and staging pools down (waiting for their
+        threads); the engine stays usable and creates a new pool when it
+        needs one."""
         with self._pool_lock:
-            pool, self._prep_pool = self._prep_pool, None
-        if pool is not None:
-            pool.shutdown(wait=True)
+            pools = self._prep_pool, self._stage_pool
+            self._prep_pool = self._stage_pool = None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=True)
 
     # ------------------------------------------------------------------
     # Visual features (GestSync)
@@ -605,15 +658,29 @@ class JegalEngine:
         rows into cut (b, T bucket) (None for planar frames): each clip
         edge-repeats its last frame (and chin row) to the bucket, the frames
         of rows past n are zeros. Every element is written (the buffers of
-        a graph are reused)."""
-        for bi, (frames, _) in enumerate(clips):
-            if isinstance(frames, torch.Tensor):
-                frames = frames.cpu()
-            frames = np.asarray(frames)
-            t = frames.shape[0]
-            fr[bi, :t] = frames
-            fr[bi, t:] = frames[-1]
-        fr[len(clips):] = 0
+        a graph are reused).
+
+        The staging pool writes fr's b * T bucket frame slots in equal
+        runs, one a worker (`_stage_workers`; each in a `jt.stage.fill`
+        span on its thread), and the call returns when all are written.
+        The chin rows are written here."""
+        hosts = [np.asarray(f.cpu() if isinstance(f, torch.Tensor) else f)
+                 for f, _ in clips]
+        with self._pool_lock:
+            # not the prep pool: prep that overlaps a chunk's staging would
+            # queue behind it
+            if self._stage_pool is None:
+                self._stage_pool = ThreadPoolExecutor(
+                    max_workers=STAGE_WORKERS,
+                    thread_name_prefix="jegal-stage")
+            pool = self._stage_pool
+        slots = fr.shape[0] * fr.shape[1]
+        parts = min(_stage_workers(), slots)
+        runs = [pool.submit(_fill_run, fr, hosts, slots * i // parts,
+                            slots * (i + 1) // parts) for i in range(parts)]
+        wait(runs)
+        for run in runs:
+            run.result()
         if cut is not None:
             self._fill_cut(cut, clips)
 

@@ -5,7 +5,8 @@ the JAX engine on the raw frames; `extract_many` over mixed samples (raw
 frames, planar frames, visual features only, a malformed sample) against
 the port's single-sample `extract` and the JAX engine's `extract_many` on
 the raw equivalents; the batch ladder; the pipeline's order, error notes
-and pool; the tower's front doors.
+and pool; frames written by the staging pool against the JAX engine; the
+tower's front doors.
 
 One 8-frame clip at the real 270x480 geometry (T bucket 32) serves every
 tower run, with a tiny XLM-R (1 layer, d 768, 8 heads) and the tiny BPE
@@ -17,6 +18,8 @@ serves instead.
 Tolerance: rtol = atol = 2e-5 on unit-norm embeddings, the JAX suite's
 path-equality bar (a conv tower and three transformer stacks summed in
 another order by oneDNN and XLA:CPU)."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -277,6 +280,35 @@ def test_tower_front_doors_agree(port_engine, clip):
     with pytest.raises(TAPI.ClientError, match="all raw or all planar"):
         port_engine.gestsync_features_from_raw_many([(frames, chin),
                                                      (planar, None)])
+
+
+def test_frames_staged_on_the_pool_match_jax(port_engine, jax_engine, clip,
+                                             content, monkeypatch):
+    """extract_many's fused path and the batched tower write their host
+    frames through the staging pool, in several runs on `jegal-stage`
+    threads, and give the JAX engine's answers on the same raw frames."""
+    names = []
+    fill = TAPI._fill_slots
+
+    def spy(fr, clips, lo, hi):
+        names.append(threading.current_thread().name)
+        fill(fr, clips, lo, hi)
+
+    monkeypatch.setattr(TAPI, "_fill_slots", spy)
+    frames, chin, _ = clip
+    sample = [dict(content, frames=frames, chin_rows=chin, fname="raw")]
+    got, = port_engine.extract_many(sample, "vta", batch_size=2)
+    want, = jax_engine.extract_many(sample, "vta", batch_size=2)
+    _same(got, want)
+    runs = len(names)
+    assert runs > 1
+    clips = [(frames, chin), (frames[:5], chin[:5])]
+    got = port_engine.gestsync_features_from_raw_many(clips, batch_size=2)
+    want = jax_engine.gestsync_features_from_raw_many(clips, batch_size=2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)
+    assert len(names) > runs + 1
+    assert all(n.startswith("jegal-stage") for n in names)
 
 
 def test_engine_passes_its_tower_settings(weights, clip):

@@ -12,7 +12,11 @@ come back once and are L2-normalized in float32 on the host.
 `extract_many` batches samples of one shape bucket (api.py:978-1185): per
 T bucket, chunks padded to a power-of-two ladder (or always to batch_size
 with ladder=False), run through a depth-1 pipeline that prepares and
-uploads the next chunk while the card computes the current one.
+uploads the next chunk while the card computes the current one. The
+chunks are planned from each sample's plan (`_plan_sample`: checks,
+tokenizer, pooling matrices, and the buckets, which the wav's length
+gives); the log-mels, the bulk of the host's prep, follow on the prep
+pool in dispatch order while the chunks before them run (`_prep_stream`).
 
 Graphs per bucket, the counterpart of the JAX engine's one jit per (combo,
 shape bucket): on the card every `extract` / `extract_many` forward replays
@@ -33,14 +37,18 @@ forward, which runs as it is.
 Spans (utils/profiling.annotate; a flag check when no profiler runs),
 all on the calling thread but the prep workers': one a call
 (`jt.extract_many`, `jt.tower_many`) holding four kinds of leaves that
-never nest or overlap: `jt.prep` (`_prep_map`), `jt.stage` (a chunk's
-inputs made ready on the host), `jt.launch` (its upload, replay or eager
-tower, and the queued fetch) and `jt.settle` (`_pipeline`'s fetch and
-post-processing of one chunk); `jt.capture` (a graph's capture) and
-`jt.stage.wait` (a wait for an older upload) open inside `jt.stage`
-when they happen, `jt.prep.text` / `jt.prep.audio` inside each
-sample's prep, and `jt.stage.fill` on each staging worker's run of a
-frame fill (inside its `jt.stage` in time, on another thread).
+never nest or overlap: `jt.prep` (`_prep_map`'s plan of every sample,
+then before each chunk's stage the wait for its samples' log-mels,
+`_prep_stream`), `jt.stage` (a chunk's inputs made ready on the host),
+`jt.launch` (its upload, replay or eager tower, and the queued fetch)
+and `jt.settle` (`_pipeline`'s fetch and post-processing of one chunk);
+`jt.capture` (a graph's capture) and `jt.stage.wait` (a wait for an
+older upload) open inside `jt.stage` when they happen, `jt.prep.text`
+(the tokenizer and text pooling of a sample's plan) and
+`jt.prep.audio` (its log-mel) where they run: on the prep workers, or
+inline inside `jt.prep` for a call of a few samples, and
+`jt.stage.fill` on each staging worker's run of a frame fill (inside
+its `jt.stage` in time, on another thread).
 `extract` and `warmup` get the stage and launch spans of the helpers
 they share.
 
@@ -80,6 +88,7 @@ float32 one does: either `stem_impl`, and every T bucket on the card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
@@ -92,6 +101,7 @@ from concurrent.futures import ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
+from jegal_torch.config import N_MELS
 from jegal_torch.convert import tree_to_torch
 from jegal_torch.data.bucketing import (
     MEL_BUCKETS,
@@ -105,7 +115,7 @@ from jegal_torch.data.bucketing import (
 from jegal_torch.models import gestsync as G
 from jegal_torch.models import jegal as J
 from jegal_torch.models import roberta as R
-from jegal_torch.ops.audio import wav2filterbanks_np
+from jegal_torch.ops.audio import mel_frames, wav2filterbanks_np
 from jegal_torch.ops.kernels import _build
 from jegal_torch.ops.kernels.stem import IMPLS as STEM_IMPLS
 from jegal_torch.ops.pooling import (
@@ -740,8 +750,18 @@ class JegalEngine:
     def prepare_audio(self, wav: np.ndarray, word_boundaries):
         """wav (S,) float32 at raw int16 scale -> (arrays dict, num_words),
         or (None, 0) when the pooling spans are invalid."""
-        mel = wav2filterbanks_np(wav)
-        t_mel = mel.shape[1]
+        arrays, n_words = self._plan_audio(len(wav), word_boundaries)
+        if arrays is not None:
+            self._fill_mel(arrays, wav)
+        return arrays, n_words
+
+    @staticmethod
+    def _plan_audio(num_samples: int, word_boundaries):
+        """The audio arrays of a wav of num_samples, from its length alone:
+        the pooling matrix, the valid mel length and a zero log-mel of the
+        mel bucket that `_fill_mel` writes -> (arrays dict, num_words), or
+        (None, 0) when the pooling spans are invalid."""
+        t_mel = mel_frames(num_samples)
         # audio CNN token count (two stride-2 convs, k=3, p=1): (t-1)//4+1
         t_audio = (t_mel - 1) // 4 + 1
         n_words = len(word_boundaries)
@@ -752,10 +772,18 @@ class JegalEngine:
             return None, 0
         mel_bucket = next_bucket(t_mel, MEL_BUCKETS)
         return {
-            "audio_mel": pad_axis(mel, 1, mel_bucket),
+            "audio_mel": np.zeros((1, mel_bucket, N_MELS), np.float32),
             "audio_pool": pad_axis(pool, 2, mel_bucket // 4),
             "audio_valid": np.asarray([t_mel], np.int64),
         }, n_words
+
+    @staticmethod
+    def _fill_mel(arrays: dict, wav) -> None:
+        """Write the wav's log-mel into the planned `audio_mel`: the heavy
+        part of a sample's prep, which the chunk plan does not need."""
+        with annotate("jt.prep.audio"):
+            mel = wav2filterbanks_np(np.asarray(wav).astype(np.float32))
+            arrays["audio_mel"][:, :int(arrays["audio_valid"][0])] = mel
 
     def prepare_visual(self, visual_feats):
         """(T, 1024) GestSync features -> (arrays dict, T), padded to the T
@@ -770,8 +798,22 @@ class JegalEngine:
     def _prepare_sample(self, modalities, visual_feats=None, text=None,
                         word_boundaries=None, wav=None):
         """-> (arrays dict, t_true, w_true), or None for an invalid sample."""
+        plan = self._plan_sample(modalities, visual_feats, text,
+                                 word_boundaries, wav)
+        if plan is None:
+            return None
+        if plan[3] is not None:
+            plan[3]()
+        return plan[:3]
+
+    def _plan_sample(self, modalities, visual_feats=None, text=None,
+                     word_boundaries=None, wav=None):
+        """A sample's prep less its log-mel: every check, the tokenizer and
+        both pooling matrices, so its validity and its arrays' shapes, ->
+        (arrays dict, t_true, w_true, fill), or None for an invalid sample.
+        fill() writes the log-mel into arrays (None without 'a')."""
         arrays: dict = {}
-        t_true = w_true = None
+        t_true = w_true = fill = None
         if "v" in modalities:
             if visual_feats is None:
                 raise ClientError("modality 'v' requires visual_feats")
@@ -818,12 +860,11 @@ class JegalEngine:
                 raise ClientError(
                     "word_boundaries must be a non-empty list of "
                     "(word, start, end) with start <= end")
-            with annotate("jt.prep.audio"):
-                aa, n_words = self.prepare_audio(wv.astype(np.float32),
-                                                 word_boundaries)
+            aa, n_words = self._plan_audio(wv.size, word_boundaries)
             if aa is None:
                 return None
             arrays.update(aa)
+            fill = functools.partial(self._fill_mel, aa, wv)
             # with text too, both pooling matrices must count the same
             # words: the reference fails on its torch.cat (models/
             # jegal.py:407-408), the engine rejects the sample
@@ -834,7 +875,7 @@ class JegalEngine:
             w = max(arrays["text_pool"].shape[1], arrays["audio_pool"].shape[1])
             arrays["text_pool"] = pad_axis(arrays["text_pool"], 1, w)
             arrays["audio_pool"] = pad_axis(arrays["audio_pool"], 1, w)
-        return arrays, t_true, w_true
+        return arrays, t_true, w_true, fill
 
     # ------------------------------------------------------------------
     # Device forward
@@ -1178,20 +1219,67 @@ class JegalEngine:
             out[:len(parts)] = [np.asarray(p) for p in parts]
         return out
 
-    def _prep_map(self, fn, items):
-        """Order-preserving map of per-sample host prep. A few items run
-        inline (a pool would cost more than it saves); more share one
-        4-thread pool, created under a lock at first use and shut by
+    def _prep_pool_for(self, n: int):
+        """The pool for n items of per-sample host prep: None for a few,
+        which run inline (a pool would cost more than it saves); for more,
+        one 4-thread pool, created under a lock at first use and shut by
         `close` (the mel FFT and the pooling matrices release the GIL)."""
+        if n <= 4:
+            return None
+        with self._pool_lock:
+            if self._prep_pool is None:
+                self._prep_pool = ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="jegal-prep")
+            return self._prep_pool
+
+    def _prep_map(self, fn, items):
+        """Order-preserving map of per-sample host prep (`_prep_pool_for`)."""
         with annotate("jt.prep"):
-            if len(items) <= 4:
+            pool = self._prep_pool_for(len(items))
+            if pool is None:
                 return [fn(x) for x in items]
-            with self._pool_lock:
-                if self._prep_pool is None:
-                    self._prep_pool = ThreadPoolExecutor(
-                        max_workers=4, thread_name_prefix="jegal-prep")
-                pool = self._prep_pool
             return list(pool.map(fn, items))
+
+    @contextlib.contextmanager
+    def _prep_stream(self, fills: dict, order: list, chunk_label):
+        """The prep that no chunk plan needs (fills: sample index -> its
+        log-mel's `_fill_mel`), run on the prep pool in dispatch order
+        (`order`, every index of fills), so that later chunks are prepared
+        while earlier ones run on the card. Yields ready(chunk): on the
+        calling thread, in `jt.prep`, it waits for the chunk's fills (runs
+        them, when few enough to run inline) and returns the chunk less any
+        sample whose fill raised a ClientError; another error raises with
+        a note naming the chunk's samples (chunk_label). On exit nothing
+        is left running: fills not started are cancelled, running ones
+        waited for."""
+        pool = self._prep_pool_for(len(fills))
+        jobs = {} if pool is None else {i: pool.submit(fills[i])
+                                         for i in order if i in fills}
+
+        def ready(chunk):
+            kept = []
+            with annotate("jt.prep"):
+                for i in chunk:
+                    try:
+                        if i in jobs:
+                            jobs.pop(i).result()
+                        elif i in fills:
+                            fills[i]()
+                    except ClientError:
+                        continue
+                    except Exception as e:
+                        e.add_note("while preparing chunk "
+                                   + chunk_label(chunk))
+                        raise
+                    kept.append(i)
+            return kept
+
+        try:
+            yield ready
+        finally:
+            for job in jobs.values():
+                job.cancel()
+            wait(jobs.values())
 
     @staticmethod
     def _pipeline(dispatches, settle, chunk_label=None):
@@ -1288,13 +1376,13 @@ class JegalEngine:
                                       "chin_rows must be None")
                 if chin is not None:
                     self._chin(chin, frames.shape[0])
-                prep = self._prepare_sample(
+                plan = self._plan_sample(
                     modalities.replace("v", ""), None, s.get("text"),
                     s.get("word_boundaries"), s.get("wav"))
             except ClientError:
                 return None
-            return None if prep is None else (kind, frames, chin, prep[0],
-                                              prep[2])
+            return None if plan is None else ((kind, frames, chin, plan[0],
+                                               plan[2]), plan[3])
 
         def prep_two_stage(s):
             try:
@@ -1308,21 +1396,24 @@ class JegalEngine:
                         "pass either frames or visual_feats, not both")
                 if s.get("chin_rows") is not None:
                     raise ClientError("chin_rows requires frames")
-                return self._prepare_sample(
+                plan = self._plan_sample(
                     modalities, s.get("visual_feats"), s.get("text"),
                     s.get("word_boundaries"), s.get("wav"))
             except ClientError:
                 return None
+            return None if plan is None else (plan[:3], plan[3])
 
         with annotate("jt.extract_many"):
-            preps = self._prep_map(
+            plans = self._prep_map(
                 lambda item: (prep_fused if is_fused[item[0]]
                               else prep_two_stage)(item[1]),
                 list(enumerate(samples)))
-            fused = {i: p for i, p in enumerate(preps)
+            fused = {i: p[0] for i, p in enumerate(plans)
                      if is_fused[i] and p is not None}
-            prepared = {i: p for i, p in enumerate(preps)
+            prepared = {i: p[0] for i, p in enumerate(plans)
                         if not is_fused[i] and p is not None}
+            fills = {i: p[1] for i, p in enumerate(plans)
+                     if p is not None and p[1] is not None}
             fgroups: dict = {}
             for i, (kind, frames, _, arrays, _) in fused.items():
                 fgroups.setdefault(
@@ -1334,12 +1425,18 @@ class JegalEngine:
             M.check_same((modalities, batch_size, ladder,
                           list(fgroups.items()), list(groups.items())),
                          mesh, "extract_many's chunks")
-            with torch.inference_mode():
+            order = [i for g in (fgroups, groups) for idxs in g.values()
+                     for i in idxs]
+            with self._prep_stream(fills, order,
+                                   self._chunk_fnames(samples)) as ready, \
+                    torch.inference_mode():
                 if fused:
                     self._extract_many_fused(samples, fused, fgroups, use,
-                                             results, batch_size, ladder, mesh)
+                                             results, batch_size, ladder,
+                                             mesh, ready)
                 self._extract_many_two_stage(samples, prepared, groups, use,
-                                             results, batch_size, ladder, mesh)
+                                             results, batch_size, ladder,
+                                             mesh, ready)
         return results
 
     @staticmethod
@@ -1349,10 +1446,11 @@ class JegalEngine:
         return tuple(sorted((k, tuple(v.shape[1:])) for k, v in arrays.items()))
 
     def _extract_many_two_stage(self, samples, prepared, groups, use, results,
-                                batch_size, ladder, mesh):
+                                batch_size, ladder, mesh, ready):
         """extract_many's samples without frames: per shape signature
         (groups), chunks of stacked arrays through the JEGAL forward, this
-        rank's rows of each under a mesh. Writes into `results`."""
+        rank's rows of each under a mesh, each once `ready` (the
+        `_prep_stream`'s) has its samples. Writes into `results`."""
 
         def settle(chunk, fetch):
             packed = self._finish_fetch(fetch)
@@ -1370,7 +1468,9 @@ class JegalEngine:
         def dispatches():
             for idxs in groups.values():
                 for lo in range(0, len(idxs), batch_size):
-                    chunk = idxs[lo:lo + batch_size]
+                    chunk = ready(idxs[lo:lo + batch_size])
+                    if not chunk:
+                        continue
                     rows = M.batch_rows(self._chunk_b(
                         len(chunk), batch_size, ladder, mesh), mesh)
                     like = prepared[chunk[0]][0]
@@ -1387,13 +1487,14 @@ class JegalEngine:
         self._pipeline(dispatches(), settle, self._chunk_fnames(samples))
 
     def _extract_many_fused(self, samples, fused, groups, use, results,
-                            batch_size, ladder, mesh):
+                            batch_size, ladder, mesh, ready):
         """extract_many's frame-carrying samples: per (kind, T bucket,
         content shapes) chunk (groups), one replay of the batched fused
         graph (tower and JEGAL forward, the features never leaving the
         device) on this rank's rows of the chunk under a mesh, its frames,
         chin rows, mask and content written into the graph's pinned
-        staging buffers. Writes into `results`."""
+        staging buffers, each once `ready` has its samples. Writes into
+        `results`."""
         self._gestsync()
 
         def settle(chunk, t_bucket, fetch):
@@ -1409,7 +1510,9 @@ class JegalEngine:
         def dispatches():
             for (kind, t_bucket, _), idxs in groups.items():
                 for lo in range(0, len(idxs), batch_size):
-                    chunk = idxs[lo:lo + batch_size]
+                    chunk = ready(idxs[lo:lo + batch_size])
+                    if not chunk:
+                        continue
                     rows = M.batch_rows(self._chunk_b(
                         len(chunk), batch_size, ladder, mesh), mesh)
                     mine, b = chunk[rows], rows.stop - rows.start

@@ -161,6 +161,13 @@ def audio_token_mask(mel_t: int) -> np.ndarray:
     return np.ones((mel_t // 4,), dtype=np.float32)
 
 
+def mel_frames(num_samples: int) -> int:
+    """The log-mel frames of a wav of num_samples: one a hop, the last
+    STFT frame dropped (the length `wav2filterbanks_np` gives, known
+    before it runs)."""
+    return num_samples // HOP_LENGTH
+
+
 def wav2filterbanks_np(wav, mel_basis: np.ndarray | None = None
                        ) -> np.ndarray:
     """wav (S,) or (B, S) float32 -> (B, S // 160, 80) float32 log-mel."""

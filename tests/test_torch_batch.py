@@ -6,7 +6,11 @@ frames, planar frames, visual features only, a malformed sample) against
 the port's single-sample `extract` and the JAX engine's `extract_many` on
 the raw equivalents; the batch ladder; the pipeline's order, error notes
 and pool; frames written by the staging pool against the JAX engine; the
-tower's front doors.
+tower's front doors. `extract_many`'s plan (each sample's prep less its
+log-mel, the mel length taken from the wav's) against the chunks grouped
+from fully prepared arrays; its log-mels, streamed on the prep pool in
+dispatch order, against a run that prepares every sample first, bit for
+bit.
 
 One 8-frame clip at the real 270x480 geometry (T bucket 32) serves every
 tower run, with a tiny XLM-R (1 layer, d 768, 8 heads) and the tiny BPE
@@ -39,8 +43,16 @@ from jegal_torch.convert import (
     jegal_params_from_jax,
     roberta_params_from_jax,
 )
-from jegal_torch.data.bucketing import batch_ladder
+from jegal_torch.data.bucketing import (
+    MEL_BUCKETS,
+    T_BUCKETS,
+    batch_ladder,
+    next_bucket,
+    pad_axis,
+)
 from jegal_torch.models.roberta import RobertaConfig
+from jegal_torch.ops.audio import mel_frames, wav2filterbanks_np
+from jegal_torch.parallel import mesh as M
 from jegal_torch.ops.video import s2d_repack
 from jegal_torch.text.tokenizer import WordTokenizer
 from tok_util import make_tiny_tokenizer
@@ -323,3 +335,223 @@ def test_engine_passes_its_tower_settings(weights, clip):
     for kw in (dict(stem_impl="rotate"), dict(conv2_impl="mgrid")):
         with pytest.raises(ValueError, match="impl"):
             _port_engine(weights, **kw)
+
+
+@pytest.mark.parametrize("n", [640, 641, 799, 800, 48000 + 159, 160000])
+def test_planned_mel_is_the_log_mels(port_engine, n):
+    """The mel length the plan takes from a wav's length is the log-mel's,
+    and the log-mel written into the planned array is the log-mel padded
+    to its bucket, bit for bit."""
+    wav = (np.random.default_rng(n).standard_normal(n) * 1000
+           ).astype(np.float32)
+    mel = wav2filterbanks_np(wav)
+    assert mel_frames(n) == mel.shape[1]
+    arrays, n_words = port_engine.prepare_audio(wav, [["a", 0, 0]])
+    assert n_words == 1
+    np.testing.assert_array_equal(
+        arrays["audio_mel"],
+        pad_axis(mel, 1, next_bucket(mel.shape[1], MEL_BUCKETS)))
+    assert arrays["audio_valid"].tolist() == [mel.shape[1]]
+
+
+class _Planned(Exception):
+    pass
+
+
+def _words(n: int) -> tuple:
+    """n words of a clip's text and their boundaries, spread over its
+    frames as the benchmark's traffic spreads them."""
+    words = ["w" + "abcdefgh"[k % 8] * (1 + k % 4) for k in range(n)]
+    return " ".join(words), [[w, 3 * k, 3 * k + 2]
+                             for k, w in enumerate(words)]
+
+
+@pytest.fixture(scope="module")
+def plan_samples():
+    """`vta` samples of 3-10 s over T buckets 128 and 256 (planar frames as
+    views of one zero frame; wavs of a few samples past whole hops) and
+    feature samples, with word counts of three W buckets, and a sample
+    each: text and audio counting other words, text the tokenizer cannot
+    pool, audio pooling past the wav's last token (and one ending on it),
+    a wav too short, frames of the wrong shape."""
+    rng = np.random.default_rng(57)
+    frame = np.zeros((1, 90, 27, 160), np.uint8)
+
+    def clip(t, n_words, fname, **kw):
+        text, wbs = _words(n_words)
+        out = dict(frames=np.broadcast_to(frame, (t,) + frame.shape[1:]),
+                   text=text, word_boundaries=wbs, fname=fname,
+                   wav=(rng.standard_normal(t * 640 + 37) * 1000)
+                   .astype(np.float32))
+        out.update(kw)
+        return out
+
+    edge = _words(2)[0]
+    short = [clip(75, 8, "c75"), clip(250, 25, "c250"), clip(100, 10, "c100"),
+             clip(150, 16, "c150"), clip(200, 20, "c200"), clip(90, 9, "c90")]
+    odd = [clip(100, 10, "words_differ", word_boundaries=_words(9)[1]),
+           clip(100, 10, "text_unpooled", text=_words(10)[0] + "  x"),
+           # 48159 samples: 300 mel frames, 75 audio tokens
+           clip(75, 2, "audio_past", text=edge, wav=short[0]["wav"][:48159],
+                word_boundaries=[["a", 0, 9], ["b", 75, 80]]),
+           clip(75, 2, "audio_edge", text=edge, wav=short[0]["wav"][:48159],
+                word_boundaries=[["a", 0, 9], ["b", 74, 80]]),
+           clip(75, 8, "wav_short", wav=short[0]["wav"][:600]),
+           clip(75, 8, "bad_frames", frames=np.zeros((4, 90, 27, 161),
+                                                     np.uint8))]
+    feats = [dict(clip(t, n, f"vf{t}"), frames=None,
+                  visual_feats=rng.standard_normal((t, 1024))
+                  .astype(np.float32)) for t, n in ((120, 12), (80, 8))]
+    return short[:3] + odd[:3] + feats[:1] + short[3:] + odd[3:] + feats[1:]
+
+
+def _prepared_plan(engine, samples, batch_size, ladder):
+    """extract_many's check object as the chunks grouped from fully
+    prepared arrays: every sample's log-mel made first, its length read
+    from the log-mel."""
+    fgroups, groups = {}, {}
+    for i, s in enumerate(samples):
+        try:
+            if s.get("frames") is not None:
+                kind = engine._frames_kind(np.asarray(s["frames"]))
+                prep = engine._prepare_sample(
+                    "ta", None, s["text"], s["word_boundaries"], s["wav"])
+            else:
+                prep = engine._prepare_sample(
+                    "vta", s["visual_feats"], s["text"],
+                    s["word_boundaries"], s["wav"])
+        except TAPI.ClientError:
+            continue
+        if prep is None:
+            continue
+        assert prep[0]["audio_valid"][0] == \
+            wav2filterbanks_np(s["wav"]).shape[1]
+        if s.get("frames") is not None:
+            fgroups.setdefault(
+                (kind, next_bucket(len(s["frames"]), T_BUCKETS),
+                 engine._shape_sig(prep[0])), []).append(i)
+        else:
+            groups.setdefault(engine._shape_sig(prep[0]), []).append(i)
+    return ("vta", batch_size, ladder, list(fgroups.items()),
+            list(groups.items()))
+
+
+@pytest.mark.parametrize("ladder", [True, False])
+def test_plan_groups_as_prepared_arrays(port_engine, plan_samples, ladder,
+                                        monkeypatch):
+    """The chunk plan that extract_many checks and dispatches, built before
+    any log-mel, equals the one grouped from fully prepared arrays: the
+    same samples in the same groups in the same order, the invalid and
+    malformed ones left out."""
+    planned = []
+
+    def stop(obj, mesh, what):
+        planned.append(obj)
+        raise _Planned
+
+    monkeypatch.setattr(M, "check_same", stop)
+    log_mels = []
+    log_mel = TAPI.wav2filterbanks_np
+    monkeypatch.setattr(TAPI, "wav2filterbanks_np",
+                        lambda *a: log_mels.append(1) or log_mel(*a))
+    with pytest.raises(_Planned):
+        port_engine.extract_many(plan_samples, "vta", batch_size=2,
+                                 ladder=ladder)
+    assert not log_mels
+    want = _prepared_plan(port_engine, plan_samples, 2, ladder)
+    assert planned == [want]
+    kept = {plan_samples[i]["fname"] for g in want[3:] for _, idxs in g
+            for i in idxs}
+    assert kept == {s["fname"] for s in plan_samples if s["fname"][0] in "cv"
+                    or s["fname"] == "audio_edge"}
+    assert {key[1] for key, _ in want[3]} == {128, 256}
+    assert len(want[4]) == 2
+
+
+@pytest.fixture(scope="module")
+def stream_samples(clip, samples):
+    """Two planar clips and six feature samples (two more wav lengths than
+    the fixture's), an audio sample invalid through its pooling and a
+    malformed one, each wav tagged with its index in its first sample."""
+    planar = clip[2]
+    vf = [s for s in samples[0] if "visual_feats" in s]
+    wav = vf[0]["wav"]
+    rng = np.random.default_rng(58)
+    more = [dict(vf[0], fname=f"vf30_{k}", wav=np.concatenate(
+        [wav, wav[:800 * (k + 1)]]), visual_feats=rng.standard_normal(
+            (30, 1024)).astype(np.float32)) for k in range(2)]
+    out = [dict(vf[0], frames=planar, visual_feats=None, fname="p0"),
+           *vf[:2], dict(vf[0], frames=planar[:6], visual_feats=None,
+                         fname="p1"), *more, *vf[2:],
+           dict(vf[1], fname="audio_past",
+                word_boundaries=[["a", 0, 1], ["b", 2, 4], ["c", 9, 9]]),
+           dict(vf[1], fname="wav_short", wav=wav[:600])]
+    for i, s in enumerate(out):
+        s["wav"] = s["wav"].copy()
+        s["wav"][0] = i
+    return out
+
+
+def _eager_log_mels(monkeypatch):
+    """Every sample's log-mel made in its plan: extract_many then prepares
+    every sample before its first chunk, as a run without the stream."""
+    plan = TAPI.JegalEngine._plan_sample
+
+    def eager(self, *a, **kw):
+        out = plan(self, *a, **kw)
+        if out is not None and out[3] is not None:
+            out[3]()
+            out = out[:3] + (None,)
+        return out
+
+    monkeypatch.setattr(TAPI.JegalEngine, "_plan_sample", eager)
+
+
+@pytest.mark.parametrize("combo", ["vta", "vt", "va", "ta", "t", "a"])
+def test_streamed_log_mels_equal_prepared_first(port_engine, stream_samples,
+                                                combo, monkeypatch):
+    """extract_many with the log-mels streamed on the prep pool (the fused
+    path's planar clips, then the two-stage path's feature samples; for
+    combos without v, the feature samples alone) returns a run that
+    prepares every sample first, element for element."""
+    batch = [s for s in stream_samples
+             if "v" in combo or s.get("frames") is None]
+    got = port_engine.extract_many(batch, combo, batch_size=2)
+    _eager_log_mels(monkeypatch)
+    want = port_engine.extract_many(batch, combo, batch_size=2)
+    assert [g is None for g in got] == [
+        "a" in combo and s["fname"] in ("wav_short", "audio_past")
+        for s in batch]
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is None:
+            continue
+        for key in ("gesture_emb", "content_emb"):
+            assert (g[key] is None) == (w[key] is None)
+            if w[key] is not None:
+                np.testing.assert_array_equal(g[key], w[key])
+        assert g["info"] == w["info"]
+
+
+def test_refused_log_mel_drops_only_its_sample(port_engine, stream_samples,
+                                               monkeypatch):
+    """A log-mel that raises a ClientError makes its sample's result None;
+    its chunk runs without it and every other result stands."""
+    batch = [s for s in stream_samples if s.get("frames") is None]
+    want = port_engine.extract_many(batch, "ta", batch_size=2)
+    log_mel = TAPI.wav2filterbanks_np
+
+    def refuse(wav, *a):
+        if int(wav[0]) == 5:
+            raise TAPI.ClientError("refused")
+        return log_mel(wav, *a)
+
+    monkeypatch.setattr(TAPI, "wav2filterbanks_np", refuse)
+    got = port_engine.extract_many(batch, "ta", batch_size=2)
+    refused = [i for i, s in enumerate(batch) if int(s["wav"][0]) == 5]
+    assert len(refused) == 1 and want[refused[0]] is not None
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in refused or w is None:
+            assert g is None
+        else:
+            _same(g, w)

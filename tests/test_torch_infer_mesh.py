@@ -17,6 +17,9 @@ the same weights (seeded trees, numpy data from seeds).
   frames against JAX's `extract_many(mesh=)` and the port's one rank;
   every rank returning the same results, bit for bit.
 - `warmup(mesh=)` then live calls of the same shapes: no graph added.
+- `extract_many(mesh=)` on `ta` samples whose log-mels stream on the prep
+  pool: the plan checked across the ranks once, before the first chunk's
+  stage, and one process's results.
 - The three `evaluate_device(mesh=)` against JAX's and the port's one
   rank, with sets that pad (51, 23 and 25 rows).
 - A two-rank server (rank 0 serves, rank 1 follows) answering concurrent
@@ -68,6 +71,7 @@ from torch_mesh_worker import (
     infer_samples,
     infer_weights,
     start_cli_ranks,
+    stream_samples,
 )
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -164,7 +168,8 @@ def started(eval_sets, ckpt_files, tmp_path_factory):
             "CLI._decode_for_features = W.fake_decode\n"))
     return {
         (2, 1): Job("infer", 2, tmp_path_factory.mktemp("infer21"),
-                    dict(mp=1, tower=True, evals=eval_sets, serve=True)),
+                    dict(mp=1, tower=True, evals=eval_sets, serve=True,
+                         stream=True)),
         (2, 2): Job("infer", 4, tmp_path_factory.mktemp("infer22"),
                     dict(mp=2)),
         "feats": (feats, d),
@@ -227,6 +232,7 @@ def one_rank(started, eval_sets):
     engine = infer_engine()
     out = dict(
         ta=engine.extract_many(infer_samples(), "ta", batch_size=4),
+        stream=engine.extract_many(stream_samples(), "ta", batch_size=4),
         v=engine.extract_many(
             [dict(frames=f, chin_rows=c, fname=f"clip{i}")
              for i, (f, c) in enumerate(infer_clips())], "v", batch_size=4),
@@ -283,6 +289,25 @@ def test_extract_many_mesh_matches_jax_and_one_rank(ranks21, jax_refs,
         for key in ("gesture_emb", "content_emb"):
             _same_emb(got, want, key, tol)
             _same_emb(got, one, key, tol)
+        assert got["info"] == one["info"]
+
+
+def test_extract_many_mesh_checks_its_plan_before_streaming(ranks21,
+                                                            one_rank):
+    """Log-mels streamed on the prep pool under a (2, 1) mesh: each rank
+    checks the chunk plan once, before its first chunk's stage (two
+    chunks), and the ranks return one process's results, the sample
+    invalid through its audio pooling None."""
+    for rank in ranks21:
+        assert rank["stream_log"] == ["check", "stage", "stage"]
+    _ranks_equal(ranks21, "stream")
+    assert [r is None for r in one_rank["stream"]] == [False] * 4 + [True,
+                                                                    False]
+    for got, one in zip(ranks21[0]["stream"], one_rank["stream"]):
+        if one is None:
+            assert got is None
+            continue
+        _same_emb(got, one, "content_emb", CONTENT_TOL)
         assert got["info"] == one["info"]
 
 

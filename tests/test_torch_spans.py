@@ -5,15 +5,22 @@ path on planar frames and the two-stage path on visual features) and
 calling thread: one call span holding the leaves `jt.prep`, `jt.stage`,
 `jt.launch` and `jt.settle`, which never nest or overlap, a stage, a
 launch and a settle a chunk; `jt.capture` inside a stage for a graph's
-first call and never for a warm one. `trace` (`--profile_dir`) records the
-prep workers' `jt.prep.text` / `jt.prep.audio`. With no profiler running,
-`annotate` hands out one shared null context.
+first call and never for a warm one. `extract_many`'s `jt.prep` is its
+plan of every sample, then before each chunk's stage the wait for that
+chunk's log-mels, which the prep pool makes meanwhile: slowed, the waits
+hold the time the log-mels keep the chunks back, and a log-mel that
+fails raises with its chunk named and leaves nothing running. `trace`
+(`--profile_dir`) records the prep workers' `jt.prep.text` /
+`jt.prep.audio`. With no profiler running, `annotate` hands out one
+shared null context.
 
 GestSync at its real widths on 6-frame planar clips (T bucket 32), with a
 tiny XLM-R (1 layer, d 768, 8 heads) and the tiny BPE of tests/tok_util.py."""
 
 import contextlib
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -109,6 +116,11 @@ def _check_layout(spans, call: str, chunks: int) -> None:
     assert all(a[2] <= b[1] for a, b in zip(leaves, leaves[1:]))
     names = [s[0] for s in leaves]
     assert [names.count(n) for n in LEAVES[1:]] == [chunks] * 3
+    if call == "jt.extract_many":
+        # the plan's prep, then a wait for its log-mels before each stage
+        assert names[0] == "jt.prep" and names.count("jt.prep") == chunks + 1
+        assert all(names[k - 1] == "jt.prep"
+                   for k, n in enumerate(names) if n == "jt.stage")
     parents = {"jt.capture": "jt.stage", "jt.stage.wait": "jt.stage",
                "jt.prep.text": "jt.prep", "jt.prep.audio": "jt.prep"}
     for s in spans:
@@ -134,9 +146,10 @@ def test_fused_extract_many_spans(engine, samples):
     warm, spans = _spans(call)
     _check_layout(spans, "jt.extract_many", chunks=2)
     assert "jt.capture" not in {s[0] for s in spans}
-    # a warm call: the call, its prep with each sample's text and audio,
-    # and three leaves a chunk
-    assert len(spans) == 2 + 2 * len(batch) + 3 * 2
+    # a warm call: the call, its plan's prep with each sample's text, and
+    # four leaves a chunk: the wait for its log-mels (inline here, each
+    # sample's audio inside it), stage, launch, settle
+    assert len(spans) == 2 + 2 * len(batch) + 4 * 2
     for a, b in zip(first, warm):
         np.testing.assert_array_equal(a["gesture_emb"], b["gesture_emb"])
 
@@ -156,11 +169,122 @@ def test_two_stage_extract_many_spans(engine, samples):
     assert {s[0] for s in spans} == {"jt.extract_many", "jt.prep", "jt.stage",
                                      "jt.capture", "jt.launch", "jt.settle"}
     # warm, in the depth-1 pipeline's order: chunk 2 is staged and
-    # launched before chunk 1 settles
+    # launched before chunk 1 settles, each stage after its chunk's wait
     _, spans = _spans(call)
     assert [s[0] for s in spans] == [
-        "jt.extract_many", "jt.prep", "jt.stage", "jt.launch", "jt.stage",
-        "jt.launch", "jt.settle", "jt.settle"]
+        "jt.extract_many", "jt.prep", "jt.prep", "jt.stage", "jt.launch",
+        "jt.prep", "jt.stage", "jt.launch", "jt.settle", "jt.settle"]
+
+
+def _feature_batch(content, n: int):
+    """n two-stage `vta` samples of one shape, f0..f{n-1}; sample i's wav
+    starts with i, so a log-mel can tell whose it is."""
+    rng = np.random.default_rng(77)
+    batch = []
+    for i in range(n):
+        wav = content["wav"].copy()
+        wav[0] = i
+        batch.append(dict(content, wav=wav, fname=f"f{i}",
+                          visual_feats=rng.standard_normal((20, 1024))
+                          .astype(np.float32)))
+    return batch
+
+
+def _slowed_log_mel(monkeypatch, delay, fail=None):
+    """Sample i's log-mel sleeps delay(i) s first; sample `fail`'s raises a
+    RuntimeError. -> counts of log-mels started and running, the threads
+    they ran on, and every future the prep pool was handed."""
+    log_mel = TAPI.wav2filterbanks_np
+    lock = threading.Lock()
+    seen = {"started": 0, "running": 0, "threads": set(), "futures": []}
+
+    def slow(wav, *a, **kw):
+        with lock:
+            seen["started"] += 1
+            seen["running"] += 1
+            seen["threads"].add(threading.current_thread().name)
+        try:
+            time.sleep(delay(int(wav[0])))
+            if int(wav[0]) == fail:
+                raise RuntimeError("log-mel failed")
+            return log_mel(wav, *a, **kw)
+        finally:
+            with lock:
+                seen["running"] -= 1
+
+    monkeypatch.setattr(TAPI, "wav2filterbanks_np", slow)
+    pool_for = TAPI.JegalEngine._prep_pool_for
+
+    def spied_pool(self, n):
+        pool = pool_for(self, n)
+        if pool is None:
+            return None
+        submit = pool.submit
+
+        class Spy:
+            def submit(self, *a, **kw):
+                seen["futures"].append(submit(*a, **kw))
+                return seen["futures"][-1]
+
+            def __getattr__(self, name):
+                return getattr(pool, name)
+
+        return Spy()
+
+    monkeypatch.setattr(TAPI.JegalEngine, "_prep_pool_for", spied_pool)
+    return seen
+
+
+def test_log_mel_waits_are_prep_spans(engine, samples, monkeypatch):
+    """Six feature samples at batch 2 (three chunks), each log-mel slowed
+    to 0.4 s on the 4-thread pool: chunks 1 and 2 wait about one log-mel
+    each (chunk 3's start when the first four end), and every wait is a
+    `jt.prep` right before its chunk's `jt.stage`, so the calling thread's
+    leaves cover the call with no gap of that size."""
+    delay = 0.4
+    batch = _feature_batch(samples[1], 6)
+    call = lambda: engine.extract_many(batch, "vta", batch_size=2)  # noqa
+    want = call()
+    seen = _slowed_log_mel(monkeypatch, lambda i: delay)
+    got, spans = _spans(call)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a["content_emb"], b["content_emb"])
+    assert seen["started"] == 6 and seen["running"] == 0
+    assert all(n.startswith("jegal-prep") for n in seen["threads"])
+    _check_layout(spans, "jt.extract_many", chunks=3)
+    leaves = [s for s in spans if s[0] in LEAVES]
+    waits = [s for s in leaves if s[0] == "jt.prep"][1:]
+    us = 1e6 * delay
+    assert waits[0][2] - waits[0][1] >= 0.8 * us
+    # from the plan's end to the last stage: the last log-mels end at
+    # about 2 * delay, and only leaves fill the time before
+    start, end = leaves[0][2], [s for s in leaves if s[0] == "jt.stage"][-1][1]
+    assert end - start >= 1.6 * us
+    covered = sum(s[2] - s[1] for s in leaves if start <= s[1] < end)
+    assert end - start - covered < 0.25 * us
+
+
+def test_failed_log_mel_names_its_chunk_and_leaves_nothing_running(
+        engine, samples, monkeypatch):
+    """A log-mel that raises (sample f2, in the second chunk) surfaces from
+    extract_many with that chunk's samples named; when the call returns
+    every log-mel handed to the pool is done and none runs, and none
+    starts later. The first chunk's log-mels and f2's end at once, the
+    others take 2 s, so the error is seen while the pool's 4 threads are
+    still on f3-f6: f7-f11 are cancelled, never started."""
+    seen = _slowed_log_mel(monkeypatch, lambda i: 0.0 if i < 3 else 2.0,
+                           fail=2)
+    batch = _feature_batch(samples[1], 12)
+    with pytest.raises(RuntimeError, match="log-mel failed") as info:
+        engine.extract_many(batch, "vta", batch_size=2)
+    assert any("['f2', 'f3']" in n for n in info.value.__notes__)
+    assert seen["running"] == 0
+    assert len(seen["futures"]) == len(batch)
+    assert all(f.done() for f in seen["futures"])
+    assert [f.cancelled() for f in seen["futures"]] == [False] * 7 + [True] * 5
+    started = seen["started"]
+    time.sleep(0.5)
+    assert seen["started"] == started == 7 and seen["running"] == 0
 
 
 def test_tower_many_spans(engine, samples):

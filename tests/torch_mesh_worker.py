@@ -202,6 +202,22 @@ def infer_samples():
              "fname": f"s{i}"} for i in range(3)]
 
 
+def stream_samples():
+    """Six `ta` samples over two mel buckets, one invalid through its audio
+    pooling (a word past the 8000-sample wav's 13 audio tokens): five
+    log-mels, enough to stream on the prep pool, in two chunks at batch 4."""
+    import numpy as np
+
+    rng = np.random.default_rng(76)
+    wbs = [["ab", 1, 3], ["hello", 4, 6], ["x", 7, 9]]
+    out = [{"text": "ab hello x", "word_boundaries": wbs,
+            "wav": (rng.standard_normal(n) * 300).astype(np.float32),
+            "fname": f"m{i}"}
+           for i, n in enumerate((8000, 24000, 8000, 24000, 8000, 8000))]
+    out[4]["word_boundaries"] = wbs[:2] + [["x", 14, 15]]
+    return out
+
+
 def fake_decode(video_path: str, planar: bool = True):
     """cli.main._decode_for_features for the CLI tests' ranks: clip<i>.avi
     -> planar_clips()[i] (no decoder needed)."""
@@ -535,6 +551,32 @@ def _serve_task(engine, mesh, rank, samples):
     return {"served": answers, "healthz": health}
 
 
+def _stream_task(engine, mesh):
+    """extract_many(mesh=) on stream_samples, logging each check of the
+    plan across ranks and each chunk's stage in the order they come."""
+    from jegal_torch.parallel import mesh as M
+
+    log = []
+    check, stage = M.check_same, engine._staged_forward
+
+    def logged_check(*a, **kw):
+        log.append("check")
+        return check(*a, **kw)
+
+    def logged_stage(*a, **kw):
+        log.append("stage")
+        return stage(*a, **kw)
+
+    M.check_same, engine._staged_forward = logged_check, logged_stage
+    try:
+        got = engine.extract_many(stream_samples(), "ta", batch_size=4,
+                                  mesh=mesh)
+    finally:
+        M.check_same = check
+        del engine._staged_forward
+    return {"stream": got, "stream_log": log}
+
+
 def _infer_task(mesh, rank, world, args):
     import numpy as np
 
@@ -561,6 +603,8 @@ def _infer_task(mesh, rank, world, args):
     out["graphs_added"] = [g for g in engine.cached_graphs
                            if g not in warmed]
     out["graphs"] = len(engine.cached_graphs)
+    if args.get("stream"):
+        out.update(_stream_task(engine, mesh))
     if args.get("tower"):
         gp = engine.gestsync_params
         fr = np.zeros((4, 32, 270, 480, 3), np.uint8)
